@@ -1,0 +1,83 @@
+"""The port stands alone: no jax, ml_dtypes or modelx_tpu imports, and an
+explicit device with no silent CPU fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from modelx_tpu_torch.device import parse_dtype, resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "modelx_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "torch_serve_profile.py"),
+             os.path.join(REPO, "tests", "test_torch_kernels_cuda.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "modelx_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax_or_reference_package():
+    files = _port_files()
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
+    assert not bad, bad
+
+
+def test_serving_entry_leaves_jax_unimported():
+    code = (
+        "import sys; import modelx_tpu_torch.dl.serve_main, modelx_tpu_torch.dl.loader, "
+        "modelx_tpu_torch.dl.weights, modelx_tpu_torch.models.llama, "
+        "modelx_tpu_torch.models.decode, modelx_tpu_torch.kernels.build; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_resolve_device_raises_without_cuda():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_parse_dtype():
+    assert parse_dtype("bfloat16") is torch.bfloat16
+    assert parse_dtype("float32") is torch.float32
+    assert parse_dtype(torch.float32) is torch.float32
+    for bad in ("float16", torch.int8):
+        with pytest.raises(ValueError, match="unsupported dtype"):
+            parse_dtype(bad)
