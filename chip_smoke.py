@@ -7,10 +7,13 @@
 Phases, in order, each failing the run (exit code != 0) on any error:
 
 1. device: the card's name and power limit;
-2. build: every CUDA kernel of the serving path, compiled from ``csrc/``;
+2. build: every CUDA kernel of the serving path, compiled from ``csrc/``,
+   with nvcc's register report and a SASS census (tensor-core and TMA
+   instructions per kernel instantiation, from ``cuobjdump``);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it, with stated tolerances and times
-   (kernel, plain version, PyTorch's library call as a yardstick, bound);
+   (kernel back to back and as a lone call, plain version, PyTorch's
+   library call as a yardstick, bound, achieved TFLOP/s);
 4. main: a full-width Llama-3-8B-shaped checkpoint (random weights from a
    seed) written with the port's safetensors writer, served by
    ``modelx_tpu_torch.dl.serve_main`` on the card, answering ``/v1/forward``
@@ -29,6 +32,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -51,8 +55,34 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events, after warm-up."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Device time of one call: CUDA events around ``iters`` back-to-back
+    calls, divided by ``iters``; the median of ``reps`` such runs, after
+    warm-up. Back to back, the host's work to enqueue one call overlaps the
+    device's work on the one before, as in a model's forward."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return statistics.median(runs)
+
+
+def time_call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Time of one call on its own: the median over ``iters`` calls of CUDA
+    events around that single call, after warm-up. The device waits for the
+    host to enqueue the call, so each sample holds the host's launch cost
+    as well (``time_ms`` hides it behind the call before)."""
     import torch
 
     for _ in range(warmup):
@@ -92,18 +122,76 @@ def phase_device() -> dict:
 
 # -- phase 2: build --------------------------------------------------------------
 
+# SASS opcodes the census counts: Hopper's warpgroup MMA, the older warp
+# MMA, TMA tile loads and cp.async copies
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
 
-def phase_build() -> float:
+
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_bf16<128>`` for the mangled name of that instantiation
+    (the name itself when it is not one of ours)."""
+    m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
+def sass_census(sass: str) -> dict[str, dict[str, int]]:
+    """Count ``SASS_OPS`` per kernel in ``cuobjdump --dump-sass`` output."""
+    counts: dict[str, dict[str, int]] = {}
+    cur = None
+    op_re = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    for line in sass.splitlines():
+        fn = re.search(r"Function\s*:\s*(\S+)", line)
+        if fn:
+            cur = counts.setdefault(kernel_label(fn.group(1)), dict.fromkeys(SASS_OPS, 0))
+            continue
+        if cur is not None and "/*" in line:
+            for op in op_re.findall(line):
+                cur[op] += 1
+    return counts
+
+
+def dump_sass(nvcc: str, library: str) -> str | None:
+    """``cuobjdump --dump-sass`` of ``library``, or None when the toolkit
+    beside ``nvcc`` has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    proc = subprocess.run([tool, "--dump-sass", library],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump exited {proc.returncode}\n{proc.stdout}")
+    return proc.stdout
+
+
+def phase_build() -> dict:
+    """Build the kernels, print nvcc's register report and a SASS census of
+    the library: per instantiation, the warpgroup MMAs (HGMMA), warp MMAs
+    (HMMA), TMA tile loads (UTMALDG) and cp.async copies (LDGSTS). Fails
+    when a bf16 instantiation runs no HGMMA (its tensor-core path)."""
     from modelx_tpu_torch.kernels import build
+    from modelx_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 
     t0 = time.monotonic()
     built = build.build()
     secs = time.monotonic() - t0
     log(f"build: flash_attention {'compiled by nvcc' if built else 'cached'} in {secs:.3f} s")
+    notes = ("registers", "spill", "Compiling entry", "Performance Loss", "setmaxnreg", "rror",
+             "arning")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if any(w in line for w in notes):
             log(f"  nvcc: {line.strip()}")
-    return secs
+    sass = dump_sass(build.nvcc_path(), build.library_path())
+    if sass is None:
+        log("sass census: not available (no cuobjdump beside nvcc)")
+        return {"build_s": secs, "sass": None}
+    census = sass_census(sass)
+    for name, counts in sorted(census.items()):
+        log(f"sass census: {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    no_hgmma = [f"flash_fwd_bf16<{d}>" for d in KERNEL_HEAD_DIMS
+                if census.get(f"flash_fwd_bf16<{d}>", {}).get("HGMMA", 0) == 0]
+    if no_hgmma:
+        raise RuntimeError(f"no HGMMA (tensor-core) instruction in {no_hgmma}")
+    return {"build_s": secs, "sass": census}
 
 
 # -- phase 3: kernels against their plain versions ---------------------------------
@@ -120,6 +208,16 @@ ATTN_CASES = [
 ]
 
 
+def case_tensors(i: int):
+    """q, k, v of ``ATTN_CASES[i]`` on the card, drawn from seed 1000 + i."""
+    import torch
+
+    _label, b, h, hkv, s, d, _causal, _scale, _cap, _window, dt = ATTN_CASES[i]
+    gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+    return tuple(torch.randn(b, n, s, d, generator=gen, device="cuda").to(getattr(torch, dt))
+                 for n in (h, hkv, hkv))
+
+
 def visible_pairs(s: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask leaves visible for Sq == Sk == s."""
     if not causal:
@@ -129,15 +227,19 @@ def visible_pairs(s: int, causal: bool, window: int) -> int:
     return sum(min(window, i + 1) for i in range(s))
 
 
+def attention_flops(b, h, s, d, causal, window) -> int:
+    """4*D per visible (query, key) pair per head: QK^T and PV."""
+    return 4 * d * visible_pairs(s, causal, window) * b * h
+
+
 def attention_bound(b, h, hkv, s, d, causal, window, dtype) -> tuple[float, str]:
     """Least time in ms: max(bytes / HBM rate, FLOPs / peak rate for the
-    dtype). FLOPs = 4*D per visible pair per head (QK^T and PV); bytes =
-    q, k, v read once (k/v at Hkv heads) and o written once."""
+    dtype). FLOPs from ``attention_flops``; bytes = q, k, v read once (k/v
+    at Hkv heads) and o written once."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * b * s * d * (2 * h + 2 * hkv)
-    flops = 4 * d * visible_pairs(s, causal, window) * b * h
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = attention_flops(b, h, s, d, causal, window) / PEAK_FLOPS[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -191,11 +293,7 @@ def phase_kernels() -> list[dict]:
     results = []
     failures = []
     for i, (label, b, h, hkv, s, d, causal, scale, cap, window, dt) in enumerate(ATTN_CASES):
-        dtype = getattr(torch, dt)
-        gen = torch.Generator(device="cuda").manual_seed(1000 + i)
-        q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dtype)
+        q, k, v = case_tensors(i)
         kw = dict(causal=causal, scale=scale, logit_softcap=cap, window=window)
         out = attn.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -207,25 +305,27 @@ def phase_kernels() -> list[dict]:
         library_call, library_err = library_attention(q, k, v, ref, causal, scale, cap, window)
         del ref, diff
         ms = time_ms(lambda: attn.flash_attention(q, k, v, **kw))
-        plain_ms = time_ms(lambda: attn.attention_reference(q, k, v, **kw), iters=10)
+        call_ms = time_call_ms(lambda: attn.flash_attention(q, k, v, **kw))
+        plain_ms = time_ms(lambda: attn.attention_reference(q, k, v, **kw), iters=5, reps=3)
         library_ms = time_ms(library_call) if library_call else None
         bound_ms, bound_by = attention_bound(b, h, hkv, s, d, causal, window, dt)
+        tflops = attention_flops(b, h, s, d, causal, window) / (ms * 1e-3) / 1e12
         row = {
             "case": label, "shape": [b, h, s, d], "kv_heads": hkv, "dtype": dt,
             "causal": causal, "softcap": cap, "window": window,
             "max_abs_err": max_err, "tol": f"{atol} + {rtol}*|ref|", "ok": ok,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_max_abs_err": library_err,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "tflops": tflops,
         }
         results.append(row)
         log(f"kernel flash_attention [{label}] q{[b, h, s, d]} kv_heads {hkv} {dt}: "
             f"max_abs_err {max_err:.3e} (tol {atol} + {rtol}*|ref|) {'ok' if ok else 'FAIL'}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"kernel {ms:.4f} ms ({call_ms:.4f} ms a lone call), plain {plain_ms:.4f} ms, "
             f"library {'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
             f"(max_abs_err {library_err}), "
             f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
-            f"{bound_ms / ms * 100:.1f}% of bound")
+            f"{bound_ms / ms * 100:.1f}% of bound, {tflops:.1f} TFLOP/s")
         if not ok:
             failures.append(label)
     if failures:
@@ -257,7 +357,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
 
     device = phase_device()
-    phase_build()
+    build_info = phase_build()
     kernel_rows = phase_kernels() if "kernels" in phases else []
     main_stats = phase_main() if "main" in phases else {}
 
@@ -271,11 +371,15 @@ def main(argv=None) -> int:
         "launches": main_stats.get("flash_launches"),
         "max_abs_err": max((r["max_abs_err"] for r in kernel_rows), default=None),
         "ms": head and head["ms"],
+        "call_ms": head and head["call_ms"],
         "plain_ms": head and head["plain_ms"],
         "bound_ms": head and head["bound_ms"],
         "bound_by": head and head["bound_by"],
         "library_ms": head and head["library_ms"],
+        "tflops": head and head["tflops"],
         "at": "q [1,32,2048,128] bf16, 8 kv heads, causal",
+        "build_s": build_info["build_s"],
+        "sass": build_info["sass"],
         "cases": kernel_rows,
     }
     log(json.dumps({"kernels": [record]}))

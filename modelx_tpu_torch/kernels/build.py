@@ -1,9 +1,10 @@
 """Build the flash-attention CUDA source with nvcc and bind it with ctypes.
 
-``csrc/flash_attention.cu`` is compiled on first use, for ``sm_90a``, into a
-shared library with a plain C interface under ``modelx_tpu_torch/_build/``
-(listed in ``.gitignore``), named by a hash of the source and the flags: a
-changed source rebuilds, an unchanged one loads the cached library.
+``csrc/flash_attention.cu`` (with the headers beside it) is compiled on
+first use, for ``sm_90a``, into a shared library with a plain C interface
+under ``modelx_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
+hash of every file under ``csrc/`` and the flags: a changed source or
+header rebuilds, an unchanged tree loads the cached library.
 
 Nothing here runs at import time: the CPU tests import this module on a
 box without nvcc.
@@ -19,8 +20,11 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "flash_attention.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCE = os.path.join(CSRC, "flash_attention.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# The source reaches cuTensorMapEncodeTiled through cudaGetDriverEntryPoint,
+# so nothing links against libcuda; its headers are found beside it.
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,10 +52,33 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_digest() -> str:
+    """sha256 over every file under csrc/ (relative name and bytes) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for root, _dirs, files in sorted(os.walk(CSRC)):
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            h.update(os.path.relpath(path, CSRC).encode() + b"\0")
+            with open(path, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"flash_attention-{digest[:16]}.so")
+    return os.path.join(BUILD_DIR, f"flash_attention-{source_digest()[:16]}.so")
+
+
+def compile_library(source: str, out: str) -> str:
+    """nvcc ``source`` (with the headers beside it) into the shared library
+    ``out``; returns nvcc's output and raises with it when nvcc fails."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, source],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: nvcc exited {proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return proc.stdout
 
 
 def build() -> bool:
@@ -61,15 +88,16 @@ def build() -> bool:
     out = library_path()
     if os.path.exists(out):
         return False
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    build_log = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: nvcc exited {proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    build_log = compile_library(SOURCE, out)
     return True
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load a built library and declare ``mx_flash_attention``'s C interface."""
+    lib = ctypes.CDLL(path)
+    lib.mx_flash_attention.argtypes = ARGTYPES
+    lib.mx_flash_attention.restype = ctypes.c_int
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
@@ -80,8 +108,6 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             build()
-            lib = ctypes.CDLL(library_path())
-            lib.mx_flash_attention.argtypes = ARGTYPES
-            lib.mx_flash_attention.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(library_path())
     return _lib
+

@@ -82,7 +82,9 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
 flash_attention.launches = 0
 
 
-def _flash_cuda(q, k, v, causal, scale, logit_softcap, window):
+def _flash_cuda(q, k, v, causal, scale, logit_softcap, window, lib=None):
+    """Check the operands and launch the kernel of ``lib`` (by default the
+    port's own library, built on first use)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda and q.device == k.device == v.device):
         raise ValueError(
             f"flash_attention: q/k/v must share one CUDA device, got "
@@ -109,11 +111,12 @@ def _flash_cuda(q, k, v, causal, scale, logit_softcap, window):
         raise ValueError(f"flash_attention: head_dim {d} not in {KERNEL_HEAD_DIMS}")
     if sq == 0 or sk == 0 or b * h == 0:
         raise ValueError("flash_attention: empty q or kv")
-    if b * h > 2**31 - 1 or -(-sq // 64) > 65535:
-        raise ValueError(f"flash_attention: grid too large for {tuple(q.shape)}")
-    from modelx_tpu_torch.kernels.build import load_library
+    if b * h * -(-sq // 64) > 2**31 - 1 or -(-sq // 64) > 65535:
+        raise ValueError(f"flash_attention: too many q tiles for {tuple(q.shape)}")
+    if lib is None:
+        from modelx_tpu_torch.kernels.build import load_library
 
-    lib = load_library()
+        lib = load_library()
     q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
     sm_scale = scale if scale is not None else 1.0 / math.sqrt(d)

@@ -18,6 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "modelx_tpu")
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "torch_serve_profile.py"),
+             os.path.join(REPO, "scripts", "torch_flash_ab.py"),
+             os.path.join(REPO, "tests", "test_torch_build.py"),
              os.path.join(REPO, "tests", "test_torch_kernels_cuda.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "modelx_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -1,6 +1,7 @@
 """chip_smoke.py off the card: it refuses to report without CUDA or without
-the port beside it, and its serving phase rehearses end to end on the CPU
-at a tiny size (the wrapper's plain version, no kernel launches)."""
+the port beside it, its serving phase rehearses end to end on the CPU at a
+tiny size (the wrapper's plain version, no kernel launches), and its build
+phase's SASS census reads cuobjdump's listing per instantiation."""
 
 import dataclasses
 import os
@@ -56,3 +57,46 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert stats["flash_launches"] == 0  # CPU tensors take the plain version
     assert stats["logit_max_diff"] == 0.0 and stats["argmax_checked"] > 0
     assert {"forward_ms_1x48", "forward_ms_2x16", "generate_s_5", "generate_s_12"} <= set(stats)
+
+
+def test_attention_flops_is_what_the_bound_divides():
+    flops = chip_smoke.attention_flops(1, 32, 2048, 128, True, 0)
+    assert flops == 4 * 128 * (2048 * 2049 // 2) * 32
+    ms, by = chip_smoke.attention_bound(1, 32, 8, 2048, 128, True, 0, "bfloat16")
+    assert by == "operations" and ms == pytest.approx(flops / chip_smoke.PEAK_FLOPS["bfloat16"] * 1e3)
+    assert chip_smoke.attention_flops(1, 1, 5, 64, True, 2) == 4 * 64 * 9
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_114flash_fwd_bf16ILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiffii
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;
+        /*0030*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*0040*/              @P0  HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR12], R88, gsb0 ;
+\t\tFunction : _ZN12_GLOBAL__N_113flash_fwd_f32ILi64EEEvPKfS2_S2_Pfiiiiffii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+"""
+
+
+def test_sass_census_counts_per_instantiation():
+    census = chip_smoke.sass_census(SASS)
+    assert census == {
+        "flash_fwd_bf16<128>": {"HGMMA": 3, "HMMA": 0, "UTMALDG": 1, "LDGSTS": 0},
+        "flash_fwd_f32<64>": {"HGMMA": 0, "HMMA": 1, "UTMALDG": 0, "LDGSTS": 1},
+    }
+
+
+def test_kernel_label_leaves_foreign_names_alone():
+    assert chip_smoke.kernel_label("_Z6kernelv") == "_Z6kernelv"
+    assert chip_smoke.kernel_label("_ZN12_GLOBAL__N_114flash_fwd_bf16ILi256EEEv") == "flash_fwd_bf16<256>"
+
+
+def test_sass_census_is_not_available_without_cuobjdump(tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("")
+    assert chip_smoke.dump_sass(str(nvcc), str(tmp_path / "lib.so")) is None

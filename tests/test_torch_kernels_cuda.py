@@ -38,12 +38,17 @@ def _tol(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2), (8, 1)])  # GQA ratios 1, 4, 8
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version(cuda_device, d, dtype):
-    q, k, v = _qkv(cuda_device, dtype, 2, 8, 2, 200, 200, d, seed=d)
+def test_kernel_matches_plain_version(cuda_device, d, dtype, h, hkv):
+    seed = d if hkv == 2 else d + hkv  # (8, 2) keeps the inputs it had before GQA 1 and 8
+    q, k, v = _qkv(cuda_device, dtype, 2, h, hkv, 200, 200, d, seed=seed)
     atol, rtol = _tol(dtype)
-    for kw in ({}, {"causal": False}, {"scale": d ** -0.5, "logit_softcap": 50.0, "window": 48}):
+    # window 48 is smaller than any kv tile (64 or 128 keys); window 150
+    # straddles two or three of them
+    for kw in ({}, {"causal": False}, {"scale": d ** -0.5, "logit_softcap": 50.0, "window": 48},
+               {"window": 150}, {"logit_softcap": 30.0, "window": 150}):
         before = tattn.flash_attention.launches
         out = tattn.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -53,16 +58,35 @@ def test_kernel_matches_plain_version(cuda_device, d, dtype):
         torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
 
 
+# (dtype, B, H, Hkv, Sq, Sk): any Sq/Sk, including Sq != Sk both ways, and
+# lengths one short of, one past and one short of twice the 128-row tile
+RAGGED_CASES = [
+    (torch.float32, 1, 4, 4, 1, 1), (torch.float32, 1, 4, 4, 7, 130),
+    (torch.float32, 1, 4, 4, 130, 7), (torch.float32, 1, 4, 4, 65, 65),
+    (torch.bfloat16, 1, 4, 4, 1, 1), (torch.bfloat16, 1, 4, 4, 7, 130),
+    (torch.bfloat16, 1, 4, 4, 130, 7), (torch.bfloat16, 1, 4, 4, 65, 65),
+    (torch.bfloat16, 1, 4, 2, 127, 127), (torch.bfloat16, 1, 4, 2, 129, 129),
+    (torch.bfloat16, 1, 4, 2, 255, 255), (torch.bfloat16, 1, 4, 2, 127, 255),
+    (torch.bfloat16, 1, 4, 2, 255, 127), (torch.bfloat16, 1, 4, 2, 129, 255),
+    (torch.bfloat16, 1, 4, 2, 255, 129),
+    (torch.bfloat16, 1, 1, 1, 129, 255),    # B*H = 1
+    (torch.bfloat16, 4, 64, 8, 255, 129),   # B*H = 256
+    (torch.float32, 1, 1, 1, 129, 255), (torch.float32, 4, 64, 8, 255, 129),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk", [(1, 1), (7, 130), (130, 7), (65, 65)])
-def test_kernel_ragged_and_unequal_lengths(cuda_device, sq, sk):
+@pytest.mark.parametrize("dtype,b,h,hkv,sq,sk", RAGGED_CASES)
+@pytest.mark.parametrize("d", [128, 256])
+def test_kernel_ragged_and_unequal_lengths(cuda_device, dtype, b, h, hkv, sq, sk, d):
     """Any Sq/Sk, including Sq != Sk (causal is top-left aligned, as in the
     TPU kernel and attention_reference with q_offset=0)."""
-    q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 4, sq, sk, 128, seed=sq * 1000 + sk)
+    q, k, v = _qkv(cuda_device, dtype, b, h, hkv, sq, sk, d, seed=sq * 1000 + sk)
+    atol, rtol = _tol(dtype)
     for causal in (True, False):
         out = tattn.flash_attention(q, k, v, causal=causal)
-        ref = tattn.attention_reference(q, k, v, causal=causal)
-        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+        ref = tattn.attention_reference(q.float(), k.float(), v.float(), causal=causal)
+        torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
