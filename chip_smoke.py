@@ -16,9 +16,19 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    library call as a yardstick, bound, achieved TFLOP/s);
 4. main: a full-width Llama-3-8B-shaped checkpoint (random weights from a
    seed) written with the port's safetensors writer, served by
-   ``modelx_tpu_torch.dl.serve_main`` on the card, answering ``/v1/forward``
-   and ``/v1/generate``; the kernel's launch count must rise by
-   ``num_layers`` per cache-free forward.
+   ``modelx_tpu_torch.dl.serve_main --prefix-cache 4`` on the card,
+   answering ``/v1/forward`` and greedy ``/v1/generate``; the kernel's
+   launch count must rise by ``num_layers`` per cache-free forward. Then
+   sampled and streamed generation on the same server: seeded sampled
+   requests repeat exactly, each ``top_k`` 1 token is a maximum of the
+   logits on its own prefix (greedy's token or one tied with it), a near-flat
+   ``top_p`` 0.99 nucleus takes the sampler's full-sort branch, NDJSON
+   streams concatenate to the non-streamed tokens, a stop token ends a
+   stream, a prompt that extends an earlier one hits the prefix cache and
+   streams a cold run's tokens, and none of it launches the cache-free
+   kernel. The sampler is held against its plain version on the card
+   (fused == always-sort bytes at [4, vocab]; card draws == CPU draws) and
+   timed, with device launches per sampled and greedy decode step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -479,7 +489,8 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
         t0 = time.monotonic()
         sset, httpd = serve_main.start([
             "--model", f"{MODEL}={ckpt}", "--listen", f"127.0.0.1:{port}",
-            "--device", device, "--dtype", "bfloat16", "--max-seq-len", "2048"])
+            "--device", device, "--dtype", "bfloat16", "--max-seq-len", "2048",
+            "--prefix-cache", "4"])
         start_s = time.monotonic() - t0
         status, body = _http(port, "/healthz")
         if status != 200:
@@ -495,6 +506,7 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
 
         rng = torch.Generator().manual_seed(1)
         forwards = {}
+        greedy = {}
         for shape, rep in ((sh, r) for sh in FORWARD_SHAPES for r in range(2)):
             if rep == 0:
                 tokens = torch.randint(0, cfg.vocab_size, shape, generator=rng)
@@ -536,6 +548,11 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
             log(f"main: /v1/generate prompt {plen} + {NEW_TOKENS} greedy: 200 in {secs:.3f} s, "
                 f"{NEW_TOKENS / secs:.1f} tokens/s (prefill included)")
             stats[f"generate_s_{plen}"] = secs
+            greedy[plen] = (prompt[0].tolist(), out[0, plen:].tolist())
+        before = attn.flash_attention.launches
+        stats.update(phase_sampling(port, server, cfg, greedy, on_card))
+        if attn.flash_attention.launches != before:
+            raise RuntimeError("sampled or streamed generation launched the cache-free kernel")
         stats["flash_launches"] = attn.flash_attention.launches
         if on_card:
             stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -574,6 +591,303 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
             httpd.server_close()
         shutil.rmtree(ckpt, ignore_errors=True)
     return stats
+
+
+# -- phase 4, continued: sampled and streamed generation ------------------------------
+
+SAMPLED = {"temperature": 0.8, "top_k": 40, "top_p": 0.95, "seed": 7}
+# a near-flat random-weight distribution: the 0.99 nucleus overflows K_CAP
+OVERFLOW = {"temperature": 1.0, "top_k": 0, "top_p": 0.99, "seed": 3}
+# sample() on the card against the CPU: a token may differ only where the
+# top two perturbed logits lie this close (float32 rounding of the inputs;
+# the draws themselves must be bit-equal)
+NEAR_TIE = 1e-5
+
+
+def _stream(port: int, body: dict, timeout: float = 600.0):
+    """POST a streamed /v1/generate; (tokens, seconds to the first line,
+    seconds in all). Fails on a non-200, an error line or a missing done."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    first = None
+    lines = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.status != 200:
+            raise RuntimeError(f"stream answered {r.status}")
+        for raw in r:
+            first = first if first is not None else time.monotonic() - t0
+            lines.append(json.loads(raw))
+    total = time.monotonic() - t0
+    if not lines or lines[-1] != {"done": True} or any("error" in x for x in lines):
+        raise RuntimeError(f"bad stream: {lines[-3:]}")
+    return [t for x in lines[:-1] for t in x["tokens"][0]], first, total
+
+
+def _sampled(port: int, body: dict, plen: int, n: int):
+    """A non-streamed /v1/generate; (new tokens, seconds, sort-branch steps)."""
+    from modelx_tpu_torch.ops import sampling
+
+    sorts = sampling.scale_and_filter.sorts
+    t0 = time.monotonic()
+    status, out = _http(port, "/v1/generate", body)
+    secs = time.monotonic() - t0
+    if status != 200 or len(out["tokens"][0]) != plen + n:
+        raise RuntimeError(f"sampled /v1/generate answered {status} {str(out)[:200]}")
+    return out["tokens"][0][plen:], secs, sampling.scale_and_filter.sorts - sorts
+
+
+def _replay_step_logits(server, prompt: list, forced: list):
+    """Replay the server's decode of ``prompt`` in-process (the padded
+    shapes /v1/generate runs), feeding ``forced`` as the tokens: step j
+    sees ``forced[:j]``. Returns (greedy's pick at each step, the float32
+    logits each step picked from, [len(forced), V])."""
+    import torch
+
+    from modelx_tpu_torch.models import decode
+
+    fwd, init = server.family.decode_fns(server.params, server.cfg)
+    rows = []
+
+    def forcing(p, t, kv_cache, cache_offset):
+        if t.shape[1] == 1:  # a decode step: feed the forced token of the last step
+            t = torch.full_like(t, forced[len(rows) - 1])
+        logits, cache = fwd(p, t, kv_cache=kv_cache, cache_offset=cache_offset)
+        rows.append(logits[0, len(prompt) - 1 if t.shape[1] > 1 else -1].float())
+        return logits, cache
+
+    padded = torch.zeros((1, decode.pad_seq_len(len(prompt))), dtype=torch.int64)
+    padded[0, : len(prompt)] = torch.tensor(prompt)
+    with torch.inference_mode():
+        picks = decode.ragged_greedy_generate(forcing, init, server.params,
+                                              padded.to(server.device), [len(prompt)],
+                                              len(forced))
+    return picks[0].tolist(), torch.stack(rows)
+
+
+def _check_top1(server, prompt: list, greedy_new: list, top1: list) -> str:
+    """``top_k`` 1 keeps every token tied at the top logit (the reference's
+    ">= the k-th value" rule), so each of its tokens must be a maximum of
+    the logits on its own prefix: greedy's token, or another one tied with
+    it. The replay feeds top_k 1's tokens and checks every step."""
+    if top1 == greedy_new:
+        return "top_k 1 == greedy"
+    if len(top1) != len(greedy_new):
+        raise RuntimeError(f"top_k 1 gave {len(top1)} tokens, greedy {len(greedy_new)}")
+    picks, logits = _replay_step_logits(server, prompt, top1)
+    j0 = next(i for i, (a, b) in enumerate(zip(top1, greedy_new)) if a != b)
+    if picks[: j0 + 1] != greedy_new[: j0 + 1]:
+        raise RuntimeError("the in-process replay differs from greedy /v1/generate")
+    ties = []
+    for j, tok in enumerate(top1):
+        tied = (logits[j] == logits[j].max()).nonzero()[:, 0].tolist()
+        if tok not in tied:
+            raise RuntimeError(f"top_k 1 drew token {tok} at step {j}, below the maximum "
+                               f"(greedy there: {picks[j]})")
+        if tok != picks[j]:
+            ties.append(f"{j} ({len(tied)} tied)")
+    return (f"top_k 1 == greedy up to step {j0}; each of its {len(top1)} tokens is a "
+            f"maximum on its own prefix, drawn among tied tokens at steps {', '.join(ties)}")
+
+
+def phase_sampling(port: int, server, cfg, greedy: dict, on_card: bool) -> dict:
+    """Sampled and streamed generation on the running server, then the
+    sampler against its plain version and its costs. ``greedy`` maps each
+    prompt length to (prompt, greedy new tokens) from the greedy requests."""
+    from modelx_tpu_torch.models.decode import stop_cut
+
+    stats: dict = {}
+    n = NEW_TOKENS
+    for plen, (prompt, greedy_new) in greedy.items():
+        body = {"tokens": [prompt], "max_new_tokens": n, **SAMPLED}
+        toks, secs, sorts = _sampled(port, body, plen, n)
+        again, secs2, _ = _sampled(port, body, plen, n)
+        if again != toks:
+            raise RuntimeError(f"sampled prompt {plen}: the same request answered differently")
+        streamed, first_s, total_s = _stream(port, body)
+        if streamed != toks:
+            raise RuntimeError(f"sampled prompt {plen}: the stream's tokens differ from "
+                               f"/v1/generate's")
+        top1, _, _ = _sampled(port, {**body, "top_k": 1}, plen, n)
+        top1_note = _check_top1(server, prompt, greedy_new, top1)
+        rate = n / min(secs, secs2)
+        stream_rate = (n - 1) / max(total_s - first_s, 1e-9)
+        log(f"sampling: prompt {plen} + {n} {SAMPLED}: 200 in {secs:.3f} / {secs2:.3f} s, "
+            f"{rate:.1f} tokens/s (prefill included), identical twice; sampler branch: "
+            f"{n - sorts} fused, {sorts} full-sort steps; stream equal, first line "
+            f"{first_s * 1e3:.1f} ms, {stream_rate:.1f} tokens/s after it, "
+            f"{n / total_s:.1f} in all; {top1_note}")
+        stats.update({f"sampled_tokens_per_s_{plen}": rate,
+                      f"stream_first_line_ms_{plen}": first_s * 1e3,
+                      f"stream_tokens_per_s_{plen}": stream_rate,
+                      f"sampled_sort_steps_{plen}": sorts})
+
+    plen, (prompt, greedy_new) = next(iter(greedy.items()))
+    body = {"tokens": [prompt], "max_new_tokens": n, **OVERFLOW}
+    toks, secs, sorts = _sampled(port, body, plen, n)
+    log(f"sampling: prompt {plen} {OVERFLOW}: sampler branch {n - sorts} fused, "
+        f"{sorts} full-sort steps, {n / secs:.1f} tokens/s")
+    if sorts == 0:
+        raise RuntimeError("the top_p 0.99 request never took the full-sort branch")
+    if _stream(port, body)[0] != toks:
+        raise RuntimeError("the overflowing request's stream differs from /v1/generate")
+    stats["overflow_sort_steps"] = sorts
+
+    zero = _stream(port, {"tokens": [prompt], "max_new_tokens": n})[0]
+    if zero != greedy_new:
+        raise RuntimeError("a temperature 0 stream differs from greedy /v1/generate")
+    stop = toks[n // 2]
+    stopped = _stream(port, {**body, "stop_token_ids": [stop]})[0]
+    if stopped != toks[: stop_cut(toks, {stop})]:
+        raise RuntimeError(f"the stream with stop token {stop} did not end at it")
+    log(f"sampling: temperature 0 stream == greedy; stop token {stop} ended the stream "
+        f"after {len(stopped)} of {n} tokens")
+
+    # prefix cache: turn 2 extends turn 1; its stream must hit and equal a cold run
+    pc = server._prefix_cache
+    body = {"tokens": [prompt], "max_new_tokens": n, **SAMPLED}
+    out1 = _stream(port, body)[0]
+    turn2 = {**body, "tokens": [prompt + out1 + [7]]}
+    hits = pc.stats()["hits"]
+    warm, first_warm, _ = _stream(port, turn2)
+    if pc.stats()["hits"] != hits + 1:
+        raise RuntimeError(f"turn 2 did not hit the prefix cache: {pc.stats()}")
+    pc.clear()
+    misses = pc.stats()["misses"]
+    cold, first_cold, _ = _stream(port, turn2)
+    if pc.stats()["misses"] != misses + 1 or warm != cold:
+        raise RuntimeError("the prefix-cache hit's tokens differ from a cleared cache's")
+    log(f"sampling: prefix cache hit on a {len(turn2['tokens'][0])}-token turn 2 streams the "
+        f"cold run's tokens; first line {first_warm * 1e3:.1f} ms warm, "
+        f"{first_cold * 1e3:.1f} ms cold; stats {pc.stats()}")
+    stats.update(prefix_first_line_ms_warm=first_warm * 1e3,
+                 prefix_first_line_ms_cold=first_cold * 1e3)
+    stats.update(check_sampler(server, cfg, on_card))
+    return stats
+
+
+def _device_events(fn) -> int:
+    """Device operations (kernels, copies, fills) ``fn`` runs, from a
+    ``torch.profiler`` trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def check_sampler(server, cfg, on_card: bool) -> dict:
+    """The sampler on the server's device against its plain versions:
+    ``scale_and_filter`` == ``scale_and_filter_reference`` byte for byte at
+    [4, vocab] (a batch whose cuts fit, and one that overflows), and
+    ``sample``'s keys, bits, uniforms and Gumbel noise on the device equal
+    the CPU's exactly, its tokens too but at near-ties. Then its times per
+    step at [1, vocab], and device launches per decode step."""
+    import torch
+
+    from modelx_tpu_torch.models import llama
+    from modelx_tpu_torch.ops import prng
+    from modelx_tpu_torch.ops import sampling as S
+
+    dev, v = server.device, cfg.vocab_size
+    gen = torch.Generator().manual_seed(3)
+    flat = torch.randn(4, v, generator=gen) * 3
+    peaked = torch.randn(4, v, generator=gen) * 12
+    t = torch.tensor([0.8, 1.0, 0.0, 1.3])
+    cases = {  # name: (logits, top_k, top_p, must sort)
+        "fits": (peaked, torch.tensor([40, 1, 10, 64]), torch.tensor([0.95, 1.0, 0.5, 0.9]),
+                 False),
+        "overflows": (flat, torch.tensor([40, 0, 5, 2000]),
+                      torch.tensor([0.95, 0.99, 0.9, 1.0]), True),
+    }
+    for name, (lg, k, p, must_sort) in cases.items():
+        args = (lg.to(dev), t.to(dev), k.to(dev), p.to(dev))
+        sorts = S.scale_and_filter.sorts
+        fused = S.scale_and_filter(*args)
+        sorted_ = S.scale_and_filter.sorts != sorts
+        ref = S.scale_and_filter_reference(*args)
+        same = torch.equal(fused.view(torch.int32), ref.view(torch.int32))
+        log(f"sampler: scale_and_filter [{name}] [4, {v}] fp32 on {dev}: "
+            f"{'full-sort' if sorted_ else 'fused'} branch; equals the always-sort "
+            f"reference byte for byte: {same}")
+        if not same or sorted_ != must_sort:
+            raise RuntimeError(f"scale_and_filter [{name}] disagrees with its reference")
+
+    lg, k, p = cases["overflows"][0], cases["fits"][1], cases["fits"][2]
+    seeds, steps = torch.tensor([7, 8, 9, 10]), torch.tensor([0, 5, 31, 2])
+    key = prng.PRNGKey(0)
+    keys = prng.fold_in(prng.fold_in(key, seeds), steps)
+    keys_dev = prng.fold_in(prng.fold_in(key.to(dev), seeds.to(dev)), steps.to(dev))
+    checks = {
+        "keys": (keys, keys_dev),
+        "bits": (prng.bits(keys, v), prng.bits(keys_dev, v)),
+        "uniforms": (prng.uniform(keys, v), prng.uniform(keys_dev, v)),
+        "gumbel": (prng.gumbel(keys, v), prng.gumbel(keys_dev, v)),
+    }
+    for name, (cpu, on_dev) in checks.items():
+        if not torch.equal(cpu, on_dev.cpu()):
+            raise RuntimeError(f"sampler: {name} on {dev} differ from the CPU's")
+    tok_cpu = S.sample(lg, key, t, k, p, seeds=seeds, step=steps)
+    tok_dev = S.sample(lg.to(dev), key.to(dev), t.to(dev), k.to(dev), p.to(dev),
+                       seeds=seeds.to(dev), step=steps.to(dev)).cpu()
+    noisy = S.scale_and_filter_reference(lg, t, k, p) + checks["gumbel"][0]
+    top2 = noisy.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < NEAR_TIE
+    bad = (tok_cpu != tok_dev) & ~near
+    log(f"sampler: sample on {dev} vs the CPU at [4, {v}]: keys, bits, uniforms, Gumbel "
+        f"noise bit-equal; tokens equal at {int((tok_cpu == tok_dev).sum())}/4 rows "
+        f"({int(near.sum())} near-ties under {NEAR_TIE})")
+    if bool(bad.any()):
+        raise RuntimeError("sample on the device draws other tokens than on the CPU")
+
+    out: dict = {}
+    if not on_card:
+        return out
+    # per-step cost at [1, vocab], back to back (CUDA events); inputs on the card
+    peaked1, flat1 = peaked[:1].to(dev), flat[:1].to(dev)
+    t1, s1, k1, p1, key_dev = (x.to(dev) for x in (
+        torch.tensor([0.8]), torch.tensor([7]), torch.tensor([40]), torch.tensor([0.95]), key))
+    times = {
+        "argmax (greedy)": lambda: torch.argmax(peaked1, dim=-1),
+        "sample, temperature only": lambda: S.sample(peaked1, key_dev, t1, seeds=s1, step=3),
+        "sample, top_k 40 + top_p 0.95, fused branch":
+            lambda: S.sample(peaked1, key_dev, t1, k1, p1, seeds=s1, step=3),
+        "sample, top_k 40 + top_p 0.95, full-sort branch":
+            lambda: S.sample(flat1, key_dev, t1, k1, p1, seeds=s1, step=3),
+        "scale_and_filter, fused": lambda: S.scale_and_filter(peaked1, t1, k1, p1),
+        "scale_and_filter_reference (always sorts)":
+            lambda: S.scale_and_filter_reference(peaked1, t1, k1, p1),
+    }
+    for name, fn in times.items():
+        ms = time_ms(fn, iters=20, reps=3)
+        out[f"sampler_ms[{name}]"] = ms
+        log(f"sampler: {name} at [1, {v}] fp32: {ms:.4f} ms a step (back to back)")
+
+    # device launches per decode step: (N + 1 new tokens) - (N), greedy and sampled
+    prompt = torch.randint(0, v, (1, 128), generator=gen).to(dev)
+
+    def decode(n_new, **samp):
+        with torch.inference_mode():
+            llama.ragged_greedy_generate(server.params, prompt, [128], server.cfg,
+                                         max_new_tokens=n_new, **samp).cpu()
+
+    sampled = dict(temperature=[0.8], top_k=[40], top_p=[0.95], seeds=[7])
+    decode(3)
+    decode(3, **sampled)
+    for name, samp in (("greedy", {}), ("sampled", sampled)):
+        per_step = _device_events(lambda: decode(3, **samp)) - _device_events(
+            lambda: decode(2, **samp))
+        out[f"device_ops_per_{name}_step"] = per_step
+        log(f"sampler: device operations per {name} decode step (Llama-3-8B shape, "
+            f"torch.profiler): {per_step}")
+    return out
 
 
 if __name__ == "__main__":

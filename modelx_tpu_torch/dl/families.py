@@ -29,10 +29,12 @@ class Family:
     name: str
     infer_config: Callable[[dict], Any]
     forward: Callable[..., torch.Tensor]  # (params, tokens, cfg) -> logits
-    generate: Callable[..., torch.Tensor] | None = None  # causal LMs only
-    # ragged-batch greedy decode (params, prompt, row_lens, cfg,
-    # max_new_tokens) -> generated [B, max_new]
+    # ragged-batch decode (params, prompt, row_lens, cfg, max_new_tokens,
+    # temperature=, top_k=, top_p=, seeds=) -> generated [B, max_new]
     generate_ragged: Callable[..., torch.Tensor] | None = None
+    # (params, cfg) -> (forward, init_kv_cache) for models/decode.py's
+    # ChunkedDecoder (streams); None = the family does not stream
+    decode_fns: Callable[..., tuple] | None = None
 
 
 def _shape(params: dict, name: str) -> tuple[int, ...]:
@@ -108,26 +110,26 @@ def _llama_forward(params, tokens, cfg):
     return llama.forward(params, tokens, cfg)[0]
 
 
-def _llama_generate(params, tokens, cfg, max_new_tokens=16):
-    from modelx_tpu_torch.models import llama
-
-    return llama.greedy_generate(params, tokens, cfg, max_new_tokens=max_new_tokens)
-
-
-def _llama_generate_ragged(params, tokens, row_lens, cfg, max_new_tokens=16):
+def _llama_generate_ragged(params, tokens, row_lens, cfg, max_new_tokens=16, **sampling):
     from modelx_tpu_torch.models import llama
 
     return llama.ragged_greedy_generate(params, tokens, row_lens, cfg,
-                                        max_new_tokens=max_new_tokens)
+                                        max_new_tokens=max_new_tokens, **sampling)
+
+
+def _llama_decode_fns(params, cfg):
+    from modelx_tpu_torch.models import llama
+
+    return llama.decode_fns(params, cfg)
 
 
 FAMILIES: dict[str, Family] = {
-    "llama": Family("llama", infer_llama_config, _llama_forward, _llama_generate,
-                    _llama_generate_ragged),
+    "llama": Family("llama", infer_llama_config, _llama_forward,
+                    _llama_generate_ragged, _llama_decode_fns),
     # qwen2 differs only in config (biases ride the param dict), so every
     # llama entry point serves it unchanged
-    "qwen2": Family("qwen2", infer_qwen2_config, _llama_forward, _llama_generate,
-                    _llama_generate_ragged),
+    "qwen2": Family("qwen2", infer_qwen2_config, _llama_forward,
+                    _llama_generate_ragged, _llama_decode_fns),
 }
 
 

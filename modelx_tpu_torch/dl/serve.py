@@ -8,21 +8,26 @@ Loads one or more checkpoints onto one device and serves:
                                 -> {"logits_argmax": [[...]]}
     POST /v1/generate           default model      + {"max_new_tokens": N}
                                 -> {"tokens": [[prompt + generated]]}
+                                sampled with temperature/top_k/top_p/seed;
+                                "stream": true -> NDJSON token lines
     POST /v1/{model}/forward    named model
     POST /v1/{model}/generate   named model
 
 Requests are checked as the JAX sidecar checks them (2-D non-empty token
 ids inside the vocab, ``max_new_tokens`` in [1, limit], text and tokens
-never together) and answered with the same keys, so a client sees the same
-JSON from either package. What later slices port answers a typed 501
-that names the slice: sampling (``temperature`` > 0), ``stream`` and
-resume, text in/out, the OpenAI routes and the admin routes. Dynamic and
-continuous batching have no flag yet: requests run one at a time.
+never together, sampling controls in range, ``stop_token_ids`` with a
+stream on one row only, a ``resume`` block refused as the JAX sidecar
+without the continuous engine refuses it) and answered with the same JSON
+or NDJSON bytes. What later slices port answers a typed 501 that names the
+slice: text in/out, the OpenAI routes, ``include_timing`` on a stream and
+the admin routes. Dynamic and continuous batching have no flag yet:
+requests take the device one at a time, a stream one chunk at a time.
 """
 
 from __future__ import annotations
 
 import glob
+import itertools
 import json
 import logging
 import os
@@ -36,6 +41,15 @@ import torch
 
 from modelx_tpu_torch.device import parse_dtype, resolve_device
 from modelx_tpu_torch.dl import families as fam
+from modelx_tpu_torch.dl.serving_errors import (
+    RESUME_EMITTED_HEADER,
+    RESUME_SEED_HEADER,
+    MalformedResumeError,
+    ResumeExhaustedError,
+    ServingError,
+    parse_resume,
+)
+from modelx_tpu_torch.models.decode import ChunkedDecoder, PrefixKVCache, pad_seq_len, stop_cut
 
 logger = logging.getLogger("modelx.serve")
 
@@ -72,7 +86,8 @@ class ModelServer:
     WARMUP_TOKEN_SHAPES = ((1, 16),)
 
     def __init__(self, model_dir: str, dtype: str = "bfloat16", device=None,
-                 max_seq_len: int = 2048, name: str = "default") -> None:
+                 max_seq_len: int = 2048, name: str = "default",
+                 prefix_cache_size: int = 0, prefix_cache_max_bytes: int = 0) -> None:
         self.name = name
         self.model_dir = model_dir
         self.device = resolve_device(device)
@@ -84,9 +99,18 @@ class ModelServer:
         self.cfg = None
         self.family: fam.Family | None = None
         self.params: dict | None = None
-        # one request at a time on the device: concurrent handler threads
-        # would interleave on the stream and stack their activations
+        # one request (or one stream chunk) at a time on the device:
+        # concurrent handler threads would interleave on the stream and
+        # stack their activations
         self._device_lock = threading.Lock()
+        # > 0 keeps the prefill KV of the last N single-row stream prompts
+        # on the device (models/decode.PrefixKVCache), byte-capped by
+        # prefix_cache_max_bytes when that is > 0
+        self._prefix_cache = (
+            PrefixKVCache(int(prefix_cache_size), max_bytes=int(prefix_cache_max_bytes))
+            if int(prefix_cache_size) > 0 else None)
+        self._decoders: dict[int, ChunkedDecoder] = {}  # chunk_size -> decoder
+        self._decoders_lock = threading.Lock()
 
     def load(self) -> dict:
         """Load every *.safetensors under model_dir onto the device; the
@@ -148,39 +172,111 @@ class ModelServer:
             logits = self.family.forward(self.params, self._tokens(tokens), self.cfg)
             return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
-    def generate(self, tokens: np.ndarray, max_new_tokens: int = 16) -> np.ndarray:
-        """Greedy decode; returns [B, S + max_new_tokens] (prompt + new).
-        Sampling comes with the sampling/streaming slice."""
-        if self.family.generate is None:
+    def generate(self, tokens: np.ndarray, max_new_tokens: int = 16,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 seed: int = 0) -> np.ndarray:
+        """Greedy by default; temperature > 0 samples per row. Returns
+        [B, S + max_new_tokens] (prompt + new). The prompt is padded to the
+        16-bucket and decoded as a ragged batch, the shapes a stream of the
+        same request runs, so the two give the same tokens."""
+        if self.family.generate_ragged is None:
             raise ValueError(f"family {self.family.name} is not generative")
-        with self._device_lock, torch.inference_mode():
-            out = self.family.generate(self.params, self._tokens(tokens), self.cfg,
-                                       max_new_tokens=max_new_tokens)
-            out = out.to(torch.int32).cpu().numpy()
-        self.stats["tokens_generated"] += int(out.shape[0] * max_new_tokens)
-        return out
+        tokens = np.asarray(tokens, np.int32)
+        b, s = tokens.shape
+        gen = self.generate_ragged(
+            _pad_prompt(tokens), np.full((b,), s, np.int32), max_new_tokens,
+            **_row_controls(b, temperature, top_k, top_p, seed))
+        self.stats["tokens_generated"] += int(b * max_new_tokens)
+        return np.concatenate([tokens, gen], axis=1)
 
     def generate_ragged(self, tokens: np.ndarray, row_lens: np.ndarray,
-                        max_new_tokens: int) -> np.ndarray:
-        """Ragged-batch greedy decode: right-padded rows [B, S] with per-row
-        real lengths. Returns generated tokens only, [B, max_new_tokens]."""
+                        max_new_tokens: int, temperature=None, top_k=None, top_p=None,
+                        seeds=None) -> np.ndarray:
+        """Ragged-batch decode: right-padded rows [B, S] with per-row real
+        lengths and per-row sampling vectors (None = greedy / filter off).
+        Returns generated tokens only, [B, max_new_tokens]."""
         if self.family.generate_ragged is None:
             raise ValueError(f"family {self.family.name} has no ragged decode")
         with self._device_lock, torch.inference_mode():
             out = self.family.generate_ragged(
-                self.params, self._tokens(tokens),
-                torch.as_tensor(np.asarray(row_lens, np.int64), device=self.device),
-                self.cfg, max_new_tokens=max_new_tokens)
+                self.params, self._tokens(tokens), np.asarray(row_lens, np.int64), self.cfg,
+                max_new_tokens=max_new_tokens, temperature=temperature, top_k=top_k,
+                top_p=top_p, seeds=seeds)
             return out.to(torch.int32).cpu().numpy()
+
+    def _decoder(self, chunk_size: int) -> ChunkedDecoder:
+        dec = self._decoders.get(chunk_size)
+        if dec is None:
+            with self._decoders_lock:
+                dec = self._decoders.get(chunk_size)
+                if dec is None:  # double-checked: concurrent first streams
+                    fwd, init = self.family.decode_fns(self.params, self.cfg)
+                    dec = self._decoders[chunk_size] = ChunkedDecoder(
+                        fwd, init, chunk_size, prefix_cache=self._prefix_cache)
+        return dec
+
+    def generate_stream(self, tokens: np.ndarray, max_new_tokens: int = 16,
+                        temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                        seed: int = 0, chunk_size: int = 8, stop_token_ids=None):
+        """Yields [B, k] arrays of new tokens (k <= chunk_size) as they
+        decode; concatenated they equal ``generate``'s new tokens. The
+        device lock is held for one chunk at a time, so a slow client
+        stalls only its own stream."""
+        if self.family.decode_fns is None:
+            raise ValueError(f"family {self.family.name} does not support streaming")
+        tokens = np.asarray(tokens, np.int32)
+        b, s = tokens.shape
+        dec = self._decoder(chunk_size)
+        pieces = dec.stream(
+            self.params, self._tokens(_pad_prompt(tokens)), np.full((b,), s, np.int32),
+            max_new_tokens, stop_token_ids=stop_token_ids,
+            **_row_controls(b, temperature, top_k, top_p, seed))
+        try:
+            while True:
+                with self._device_lock, torch.inference_mode():
+                    piece = next(pieces, None)
+                if piece is None:
+                    return
+                # account as chunks leave: a client disconnect must not
+                # erase the decode work the device already did
+                self.stats["tokens_generated"] += int(piece.size)
+                yield piece
+        finally:
+            pieces.close()  # frees the stream's KV cache at once
+
+
+def _pad_prompt(tokens: np.ndarray) -> np.ndarray:
+    """Right-pad [B, S] prompts to the 16-bucket (models/decode.pad_seq_len)."""
+    b, s = tokens.shape
+    padded = np.zeros((b, pad_seq_len(s)), np.int32)
+    padded[:, :s] = tokens
+    return padded
+
+
+def _row_controls(b: int, temperature: float, top_k: int, top_p: float, seed: int) -> dict:
+    """One request's sampling controls as per-row vectors: greedy (no
+    vectors) at temperature 0; filters None when off, so the sampler does
+    no filter work for them; distinct seeds per row, so B samples of one
+    prompt are B different completions."""
+    if temperature <= 0:
+        return {}
+    return {
+        "temperature": np.full((b,), temperature, np.float32),
+        "top_k": np.full((b,), top_k, np.int32) if top_k > 0 else None,
+        "top_p": np.full((b,), top_p, np.float32) if top_p < 1.0 else None,
+        "seeds": ((seed + np.arange(b)) % (2**31)).astype(np.int32),
+    }
 
 
 class ServerSet:
     """Named ModelServers behind one HTTP front."""
 
-    def __init__(self, servers: dict[str, ModelServer], default: str | None = None) -> None:
+    def __init__(self, servers: dict[str, ModelServer], default: str | None = None,
+                 stream_chunk_size: int = 8) -> None:
         if not servers:
             raise ValueError("no models")
         self.servers = servers
+        self.stream_chunk_size = int(stream_chunk_size)
         for name, s in servers.items():
             s.name = name  # route key and server identity must agree
         self.default = default or next(iter(servers))
@@ -223,6 +319,8 @@ class ServerSet:
             d = {"ready": s.ready, **s.stats}
             if s.load_error:
                 d["error"] = s.load_error
+            if s._prefix_cache is not None:
+                d["prefix_cache"] = s._prefix_cache.stats()
             models[n] = d
         return {
             "default": self.default,
@@ -233,8 +331,21 @@ class ServerSet:
         }
 
 
-def _check_generate(req: dict, tokens: np.ndarray, vocab: int, server: ModelServer):
-    """(max_new_tokens, stop ids) of a generate request, or (status, body)."""
+    def stream_source(self, server: ModelServer, tokens, n: int, samp: dict,
+                      stop_token_ids=None):
+        """The token-chunk iterator behind a streamed /v1/generate, chunked
+        by ``stream_chunk_size``."""
+        return server.generate_stream(tokens, max_new_tokens=n,
+                                      chunk_size=self.stream_chunk_size,
+                                      stop_token_ids=stop_token_ids, **samp)
+
+
+def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: ModelServer):
+    """Check a generate request as the JAX sidecar does. Returns
+    ``((n, samp, stop_ids), None)`` or ``(None, (status, body))``. A resume
+    block raises its typed ``ServingError``: continuing a stream needs the
+    continuous engine, which is not ported, so a well-formed resume gets
+    the 400 the JAX sidecar without ``--continuous-batch`` answers."""
     try:
         n = int(req.get("max_new_tokens", 16))
     except (TypeError, ValueError):
@@ -270,13 +381,29 @@ def _check_generate(req: dict, tokens: np.ndarray, vocab: int, server: ModelServ
     ):
         return None, (400, {"error": "stop_token_ids must be a list of up "
                                      "to 16 in-vocab token ids"})
-    if samp["temperature"] > 0:
-        raise NotPortedError("sampling (temperature > 0)", "sampling/streaming")
-    if req.get("resume") is not None:
-        raise NotPortedError("stream resume", "sampling/streaming")
-    if bool(req.get("stream", False)):
-        raise NotPortedError("stream", "sampling/streaming")
-    return (n, stop_ids), None
+    # the resume block: headers win over the native field, each
+    # both-or-neither
+    hdr_e, hdr_s = headers.get(RESUME_EMITTED_HEADER), headers.get(RESUME_SEED_HEADER)
+    if hdr_e is not None or hdr_s is not None:
+        resume = parse_resume(hdr_e, hdr_s)
+    else:
+        rz = req.get("resume")
+        if rz is not None and not isinstance(rz, dict):
+            raise MalformedResumeError("resume must be an object with emitted + seed")
+        resume = None if rz is None else parse_resume(rz.get("emitted"), rz.get("seed"))
+    if resume is not None:
+        emitted, _seed = resume
+        if not bool(req.get("stream", False)) or tokens.shape[0] != 1:
+            raise MalformedResumeError("resume requires a single-row streaming request")
+        if vocab and max(emitted) >= vocab:
+            raise MalformedResumeError(f"emitted token ids must be in [0, {vocab})")
+        if len(emitted) >= n:
+            raise ResumeExhaustedError(
+                f"{len(emitted)} tokens already emitted of a {n}-token budget")
+        if stop_ids and any(t in stop_ids for t in emitted):
+            raise ResumeExhaustedError("a stop token was already emitted")
+        raise MalformedResumeError("resume requires the continuous engine (single-row stream)")
+    return (n, samp, stop_ids), None
 
 
 def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingHTTPServer:
@@ -299,6 +426,65 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
+
+        def _stream_chunks(self, content_type: str, payloads, error_payload) -> None:
+            """Commit a 200 with chunked transfer encoding and write each
+            bytes payload. A mid-stream error (the status already sent)
+            writes ``error_payload(e)``; the terminator always goes out."""
+            self.send_response(200)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+            def write_chunk(payload: bytes) -> None:
+                self.wfile.write(f"{len(payload):x}\r\n".encode())
+                self.wfile.write(payload + b"\r\n")
+
+            try:
+                for payload in payloads:
+                    write_chunk(payload)
+            except Exception as e:
+                logger.exception("stream error")
+                try:
+                    write_chunk(error_payload(e))
+                except OSError:
+                    pass  # client went away
+            finally:
+                try:
+                    self.wfile.write(b"0\r\n\r\n")  # chunked terminator
+                except OSError:
+                    pass
+
+        def _stream_generate(self, server, tokens, n, samp, stop_ids) -> None:
+            """NDJSON token stream, then {"done": true}; concatenated it
+            equals the non-streamed result. A single row streams ONE token
+            per line ({"tokens": [[t]]}), several rows one line per chunk."""
+            gen = sset.stream_source(server, tokens, n, samp, stop_token_ids=stop_ids)
+            try:
+                # pull the first chunk BEFORE committing a 200: a bad
+                # request must still be a 4xx
+                try:
+                    first = next(gen, None)
+                except ValueError as e:
+                    return self._json(400, {"error": str(e)})
+
+                def payloads():
+                    if first is not None:
+                        for piece in itertools.chain([first], gen):
+                            rows = piece.tolist()
+                            if len(rows) == 1:
+                                for t in rows[0]:
+                                    yield json.dumps({"tokens": [[t]]}).encode() + b"\n"
+                            else:
+                                yield json.dumps({"tokens": rows}).encode() + b"\n"
+                    yield b'{"done": true}\n'
+
+                self._stream_chunks(
+                    "application/x-ndjson", payloads(),
+                    lambda e: json.dumps({"error": str(e)}).encode() + b"\n")
+            finally:
+                gen.close()  # a client that went away frees the stream now
 
         def do_GET(self):
             if self.path == "/healthz":
@@ -338,7 +524,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 e = NotPortedError("the admin surface", "registry deploy")
                 return self._json(e.http_status, e.payload())
             if path in ("/v1/completions", "/v1/chat/completions"):
-                e = NotPortedError("the OpenAI surface", "sampling/streaming")
+                e = NotPortedError("the OpenAI surface", "text and OpenAI")
                 return self._json(e.http_status, e.payload())
             server, verb = sset.resolve(path)
             if server is None:
@@ -348,7 +534,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             if "text" in req and verb != "generate":
                 return self._json(400, {"error": "text is only supported on generate"})
             if "text" in req:
-                e = NotPortedError("text in/out (tokenizer.json)", "sampling/streaming")
+                e = NotPortedError("text in/out (tokenizer.json)", "text and OpenAI")
                 return self._json(e.http_status, e.payload())
             try:
                 tokens = np.asarray(req["tokens"], np.int32)
@@ -377,15 +563,21 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                                      f"--max-seq-len {server.max_seq_len}"})
                     out = server.forward_argmax(tokens)
                     return self._json(200, {"logits_argmax": out.tolist()})
-                checked, err = _check_generate(req, tokens, vocab, server)
+                checked, err = _check_generate(req, self.headers, tokens, vocab, server)
                 if err is not None:
                     return self._json(*err)
-                n, stop_ids = checked
-                rows = server.generate(tokens, max_new_tokens=n).tolist()
+                n, samp, stop_ids = checked
+                if bool(req.get("stream", False)):
+                    if stop_ids and tokens.shape[0] > 1:
+                        # per-row early stop breaks the [B, k]-aligned stream
+                        return self._json(400, {
+                            "error": "stop_token_ids with stream is single-row only"})
+                    if bool(req.get("include_timing", False)):
+                        raise NotPortedError("include_timing", "observability")
+                    return self._stream_generate(server, tokens, n, samp, stop_ids)
+                rows = server.generate(tokens, max_new_tokens=n, **samp).tolist()
                 if stop_ids:
                     # trim each row's GENERATED part at its first stop (inclusive)
-                    from modelx_tpu_torch.models.decode import stop_cut
-
                     stops, plen = set(stop_ids), tokens.shape[1]
                     trimmed = []
                     for row in rows:
@@ -394,6 +586,8 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                         trimmed.append(row[:plen] + (gen_part if cut is None else gen_part[:cut]))
                     rows = trimmed
                 self._json(200, {"tokens": rows})
+            except ServingError as e:  # the resume refusals (400, 422)
+                self._json(e.http_status, {"error": str(e)}, headers=e.headers())
             except NotPortedError as e:
                 self._json(e.http_status, e.payload())
             except ValueError as e:  # e.g. generate on a non-generative family

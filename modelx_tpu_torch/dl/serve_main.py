@@ -34,6 +34,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (cuda, cuda:N or cpu); cuda raises when absent")
     ap.add_argument("--max-seq-len", type=int, default=2048,
                     help="longest prompt (+ max_new_tokens) a request may ask for")
+    ap.add_argument("--stream-chunk-size", type=int, default=8,
+                    help="tokens decoded per flush on streaming responses")
+    ap.add_argument("--prefix-cache", type=int, default=0,
+                    help="keep the prefill KV of the last N single-row stream prompts "
+                         "on the device: multi-turn chats that re-send their history "
+                         "prefill only the new suffix (0 = off)")
+    ap.add_argument("--prefix-cache-max-bytes", type=int, default=0,
+                    help="additional byte cap on the prefix cache's stored KV "
+                         "(0 = entry cap only)")
     return ap
 
 
@@ -57,10 +66,14 @@ def start(argv=None):
     models = _parse_models(args.models)
     servers = {
         name: ModelServer(path, dtype=args.dtype, device=args.device,
-                          max_seq_len=args.max_seq_len, name=name)
+                          max_seq_len=args.max_seq_len, name=name,
+                          prefix_cache_size=args.prefix_cache,
+                          prefix_cache_max_bytes=args.prefix_cache_max_bytes)
         for name, path in models.items()
     }
-    sset = ServerSet(servers)
+    if args.stream_chunk_size < 1:
+        raise SystemExit("--stream-chunk-size must be >= 1")
+    sset = ServerSet(servers, stream_chunk_size=args.stream_chunk_size)
     httpd = serve(sset, listen=args.listen)  # answers 503 while loading
     try:
         stats = sset.load_all()

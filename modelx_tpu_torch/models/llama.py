@@ -174,11 +174,14 @@ def _write_cache(c: torch.Tensor, u: torch.Tensor, offset) -> None:
     ``offset``: an int, or a [B] tensor for per-row (ragged) positions.
     Callers size caches as the JAX package does (prompt + new tokens), so a
     write never runs past the end — where JAX's dynamic_update_slice would
-    clamp its start instead, this raises."""
+    clamp its start instead, an int offset raises. A [B] offset on the card
+    is not read back (that would wait on the card at every layer): its
+    caller keeps it in range (``models/decode.py`` checks the row lengths
+    on the host), and the indexed write itself fails past the end."""
     b, s = u.shape[:2]
     if isinstance(offset, torch.Tensor) and offset.ndim:
         pos = offset.to(c.device, torch.long)[:, None] + torch.arange(s, device=c.device)
-        if int(pos.max()) >= c.shape[1] or int(pos.min()) < 0:
+        if not pos.is_cuda and (int(pos.max()) >= c.shape[1] or int(pos.min()) < 0):
             raise IndexError(f"cache write at {pos.tolist()} outside [0, {c.shape[1]})")
         c[torch.arange(b, device=c.device)[:, None], pos] = u
     else:
@@ -290,7 +293,7 @@ def _attend(q, k, v, causal: bool, q_offset, impl: str):
     return out.transpose(1, 2)
 
 
-# -- kv cache + greedy decode -------------------------------------------------
+# -- kv cache + decode -------------------------------------------------
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
@@ -304,7 +307,9 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
     return cache
 
 
-def _decode_fns(params, cfg: LlamaConfig):
+def decode_fns(params, cfg: LlamaConfig):
+    """(forward, init_kv_cache) for ``models/decode.py``: the cached forward
+    and a cache allocator on the params' device."""
     device = params["model.embed_tokens.weight"].device
 
     def fwd(p, t, kv_cache, cache_offset):
@@ -313,30 +318,22 @@ def _decode_fns(params, cfg: LlamaConfig):
     return fwd, (lambda b, max_len: init_kv_cache(cfg, b, max_len, device=device))
 
 
-def greedy_generate(
-    params: dict[str, torch.Tensor],
-    prompt: torch.Tensor,  # [B, S]
-    cfg: LlamaConfig,
-    max_new_tokens: int = 16,
-) -> torch.Tensor:
-    """Greedy decode with a static-shape KV cache (models/decode.py)."""
-    from modelx_tpu_torch.models import decode
-
-    fwd, init = _decode_fns(params, cfg)
-    return decode.greedy_generate(fwd, init, params, prompt, max_new_tokens=max_new_tokens)
-
-
 def ragged_greedy_generate(
     params: dict[str, torch.Tensor],
     prompt: torch.Tensor,  # [B, S] right-padded
-    row_lens: torch.Tensor,  # [B]
+    row_lens,  # [B]
     cfg: LlamaConfig,
     max_new_tokens: int = 16,
+    temperature=None,
+    top_k=None,
+    top_p=None,
+    seeds=None,
 ) -> torch.Tensor:
-    """Ragged-batch greedy decode (models/decode.py); returns the generated
-    tokens [B, max_new_tokens] only."""
+    """Ragged-batch decode, greedy or per-row-sampled (models/decode.py);
+    returns the generated tokens [B, max_new_tokens] only."""
     from modelx_tpu_torch.models import decode
 
-    fwd, init = _decode_fns(params, cfg)
+    fwd, init = decode_fns(params, cfg)
     return decode.ragged_greedy_generate(
-        fwd, init, params, prompt, row_lens, max_new_tokens=max_new_tokens)
+        fwd, init, params, prompt, row_lens, max_new_tokens=max_new_tokens,
+        temperature=temperature, top_k=top_k, top_p=top_p, seeds=seeds)

@@ -5,8 +5,10 @@
 
 Builds a seeded random Llama-3-8B-shaped model on the card (bf16, full
 width and depth) and traces, with ``torch.profiler``, (a) the cache-free
-forward that ``/v1/forward`` runs at [1, 2048] and [4, 512], and (b) the greedy
-decode ``/v1/generate`` runs (prompt 128 + 32 tokens). For each window it
+forward that ``/v1/forward`` runs at [1, 2048] and [4, 512], (b) the greedy
+decode ``/v1/generate`` runs (prompt 128 + 32 tokens, through the ragged
+decode with one row length, as the server calls it), and (c) the same decode
+sampled (temperature 0.8, top_k 40, top_p 0.95, seed 7). For each window it
 reports the host wall time (ending in a synchronize), the device's busy
 time (the union of kernel intervals), the idle share, and kernel time by
 class: the port's flash kernel, matrix products (cuBLAS), and the rest.
@@ -114,11 +116,20 @@ def main(argv=None) -> int:
             result[f"forward_{b}x{s}"] = _window(fwd)
         prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=rng).cuda()
 
+        # 128 is a whole 16-bucket: the server's padded prompt is this one
         def gen32():
-            llama.greedy_generate(params, prompt, cfg, max_new_tokens=32).cpu()
+            llama.ragged_greedy_generate(params, prompt, [128], cfg, max_new_tokens=32).cpu()
 
         gen32()
         result["generate_128+32"] = _window(gen32, steps=32)
+
+        def sampled32():
+            llama.ragged_greedy_generate(params, prompt, [128], cfg, max_new_tokens=32,
+                                         temperature=[0.8], top_k=[40], top_p=[0.95],
+                                         seeds=[7]).cpu()
+
+        sampled32()
+        result["sampled_128+32"] = _window(sampled32, steps=32)
     for k, v in result.items():
         if isinstance(v, dict):
             print(f"{k}: wall {v['wall_ms']:.2f} ms, device busy {v['device_busy_ms']:.2f} ms, "

@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,6 +58,10 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert stats["flash_launches"] == 0  # CPU tensors take the plain version
     assert stats["logit_max_diff"] == 0.0 and stats["argmax_checked"] > 0
     assert {"forward_ms_1x48", "forward_ms_2x16", "generate_s_5", "generate_s_12"} <= set(stats)
+    # the sampled and streamed phase ran its checks on the same server
+    assert {"sampled_tokens_per_s_5", "stream_first_line_ms_12",
+            "prefix_first_line_ms_warm"} <= set(stats)
+    assert stats["overflow_sort_steps"] > 0
 
 
 def test_attention_flops_is_what_the_bound_divides():
@@ -100,3 +105,54 @@ def test_sass_census_is_not_available_without_cuobjdump(tmp_path):
     nvcc = tmp_path / "nvcc"
     nvcc.write_text("")
     assert chip_smoke.dump_sass(str(nvcc), str(tmp_path / "lib.so")) is None
+
+
+@pytest.fixture(scope="module")
+def tiny_server(tmp_path_factory):
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl.serve import ModelServer
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=256), rope_theta=500000.0)
+    d = tmp_path_factory.mktemp("tiny")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    st.write_safetensors(str(d / "model.safetensors"), params)
+    server = ModelServer(str(d), dtype="float32", device="cpu")
+    server.load()
+    return server
+
+
+def test_greedy_replay_is_the_servers_greedy_decode(tiny_server):
+    prompt = list(range(3, 23))
+    want = tiny_server.generate(np.asarray([prompt], np.int32), max_new_tokens=5)[0, 20:]
+    picks, logits = chip_smoke._replay_step_logits(tiny_server, prompt, want.tolist())
+    assert picks == want.tolist()
+    assert logits.shape == (5, 256) and logits.argmax(-1).tolist() == picks
+    # forcing other tokens: each step's logits come from the forced prefix
+    forced = [(t + 1) % 256 for t in want.tolist()]
+    picks, logits = chip_smoke._replay_step_logits(tiny_server, prompt, forced)
+    assert picks[0] == want[0] and logits.argmax(-1).tolist() == picks
+    fresh = tiny_server.generate(np.asarray([prompt + forced[:2]], np.int32), 1)[0, -1]
+    assert picks[2] == fresh
+
+
+def test_top1_check_allows_only_a_tied_maximum(tiny_server, monkeypatch):
+    prompt = list(range(3, 23))
+    greedy = tiny_server.generate(np.asarray([prompt], np.int32), max_new_tokens=4)[0, 20:]
+    greedy = greedy.tolist()
+    assert chip_smoke._check_top1(tiny_server, prompt, greedy, greedy) == "top_k 1 == greedy"
+    other = (greedy[1] + 1) % 256
+    drawn = [greedy[0], other, 9, 10]
+    # the replay on top_k 1's own path: greedy's picks there, one-hot logits
+    picks = [greedy[0], greedy[1], 9, 11]
+    logits = torch.zeros((4, 256))
+    logits[torch.arange(4), torch.tensor(picks)] = 1.0
+    monkeypatch.setattr(chip_smoke, "_replay_step_logits", lambda *a: (picks, logits))
+    with pytest.raises(RuntimeError, match="below the maximum"):
+        chip_smoke._check_top1(tiny_server, prompt, greedy, drawn)
+    logits[1, other] = 1.0  # now the maximum at step 1 is tied
+    with pytest.raises(RuntimeError, match="at step 3"):  # a later miss still fails
+        chip_smoke._check_top1(tiny_server, prompt, greedy, drawn)
+    logits[3, 10] = 1.0
+    assert "up to step 1" in chip_smoke._check_top1(tiny_server, prompt, greedy, drawn)
+    with pytest.raises(RuntimeError, match="replay differs"):
+        chip_smoke._check_top1(tiny_server, prompt, [greedy[0] + 1] + greedy[1:], drawn)

@@ -2,8 +2,11 @@
 
 safetensors bytes and loaded tensors must be byte-equal to the JAX
 package's; config inference must agree; and a JAX ModelServer and the
-port's server on the same tiny fp32 checkpoint must return identical JSON
-bodies for /v1/forward and /v1/generate (greedy, fp32: token-exact).
+port's server on the same tiny fp32 checkpoint must return identical bodies
+for /v1/forward and /v1/generate: JSON for greedy and seeded sampled
+requests, NDJSON for streams, the same status and error for refused ones
+(fp32, token-exact: the port draws jax.random's bits, so a seeded row
+samples the same tokens).
 """
 
 import dataclasses
@@ -215,10 +218,10 @@ def pods(tmp_path_factory):
         h.server_close()
 
 
-def _call(port, path, body=None):
+def _call(port, path, body=None, headers=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=120) as r:
             return r.status, r.read()
@@ -246,6 +249,30 @@ PARITY_REQUESTS = [
     ("/v1/forward", {"text": "hi"}),
     ("/v1/nomodel/forward", {"tokens": _TOKS}),
     ("/v1/forward", [1, 2]),
+    # sampled, per-row seeds; top_k/top_p inside K_CAP, and a near-flat
+    # top_p 0.99 nucleus that overflows it (the full-sort branch)
+    ("/v1/generate", {"tokens": _TOKS, "max_new_tokens": 6, "temperature": 0.8,
+                      "top_k": 40, "top_p": 0.95, "seed": 7}),
+    ("/v1/generate", {"tokens": _TOKS[:1], "max_new_tokens": 5, "temperature": 1.3,
+                      "top_p": 0.99, "seed": 3}),
+    ("/v1/generate", {"tokens": _TOKS[1:], "max_new_tokens": 4, "temperature": 0.5}),
+    # streams: one token per line on one row, one line per chunk on two
+    ("/v1/generate", {"tokens": _TOKS[:1], "max_new_tokens": 11, "temperature": 0.8,
+                      "top_k": 40, "top_p": 0.95, "seed": 7, "stream": True}),
+    ("/v1/generate", {"tokens": _TOKS[:1], "max_new_tokens": 9, "stream": True,
+                      "stop_token_ids": [138, 396]}),
+    ("/v1/generate", {"tokens": _TOKS, "max_new_tokens": 10, "temperature": 0.9,
+                      "seed": 1, "stream": True}),
+    ("/v1/generate", {"tokens": _TOKS, "stream": True, "stop_token_ids": [1]}),
+    # resume: refused as the JAX sidecar without the continuous engine does
+    ("/v1/generate", {"tokens": _TOKS[:1], "max_new_tokens": 6, "stream": True,
+                      "resume": {"emitted": [5, 6], "seed": 7}}),
+    ("/v1/generate", {"tokens": _TOKS[:1], "max_new_tokens": 6,
+                      "resume": {"emitted": [5], "seed": 7}}),
+    ("/v1/generate", {"tokens": _TOKS[:1], "max_new_tokens": 2, "stream": True,
+                      "resume": {"emitted": [5, 6], "seed": 7}}),
+    ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "resume": {"emitted": [5]}}),
+    ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "resume": [5]}),
 ]
 
 
@@ -259,17 +286,85 @@ def test_http_json_identical_to_jax_sidecar(pods, path, body):
     assert tbody == jbody
 
 
-@pytest.mark.parametrize("body", [
-    {"tokens": _TOKS, "temperature": 0.7},
-    {"tokens": _TOKS, "stream": True},
-    {"text": "hello"},
-], ids=["sampling", "stream", "text"])
-def test_later_slice_requests_answer_typed_501(pods, body):
+@pytest.mark.parametrize("path,body", [
+    ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "include_timing": True}),
+    ("/v1/completions", {"prompt": "hello"}),
+    ("/v1/generate", {"text": "hello"}),
+], ids=["include_timing", "openai", "text"])
+def test_later_slice_requests_answer_typed_501(pods, path, body):
     _, tport, _ = pods
-    status, raw = _call(tport, "/v1/generate", body)
+    status, raw = _call(tport, path, body)
     assert status == 501
     payload = json.loads(raw)
     assert payload["type"] == "not_ported" and payload["slice"] in payload["error"]
+
+
+@pytest.mark.parametrize("headers", [
+    {"X-ModelX-Resume-Emitted": "5,6", "X-ModelX-Resume-Seed": "7"},
+    {"X-ModelX-Resume-Emitted": "5,x", "X-ModelX-Resume-Seed": "7"},
+    {"X-ModelX-Resume-Seed": "7"},
+], ids=["valid", "bad-token", "seed-only"])
+def test_resume_headers_answer_as_jax(pods, headers):
+    jport, tport, _ = pods
+    body = {"tokens": _TOKS[:1], "max_new_tokens": 6, "stream": True,
+            "resume": {"emitted": [1], "seed": 2}}  # the headers win
+    assert _call(tport, "/v1/generate", body, headers) == _call(jport, "/v1/generate", body,
+                                                                headers)
+
+
+def _ndjson_tokens(raw: bytes) -> list[int]:
+    lines = [json.loads(x) for x in raw.splitlines()]
+    assert lines[-1] == {"done": True}
+    return [t for line in lines[:-1] for t in line["tokens"][0]]
+
+
+def test_prefix_cache_hit_streams_the_cold_tokens(pods):
+    _, tport, sset = pods
+    model_dir = sset.servers["default"].model_dir
+    cached, httpd = serve_main.start([
+        "--model", f"default={model_dir}", "--device", "cpu", "--dtype", "float32",
+        "--listen", f"127.0.0.1:{free_port()}", "--prefix-cache", "2",
+        "--stream-chunk-size", "3"])
+    port = httpd.server_address[1]
+    try:
+        samp = {"max_new_tokens": 7, "temperature": 0.8, "top_k": 40, "seed": 5,
+                "stream": True}
+        turn1 = _TOKS[0][:9]
+        status, raw = _call(port, "/v1/generate", {"tokens": [turn1], **samp})
+        assert status == 200
+        turn2 = turn1 + _ndjson_tokens(raw) + [9]
+        status, raw = _call(port, "/v1/generate", {"tokens": [turn2], **samp})
+        stats = json.loads(_call(port, "/v1/models")[1])["models"]["default"]["prefix_cache"]
+        assert status == 200 and stats["hits"] == 1 and stats["entries"] == 2
+        # the pod without a prefix cache, streamed and not
+        assert raw == _call(tport, "/v1/generate", {"tokens": [turn2], **samp})[1]
+        body = {k: v for k, v in samp.items() if k != "stream"}
+        plain = json.loads(_call(tport, "/v1/generate", {"tokens": [turn2], **body})[1])
+        assert _ndjson_tokens(raw) == plain["tokens"][0][len(turn2):]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_stream_holds_the_device_lock_one_chunk_at_a_time(pods):
+    _, _, sset = pods
+    server = sset.servers["default"]
+    gen = server.generate_stream(np.asarray(_TOKS[:1], np.int32), max_new_tokens=9,
+                                 chunk_size=4)
+    first = next(gen)
+    assert first.shape == (1, 4)
+    # suspended between chunks: the device is free for other requests
+    assert not server._device_lock.locked()
+    assert server.forward_argmax(np.asarray(_TOKS[:1], np.int32)).shape == (1, 12)
+    rest = list(gen)
+    assert [p.shape[1] for p in rest] == [4, 1]
+    gen2 = server.generate_stream(np.asarray(_TOKS[:1], np.int32), max_new_tokens=9,
+                                  chunk_size=4)
+    next(gen2)
+    gen2.close()  # a client that went away
+    assert not server._device_lock.locked()
+    want = server.generate(np.asarray(_TOKS[:1], np.int32), max_new_tokens=9)[0, 12:]
+    np.testing.assert_array_equal(np.concatenate([first] + rest, axis=1)[0], want)
 
 
 def test_health_models_and_admin(pods):
