@@ -29,6 +29,16 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    kernel. The sampler is held against its plain version on the card
    (fused == always-sort bytes at [4, vocab]; card draws == CPU draws) and
    timed, with device launches per sampled and greedy decode step.
+5. text: the same server with a tokenizer.json of Llama-3's components
+   (written here, 128,000 regular tokens and the 256 special ones) and
+   Llama-3-Instruct's chat template: ``{"text": ...}`` on /v1/generate ==
+   the token request, a greedy /v1/completions == that text, a chat
+   rendered through the template (its ids hold ``<|start_header_id|>``),
+   SSE deltas == the whole answer, a seeded sampled completion that
+   repeats, a stop string that cuts, and ``logprobs`` scored by a
+   cache-free forward: the kernel's launch count rises by ``num_layers``
+   and its scores agree with the plain attention's within ``SCORE_TOL``.
+   The kernel counts start at 0 again for this path.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -377,8 +387,11 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "modelx_tpu_torch/csrc/flash_attention.cu",
         "replaces": "modelx_tpu/ops/attention.py:149",
-        # null, not 0, when the main path did not run (--phases kernels)
-        "launches": main_stats.get("flash_launches"),
+        # null, not 0, when the serving paths did not run (--phases kernels)
+        "launches": (main_stats["flash_launches"] + main_stats["flash_launches_text"]
+                     if main_stats else None),
+        "launches_by_path": main_stats and {"main": main_stats["flash_launches"],
+                                            "text": main_stats["flash_launches_text"]},
         "max_abs_err": max((r["max_abs_err"] for r in kernel_rows), default=None),
         "ms": head and head["ms"],
         "call_ms": head and head["call_ms"],
@@ -474,6 +487,7 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
         params = llama.init_params(cfg, gen, dtype=torch.bfloat16)
         st.write_safetensors(os.path.join(ckpt, "model.safetensors"), params)
         del params
+        write_text_files(ckpt, cfg.vocab_size - len(LLAMA3_SPECIALS))
         if on_card:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -550,15 +564,25 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
             stats[f"generate_s_{plen}"] = secs
             greedy[plen] = (prompt[0].tolist(), out[0, plen:].tolist())
         before = attn.flash_attention.launches
-        stats.update(phase_sampling(port, server, cfg, greedy, on_card))
+        stats.update(phase_sampling(port, server, cfg, greedy))
         if attn.flash_attention.launches != before:
             raise RuntimeError("sampled or streamed generation launched the cache-free kernel")
         stats["flash_launches"] = attn.flash_attention.launches
+        log(f"main: flash_attention launches on the main path: {stats['flash_launches']}")
+
+        # the text path (phase 5): every kernel count starts at 0 again
+        attn.flash_attention.launches = 0
+        stats.update(phase_text(port, server, cfg, per_forward))
+        log(f"text: flash_attention launches on the text path: {stats['flash_launches_text']}")
+
+        # outside the counted runs: the sampler against its plain versions,
+        # then its costs (its torch.profiler traces come last: the objects
+        # they leave make the next garbage collection a long one)
+        stats.update(check_sampler(server, cfg, on_card))
         if on_card:
             stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
             log(f"main: torch.cuda.max_memory_allocated "
                 f"{stats['max_memory_allocated_gb']:.3f} GB")
-        log(f"main: flash_attention launches on the main path: {stats['flash_launches']}")
 
         # outside the counted run: the kernel path against the plain path in-process
         tokens, http_argmax = forwards[FORWARD_SHAPES[0]]
@@ -693,10 +717,10 @@ def _check_top1(server, prompt: list, greedy_new: list, top1: list) -> str:
             f"maximum on its own prefix, drawn among tied tokens at steps {', '.join(ties)}")
 
 
-def phase_sampling(port: int, server, cfg, greedy: dict, on_card: bool) -> dict:
-    """Sampled and streamed generation on the running server, then the
-    sampler against its plain version and its costs. ``greedy`` maps each
-    prompt length to (prompt, greedy new tokens) from the greedy requests."""
+def phase_sampling(port: int, server, cfg, greedy: dict) -> dict:
+    """Sampled and streamed generation on the running server. ``greedy``
+    maps each prompt length to (prompt, greedy new tokens) from the greedy
+    requests."""
     from modelx_tpu_torch.models.decode import stop_cut
 
     stats: dict = {}
@@ -765,7 +789,6 @@ def phase_sampling(port: int, server, cfg, greedy: dict, on_card: bool) -> dict:
         f"{first_cold * 1e3:.1f} ms cold; stats {pc.stats()}")
     stats.update(prefix_first_line_ms_warm=first_warm * 1e3,
                  prefix_first_line_ms_cold=first_cold * 1e3)
-    stats.update(check_sampler(server, cfg, on_card))
     return stats
 
 
@@ -888,6 +911,361 @@ def check_sampler(server, cfg, on_card: bool) -> dict:
         log(f"sampler: device operations per {name} decode step (Llama-3-8B shape, "
             f"torch.profiler): {per_step}")
     return out
+
+
+# -- phase 5: text in/out and the OpenAI surface -------------------------------------
+
+# Meta-Llama-3-8B's tokenizer.json: its pre-tokenizer regex, its 256
+# special tokens at ids 128000-128255, and Llama-3-8B-Instruct's chat template
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}| ?"
+                  r"[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_SPECIALS = (
+    ["<|begin_of_text|>", "<|end_of_text|>"]
+    + [f"<|reserved_special_token_{i}|>" for i in range(4)]
+    + ["<|start_header_id|>", "<|end_header_id|>", "<|reserved_special_token_4|>", "<|eot_id|>"]
+    + [f"<|reserved_special_token_{i}|>" for i in range(5, 251)]
+)
+LLAMA3_CHAT_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'"
+    "+ message['content'] | trim + '<|eot_id|>' %}{% if loop.index0 == 0 %}"
+    "{% set content = bos_token + content %}{% endif %}{{ content }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
+    "{% endif %}"
+)
+# the words the smoke's merge table spells out, bare and after a space,
+# lower case and capitalized
+ENGLISH = (
+    "the of and to a in is it you that he was for on are with as i his they be at one have "
+    "this from or had by word but what some we can out other were all there when up use your "
+    "how said an each she which do their time if will way about many then them write would "
+    "like so these her long make thing see him two has look more day could go come did number "
+    "no most people my over know water than call first who may down side been now find any "
+    "new work part take get place made live where after back little only round man year came "
+    "show every good me give our under name very through just form sentence great think say "
+    "help low line turn cause much mean before move right old too same tell does set three "
+    "want well also play small end put home read hand large add even land here must big high "
+    "such follow act why ask change went light kind off need house try us again point world "
+    "near build model serve serves text card answer answers question kernel tokens decode "
+    "words comes chat assistant helpful tell me about"
+).split()
+TEXT_PROMPT = ("The model serves text on the card, and each answer comes back as tokens "
+               "that decode to words.")
+CHAT_MESSAGES = [
+    {"role": "system", "content": "You are a helpful assistant."},
+    {"role": "user", "content": "Tell me about the kernel that serves this model."},
+]
+
+
+def _gpt2_byte_chars() -> dict[int, str]:
+    keep = [*range(0x21, 0x7F), *range(0xA1, 0xAD), *range(0xAE, 0x100)]
+    out, extra = {}, 0
+    for b in range(256):
+        out[b] = chr(b) if b in keep else chr(256 + (extra := extra + 1) - 1)
+    return out
+
+
+def llama3_tokenizer_json(vocab_size: int = 128000) -> str:
+    """A tokenizer.json with Llama-3's components (the Split regex and a
+    ByteLevel without regex, BPE with ``ignore_merges``, a bos template, the
+    ByteLevel decoder) and its 256 special tokens at ids ``vocab_size`` on.
+    The ``vocab_size`` regular tokens are the 256 bytes, the words of
+    ``ENGLISH`` built letter by letter (so merges apply to English text),
+    then pairs of earlier tokens, in a fixed order: the same file every time."""
+    b2c = _gpt2_byte_chars()
+    vocab = {b2c[b]: b for b in range(256)}
+    merges: list[list[str]] = []
+
+    def add(a: str, b: str) -> str:
+        if a + b not in vocab and len(vocab) < vocab_size:
+            vocab[a + b] = len(vocab)
+            merges.append([a, b])
+        return a + b
+
+    for w in ENGLISH:
+        for word in (w, w.capitalize(), " " + w, " " + w.capitalize()):
+            chars = [b2c[b] for b in word.encode()]
+            acc = chars[0]
+            for ch in chars[1:]:
+                acc = add(acc, ch)
+    toks, i = list(vocab), 0
+    while len(vocab) < vocab_size:
+        a, b = toks[i % len(toks)], toks[(i * 7919 + 13) % 256]
+        if a + b not in vocab:
+            toks.append(add(a, b))
+        i += 1
+    bos = LLAMA3_SPECIALS[0]
+    seq = {"Sequence": {"id": "A", "type_id": 0}}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": vocab_size + i, "content": c, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for i, c in enumerate(LLAMA3_SPECIALS)],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+             "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}}, seq],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}}, seq,
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [vocab_size], "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+    return json.dumps(spec, ensure_ascii=False)
+
+
+def write_text_files(model_dir: str, vocab_size: int = 128000) -> None:
+    """The smoke's tokenizer.json and a tokenizer_config.json carrying
+    Llama-3-Instruct's chat template, beside the checkpoint."""
+    with open(os.path.join(model_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        f.write(llama3_tokenizer_json(vocab_size))
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"bos_token": LLAMA3_SPECIALS[0], "eos_token": "<|eot_id|>",
+                   "chat_template": LLAMA3_CHAT_TEMPLATE}, f)
+
+
+# the scoring forward through the kernel against the same forward through
+# the plain attention, both in bf16 on the card: per-token logprobs agree
+# within this. The main phase's kernel-path vs plain-path check sees the
+# two paths' logits differ by up to ~4 bf16 ulps (0.117 at a logit maximum
+# of 5.84 on [1, 2048], NVIDIA H100); the bound allows twice that
+SCORE_TOL = 0.25
+TEXT_NEW_TOKENS = 24
+
+
+def _sse(port: int, path: str, body: dict, timeout: float = 600.0):
+    """POST a streamed OpenAI request; (events before [DONE], seconds to
+    the first content event, seconds in all). Fails on a non-200, an error
+    event or a missing [DONE]."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    events, first, done = [], None, False
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.status != 200:
+            raise RuntimeError(f"SSE answered {r.status}")
+        for raw in r:
+            line = raw.decode().strip()
+            if not line:
+                continue
+            if line == "data: [DONE]":
+                done = True
+                continue
+            ev = json.loads(line.removeprefix("data: "))
+            events.append(ev)
+            delta = next(iter(ev.get("choices") or []), {})
+            if first is None and (delta.get("delta", {}).get("content") or delta.get("text")):
+                first = time.monotonic() - t0
+    total = time.monotonic() - t0
+    if not done or any("error" in e for e in events):
+        raise RuntimeError(f"bad SSE stream: {events[-3:]}")
+    return events, first, total
+
+
+def _openai(port: int, path: str, body: dict) -> tuple[dict, float]:
+    t0 = time.monotonic()
+    status, out = _http(port, path, body)
+    secs = time.monotonic() - t0
+    if status != 200:
+        raise RuntimeError(f"{path} answered {status} {str(out)[:300]}")
+    return out, secs
+
+
+def check_chat_prompt(server, messages) -> list[int]:
+    """The chat prompt's ids as the server renders them: through the model's
+    own template, which must have loaded (no silent fall back to the
+    generic one, e.g. for want of jinja2) and must put Llama-3's header
+    tokens into the ids."""
+    spec = server.chat_template()
+    if spec is None:
+        raise RuntimeError("the model's chat template did not load (is jinja2 installed?)")
+    tok = server.tokenizer()
+    ids = tok.encode(spec["compiled"].render(
+        messages=messages, add_generation_prompt=True, bos_token=spec["bos_token"],
+        eos_token=spec["eos_token"]), add_special_tokens=False)
+    header = tok.encode("<|start_header_id|>", add_special_tokens=False)
+    if len(header) != 1 or header[0] not in ids:
+        raise RuntimeError("the chat prompt holds no <|start_header_id|>: not the model's "
+                           "template")
+    return ids
+
+
+def check_sse_deltas(events: list, whole: str, chat: bool) -> str:
+    """The SSE events of one choice: the role chunk first (chat), content
+    deltas that concatenate to ``whole``, one finish event."""
+    if chat and events[0]["choices"][0]["delta"] != {"role": "assistant"}:
+        raise RuntimeError(f"the first chat event is not the role chunk: {events[0]}")
+    key = (lambda c: c["delta"].get("content", "")) if chat else (lambda c: c["text"])
+    text = "".join(key(c) for e in events for c in e["choices"])
+    if text != whole:
+        raise RuntimeError(f"the stream's deltas {text!r} differ from the whole answer {whole!r}")
+    finishes = [c["finish_reason"] for e in events for c in e["choices"] if c["finish_reason"]]
+    if len(finishes) != 1:
+        raise RuntimeError(f"the stream ended with {finishes}")
+    return text
+
+
+def plain_scores(server, rows: list, top_k: int):
+    """``server.score_logprobs_rows`` computed with the plain attention
+    (``attention_reference``) in place of the kernel, on the same device."""
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.models import llama
+    from modelx_tpu_torch.models.decode import pad_seq_len
+
+    out = []
+    for ids, new_ids in rows:
+        full = list(ids) + list(new_ids)
+        toks = torch.zeros((1, pad_seq_len(len(full))), dtype=torch.int64)
+        toks[0, : len(full)] = torch.tensor(full)
+        with torch.inference_mode():
+            toks = toks.to(server.device)
+            logits, _ = llama.forward(server.params, toks, server.cfg,
+                                      attention_impl="reference")
+            lp = torch.log_softmax(logits[0].float(), dim=-1)
+            lo, hi = len(ids) - 1, len(full) - 1
+            chosen = lp[lo:hi].gather(-1, toks[0, lo + 1:hi + 1, None])[:, 0]
+            top_lp = torch.topk(lp[lo:hi], top_k, dim=-1).values
+        out.append((chosen.cpu().numpy(), top_lp.cpu().numpy().astype(np.float32)))
+    return out
+
+
+def phase_text(port: int, server, cfg, per_forward: int) -> dict:
+    """Text in/out and the OpenAI surface on the running server: text on
+    /v1/generate == the token request, a greedy completion == that text, a
+    chat rendered through the model's template, an SSE chat whose deltas
+    are the whole answer, a seeded sampled completion that repeats, a stop
+    string that cuts, and ``logprobs`` scored by a cache-free forward that
+    launches the flash kernel ``per_forward`` times and agrees with the
+    plain attention's scores within ``SCORE_TOL``."""
+    import numpy as np
+
+    from modelx_tpu_torch.ops import attention as attn
+
+    stats: dict = {}
+    n = TEXT_NEW_TOKENS
+    t0 = time.monotonic()
+    tok = server.tokenizer()
+    if tok is None:
+        raise RuntimeError("the model's tokenizer.json did not load")
+    stats["tokenizer_load_ms"] = (time.monotonic() - t0) * 1e3
+    corpus = " ".join([TEXT_PROMPT, CHAT_MESSAGES[1]["content"]] * 200)
+    rates = []
+    for _ in range(2):  # the first pass fills the per-word cache
+        t0 = time.monotonic()
+        n_corpus = len(tok.encode(corpus))
+        rates.append(n_corpus / (time.monotonic() - t0))
+    # words outside the vocab, each new to the cache: the merge loop's cost
+    fresh = [f"{a}{b}" for a, b in zip(ENGLISH, ENGLISH[7:] + ENGLISH[:7])][:500]
+    t0 = time.monotonic()
+    tok.encode(" ".join(fresh), add_special_tokens=False)
+    stats["bpe_us_per_new_word"] = (time.monotonic() - t0) / len(fresh) * 1e6
+    stats["encode_tokens_per_s"] = rates[1]
+    log(f"text: tokenizer.json ({cfg.vocab_size} ids) read by the port in "
+        f"{stats['tokenizer_load_ms']:.1f} ms; encode {rates[0]:.0f} tokens/s first pass, "
+        f"{rates[1]:.0f} warm ({n_corpus} tokens of English); BPE "
+        f"{stats['bpe_us_per_new_word']:.1f} us per word new to the cache "
+        f"({len(fresh)} words outside the vocab)")
+
+    ids = tok.encode(TEXT_PROMPT)
+    status, by_text = _http(port, "/v1/generate", {"text": TEXT_PROMPT, "max_new_tokens": n})
+    _, by_ids = _http(port, "/v1/generate", {"tokens": [ids], "max_new_tokens": n})
+    if status != 200 or by_text["tokens"] != by_ids["tokens"] or by_text["tokens"][0][
+            :len(ids)] != ids:
+        raise RuntimeError(f"text on /v1/generate differs from the token request: "
+                           f"{str(by_text)[:300]}")
+    new = by_text["tokens"][0][len(ids):]
+    if by_text["text"] != tok.decode(new):
+        raise RuntimeError("the text answer is not the decode of its new tokens")
+    body = {"prompt": TEXT_PROMPT, "max_tokens": n, "temperature": 0, "seed": 0,
+            "ignore_eos": True}
+    comp, secs = _openai(port, "/v1/completions", body)
+    if comp["choices"][0]["text"] != by_text["text"]:
+        raise RuntimeError("a greedy /v1/completions differs from text /v1/generate")
+    log(f"text: {len(ids)}-token prompt + {n}: /v1/generate text == tokens, /v1/completions "
+        f"== /v1/generate ({secs:.3f} s); {by_text['text'][:60]!r}...")
+    stats["completion_s"] = secs
+
+    chat_ids = check_chat_prompt(server, CHAT_MESSAGES)
+    chat_body = {"messages": CHAT_MESSAGES, "max_tokens": n, "temperature": 0, "seed": 0,
+                 "ignore_eos": True}
+    chat, secs = _openai(port, "/v1/chat/completions", chat_body)
+    _, plain = _http(port, "/v1/generate", {"tokens": [chat_ids], "max_new_tokens": n})
+    whole = chat["choices"][0]["message"]["content"]
+    if chat["usage"]["prompt_tokens"] != len(chat_ids) or whole != tok.decode(
+            plain["tokens"][0][len(chat_ids):]):
+        raise RuntimeError("the chat completion is not the generate of its templated prompt")
+    events, first_s, total_s = _sse(port, "/v1/chat/completions", chat_body)
+    check_sse_deltas(events, whole, chat=True)
+    log(f"text: /v1/chat/completions ({len(chat_ids)}-token templated prompt, "
+        f"<|start_header_id|> in it) + {n}: {secs:.3f} s; SSE deltas == the whole answer, "
+        f"first content event {first_s * 1e3:.1f} ms, {total_s:.3f} s in all")
+    stats.update(chat_s=secs, sse_first_content_ms=first_s * 1e3, sse_s=total_s)
+
+    sampled = {**body, "temperature": 0.8, "top_k": 40, "seed": 7}
+    one, _ = _openai(port, "/v1/completions", sampled)
+    two, _ = _openai(port, "/v1/completions", sampled)
+    events, _, _ = _sse(port, "/v1/completions", sampled)
+    check_sse_deltas(events, one["choices"][0]["text"], chat=False)
+    if one["choices"] != two["choices"]:
+        raise RuntimeError("a seeded sampled completion did not repeat")
+    full = comp["choices"][0]["text"]
+    at = next((i for i in range(len(full) // 2, len(full)) if not full[i].isspace()), None)
+    if at is None:
+        raise RuntimeError(f"no stop string to cut the greedy text {full!r} with")
+    stop = full[at:at + 3]
+    cut, _ = _openai(port, "/v1/completions", {**body, "stop": [stop]})
+    want = full[:full.find(stop)]
+    if cut["choices"][0]["text"] != want or cut["choices"][0]["finish_reason"] != "stop":
+        raise RuntimeError(f"stop {stop!r} did not cut {full!r} to {want!r}: {cut['choices']}")
+    log(f"text: a seeded sampled completion repeats, streamed too; stop {stop!r} cuts the "
+        f"greedy text to {len(want)} of {len(full)} characters")
+
+    before = attn.flash_attention.launches
+    scored, secs = _openai(port, "/v1/completions", {**body, "logprobs": 5})
+    rose = attn.flash_attention.launches - before
+    # the text path ends here: the launches below compare the kernel with
+    # the plain attention and do not count
+    stats["flash_launches_text"] = attn.flash_attention.launches
+    lp = scored["choices"][0]["logprobs"]
+    if rose != per_forward:
+        raise RuntimeError(f"logprobs: flash_attention launched {rose} times, want "
+                           f"{per_forward} (one scoring forward)")
+    values = np.asarray(lp["token_logprobs"], np.float64)
+    if len(values) != n or not np.isfinite(values).all() or (values > 0).any() or any(
+            len(t) < 1 for t in lp["top_logprobs"]):
+        raise RuntimeError(f"logprobs: bad values {lp['token_logprobs'][:5]}")
+    t0 = time.monotonic()
+    (kernel_chosen, _, kernel_top), = server.score_logprobs_rows([(ids, new)], top_k=5)
+    stats["score_ms"] = (time.monotonic() - t0) * 1e3
+    (plain_chosen, plain_top), = plain_scores(server, [(ids, new)], top_k=5)
+    diff = max(float(np.abs(kernel_chosen - plain_chosen).max()),
+               float(np.abs(kernel_top - plain_top).max()))
+    if not diff <= SCORE_TOL or float(np.abs(kernel_chosen - values).max()) > SCORE_TOL:
+        raise RuntimeError(f"logprobs: the kernel's scores differ from the plain "
+                           f"attention's by {diff} (tolerance {SCORE_TOL})")
+    log(f"text: logprobs 5 over {len(ids)} + {n} tokens: 200 in {secs:.3f} s; flash_attention "
+        f"launches +{rose}; the scoring forward {stats['score_ms']:.1f} ms; kernel vs plain "
+        f"attention scores max |diff| {diff:.4f} (tolerance {SCORE_TOL})")
+    stats.update(logprobs_s=secs, score_max_diff=diff)
+    return stats
 
 
 if __name__ == "__main__":

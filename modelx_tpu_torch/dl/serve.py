@@ -9,19 +9,27 @@ Loads one or more checkpoints onto one device and serves:
     POST /v1/generate           default model      + {"max_new_tokens": N}
                                 -> {"tokens": [[prompt + generated]]}
                                 sampled with temperature/top_k/top_p/seed;
-                                "stream": true -> NDJSON token lines
+                                "stream": true -> NDJSON token lines;
+                                {"text": "..."} -> + "text" (tokenizer.json)
     POST /v1/{model}/forward    named model
     POST /v1/{model}/generate   named model
+    POST /v1/completions        OpenAI surface (dl/openai_api.py), JSON or
+    POST /v1/chat/completions   SSE with "stream": true
 
 Requests are checked as the JAX sidecar checks them (2-D non-empty token
 ids inside the vocab, ``max_new_tokens`` in [1, limit], text and tokens
 never together, sampling controls in range, ``stop_token_ids`` with a
-stream on one row only, a ``resume`` block refused as the JAX sidecar
-without the continuous engine refuses it) and answered with the same JSON
-or NDJSON bytes. What later slices port answers a typed 501 that names the
-slice: text in/out, the OpenAI routes, ``include_timing`` on a stream and
-the admin routes. Dynamic and continuous batching have no flag yet:
-requests take the device one at a time, a stream one chunk at a time.
+stream on one row only, an expired ``X-ModelX-Deadline-Ms`` answered 504
+before any work, a ``resume`` block refused as the JAX sidecar without the
+continuous engine refuses it) and answered with the same JSON, NDJSON or
+SSE bytes. Text goes through the model's own ``tokenizer.json``, read by
+``dl/tokenizer.py`` (the ``tokenizers`` package is not a dependency), and
+chat through the chat template of its ``tokenizer_config.json``. What
+later slices port answers a typed 501 that names the slice:
+``include_timing`` on a stream, the admin routes, and a tokenizer.json
+component the reader does not implement. Dynamic and continuous batching
+have no flag yet: requests take the device one at a time, a stream one
+chunk at a time.
 """
 
 from __future__ import annotations
@@ -42,20 +50,30 @@ import torch
 from modelx_tpu_torch.device import parse_dtype, resolve_device
 from modelx_tpu_torch.dl import families as fam
 from modelx_tpu_torch.dl.serving_errors import (
+    DEADLINE_HEADER,
+    PRIORITY_HEADER,
     RESUME_EMITTED_HEADER,
     RESUME_SEED_HEADER,
+    DeadlineExceededError,
     MalformedResumeError,
+    ModelLoadingError,
     ResumeExhaustedError,
     ServingError,
+    deadline_kwargs,
+    parse_deadline_ms,
+    parse_priority,
     parse_resume,
 )
+from modelx_tpu_torch.dl.tokenizer import LATER_SLICE, Tokenizer, UnsupportedTokenizerError
 from modelx_tpu_torch.models.decode import ChunkedDecoder, PrefixKVCache, pad_seq_len, stop_cut
 
 logger = logging.getLogger("modelx.serve")
 
 # /v1/generate decode budget an unauthenticated client may request; bounds
 # the KV cache a single request allocates
-MAX_NEW_TOKENS_LIMIT = 1024
+DEFAULT_MAX_NEW_TOKENS_LIMIT = 1024
+
+_UNSET = object()  # tokenizer / chat template not probed yet (absent is cached as None)
 
 _MODEL_ROUTE = re.compile(r"^/v1/(?P<model>[A-Za-z0-9._-]+)/(?P<verb>forward|generate)$")
 
@@ -75,6 +93,100 @@ class NotPortedError(Exception):
 
     def payload(self) -> dict:
         return {"error": str(self), "type": "not_ported", "slice": self.slice_name}
+
+
+class ChatTemplateRejected(Exception):
+    """A model chat template called raise_exception(msg) on the request's
+    messages: a client error (the OpenAI layer maps it to 400)."""
+
+
+_EOS_CANDIDATES = (
+    # the end-of-sequence spellings of the supported families' tokenizers:
+    # llama2/mistral, gpt2/gpt-j, llama3, chatml/qwen2, llama3 base, gemma
+    "</s>", "<|endoftext|>", "<|eot_id|>", "<|im_end|>", "<|end_of_text|>",
+    "<eos>", "<|end|>",
+)
+
+
+def _eos_from_config(model_dir: str, tok) -> tuple[int, ...] | None:
+    """Explicit end-of-sequence ids from the checkpoint's sidecar configs:
+    generation_config.json > config.json ``eos_token_id``, then
+    tokenizer_config.json's ``eos_token`` spelling resolved through the
+    vocab. None = no explicit declaration (callers fall back to the
+    well-known-spelling probe). An explicit id beats the probe because
+    vocabs can carry probe spellings as non-eos specials."""
+
+    def ids_from(val) -> tuple[int, ...] | None:
+        if isinstance(val, bool):
+            return None
+        if isinstance(val, int):
+            return (int(val),)
+        if (
+            isinstance(val, list) and val
+            and all(isinstance(v, int) and not isinstance(v, bool) for v in val)
+        ):
+            return tuple(dict.fromkeys(int(v) for v in val))
+        return None
+
+    for fname in ("generation_config.json", "config.json"):
+        path = os.path.join(model_dir, fname)
+        if not os.path.isfile(path):
+            continue
+        try:
+            with open(path, encoding="utf-8") as f:
+                got = ids_from(json.load(f).get("eos_token_id"))
+        except (OSError, ValueError):
+            continue  # a malformed sidecar must not kill the tokenizer load
+        if got:
+            return got
+    path = os.path.join(model_dir, "tokenizer_config.json")
+    if os.path.isfile(path):
+        try:
+            with open(path, encoding="utf-8") as f:
+                eos = json.load(f).get("eos_token")
+        except (OSError, ValueError):
+            eos = None
+        if isinstance(eos, dict):  # added-token object form
+            eos = eos.get("content")
+        if isinstance(eos, str):
+            tid = tok.token_to_id(eos)
+            if tid is not None:
+                return (int(tid),)
+    return None
+
+
+class _Tokenizer:
+    """list[int]-in/str-out facade over a ``dl/tokenizer.Tokenizer``.
+
+    ``eos_override``: explicit eos ids from the model's config sidecars
+    (_eos_from_config); when present the spelling probe is skipped."""
+
+    def __init__(self, tok: Tokenizer, eos_override: tuple[int, ...] | None = None) -> None:
+        self._tok = tok
+        self._eos: tuple[int, ...] | None = eos_override
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
+        # chat-template renders carry their own special tokens (bos etc.),
+        # so that path encodes raw: the HF apply_chat_template convention
+        return self._tok.encode(text, add_special_tokens=add_special_tokens)
+
+    def decode(self, ids) -> str:
+        # keep special tokens: clients watch for e.g. "</s>" in the text
+        return self._tok.decode(list(ids), skip_special_tokens=False)
+
+    def eos_ids(self) -> tuple[int, ...]:
+        """End-of-sequence token ids: the config sidecars' explicit
+        declaration when the model ships one, otherwise the vocab's
+        well-known spellings. Empty = unknown: callers then keep
+        budget-only decode; ``ignore_eos`` is the per-request escape hatch."""
+        if self._eos is None:
+            ids = []
+            for cand in _EOS_CANDIDATES:
+                tid = self._tok.token_to_id(cand)
+                if tid is not None:
+                    ids.append(int(tid))
+            self._eos = tuple(dict.fromkeys(ids))
+        return self._eos
 
 
 class ModelServer:
@@ -111,6 +223,10 @@ class ModelServer:
             if int(prefix_cache_size) > 0 else None)
         self._decoders: dict[int, ChunkedDecoder] = {}  # chunk_size -> decoder
         self._decoders_lock = threading.Lock()
+        # text state, loaded on first use under double-checked locking
+        self._tokenizer_lock = threading.Lock()
+        self._tokenizer: object = _UNSET
+        self._chat_template: object = _UNSET
 
     def load(self) -> dict:
         """Load every *.safetensors under model_dir onto the device; the
@@ -204,6 +320,152 @@ class ModelServer:
                 top_p=top_p, seeds=seeds)
             return out.to(torch.int32).cpu().numpy()
 
+    def score_logprobs_rows(self, rows, top_k: int = 0) -> list:
+        """Per-token log-probabilities for completed generations: a
+        cache-free forward over [prompt + generated] (the flash kernel on
+        the card) and an fp32 log-softmax gather, the values the decode saw
+        when it picked each token. ``rows`` is [(ids, new_ids), ...]; rows
+        sharing a 16-bucketed length score as one batched forward, padded
+        to a power-of-two batch. Returns, per row, (token_logprobs [m],
+        top_ids [m, top_k], top_logprobs [m, top_k]); the top_* pair is None
+        when top_k == 0."""
+        empty = (np.zeros((0,), np.float32),) + (
+            (np.zeros((0, top_k), np.int32), np.zeros((0, top_k), np.float32))
+            if top_k else (None, None))
+        out: list = [empty] * len(rows)
+        groups: dict[int, list[int]] = {}
+        for i, (ids, new_ids) in enumerate(rows):
+            if new_ids:
+                groups.setdefault(pad_seq_len(len(ids) + len(new_ids)), []).append(i)
+        for lb, idxs in groups.items():
+            bb = 1 << (len(idxs) - 1).bit_length()  # pow2 batch bucket
+            padded = np.zeros((bb, lb), np.int64)
+            for r, i in enumerate(idxs):
+                full = list(rows[i][0]) + list(rows[i][1])
+                padded[r, : len(full)] = full
+            chosen, top_id, top_lp = self._score(padded, int(top_k))
+            for r, i in enumerate(idxs):
+                ids, new_ids = rows[i]
+                lo, hi = len(ids) - 1, len(ids) + len(new_ids) - 1
+                out[i] = (chosen[r, lo:hi],) + (
+                    (top_id[r, lo:hi], top_lp[r, lo:hi]) if top_k else (None, None))
+        return out
+
+    def _score(self, tokens: np.ndarray, top_k: int):
+        """(chosen [B, S], top ids, top logprobs) of one scoring forward;
+        position j scores token j + 1."""
+        with self._device_lock, torch.inference_mode():
+            toks = self._tokens(tokens)
+            logits = self.family.forward(self.params, toks, self.cfg)
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            nxt = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], dim=1)
+            chosen = torch.gather(lp, -1, nxt[..., None])[..., 0].cpu().numpy()
+            if not top_k:
+                return chosen, None, None
+            top_lp, top_id = torch.topk(lp, top_k, dim=-1)
+            return chosen, top_id.to(torch.int32).cpu().numpy(), top_lp.cpu().numpy()
+
+    def score_logprobs(self, ids: list[int], new_ids: list[int], top_k: int = 0):
+        """Single-row convenience over score_logprobs_rows."""
+        return self.score_logprobs_rows([(ids, new_ids)], top_k=top_k)[0]
+
+    def tokenizer(self) -> _Tokenizer | None:
+        """The model's tokenizer (``tokenizer.json`` beside the weights), or
+        None when there is none. Loaded lazily. A file that fails to load
+        raises RuntimeError and is retried next time; a component the
+        reader does not implement raises ``NotPortedError`` (501)."""
+        if self._tokenizer is _UNSET:
+            with self._tokenizer_lock:
+                if self._tokenizer is _UNSET:
+                    path = os.path.join(self.model_dir, "tokenizer.json")
+                    if not os.path.isfile(path):
+                        self._tokenizer = None  # genuinely absent: cache it
+                    else:
+                        try:
+                            raw = Tokenizer.from_file(path)
+                        except UnsupportedTokenizerError as e:
+                            self._tokenizer = e  # the file will not change: cache it
+                        except Exception as e:
+                            # not cached: a transient read error must surface
+                            # as a load failure, not as "no tokenizer.json"
+                            raise RuntimeError(
+                                f"tokenizer.json exists but failed to load: {e}") from e
+                        else:
+                            self._tokenizer = _Tokenizer(
+                                raw, eos_override=_eos_from_config(self.model_dir, raw))
+        if isinstance(self._tokenizer, UnsupportedTokenizerError):
+            raise NotPortedError(f"tokenizer.json component {self._tokenizer.component}",
+                                 LATER_SLICE)
+        return self._tokenizer
+
+    def chat_template(self) -> dict | None:
+        """The model's own chat template from ``tokenizer_config.json``, or
+        None: ``{"template", "compiled", "bos_token", "eos_token"}``. The
+        string form and the named-list form (a "default" entry only);
+        special tokens as strings or AddedToken dicts. Compiled once, in a
+        sandboxed jinja environment with HF's conveniences (loop controls,
+        ``strftime_now``, ``raise_exception``). Any problem, a missing
+        jinja2 included, degrades to None (the generic role template) with
+        one warning."""
+        if self._chat_template is _UNSET:
+            with self._tokenizer_lock:
+                if self._chat_template is _UNSET:
+                    self._chat_template = self._load_chat_template()
+        return self._chat_template
+
+    def _load_chat_template(self) -> dict | None:
+        path = os.path.join(self.model_dir, "tokenizer_config.json")
+        if not os.path.isfile(path):
+            return None
+        try:
+            with open(path, encoding="utf-8") as f:
+                cfg = json.load(f)
+            tpl = cfg.get("chat_template")
+            if isinstance(tpl, list):  # [{name, template}, ...]
+                by_name = {t.get("name"): t.get("template") for t in tpl if isinstance(t, dict)}
+                tpl = by_name.get("default")
+                if tpl is None and by_name:
+                    logger.warning(
+                        "tokenizer_config.json has named chat templates %s but no "
+                        "'default'; using the generic role template",
+                        sorted(k for k in by_name if k))
+                    return None
+            if not (isinstance(tpl, str) and tpl.strip()):
+                return None
+            try:
+                from jinja2.sandbox import ImmutableSandboxedEnvironment
+            except ImportError:
+                logger.warning("model ships a chat_template but jinja2 is not installed; "
+                               "using the generic role template")
+                return None
+            env = ImmutableSandboxedEnvironment(
+                trim_blocks=True, lstrip_blocks=True,
+                extensions=["jinja2.ext.loopcontrols"])
+            import datetime as _dt
+
+            env.globals["strftime_now"] = lambda fmt: _dt.datetime.now().strftime(fmt)
+
+            def _raise(msg):
+                raise ChatTemplateRejected(str(msg))
+
+            env.globals["raise_exception"] = _raise
+
+            def token_str(v) -> str:
+                if isinstance(v, dict):  # AddedToken form
+                    return str(v.get("content", ""))
+                return v if isinstance(v, str) else ""
+
+            return {
+                "template": tpl,
+                "compiled": env.from_string(tpl),
+                "bos_token": token_str(cfg.get("bos_token")),
+                "eos_token": token_str(cfg.get("eos_token")),
+            }
+        except Exception as e:
+            logger.warning("tokenizer_config.json unusable for chat templating (%s); "
+                           "falling back to the generic role template", e)
+            return None
+
     def _decoder(self, chunk_size: int) -> ChunkedDecoder:
         dec = self._decoders.get(chunk_size)
         if dec is None:
@@ -271,6 +533,9 @@ def _row_controls(b: int, temperature: float, top_k: int, top_p: float, seed: in
 class ServerSet:
     """Named ModelServers behind one HTTP front."""
 
+    # the decode budget a request may ask for (native and OpenAI surfaces)
+    max_new_tokens_limit = DEFAULT_MAX_NEW_TOKENS_LIMIT
+
     def __init__(self, servers: dict[str, ModelServer], default: str | None = None,
                  stream_chunk_size: int = 8) -> None:
         if not servers:
@@ -313,34 +578,30 @@ class ServerSet:
             return self.servers[m.group("model")], m.group("verb")
         return None, None
 
-    def models_payload(self) -> dict:
-        models = {}
-        for n, s in self.servers.items():
-            d = {"ready": s.ready, **s.stats}
-            if s.load_error:
-                d["error"] = s.load_error
-            if s._prefix_cache is not None:
-                d["prefix_cache"] = s._prefix_cache.stats()
-            models[n] = d
-        return {
-            "default": self.default,
-            "models": models,
-            "object": "list",
-            "data": [{"id": n, "object": "model", "owned_by": "modelx"}
-                     for n in self.servers],
-        }
-
+    def engine_for(self, server: ModelServer, n_rows: int, temperature: float):
+        """The generate-routing policy. The JAX sidecar picks the continuous
+        engine, speculation or the window batcher here; those are later
+        slices, so every request runs on the server itself."""
+        return server
 
     def stream_source(self, server: ModelServer, tokens, n: int, samp: dict,
-                      stop_token_ids=None):
-        """The token-chunk iterator behind a streamed /v1/generate, chunked
-        by ``stream_chunk_size``."""
+                      stop_token_ids=None, timeout_s: float | None = None,
+                      priority: str = "interactive", resume_step: int = 0):
+        """The token-chunk iterator behind a stream, chunked by
+        ``stream_chunk_size``. ``timeout_s``/``priority`` (a propagated
+        deadline remainder and priority class) reach only the continuous
+        engine in the JAX sidecar; the plain path has no deadline
+        machinery, so the handler's up-front expiry check is its whole
+        contract. ``resume_step`` > 0 needs the continuous engine too."""
+        if resume_step:
+            raise MalformedResumeError("resume requires the continuous engine (single-row stream)")
         return server.generate_stream(tokens, max_new_tokens=n,
                                       chunk_size=self.stream_chunk_size,
                                       stop_token_ids=stop_token_ids, **samp)
 
 
-def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: ModelServer):
+def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: ModelServer,
+                    limit: int):
     """Check a generate request as the JAX sidecar does. Returns
     ``((n, samp, stop_ids), None)`` or ``(None, (status, body))``. A resume
     block raises its typed ``ServingError``: continuing a stream needs the
@@ -350,8 +611,8 @@ def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: 
         n = int(req.get("max_new_tokens", 16))
     except (TypeError, ValueError):
         return None, (400, {"error": "max_new_tokens must be an integer"})
-    if not (1 <= n <= MAX_NEW_TOKENS_LIMIT):
-        return None, (400, {"error": f"max_new_tokens must be in [1, {MAX_NEW_TOKENS_LIMIT}]"})
+    if not (1 <= n <= limit):
+        return None, (400, {"error": f"max_new_tokens must be in [1, {limit}]"})
     if tokens.shape[1] + n > server.max_seq_len:
         return None, (400, {"error": f"prompt ({tokens.shape[1]}) + max_new_tokens ({n}) "
                                      f"exceeds --max-seq-len {server.max_seq_len}"})
@@ -409,6 +670,8 @@ def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: 
 def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingHTTPServer:
     """Start the HTTP front on a daemon thread; returns the server (call
     ``shutdown()`` to stop it)."""
+    from modelx_tpu_torch.dl import openai_api as oai
+
     sset = servers if isinstance(servers, ServerSet) else ServerSet({servers.name: servers})
 
     class Handler(BaseHTTPRequestHandler):
@@ -456,11 +719,13 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 except OSError:
                     pass
 
-        def _stream_generate(self, server, tokens, n, samp, stop_ids) -> None:
+        def _stream_generate(self, server, tokens, n, samp, stop_ids,
+                             timeout_s=None, priority="interactive") -> None:
             """NDJSON token stream, then {"done": true}; concatenated it
             equals the non-streamed result. A single row streams ONE token
             per line ({"tokens": [[t]]}), several rows one line per chunk."""
-            gen = sset.stream_source(server, tokens, n, samp, stop_token_ids=stop_ids)
+            gen = sset.stream_source(server, tokens, n, samp, stop_token_ids=stop_ids,
+                                     **deadline_kwargs(timeout_s, priority))
             try:
                 # pull the first chunk BEFORE committing a 200: a bad
                 # request must still be a 4xx
@@ -486,6 +751,73 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             finally:
                 gen.close()  # a client that went away frees the stream now
 
+        def _openai(self, req: dict, chat: bool) -> None:
+            """/v1/completions + /v1/chat/completions (openai_api.py). SSE
+            for stream=true; errors use the OpenAI {"error": {...}} shape."""
+            # an expired budget answers 504 in the OpenAI shape before any work
+            timeout_s = parse_deadline_ms(self.headers.get(DEADLINE_HEADER))
+            priority = parse_priority(self.headers.get(PRIORITY_HEADER))
+            if timeout_s is not None and timeout_s <= 0:
+                e = DeadlineExceededError("admitting", timeout_s)
+                api = oai.api_error_for(e)
+                return self._json(api.status, api.payload, headers=e.headers())
+            try:
+                # the resume block: headers win over the native field, each
+                # both-or-neither (the same wire block as the native surface)
+                resume = None
+                hdr_e = self.headers.get(RESUME_EMITTED_HEADER)
+                hdr_s = self.headers.get(RESUME_SEED_HEADER)
+                if hdr_e is not None or hdr_s is not None:
+                    resume = parse_resume(hdr_e, hdr_s)
+                else:
+                    rz = req.get("resume")
+                    if rz is not None:
+                        if not isinstance(rz, dict):
+                            raise MalformedResumeError(
+                                "resume must be an object with emitted + seed")
+                        resume = parse_resume(rz.get("emitted"), rz.get("seed"))
+                if resume is not None and not bool(req.get("stream", False)):
+                    raise MalformedResumeError("resume requires a streaming request")
+                if bool(req.get("stream", False)):
+                    events = oai.stream_completion(sset, req, chat, timeout_s=timeout_s,
+                                                   priority=priority, resume=resume)
+                    try:
+                        try:
+                            # validation and decode errors must surface as a
+                            # real status: pull the first event before the 200
+                            first = next(events, None)
+                        except ValueError as e:
+                            raise oai.APIError(400, str(e)) from e
+
+                        def payloads():
+                            if first is not None:
+                                yield oai.sse_encode(first)
+                                for ev in events:
+                                    yield oai.sse_encode(ev)
+                            yield oai.SSE_DONE
+
+                        return self._stream_chunks(
+                            "text/event-stream", payloads(),
+                            # typed serving errors keep their one payload
+                            # after the 200 is on the wire
+                            lambda e: oai.sse_encode(
+                                oai.api_error_for(e).payload
+                                if isinstance(e, ServingError)
+                                else {"error": {"message": str(e), "type": "server_error"}}))
+                    finally:
+                        events.close()  # a client that went away frees the stream now
+                return self._json(200, oai.run_completion(sset, req, chat))
+            except oai.APIError as e:
+                return self._json(e.status, e.payload, headers=e.headers)
+            except ValueError as e:
+                return self._json(400, oai.APIError(400, str(e)).payload)
+            except ServingError as e:
+                api = oai.api_error_for(e)
+                return self._json(api.status, api.payload, headers=e.headers())
+            except Exception as e:
+                logger.exception("openai api error")
+                return self._json(500, oai.APIError(500, str(e), "server_error").payload)
+
         def do_GET(self):
             if self.path == "/healthz":
                 failed = {n: s.load_error for n, s in sset.servers.items() if s.load_error}
@@ -498,7 +830,9 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 else:
                     self._json(503, {"status": "loading"}, headers={"Retry-After": "2"})
             elif self.path == "/v1/models":
-                self._json(200, sset.models_payload())
+                # one body, two contracts: the native {default, models} keys
+                # plus OpenAI's {object: "list", data: [...]}
+                self._json(200, oai.models_payload(sset))
             elif self.path.startswith("/admin/"):
                 e = NotPortedError("the admin surface", "registry deploy")
                 self._json(e.http_status, e.payload())
@@ -524,20 +858,45 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 e = NotPortedError("the admin surface", "registry deploy")
                 return self._json(e.http_status, e.payload())
             if path in ("/v1/completions", "/v1/chat/completions"):
-                e = NotPortedError("the OpenAI surface", "text and OpenAI")
-                return self._json(e.http_status, e.payload())
+                return self._openai(req, chat=path.endswith("chat/completions"))
             server, verb = sset.resolve(path)
             if server is None:
                 return self._json(404, {"error": "not found"})
+            # an already-expired propagated budget answers 504 before any
+            # tokenization or engine work
+            timeout_s = parse_deadline_ms(self.headers.get(DEADLINE_HEADER))
+            priority = parse_priority(self.headers.get(PRIORITY_HEADER))
+            if timeout_s is not None and timeout_s <= 0:
+                e = DeadlineExceededError("admitting", timeout_s)
+                return self._json(e.http_status, {"error": str(e)}, headers=e.headers())
             if "text" in req and "tokens" in req:
                 return self._json(400, {"error": "send either text or tokens, not both"})
             if "text" in req and verb != "generate":
                 return self._json(400, {"error": "text is only supported on generate"})
-            if "text" in req:
-                e = NotPortedError("text in/out (tokenizer.json)", "text and OpenAI")
-                return self._json(e.http_status, e.payload())
             try:
-                tokens = np.asarray(req["tokens"], np.int32)
+                tok = None
+                if "text" in req:
+                    # text in, text out: needs the model's tokenizer.json
+                    if not isinstance(req["text"], str) or not req["text"]:
+                        raise ValueError("text must be a non-empty string")
+                    if bool(req.get("stream", False)):
+                        return self._json(400, {
+                            "error": "text with stream is not supported; send token ids"})
+                    try:
+                        tok = server.tokenizer()
+                    except RuntimeError as e:  # the file exists, its load failed
+                        return self._json(503, {"error": str(e)})
+                    except NotPortedError as e:
+                        return self._json(e.http_status, e.payload())
+                    if tok is None:
+                        return self._json(400, {
+                            "error": "model has no tokenizer.json; send token ids"})
+                    ids = tok.encode(req["text"])
+                    if not ids:
+                        raise ValueError("text tokenized to zero tokens")
+                    tokens = np.asarray([ids], np.int32)
+                else:
+                    tokens = np.asarray(req["tokens"], np.int32)
                 if tokens.ndim != 2 or tokens.shape[0] < 1 or tokens.shape[1] < 1:
                     raise ValueError(
                         f"tokens must be non-empty 2-D [batch, seq], got shape {tokens.shape}"
@@ -548,8 +907,8 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 return self._json(503, {"error": f"model {server.name} failed to load: "
                                                  f"{server.load_error}"})
             if not server.ready:
-                return self._json(503, {"error": f"model {server.name} is loading"},
-                                  headers={"Retry-After": "2"})
+                e = ModelLoadingError(server.name)
+                return self._json(e.http_status, {"error": str(e)}, headers=e.headers())
             vocab = getattr(server.cfg, "vocab_size", 0) or 0
             if vocab and (int(tokens.min()) < 0 or int(tokens.max()) >= vocab):
                 # the embedding gather would raise on the card (JAX's clamps)
@@ -563,7 +922,8 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                                      f"--max-seq-len {server.max_seq_len}"})
                     out = server.forward_argmax(tokens)
                     return self._json(200, {"logits_argmax": out.tolist()})
-                checked, err = _check_generate(req, self.headers, tokens, vocab, server)
+                checked, err = _check_generate(req, self.headers, tokens, vocab, server,
+                                               sset.max_new_tokens_limit)
                 if err is not None:
                     return self._json(*err)
                 n, samp, stop_ids = checked
@@ -574,8 +934,10 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                             "error": "stop_token_ids with stream is single-row only"})
                     if bool(req.get("include_timing", False)):
                         raise NotPortedError("include_timing", "observability")
-                    return self._stream_generate(server, tokens, n, samp, stop_ids)
-                rows = server.generate(tokens, max_new_tokens=n, **samp).tolist()
+                    return self._stream_generate(server, tokens, n, samp, stop_ids,
+                                                 timeout_s=timeout_s, priority=priority)
+                engine = sset.engine_for(server, tokens.shape[0], samp["temperature"])
+                rows = engine.generate(tokens, max_new_tokens=n, **samp).tolist()
                 if stop_ids:
                     # trim each row's GENERATED part at its first stop (inclusive)
                     stops, plen = set(stop_ids), tokens.shape[1]
@@ -585,7 +947,10 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                         cut = stop_cut(gen_part, stops)
                         trimmed.append(row[:plen] + (gen_part if cut is None else gen_part[:cut]))
                     rows = trimmed
-                self._json(200, {"tokens": rows})
+                resp = {"tokens": rows}
+                if tok is not None:  # a text request: decode the new tokens
+                    resp["text"] = tok.decode(rows[0][tokens.shape[1]:])
+                self._json(200, resp)
             except ServingError as e:  # the resume refusals (400, 422)
                 self._json(e.http_status, {"error": str(e)}, headers=e.headers())
             except NotPortedError as e:

@@ -1,5 +1,5 @@
-"""The port stands alone: no jax, ml_dtypes or modelx_tpu imports, and an
-explicit device with no silent CPU fallback."""
+"""The port stands alone: no jax, ml_dtypes, tokenizers or modelx_tpu
+imports, and an explicit device with no silent CPU fallback."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ import torch
 from modelx_tpu_torch.device import parse_dtype, resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "modelx_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "tokenizers", "modelx_tpu")
 
 
 def _port_files():
@@ -42,6 +42,8 @@ def _imported_modules(path):
 def test_port_imports_no_jax_or_reference_package():
     files = _port_files()
     assert len(files) > 10
+    for new in ("tokenizer.py", "openai_api.py"):
+        assert os.path.join(REPO, "modelx_tpu_torch", "dl", new) in files
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -54,6 +56,7 @@ def test_serving_entry_leaves_jax_unimported():
     code = (
         "import sys; import modelx_tpu_torch.dl.serve_main, modelx_tpu_torch.dl.loader, "
         "modelx_tpu_torch.dl.weights, modelx_tpu_torch.models.llama, "
+        "modelx_tpu_torch.dl.openai_api, modelx_tpu_torch.dl.tokenizer, "
         "modelx_tpu_torch.models.decode, modelx_tpu_torch.kernels.build; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"

@@ -1,9 +1,12 @@
 """chip_smoke.py off the card: it refuses to report without CUDA or without
-the port beside it, its serving phase rehearses end to end on the CPU at a
-tiny size (the wrapper's plain version, no kernel launches), and its build
-phase's SASS census reads cuobjdump's listing per instantiation."""
+the port beside it, its serving and text phases rehearse end to end on the
+CPU at a tiny size (the wrapper's plain version, no kernel launches), its
+build phase's SASS census reads cuobjdump's listing per instantiation, its
+tokenizer.json has Llama-3's layout, and its text checks fail loudly when
+what they check is false."""
 
 import dataclasses
+import json
 import os
 import shutil
 import subprocess
@@ -11,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+import tokenizers
 import torch
 
 import chip_smoke
@@ -62,6 +66,10 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert {"sampled_tokens_per_s_5", "stream_first_line_ms_12",
             "prefix_first_line_ms_warm"} <= set(stats)
     assert stats["overflow_sort_steps"] > 0
+    # and the text phase, on its own count
+    assert stats["flash_launches_text"] == 0 and stats["score_max_diff"] == 0.0
+    assert {"tokenizer_load_ms", "encode_tokens_per_s", "chat_s", "sse_first_content_ms",
+            "score_ms"} <= set(stats)
 
 
 def test_attention_flops_is_what_the_bound_divides():
@@ -156,3 +164,97 @@ def test_top1_check_allows_only_a_tied_maximum(tiny_server, monkeypatch):
     assert "up to step 1" in chip_smoke._check_top1(tiny_server, prompt, greedy, drawn)
     with pytest.raises(RuntimeError, match="replay differs"):
         chip_smoke._check_top1(tiny_server, prompt, [greedy[0] + 1] + greedy[1:], drawn)
+
+
+def test_smoke_tokenizer_writer_has_llama3_layout(tmp_path):
+    """The written tokenizer.json loads in tokenizers with Llama-3's
+    components, its special tokens at ids vocab..vocab+255, and merges that
+    make the smoke's English words single tokens; tokenizer_config.json
+    carries the chat template."""
+    chip_smoke.write_text_files(str(tmp_path), vocab_size=3000)
+    ref = tokenizers.Tokenizer.from_file(str(tmp_path / "tokenizer.json"))
+    spec = json.loads((tmp_path / "tokenizer.json").read_text())
+    split, byte_level = spec["pre_tokenizer"]["pretokenizers"]
+    assert split == {"type": "Split", "pattern": {"Regex": chip_smoke.LLAMA3_PATTERN},
+                     "behavior": "Isolated", "invert": False}
+    assert byte_level["type"] == "ByteLevel" and byte_level["use_regex"] is False
+    assert spec["model"]["ignore_merges"] is True and spec["decoder"]["type"] == "ByteLevel"
+    assert ref.get_vocab_size(with_added_tokens=False) == 3000
+    specials = {t["content"]: t["id"] for t in spec["added_tokens"]}
+    assert sorted(specials.values()) == list(range(3000, 3256))
+    assert all(t["special"] and not t["normalized"] for t in spec["added_tokens"])
+    for name, offset in (("<|begin_of_text|>", 0), ("<|end_of_text|>", 1),
+                         ("<|start_header_id|>", 6), ("<|end_header_id|>", 7),
+                         ("<|eot_id|>", 9)):
+        assert specials[name] == 3000 + offset
+    ids = ref.encode(chip_smoke.TEXT_PROMPT).ids
+    assert ids[0] == 3000
+    assert len(ids) < 2 * len(chip_smoke.TEXT_PROMPT.split())  # merges apply
+    assert ref.decode(ids[1:]) == chip_smoke.TEXT_PROMPT
+    cfg = json.loads((tmp_path / "tokenizer_config.json").read_text())
+    assert cfg["chat_template"] == chip_smoke.LLAMA3_CHAT_TEMPLATE
+    # the full file: 128,000 regular tokens, deterministic
+    full = chip_smoke.llama3_tokenizer_json()
+    assert len(json.loads(full)["model"]["vocab"]) == 128000
+    assert full == chip_smoke.llama3_tokenizer_json()
+
+
+@pytest.fixture(scope="module")
+def text_pod(tmp_path_factory):
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu.registry.server import free_port
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=1024), rope_theta=500000.0)
+    d = tmp_path_factory.mktemp("tiny-text")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    st.write_safetensors(str(d / "model.safetensors"), params)
+    chip_smoke.write_text_files(str(d), cfg.vocab_size - 256)
+    port = free_port()
+    sset, httpd = serve_main.start(["--model", f"m={d}", "--device", "cpu", "--dtype",
+                                    "float32", "--listen", f"127.0.0.1:{port}"])
+    yield port, sset.servers["m"], cfg
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def test_text_phase_passes_on_cpu(text_pod):
+    port, server, cfg = text_pod
+    stats = chip_smoke.phase_text(port, server, cfg, per_forward=0)
+    assert stats["score_max_diff"] == 0.0 and stats["chat_s"] > 0
+
+
+def test_text_phase_fails_when_the_kernel_is_not_launched(text_pod):
+    port, server, cfg = text_pod
+    with pytest.raises(RuntimeError, match="launched 0 times, want 2"):
+        chip_smoke.phase_text(port, server, cfg, per_forward=2)
+
+
+def test_chat_check_fails_on_a_fallback_or_a_foreign_template(text_pod, monkeypatch):
+    _, server, _ = text_pod
+    assert chip_smoke.check_chat_prompt(server, chip_smoke.CHAT_MESSAGES)
+    spec = server.chat_template()
+    monkeypatch.setattr(server, "chat_template", lambda: None)  # e.g. no jinja2
+    with pytest.raises(RuntimeError, match="did not load"):
+        chip_smoke.check_chat_prompt(server, chip_smoke.CHAT_MESSAGES)
+    import jinja2
+
+    plain = dict(spec, compiled=jinja2.Template("{% for m in messages %}{{ m.content }}"
+                                                "{% endfor %}"))
+    monkeypatch.setattr(server, "chat_template", lambda: plain)
+    with pytest.raises(RuntimeError, match="no <\\|start_header_id\\|>"):
+        chip_smoke.check_chat_prompt(server, chip_smoke.CHAT_MESSAGES)
+
+
+def test_sse_check_fails_on_a_lost_delta():
+    role = {"choices": [{"index": 0, "delta": {"role": "assistant"}, "finish_reason": None}]}
+    deltas = [{"choices": [{"index": 0, "delta": {"content": c}, "finish_reason": None}]}
+              for c in ("a", "b", "c")]
+    end = {"choices": [{"index": 0, "delta": {}, "finish_reason": "length"}]}
+    assert chip_smoke.check_sse_deltas([role, *deltas, end], "abc", chat=True) == "abc"
+    with pytest.raises(RuntimeError, match="differ from the whole answer"):
+        chip_smoke.check_sse_deltas([role, deltas[0], deltas[2], end], "abc", chat=True)
+    with pytest.raises(RuntimeError, match="role chunk"):
+        chip_smoke.check_sse_deltas([*deltas, end], "abc", chat=True)
+    with pytest.raises(RuntimeError, match="ended with"):
+        chip_smoke.check_sse_deltas([role, *deltas], "abc", chat=True)

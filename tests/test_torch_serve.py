@@ -5,8 +5,10 @@ package's; config inference must agree; and a JAX ModelServer and the
 port's server on the same tiny fp32 checkpoint must return identical bodies
 for /v1/forward and /v1/generate: JSON for greedy and seeded sampled
 requests, NDJSON for streams, the same status and error for refused ones
-(fp32, token-exact: the port draws jax.random's bits, so a seeded row
-samples the same tokens).
+(text on a model without tokenizer.json among them), and the same 504
+status, headers and body for an expired X-ModelX-Deadline-Ms (fp32,
+token-exact: the port draws jax.random's bits, so a seeded row samples the
+same tokens). The text surface itself is tests/test_torch_openai.py's.
 """
 
 import dataclasses
@@ -209,9 +211,19 @@ def pods(tmp_path_factory):
     jserver = JaxModelServer(d, mesh_spec="dp=1", dtype="float32")
     jserver.load()
     jhttpd = jax_serve(jserver, listen=f"127.0.0.1:{free_port()}")
+    wp = str(tmp_path_factory.mktemp("tiny-wordpiece"))
+    os.symlink(os.path.join(d, "model.safetensors"), os.path.join(wp, "model.safetensors"))
+    with open(os.path.join(wp, "tokenizer.json"), "w") as f:
+        json.dump({"version": "1.0", "truncation": None, "padding": None, "added_tokens": [],
+                   "normalizer": None, "pre_tokenizer": {"type": "Whitespace"},
+                   "post_processor": None, "decoder": None,
+                   "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                             "continuing_subword_prefix": "##",
+                             "max_input_chars_per_word": 100,
+                             "vocab": {"[UNK]": 0, "hello": 1}}}, f)
     sset, thttpd = serve_main.start([
-        "--model", f"default={d}", "--device", "cpu", "--dtype", "float32",
-        "--listen", f"127.0.0.1:{free_port()}"])
+        "--model", f"default={d}", "--model", f"wordpiece={wp}", "--device", "cpu",
+        "--dtype", "float32", "--listen", f"127.0.0.1:{free_port()}"])
     yield jhttpd.server_address[1], thttpd.server_address[1], sset
     for h in (jhttpd, thttpd):
         h.shutdown()
@@ -273,6 +285,12 @@ PARITY_REQUESTS = [
                       "resume": {"emitted": [5, 6], "seed": 7}}),
     ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "resume": {"emitted": [5]}}),
     ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "resume": [5]}),
+    # text on a model without tokenizer.json, and malformed text
+    ("/v1/generate", {"text": "hello", "max_new_tokens": 3}),
+    ("/v1/generate", {"text": ""}),
+    ("/v1/generate", {"text": 5}),
+    ("/v1/generate", {"text": "hello", "stream": True}),
+    ("/v1/completions", {"prompt": "hello", "seed": 1}),
 ]
 
 
@@ -286,17 +304,26 @@ def test_http_json_identical_to_jax_sidecar(pods, path, body):
     assert tbody == jbody
 
 
-@pytest.mark.parametrize("path,body", [
-    ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "include_timing": True}),
-    ("/v1/completions", {"prompt": "hello"}),
-    ("/v1/generate", {"text": "hello"}),
+@pytest.mark.parametrize("path,body,slice_name", [
+    ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "include_timing": True},
+     "observability"),
+    # a tokenizer.json component the reader does not implement (WordPiece,
+    # the bert family's) refuses text on both surfaces
+    ("/v1/completions", {"model": "wordpiece", "prompt": "hello", "seed": 0}, "other families"),
+    ("/v1/wordpiece/generate", {"text": "hello"}, "other families"),
 ], ids=["include_timing", "openai", "text"])
-def test_later_slice_requests_answer_typed_501(pods, path, body):
+def test_later_slice_requests_answer_typed_501(pods, path, body, slice_name):
     _, tport, _ = pods
     status, raw = _call(tport, path, body)
     assert status == 501
     payload = json.loads(raw)
-    assert payload["type"] == "not_ported" and payload["slice"] in payload["error"]
+    if isinstance(payload["error"], dict):  # the OpenAI error shape
+        payload = {"error": payload["error"]["message"], "type": payload["error"]["type"],
+                   "slice": slice_name}
+    assert payload["type"] == "not_ported" and payload["slice"] == slice_name
+    assert slice_name in payload["error"]
+    if body.get("include_timing") is None:
+        assert "model WordPiece" in payload["error"]
 
 
 @pytest.mark.parametrize("headers", [
@@ -310,6 +337,52 @@ def test_resume_headers_answer_as_jax(pods, headers):
             "resume": {"emitted": [1], "seed": 2}}  # the headers win
     assert _call(tport, "/v1/generate", body, headers) == _call(jport, "/v1/generate", body,
                                                                 headers)
+
+
+def _call_full(port, path, body, headers):
+    """(status, headers, body); the headers without Date and the JAX
+    sidecar's request-id, attempt and timing echo (the observability
+    slice, not ported)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **headers})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, hdrs, raw = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        status, hdrs, raw = e.code, e.headers, e.read()
+    keep = {k: v for k, v in hdrs.items()
+            if k != "Date" and not k.startswith(("X-ModelX-Request-Id", "X-ModelX-Attempt",
+                                                  "X-ModelX-Timing-"))}
+    return status, keep, raw
+
+
+@pytest.mark.parametrize("path,body", [
+    ("/v1/forward", {"tokens": _TOKS}),
+    ("/v1/generate", {"tokens": _TOKS, "max_new_tokens": 4}),
+    ("/v1/generate", {"tokens": _TOKS[:1], "max_new_tokens": 4, "stream": True}),
+    ("/v1/generate", {"text": "hello"}),
+    ("/v1/completions", {"prompt": "hello"}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}],
+                              "stream": True}),
+], ids=["forward", "generate", "stream", "text", "completions", "chat-stream"])
+@pytest.mark.parametrize("deadline", ["0", "-30"])
+def test_expired_deadline_answers_the_jax_504(pods, path, body, deadline):
+    jport, tport, _ = pods
+    headers = {"X-ModelX-Deadline-Ms": deadline, "X-ModelX-Priority": "batch"}
+    want = _call_full(jport, path, body, headers)
+    assert want[0] == 504
+    assert _call_full(tport, path, body, headers) == want
+
+
+@pytest.mark.parametrize("deadline", ["60000", "soon", "inf"])
+def test_live_or_malformed_deadline_serves_as_jax(pods, deadline):
+    jport, tport, _ = pods
+    body = {"tokens": _TOKS, "max_new_tokens": 3}
+    headers = {"X-ModelX-Deadline-Ms": deadline}
+    want = _call_full(jport, "/v1/generate", body, headers)
+    assert want[0] == 200
+    assert _call_full(tport, "/v1/generate", body, headers) == want
 
 
 def _ndjson_tokens(raw: bytes) -> list[int]:
