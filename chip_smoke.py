@@ -39,6 +39,22 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    cache-free forward: the kernel's launch count rises by ``num_layers``
    and its scores agree with the plain attention's within ``SCORE_TOL``.
    The kernel counts start at 0 again for this path.
+6. options: the serving options on the same checkpoint, the kernel counts
+   from 0 again. A ``dynamic_batch`` front over the loaded server takes 8
+   forward, 4 greedy and 2 seeded sampled requests sent at once: they
+   coalesce (fewer device calls than requests), forward groups launch the
+   kernel ``num_layers`` times each, and every answer equals the same
+   request sent alone to the server without the batcher, or differs only
+   at tokens within ``OPTIONS_TIE_TOL`` of the maximum on their own prefix.
+   ``--quantize int8``: codes and scales equal the host rule run on the
+   same bf16 bytes, an int8 linear agrees with its dequantized fp32 product,
+   ``/v1/forward`` runs the kernel. ``speculative_k`` 8 on a self-repeating
+   prompt: greedy tokens equal plain greedy (or near-ties), the stream
+   concatenates to the whole answer. ``--lora``: a PEFT adapter (r 16,
+   alpha 32, q_proj and v_proj of every layer) written here is served, its
+   merged weights equal a manual merge bit for bit, ``/v1/forward`` runs the
+   kernel. One model at a time is loaded beside the main one, and the main
+   one is freed before the LoRA server loads.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -389,9 +405,10 @@ def main(argv=None) -> int:
         "replaces": "modelx_tpu/ops/attention.py:149",
         # null, not 0, when the serving paths did not run (--phases kernels)
         "launches": (main_stats["flash_launches"] + main_stats["flash_launches_text"]
-                     if main_stats else None),
+                     + main_stats["flash_launches_options"] if main_stats else None),
         "launches_by_path": main_stats and {"main": main_stats["flash_launches"],
-                                            "text": main_stats["flash_launches_text"]},
+                                            "text": main_stats["flash_launches_text"],
+                                            "options": main_stats["flash_launches_options"]},
         "max_abs_err": max((r["max_abs_err"] for r in kernel_rows), default=None),
         "ms": head and head["ms"],
         "call_ms": head and head["call_ms"],
@@ -609,6 +626,13 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
         if not (torch.isfinite(flash).all() and torch.isfinite(plain).all()):
             raise RuntimeError("non-finite logits")
         stats.update(logit_max_diff=max_diff, argmax_checked=n_clear)
+        del flash, plain  # 2.1 GB of fp32 logits the next phase does not need
+
+        # phase 6, the serving options: every kernel count starts at 0 again
+        attn.flash_attention.launches = 0
+        stats.update(phase_options(port, server, cfg, ckpt, per_forward, stats))
+        log(f"options: flash_attention launches on the options path: "
+            f"{stats['flash_launches_options']}")
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -1266,6 +1290,504 @@ def phase_text(port: int, server, cfg, per_forward: int) -> dict:
         f"attention scores max |diff| {diff:.4f} (tolerance {SCORE_TOL})")
     stats.update(logprobs_s=secs, score_max_diff=diff)
     return stats
+
+
+# -- phase 6: the serving options ---------------------------------------------------
+
+# the dynamic batch burst: forward shapes, greedy prompt lengths, and the
+# seeded sampled requests (prompt length, controls), each row one request
+BATCH_FORWARD_SHAPES = ((1, 128), (1, 512), (2, 300), (1, 1000), (1, 64), (1, 256), (3, 100),
+                        (1, 700))
+BATCH_GREEDY_PROMPTS = (64, 128, 256, 512)
+BATCH_SAMPLED = ((96, {"temperature": 0.8, "seed": 21}), (200, {"temperature": 1.0, "seed": 5}))
+BATCH_NEW_TOKENS = 32
+# long enough that requests sent at once from threads land in one window
+BATCH_WINDOW_MS = 50.0
+# a batched or speculative token may differ from the plain path's
+# only where it lies this close below the maximum of the plain path's logits
+# on its own prefix (Gumbel-perturbed for a sampled request, in units of the
+# unscaled logits): twice the ~4 bf16 ulps (0.117 at a logit maximum of 5.84)
+# two bf16 paths of one forward differ by in the main phase (NVIDIA H100)
+OPTIONS_TIE_TOL = 0.25
+SPEC_K = 8
+SPEC_PERIOD, SPEC_REPEATS, SPEC_NEW_TOKENS = 32, 8, 64
+INT8_FORWARD = (1, 2048)
+INT8_PROMPT, INT8_NEW_TOKENS = 128, 32
+LORA_R, LORA_ALPHA = 16, 32
+
+
+def _uncounted(fn):
+    """Run ``fn`` (a comparison, not the path) without its kernel launches
+    entering the path's count."""
+    from modelx_tpu_torch.ops import attention as attn
+
+    before = attn.flash_attention.launches
+    try:
+        return fn()
+    finally:
+        attn.flash_attention.launches = before
+
+
+def check_near_ties(server, prompt: list, got: list, want: list, what: str,
+                    samp: dict | None = None) -> str:
+    """``got`` (a batched or speculative answer to a single-row generate)
+    against ``want`` (the plain path's): equal, or each of its tokens within
+    ``OPTIONS_TIE_TOL`` of the maximum on its own prefix. The replay feeds
+    ``got`` through the plain decode; a sampled request's logits are scaled
+    and perturbed by its own Gumbel noise (``ops/prng``, the card's bits)."""
+    import torch
+
+    from modelx_tpu_torch.ops import prng
+
+    if got == want:
+        return "equal"
+    if len(got) != len(want):
+        raise RuntimeError(f"{what}: {len(got)} tokens, the plain path {len(want)}")
+    _, logits = _uncounted(lambda: _replay_step_logits(server, prompt, got))
+    logits = logits.float().cpu()
+    tol = OPTIONS_TIE_TOL
+    if samp:
+        keys = prng.fold_in(prng.fold_in(prng.PRNGKey(0), samp["seed"]),
+                            torch.arange(len(got)))
+        logits = logits / samp["temperature"] + prng.gumbel(keys, logits.shape[-1])
+        tol /= samp["temperature"]
+    j0 = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    if logits[: j0 + 1].argmax(-1).tolist() != want[: j0 + 1]:
+        raise RuntimeError(f"{what}: the replay differs from the plain path before step {j0}")
+    # how far below each step's maximum its token lies
+    gaps = (logits.max(-1).values - logits[torch.arange(len(got)), torch.tensor(got)]).tolist()
+    worst = max(gaps)
+    if worst > tol:
+        j = gaps.index(worst)
+        raise RuntimeError(f"{what}: token {got[j]} at step {j} lies {worst:.4f} below the "
+                           f"maximum on its prefix (tolerance {tol:.4f})")
+    return f"differs from step {j0}; every token within {worst:.4f} of the maximum on its prefix"
+
+
+def check_forward_ties(server, tokens, got, want, what: str) -> str:
+    """A batched ``/v1/forward`` answer against the request alone: equal, or
+    each differing position's token within ``OPTIONS_TIE_TOL`` of the
+    maximum of the lone forward's logits there."""
+    import torch
+
+    got, want = torch.tensor(got), torch.tensor(want)
+    if torch.equal(got, want):
+        return "equal"
+    diff = (got != want).nonzero().tolist()
+
+    def lone_logits():
+        with torch.inference_mode():
+            t = torch.as_tensor(tokens, dtype=torch.int64).to(server.device)
+            return server.family.forward(server.params, t, server.cfg).float().cpu()
+
+    logits = _uncounted(lone_logits)
+    if not torch.equal(logits.argmax(-1), want):
+        raise RuntimeError(f"{what}: the lone forward in-process differs from /v1/forward's")
+    gaps = [float(logits[b, s].max() - logits[b, s, got[b, s]]) for b, s in diff]
+    if max(gaps) > OPTIONS_TIE_TOL:
+        raise RuntimeError(f"{what}: {len(diff)} positions differ, one by {max(gaps):.4f} below "
+                           f"the maximum (tolerance {OPTIONS_TIE_TOL})")
+    return f"{len(diff)} positions differ, each within {max(gaps):.4f} of the maximum"
+
+
+def _burst(port: int, requests: list) -> list:
+    """Send every (path, body) at once, one thread each; (status, body,
+    seconds) per request and the burst's wall seconds."""
+    import threading
+
+    out = [None] * len(requests)
+    errors = []
+    gate = threading.Barrier(len(requests) + 1)
+
+    def go(i, path, body):
+        gate.wait()
+        t0 = time.monotonic()
+        try:
+            status, got = _http(port, path, body)
+        except OSError as e:
+            errors.append(f"{path}: {e!r}")
+            return
+        out[i] = (status, got, time.monotonic() - t0)
+
+    threads = [threading.Thread(target=go, args=(i, *r), daemon=True)
+               for i, r in enumerate(requests)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.monotonic()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise RuntimeError("a batched request did not finish in 600 s")
+    if errors:
+        raise RuntimeError(f"batched requests failed: {errors}")
+    return out, time.monotonic() - t0
+
+
+def _memory(what: str, on_card: bool) -> float | None:
+    import torch
+
+    if not on_card:
+        return None
+    torch.cuda.synchronize()
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"options: {what}: torch.cuda.max_memory_allocated {gb:.3f} GB "
+        f"(allocated now {torch.cuda.memory_allocated() / 1e9:.3f} GB)")
+    return gb
+
+
+def _free(*servers) -> None:
+    import gc
+
+    import torch
+
+    for s in servers:
+        s.params = None
+        s._decoders.clear()
+        s._spec_decoder = None
+        if s._prefix_cache is not None:
+            s._prefix_cache.clear()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def phase_options(port: int, server, cfg, ckpt: str, per_forward: int, main: dict) -> dict:
+    """The serving options on the running bf16 server and the checkpoint
+    behind it (see the module docstring). ``port`` serves ``server`` without
+    a batcher (the lone reference); ``main`` holds the main phase's bf16
+    figures the int8 server is set beside."""
+    from modelx_tpu_torch.ops import attention as attn
+
+    stats: dict = {}
+    stats.update(options_batch(port, server, cfg, per_forward))
+    stats.update(options_speculation(port, server, cfg, ckpt))
+    stats.update(options_int8(port, server, cfg, ckpt, per_forward, main))
+    _free(server)  # the LoRA server loads alone
+    stats.update(options_lora(cfg, ckpt, per_forward, server.device.type))
+    stats["flash_launches_options"] = attn.flash_attention.launches
+    return stats
+
+
+def options_batch(port: int, server, cfg, per_forward: int) -> dict:
+    """The dynamic batcher: a burst of mixed requests on a ``dynamic_batch``
+    front against each request sent alone to ``port``."""
+    import torch
+
+    from modelx_tpu_torch.dl.serve import ServerSet, serve
+    from modelx_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator().manual_seed(6)
+
+    def rand(shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen).tolist()
+
+    requests = [("/v1/forward", {"tokens": rand(shape)}) for shape in BATCH_FORWARD_SHAPES]
+    requests += [("/v1/generate", {"tokens": rand((1, n)), "max_new_tokens": BATCH_NEW_TOKENS})
+                 for n in BATCH_GREEDY_PROMPTS]
+    requests += [("/v1/generate", {"tokens": rand((1, n)), "max_new_tokens": BATCH_NEW_TOKENS,
+                                   **samp}) for n, samp in BATCH_SAMPLED]
+    # the lone reference: each request alone on the server without the batcher
+    lone = []
+    for path, body in requests:
+        t0 = time.monotonic()
+        status, got = _http(port, path, body)
+        if status != 200:
+            raise RuntimeError(f"lone {path} answered {status} {str(got)[:200]}")
+        lone.append((got, time.monotonic() - t0))
+
+    bsset = ServerSet({server.name: server}, dynamic_batch=True,
+                      batch_window_ms=BATCH_WINDOW_MS)
+    bport = _free_port()
+    httpd = serve(bsset, listen=f"127.0.0.1:{bport}")
+    groups = {"forward": [], "generate": []}
+    fwd, ragged = server.forward_argmax, server.generate_ragged
+
+    def counted_forward(tokens):
+        groups["forward"].append(tuple(tokens.shape))
+        return fwd(tokens)
+
+    def counted_ragged(tokens, *a, **kw):
+        groups["generate"].append(tuple(tokens.shape))
+        return ragged(tokens, *a, **kw)
+
+    try:
+        server.forward_argmax, server.generate_ragged = counted_forward, counted_ragged
+        before = attn.flash_attention.launches
+        results, wall = _burst(bport, requests)
+        rose = attn.flash_attention.launches - before
+        batches = bsset.batchers[server.name].batches
+    finally:
+        del server.forward_argmax, server.generate_ragged
+        httpd.shutdown()
+        httpd.server_close()
+        bsset.close()
+    n = len(requests)
+    log(f"options: dynamic batch: {n} requests sent at once ({len(BATCH_FORWARD_SHAPES)} "
+        f"forward, {len(BATCH_GREEDY_PROMPTS)} greedy, {len(BATCH_SAMPLED)} sampled) ran as "
+        f"{batches} device calls: forward groups {groups['forward']}, generate groups "
+        f"{groups['generate']}; flash_attention launches +{rose}")
+    if batches >= n or batches != len(groups["forward"]) + len(groups["generate"]):
+        raise RuntimeError(f"the burst did not coalesce: {batches} device calls for {n} requests")
+    if rose != per_forward * len(groups["forward"]):
+        raise RuntimeError(f"forward groups launched the kernel {rose} times, want "
+                           f"{per_forward} x {len(groups['forward'])}")
+    notes = []
+    for (path, body), (status, got, secs), (want, lone_s) in zip(requests, results, lone):
+        if status != 200:
+            raise RuntimeError(f"batched {path} answered {status} {str(got)[:200]}")
+        shape = [len(body["tokens"]), len(body["tokens"][0])]
+        if path == "/v1/forward":
+            note = check_forward_ties(server, body["tokens"], got["logits_argmax"],
+                                      want["logits_argmax"], f"batched forward {shape}")
+        else:
+            plen = shape[1]
+            samp = {k: body[k] for k in ("temperature", "seed") if k in body} or None
+            note = check_near_ties(server, body["tokens"][0], got["tokens"][0][plen:],
+                                   want["tokens"][0][plen:], f"batched generate {shape}", samp)
+            if got["tokens"][0][:plen] != body["tokens"][0]:
+                raise RuntimeError("a batched generate did not echo its prompt")
+        notes.append(note)
+        log(f"options: batched {path} {shape}{' sampled' if 'seed' in body else ''}: "
+            f"{secs * 1e3:.1f} ms batched, {lone_s * 1e3:.1f} ms alone; {note}")
+    serial = sum(s for _, s in lone)
+    log(f"options: dynamic batch: {n / wall:.2f} requests/s batched ({wall:.3f} s for the "
+        f"burst) against {n / serial:.2f} alone in turn ({serial:.3f} s)")
+    return {"batch_requests": n, "batch_device_calls": batches,
+            "batch_requests_per_s": n / wall, "serial_requests_per_s": n / serial,
+            "batch_equal": sum(x == "equal" for x in notes)}
+
+
+def options_speculation(port: int, server, cfg, ckpt: str) -> dict:
+    """``speculative_k`` on the loaded params: a self-repeating prompt's
+    greedy tokens against plain greedy, and its stream against its whole
+    answer."""
+    import torch
+
+    from modelx_tpu_torch.dl.serve import ModelServer, ServerSet, serve
+
+    gen = torch.Generator().manual_seed(8)
+    period = torch.randint(0, cfg.vocab_size, (SPEC_PERIOD,), generator=gen).tolist()
+    prompt = period * SPEC_REPEATS
+    body = {"tokens": [prompt], "max_new_tokens": SPEC_NEW_TOKENS}
+    t0 = time.monotonic()
+    status, plain = _http(port, "/v1/generate", body)
+    plain_s = time.monotonic() - t0
+    if status != 200:
+        raise RuntimeError(f"plain greedy answered {status}")
+    # the same loaded params behind a server that speculates
+    spec = ModelServer(ckpt, device=server.device, speculative_k=SPEC_K, name="spec")
+    spec.family, spec.cfg, spec.params, spec.ready = server.family, server.cfg, server.params, True
+    sport = _free_port()
+    httpd = serve(ServerSet({"spec": spec}), listen=f"127.0.0.1:{sport}")
+    try:
+        t0 = time.monotonic()
+        status, out = _http(sport, "/v1/generate", body)
+        spec_s = time.monotonic() - t0
+        if status != 200:
+            raise RuntimeError(f"speculative greedy answered {status} {str(out)[:200]}")
+        st = dict(spec.stats)
+        streamed, first_s, _ = _stream(sport, body)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        spec.params = None
+    plen = len(prompt)
+    got, want = out["tokens"][0][plen:], plain["tokens"][0][plen:]
+    note = check_near_ties(server, prompt, got, want, "speculative greedy")
+    if streamed != got:
+        raise RuntimeError("the speculative stream's chunks do not concatenate to its answer")
+    steps, proposed, accepted = st["spec_device_steps"], st["spec_proposed"], st["spec_accepted"]
+    rate = accepted / proposed if proposed else 0.0
+    log(f"options: speculative_k {SPEC_K}, a {SPEC_PERIOD}-token period x {SPEC_REPEATS} "
+        f"prompt + {SPEC_NEW_TOKENS}: {note}; stream == whole (first chunk "
+        f"{first_s * 1e3:.1f} ms); {steps} device steps, {proposed} proposed, {accepted} "
+        f"accepted (accept rate {rate:.3f}); {spec_s:.3f} s against {plain_s:.3f} s plain")
+    return {"spec_steps": steps, "spec_proposed": proposed, "spec_accepted": accepted,
+            "spec_accept_rate": rate, "spec_s": spec_s, "spec_plain_s": plain_s}
+
+
+def options_int8(port: int, server, cfg, ckpt: str, per_forward: int, main: dict) -> dict:
+    """``--quantize int8`` beside the bf16 server: codes and scales against
+    the host rule, one int8 linear against its dequantized fp32 product, the
+    kernel's launches on ``/v1/forward``, and its figures against bf16's."""
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.ops import attention as attn
+    from modelx_tpu_torch.ops import nn, quant
+
+    device = server.device.type
+    on_card = device == "cuda"
+    iport = _free_port()
+    t0 = time.monotonic()
+    isset, httpd = serve_main.start([
+        "--model", f"int8={ckpt}", "--listen", f"127.0.0.1:{iport}", "--device", device,
+        "--dtype", "bfloat16", "--quantize", "int8"])
+    up_s = time.monotonic() - t0
+    qserver = isset.servers["int8"]
+    try:
+        s = qserver.stats
+        log(f"options: int8 server up in {up_s:.2f} s; {s['load_bytes'] / 1e9:.3f} GB over the "
+            f"link at {s['load_gbps']} GB/s, {s['device_bytes'] / 1e9:.3f} GB on the device "
+            f"(bf16 server: {server.stats['device_bytes'] / 1e9:.3f} GB)")
+        peak = _memory("bf16 + int8 servers loaded", on_card)
+        names = ["model.layers.0.self_attn.q_proj.weight",
+                 f"model.layers.{cfg.num_layers - 1}.mlp.down_proj.weight", "lm_head.weight"]
+        raw = st.read_tensors(os.path.join(ckpt, "model.safetensors"), want=names.__contains__)
+        for name in names:
+            w = raw[name].float().numpy()  # the checkpoint's bf16 values, exactly
+            scale = quant.channel_scales(w)
+            q = quant.quantize_rows(w, scale)
+            got = qserver.params[name]
+            bad_scales = int((got.scale.cpu().numpy().view(np.int32) != scale.view(np.int32)).sum())
+            bad_codes = int((got.q.cpu().numpy() != q).sum())
+            if bad_scales or bad_codes:
+                raise RuntimeError(f"int8 {name}: {bad_scales} of {scale.size} scales and "
+                                   f"{bad_codes} of {q.size} codes on the {device} differ from "
+                                   f"the host rule's")
+        log(f"options: int8 codes and scales of {names} equal the host numpy rule's byte for "
+            f"byte")
+        # one layer's int8 linear against x.float() @ dequantize(q).T in fp32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        qt = qserver.params[names[0]]
+        gen = torch.Generator().manual_seed(9)
+        x = torch.randn(INT8_FORWARD[1], cfg.hidden_size, generator=gen).to(
+            torch.bfloat16).to(server.device)
+        with torch.inference_mode():
+            y = nn.linear(x, qt).float()
+            ref = x.float() @ quant.dequantize(qt).T
+        atol, rtol = TOL["bfloat16"]
+        err = (y - ref).abs()
+        lin_err = float(err.max())
+        if not bool((err <= atol + rtol * ref.abs()).all()):
+            raise RuntimeError(f"int8 linear disagrees with its dequantized fp32 product: "
+                               f"max_abs_err {lin_err}")
+        route = "torch.mm(out_dtype=float32)" if on_card else "fp32 operands"
+        log(f"options: int8 linear {names[0]} at x [{INT8_FORWARD[1]}, {cfg.hidden_size}] bf16: "
+            f"max_abs_err {lin_err:.3e} against x.float() @ dequantize(q).T (tol {atol} + "
+            f"{rtol}*|ref|); the product through {route}")
+
+        tokens = torch.randint(0, cfg.vocab_size, INT8_FORWARD, generator=gen).tolist()
+        ms = []
+        for rep in range(2):
+            before = attn.flash_attention.launches
+            t0 = time.monotonic()
+            status, got = _http(iport, "/v1/forward", {"tokens": tokens})
+            ms.append((time.monotonic() - t0) * 1e3)
+            if status != 200:
+                raise RuntimeError(f"int8 /v1/forward answered {status}")
+            if attn.flash_attention.launches - before != per_forward:
+                raise RuntimeError(f"int8 /v1/forward launched the kernel "
+                                   f"{attn.flash_attention.launches - before} times, want "
+                                   f"{per_forward}")
+        # the bf16 server's answer is a comparison: its launches do not count
+        _, bf16 = _uncounted(lambda: _http(port, "/v1/forward", {"tokens": tokens}))
+        agree = float(np.mean(np.asarray(got["logits_argmax"]) ==
+                              np.asarray(bf16["logits_argmax"])))
+        prompt = torch.randint(0, cfg.vocab_size, (1, INT8_PROMPT), generator=gen).tolist()
+        t0 = time.monotonic()
+        status, out = _http(iport, "/v1/generate", {"tokens": prompt,
+                                                    "max_new_tokens": INT8_NEW_TOKENS})
+        gen_s = time.monotonic() - t0
+        if status != 200 or len(out["tokens"][0]) != INT8_PROMPT + INT8_NEW_TOKENS:
+            raise RuntimeError(f"int8 /v1/generate answered {status}")
+        bf16_ms = main.get(f"forward_ms_{INT8_FORWARD[0]}x{INT8_FORWARD[1]}")
+        bf16_s = main.get(f"generate_s_{INT8_PROMPT}")
+        log(f"options: int8 /v1/forward {list(INT8_FORWARD)}: {ms[0]:.1f} ms first, "
+            f"{ms[1]:.1f} ms repeat (bf16 {bf16_ms and round(bf16_ms, 1)} ms), flash_attention "
+            f"launches +{per_forward}; argmax equal to bf16's at {agree:.3f} of positions; "
+            f"greedy {INT8_PROMPT} + {INT8_NEW_TOKENS}: {INT8_NEW_TOKENS / gen_s:.1f} tokens/s "
+            f"(bf16 {bf16_s and round(INT8_NEW_TOKENS / bf16_s, 1)})")
+        return {"int8_device_gb": s["device_bytes"] / 1e9, "int8_load_gbps": s["load_gbps"],
+                "int8_forward_ms": ms[1], "int8_tokens_per_s": INT8_NEW_TOKENS / gen_s,
+                "int8_argmax_agree": agree, "int8_linear_max_abs_err": lin_err,
+                "int8_peak_gb": peak}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        isset.close()
+        _free(qserver)
+        _memory("int8 server freed", on_card)
+
+
+def write_lora_adapter(adapter_dir: str, cfg, r: int = LORA_R, alpha: int = LORA_ALPHA,
+                       seed: int = 0) -> list[str]:
+    """A PEFT adapter (bf16 safetensors and adapter_config.json) on q_proj
+    and v_proj of every layer; returns the target weight names."""
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+
+    gen = torch.Generator().manual_seed(seed)
+    e = cfg.hidden_size
+    outs = {"q_proj": cfg.num_heads * cfg.head_dim, "v_proj": cfg.num_kv_heads * cfg.head_dim}
+    tensors, targets = {}, []
+    for i in range(cfg.num_layers):
+        for proj, out in outs.items():
+            base = f"model.layers.{i}.self_attn.{proj}"
+            targets.append(base + ".weight")
+            tensors[f"base_model.model.{base}.lora_A.weight"] = (
+                torch.randn(r, e, generator=gen) / math.sqrt(e)).to(torch.bfloat16)
+            tensors[f"base_model.model.{base}.lora_B.weight"] = (
+                torch.randn(out, r, generator=gen) * 0.01).to(torch.bfloat16)
+    os.makedirs(adapter_dir, exist_ok=True)
+    st.write_safetensors(os.path.join(adapter_dir, "adapter_model.safetensors"), tensors)
+    with open(os.path.join(adapter_dir, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": r, "lora_alpha": alpha,
+                   "target_modules": list(outs)}, f)
+    return targets
+
+
+def options_lora(cfg, ckpt: str, per_forward: int, device: str) -> dict:
+    """``--lora``: serve the checkpoint with a written adapter merged; two
+    targets against a manual merge by the same rule, bit for bit, and the
+    kernel's launches on ``/v1/forward``."""
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.ops import attention as attn
+
+    adapter = os.path.join(ckpt, "adapter")
+    targets = write_lora_adapter(adapter, cfg)
+    lport = _free_port()
+    lsset, httpd = serve_main.start([
+        "--model", f"lora={ckpt}", "--lora", f"lora={adapter}", "--listen",
+        f"127.0.0.1:{lport}", "--device", device, "--dtype", "bfloat16"])
+    lserver = lsset.servers["lora"]
+    try:
+        peak = _memory("LoRA server loaded (the main server freed)", device == "cuda")
+        merge_s = lserver.stats["lora_merge_seconds"]
+        checked = [targets[0], targets[-1]]
+        base = st.read_tensors(os.path.join(ckpt, "model.safetensors"), want=checked.__contains__)
+        ab = st.read_tensors(os.path.join(adapter, "adapter_model.safetensors"))
+        for name in checked:
+            stem = "base_model.model." + name.removesuffix(".weight")
+            a = ab[stem + ".lora_A.weight"].float().numpy()
+            b = ab[stem + ".lora_B.weight"].float().numpy()
+            delta = torch.from_numpy(LORA_ALPHA / LORA_R * (b @ a)).to(torch.bfloat16)
+            manual = base[name].to(lserver.device) + delta.to(lserver.device)
+            if not torch.equal(manual.view(torch.int16), lserver.params[name].view(torch.int16)):
+                raise RuntimeError(f"LoRA {name}: the served weight differs from a manual merge")
+        gen = torch.Generator().manual_seed(10)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen).tolist()
+        before = attn.flash_attention.launches
+        status, got = _http(lport, "/v1/forward", {"tokens": tokens})
+        rose = attn.flash_attention.launches - before
+        if status != 200 or rose != per_forward:
+            raise RuntimeError(f"LoRA /v1/forward answered {status}, kernel launches {rose}, "
+                               f"want {per_forward}")
+        log(f"options: LoRA r {LORA_R} alpha {LORA_ALPHA} on q_proj and v_proj of "
+            f"{cfg.num_layers} layers merged in {merge_s:.3f} s; {checked} equal a manual merge "
+            f"bit for bit; /v1/forward [1, 512] 200, flash_attention launches +{rose}")
+        return {"lora_merge_s": merge_s, "lora_peak_gb": peak}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        _free(lserver)
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ import logging
 import os
 import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -364,8 +365,9 @@ def eos_for(tok, req: dict) -> tuple[int, ...]:
 
 def run_completion(sset, req: dict, chat: bool) -> dict:
     """Non-streaming completions/chat: returns the OpenAI response body.
-    Prompts decode one after another (the dynamic batcher is a later
-    slice); the EOS trim happens here, after the full budget decoded."""
+    Under the dynamic batcher the prompts are submitted together and decode
+    as one ragged device call; otherwise one after another. The EOS trim
+    happens here, after the full budget decoded."""
     server = resolve_model(sset, req)
     tok = tokenizer_for(server)
     prompts = parse_prompts(req, chat, server)
@@ -386,13 +388,21 @@ def run_completion(sset, req: dict, chat: bool) -> dict:
         encode_prompt(tok, server, text, n_tokens, add_special_tokens=not raw_encode)
         for text in prompts
     ]
-    rows_out = []
-    for ids in id_rows:
+
+    def _one(ids: list[int]) -> list[list[int]]:
         # n samples of one prompt = n rows of the same ids in one call: the
         # engine derives per-row (seed + i) streams, OpenAI's n semantics
         out = engine.generate(np.asarray([ids] * n_samples, np.int32),
                               max_new_tokens=n_tokens, **samp)
-        rows_out.append([row[len(ids):].tolist() for row in out])
+        return [row[len(ids):].tolist() for row in out]
+
+    if len(id_rows) > 1 and engine is not server:
+        # concurrent submissions ride the batcher's window and decode as
+        # one ragged device call
+        with ThreadPoolExecutor(max_workers=len(id_rows)) as pool:
+            rows_out = list(pool.map(_one, id_rows))
+    else:
+        rows_out = [_one(ids) for ids in id_rows]
 
     eos_set = set(eos)
     # usage counts each prompt once, however many samples it produced
@@ -618,15 +628,19 @@ def _sse_events(server, tok, chat, gen, first_piece, eos_set, stops, reserve,
 
 def models_payload(sset) -> dict:
     """GET /v1/models body serving both contracts: the native {default,
-    models} keys (per-model stats, the prefix cache's when it is on) and
-    OpenAI's {object: "list", data: [...]}."""
+    models} keys (per-model stats, the prefix cache's when it is on, the
+    window batcher's device calls once it exists) and OpenAI's
+    {object: "list", data: [...]}."""
     models: dict = {}
+    batchers = dict(sset.batchers)
     for n, s in sset.servers.items():
         d = {"ready": s.ready, **s.stats}
         if s.load_error:
             d["error"] = s.load_error
         if s._prefix_cache is not None:
             d["prefix_cache"] = s._prefix_cache.stats()
+        if n in batchers:
+            d["batches"] = batchers[n].batches
         models[n] = d
     return {
         "default": sset.default,

@@ -27,9 +27,16 @@ SSE bytes. Text goes through the model's own ``tokenizer.json``, read by
 chat through the chat template of its ``tokenizer_config.json``. What
 later slices port answers a typed 501 that names the slice:
 ``include_timing`` on a stream, the admin routes, and a tokenizer.json
-component the reader does not implement. Dynamic and continuous batching
-have no flag yet: requests take the device one at a time, a stream one
-chunk at a time.
+component the reader does not implement.
+
+The one-device serving options of the JAX sidecar: ``quantize="int8"``
+(weight-only int8 linears, ``ops/quant.py``), ``lora_dir`` (a PEFT adapter
+merged at load, ``dl/lora.py``), ``speculative_k`` (prompt-lookup
+speculation for single-row requests, ``models/speculative.py``) and, on
+the ``ServerSet``, ``dynamic_batch``: concurrent requests coalesce in a
+``Batcher`` window into one padded forward or one ragged decode. The
+continuous engine is a later slice: without the batcher, requests take the
+device one at a time, a stream one chunk at a time.
 """
 
 from __future__ import annotations
@@ -39,9 +46,11 @@ import itertools
 import json
 import logging
 import os
+import queue
 import re
 import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -199,9 +208,16 @@ class ModelServer:
 
     def __init__(self, model_dir: str, dtype: str = "bfloat16", device=None,
                  max_seq_len: int = 2048, name: str = "default",
+                 quantize: str | None = None, speculative_k: int = 0, lora_dir: str = "",
                  prefix_cache_size: int = 0, prefix_cache_max_bytes: int = 0) -> None:
         self.name = name
         self.model_dir = model_dir
+        self.quantize = quantize
+        self.lora_dir = lora_dir
+        # > 0 turns on prompt-lookup speculative decoding for single-row
+        # requests (models/speculative.py)
+        self.speculative_k = int(speculative_k)
+        self._spec_decoder = None
         self.device = resolve_device(device)
         self.dtype = parse_dtype(dtype)
         self.max_seq_len = int(max_seq_len)
@@ -254,24 +270,38 @@ class ModelServer:
         if sidecar is not None:
             self.cfg = fam.apply_sidecar_config(self.cfg, sidecar, self.family.name)
         params: dict = {}
-        total = 0
+        total = resident = 0
         for path in paths:
             src = LocalFileSource(path)
             try:
-                arrays, lstats = load_safetensors(src, self.device, dtype=self.dtype)
+                arrays, lstats = load_safetensors(src, self.device, dtype=self.dtype,
+                                                  quantize=self.quantize)
             finally:
                 src.close()
             params.update(arrays)
             total += lstats.bytes_to_device
+            resident += lstats.bytes_resident
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.params = params
+        if self.lora_dir:
+            from modelx_tpu_torch.dl import lora
+
+            # merged before the warm-up forward; merging into int8 is
+            # rejected (serve_main refuses the combination up front)
+            tm = time.monotonic()
+            self.params = lora.merge_adapter(self.params, self.lora_dir)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.stats["lora_dir"] = self.lora_dir
+            self.stats["lora_merge_seconds"] = round(time.monotonic() - tm, 3)
         seconds = time.monotonic() - t0
         self.stats["family"] = self.family.name
         self.stats["device"] = str(self.device)
         self.stats["dtype"] = str(self.dtype).removeprefix("torch.")
         self.stats["load_seconds"] = round(seconds, 3)
-        self.stats["load_bytes"] = total
+        self.stats["load_bytes"] = total  # over the link
+        self.stats["device_bytes"] = resident  # kept on the device
         self.stats["load_gbps"] = round(total / max(seconds, 1e-9) / 1e9, 3)
         for shape in self.WARMUP_TOKEN_SHAPES:
             self.forward_argmax(np.zeros(shape, np.int64))
@@ -294,11 +324,23 @@ class ModelServer:
         """Greedy by default; temperature > 0 samples per row. Returns
         [B, S + max_new_tokens] (prompt + new). The prompt is padded to the
         16-bucket and decoded as a ragged batch, the shapes a stream of the
-        same request runs, so the two give the same tokens."""
+        same request runs, so the two give the same tokens. With
+        ``speculative_k``, a single row speculates at any temperature:
+        greedy acceptance is token-exact, sampled acceptance is modified
+        rejection."""
         if self.family.generate_ragged is None:
             raise ValueError(f"family {self.family.name} is not generative")
         tokens = np.asarray(tokens, np.int32)
         b, s = tokens.shape
+        if self.speculative_k > 0 and b == 1 and self.family.decode_fns is not None:
+            dec = self._speculative_decoder()
+            with self._device_lock, torch.inference_mode():
+                new, stats = dec.generate(self.params, tokens[0].tolist(), max_new_tokens,
+                                          temperature=temperature, top_k=top_k, top_p=top_p,
+                                          seed=seed)
+            self.stats["tokens_generated"] += len(new)
+            self._record_spec_stats(stats)
+            return np.concatenate([tokens, np.asarray([new], np.int32)], axis=1)
         gen = self.generate_ragged(
             _pad_prompt(tokens), np.full((b,), s, np.int32), max_new_tokens,
             **_row_controls(b, temperature, top_k, top_p, seed))
@@ -466,6 +508,20 @@ class ModelServer:
                            "falling back to the generic role template", e)
             return None
 
+    def _speculative_decoder(self):
+        if self._spec_decoder is None:
+            with self._decoders_lock:  # double-checked, like the stream decoders
+                if self._spec_decoder is None:
+                    from modelx_tpu_torch.models.speculative import SpeculativeDecoder
+
+                    fwd, init = self.family.decode_fns(self.params, self.cfg)
+                    self._spec_decoder = SpeculativeDecoder(fwd, init, k=self.speculative_k)
+        return self._spec_decoder
+
+    def _record_spec_stats(self, stats: dict) -> None:
+        for key in ("device_steps", "proposed", "accepted"):
+            self.stats[f"spec_{key}"] = self.stats.get(f"spec_{key}", 0) + stats[key]
+
     def _decoder(self, chunk_size: int) -> ChunkedDecoder:
         dec = self._decoders.get(chunk_size)
         if dec is None:
@@ -483,25 +539,59 @@ class ModelServer:
         """Yields [B, k] arrays of new tokens (k <= chunk_size) as they
         decode; concatenated they equal ``generate``'s new tokens. The
         device lock is held for one chunk at a time, so a slow client
-        stalls only its own stream."""
+        stalls only its own stream. With ``speculative_k`` a single-row
+        stream flushes one chunk per device step instead (the accepted run
+        and the bonus token, up to speculative_k + 1 tokens)."""
         if self.family.decode_fns is None:
             raise ValueError(f"family {self.family.name} does not support streaming")
         tokens = np.asarray(tokens, np.int32)
         b, s = tokens.shape
+        if self.speculative_k > 0 and b == 1:
+            yield from self._generate_stream_speculative(
+                tokens, max_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed, stop_token_ids=stop_token_ids)
+            return
         dec = self._decoder(chunk_size)
         pieces = dec.stream(
             self.params, self._tokens(_pad_prompt(tokens)), np.full((b,), s, np.int32),
             max_new_tokens, stop_token_ids=stop_token_ids,
             **_row_controls(b, temperature, top_k, top_p, seed))
+        for piece in self._locked_pieces(pieces):
+            # account as chunks leave: a client disconnect must not erase
+            # the decode work the device already did
+            self.stats["tokens_generated"] += int(piece.size)
+            yield piece
+
+    def _generate_stream_speculative(self, tokens: np.ndarray, max_new_tokens: int,
+                                     temperature: float = 0.0, top_k: int = 0,
+                                     top_p: float = 1.0, seed: int = 0, stop_token_ids=None):
+        stats = {"device_steps": 0, "proposed": 0, "accepted": 0}
+        stops = set(stop_token_ids or ())
+        pieces = self._speculative_decoder().stream(
+            self.params, tokens[0].tolist(), max_new_tokens, stats=stats,
+            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
+        try:
+            for piece in self._locked_pieces(pieces):
+                cut = stop_cut(piece[0].tolist(), stops)
+                if cut is not None:
+                    piece = piece[:, :cut]  # emit through the stop, then end
+                self.stats["tokens_generated"] += int(piece.size)
+                yield piece
+                if cut is not None:
+                    return
+        finally:
+            # a consumer that stops early (a stop match, a client gone) closes
+            # this mid-loop; the device work done still shows in the stats
+            self._record_spec_stats(stats)
+
+    def _locked_pieces(self, pieces):
+        """Pull ``pieces`` one at a time under the device lock."""
         try:
             while True:
                 with self._device_lock, torch.inference_mode():
                     piece = next(pieces, None)
                 if piece is None:
                     return
-                # account as chunks leave: a client disconnect must not
-                # erase the decode work the device already did
-                self.stats["tokens_generated"] += int(piece.size)
                 yield piece
         finally:
             pieces.close()  # frees the stream's KV cache at once
@@ -530,6 +620,192 @@ def _row_controls(b: int, temperature: float, top_k: int, top_p: float, seed: in
     }
 
 
+class Batcher:
+    """Dynamic batching: concurrent requests arriving within a small window
+    coalesce into one device call: forward requests into one padded
+    forward, generate requests into one ragged decode (per-row prompt
+    lengths and sampling controls, ``ModelServer.generate_ragged``).
+
+    Right-padding preserves outputs only for causal models (later
+    positions never influence earlier ones), so ``ServerSet`` routes only
+    generative families through a batcher. Rows pad to the group's longest
+    sequence (a multiple of 16) and the batch to the next power of two, and
+    decode lengths round up to a power of two; results are sliced back per
+    request."""
+
+    def __init__(self, server: ModelServer, max_batch: int = 32, window_ms: float = 3.0) -> None:
+        self.server = server
+        self.max_batch = max_batch
+        self.window_s = window_ms / 1e3
+        self._q: queue.Queue = queue.Queue()
+        self._closed = False
+        self._close_lock = threading.Lock()
+        # decodes run for seconds; running them off the window thread keeps
+        # it collecting the next group meanwhile (on the device a forward
+        # group still waits for the decode's lock). One worker keeps decode
+        # groups in order.
+        self._gen_pool = ThreadPoolExecutor(max_workers=1)
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+        self.batches = 0  # device calls issued
+
+    def _submit(self, kind: str, tokens: np.ndarray, n: int, samp=None):
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 2 or tokens.shape[0] < 1 or tokens.shape[1] < 1:
+            # validate before enqueueing: a malformed request inside _run
+            # would fail every other request coalesced into its group
+            raise ValueError(
+                f"tokens must be non-empty 2-D [batch, seq], got shape {tokens.shape}")
+        fut: Future = Future()
+        # enqueue under the close lock, so a racing close() cannot consume
+        # the sentinel and exit between our check and our put
+        with self._close_lock:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            self._q.put((kind, tokens, n, samp, fut))
+        return fut.result()
+
+    def forward_argmax(self, tokens: np.ndarray) -> np.ndarray:
+        return self._submit("fwd", tokens, 0)
+
+    def generate(self, tokens: np.ndarray, max_new_tokens: int = 16,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 seed: int = 0) -> np.ndarray:
+        """Returns [B, S + max_new_tokens] (prompt + generated), as
+        ``ModelServer.generate``. A coalesced batch can mix greedy and
+        sampled rows."""
+        return self._submit("gen", tokens, max_new_tokens,
+                            (float(temperature), int(top_k), float(top_p), int(seed)))
+
+    def _worker(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._drain_closed()
+                return
+            group = [item]
+            deadline = time.monotonic() + self.window_s
+            while len(group) < self.max_batch:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._run(group)
+                    self._drain_closed()
+                    return
+                group.append(nxt)
+            self._run(group)
+
+    def _drain_closed(self) -> None:
+        """Fail anything that raced past close() rather than hang its waiter."""
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                return
+            if item is not None:
+                item[-1].set_exception(RuntimeError("batcher is closed"))
+
+    def _run(self, group: list) -> None:
+        fwd = [(t, f) for kind, t, _n, _s, f in group if kind == "fwd"]
+        gen = [(t, n, s, f) for kind, t, n, s, f in group if kind == "gen"]
+        if gen:
+            # off the window thread: a long decode must not stop the next
+            # window from collecting
+            try:
+                self._gen_pool.submit(self._run_generate, gen)
+            except RuntimeError:  # pool shut down by a racing close(): inline
+                self._run_generate(gen)
+        if fwd:
+            self._run_forward(fwd)
+
+    @staticmethod
+    def _pack(token_rows: list) -> tuple:
+        """Right-pad a list of [b, s] token arrays into one batch: seq to a
+        multiple of 16, rows to a power of two. Returns (batch,
+        spans=[(start, b, s)])."""
+        rows = sum(t.shape[0] for t in token_rows)
+        pad_s = pad_seq_len(max(t.shape[1] for t in token_rows))
+        batch = np.zeros((1 << (rows - 1).bit_length(), pad_s), np.int32)
+        r = 0
+        spans = []
+        for tokens in token_rows:
+            b, s = tokens.shape
+            batch[r : r + b, :s] = tokens
+            spans.append((r, b, s))
+            r += b
+        return batch, spans
+
+    def _run_forward(self, group: list) -> None:
+        try:
+            batch, spans = self._pack([t for t, _f in group])
+            out = self.server.forward_argmax(batch)
+            self.batches += 1
+            for (_tokens, fut), (start, b, s) in zip(group, spans):
+                fut.set_result(out[start : start + b, :s])
+        except Exception as e:
+            for _tokens, fut in group:
+                if not fut.done():
+                    fut.set_exception(e)
+
+    def _run_generate(self, group: list) -> None:
+        """One ragged decode for the group: rows pad right to a common
+        16-aligned length, decode steps round up to a power of two (at least
+        8), each request slices back its rows and first n tokens.
+        Per-request sampling controls become per-row vectors; an all-greedy
+        group decodes greedy."""
+        try:
+            batch, spans = self._pack([t for t, _n, _s, _f in group])
+            new_bucket = 1 << max(3, (max(n for _t, n, _s, _f in group) - 1).bit_length())
+            pad_b = batch.shape[0]
+            row_lens = np.ones(pad_b, np.int32)  # pad rows decode harmlessly
+            for start, b, s in spans:
+                row_lens[start : start + b] = s
+            sampling: dict = {}
+            if any(samp[0] > 0 for _t, _n, samp, _f in group):
+                temp = np.zeros(pad_b, np.float32)
+                seeds = np.zeros(pad_b, np.int32)
+                # filters only when a request that samples asked for one: a
+                # greedy request's stray filter values must not add filter work
+                use_k = any(samp[0] > 0 and samp[1] > 0 for _t, _n, samp, _f in group)
+                use_p = any(samp[0] > 0 and samp[2] < 1.0 for _t, _n, samp, _f in group)
+                top_k = np.zeros(pad_b, np.int32) if use_k else None
+                top_p = np.ones(pad_b, np.float32) if use_p else None
+                for (_t, _n, samp, _f), (start, b, _s) in zip(group, spans):
+                    temp[start : start + b] = samp[0]
+                    if use_k:
+                        top_k[start : start + b] = samp[1]
+                    if use_p:
+                        top_p[start : start + b] = samp[2]
+                    # distinct per-row streams within a multi-row request
+                    seeds[start : start + b] = (samp[3] + np.arange(b)) % (2**31)
+                sampling = {"temperature": temp, "top_k": top_k, "top_p": top_p,
+                            "seeds": seeds}
+            out = self.server.generate_ragged(batch, row_lens, new_bucket, **sampling)
+            self.batches += 1
+            # the padded rows and the bucket rounding are implementation
+            # details: account only the tokens requests asked for
+            self.server.stats["tokens_generated"] += sum(
+                b * n for (_t, n, _ss, _f), (_r, b, _s) in zip(group, spans))
+            for (tokens, n, _samp, fut), (start, b, _s) in zip(group, spans):
+                fut.set_result(np.concatenate([tokens, out[start : start + b, :n]], axis=1))
+        except Exception as e:
+            for _tokens, _n, _samp, fut in group:
+                if not fut.done():
+                    fut.set_exception(e)
+
+    def close(self) -> None:
+        with self._close_lock:
+            self._closed = True
+            self._q.put(None)
+        # let an in-flight decode finish delivering its futures
+        self._gen_pool.shutdown(wait=False)
+
+
 class ServerSet:
     """Named ModelServers behind one HTTP front."""
 
@@ -537,11 +813,17 @@ class ServerSet:
     max_new_tokens_limit = DEFAULT_MAX_NEW_TOKENS_LIMIT
 
     def __init__(self, servers: dict[str, ModelServer], default: str | None = None,
-                 stream_chunk_size: int = 8) -> None:
+                 stream_chunk_size: int = 8, dynamic_batch: bool = False,
+                 max_batch: int = 32, batch_window_ms: float = 3.0) -> None:
         if not servers:
             raise ValueError("no models")
         self.servers = servers
         self.stream_chunk_size = int(stream_chunk_size)
+        self._dynamic_batch = bool(dynamic_batch)
+        self.max_batch = int(max_batch)
+        self.batch_window_ms = float(batch_window_ms)
+        self._batcher_lock = threading.Lock()
+        self.batchers: dict[str, Batcher] = {}
         for name, s in servers.items():
             s.name = name  # route key and server identity must agree
         self.default = default or next(iter(servers))
@@ -578,11 +860,37 @@ class ServerSet:
             return self.servers[m.group("model")], m.group("verb")
         return None, None
 
+    def batcher_for(self, server: ModelServer) -> Batcher | None:
+        """The model's window batcher, created on first use once the model
+        is loaded; None without ``dynamic_batch`` or for a family that is
+        not generative (right-padding changes an encoder's outputs)."""
+        if (not self._dynamic_batch or server.family is None
+                or server.family.generate_ragged is None):
+            return None
+        b = self.batchers.get(server.name)
+        if b is None:
+            with self._batcher_lock:
+                b = self.batchers.get(server.name)
+                if b is None:
+                    b = self.batchers[server.name] = Batcher(
+                        server, max_batch=self.max_batch, window_ms=self.batch_window_ms)
+        return b
+
     def engine_for(self, server: ModelServer, n_rows: int, temperature: float):
-        """The generate-routing policy. The JAX sidecar picks the continuous
-        engine, speculation or the window batcher here; those are later
-        slices, so every request runs on the server itself."""
-        return server
+        """The generate-routing policy, as the JAX sidecar's less its
+        continuous engine (a later slice): speculation for a single row
+        (``speculative_k``; greedy token-exact, sampled by modified
+        rejection), then the window batcher, then the plain server."""
+        if server.speculative_k > 0 and n_rows == 1 and server.family.decode_fns is not None:
+            return server
+        return self.batcher_for(server) or server
+
+    def close(self) -> None:
+        """Close the window batchers (their waiters fail, not hang)."""
+        with self._batcher_lock:
+            batchers, self.batchers = list(self.batchers.values()), {}
+        for b in batchers:
+            b.close()
 
     def stream_source(self, server: ModelServer, tokens, n: int, samp: dict,
                       stop_token_ids=None, timeout_s: float | None = None,
@@ -920,7 +1228,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                         return self._json(400, {
                             "error": f"prompt length {tokens.shape[1]} exceeds "
                                      f"--max-seq-len {server.max_seq_len}"})
-                    out = server.forward_argmax(tokens)
+                    out = (sset.batcher_for(server) or server).forward_argmax(tokens)
                     return self._json(200, {"logits_argmax": out.tolist()})
                 checked, err = _check_generate(req, self.headers, tokens, vocab, server,
                                                sset.max_new_tokens_limit)
@@ -962,7 +1270,14 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 self._json(500, {"error": str(e)})
 
     host, _, port = listen.rpartition(":")
-    httpd = ThreadingHTTPServer((host or "0.0.0.0", int(port)), Handler)
-    httpd.daemon_threads = True
+    httpd = _HTTPServer((host or "0.0.0.0", int(port)), Handler)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     return httpd
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    # the listen backlog: socketserver's default of 5 resets connections
+    # when more clients than that connect at once, the traffic the window
+    # batcher exists for
+    request_queue_size = 128

@@ -3,6 +3,8 @@
 
     modelx-serve-torch --model m=/mnt/model
     modelx-serve-torch --model a=/mnt/a --model b=/mnt/b --listen :8000
+    modelx-serve-torch --model m=/mnt/m --dynamic-batch --quantize int8
+    modelx-serve-torch --model m=/mnt/m --speculative-k 8 --lora m=/mnt/adapter
 
 The HTTP front answers 503 on /healthz while the checkpoints load, then
 serves them on the card (``--device cpu`` serves on the host instead).
@@ -43,6 +45,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix-cache-max-bytes", type=int, default=0,
                     help="additional byte cap on the prefix cache's stored KV "
                          "(0 = entry cap only)")
+    ap.add_argument("--dynamic-batch", action="store_true",
+                    help="coalesce concurrent forward requests into one device call")
+    ap.add_argument("--max-batch", type=int, default=32,
+                    help="dynamic batching: max requests coalesced per device call")
+    ap.add_argument("--batch-window-ms", type=float, default=3.0,
+                    help="dynamic batching: how long a request waits for companions "
+                         "(latency/throughput dial)")
+    ap.add_argument("--quantize", choices=["int8"], default=None,
+                    help="weight-only int8: half the device memory for the big matmuls")
+    ap.add_argument("--speculative-k", type=int, default=0,
+                    help="prompt-lookup speculative decoding for single-row greedy "
+                         "requests: verify up to K proposed tokens per device step "
+                         "(token-exact; 0 = off)")
+    ap.add_argument("--lora", dest="loras", action="append", default=[],
+                    metavar="NAME=ADAPTER_DIR",
+                    help="merge a PEFT-style LoRA adapter into model NAME at load; "
+                         "repeatable")
     return ap
 
 
@@ -58,22 +77,53 @@ def _parse_models(specs: list[str]) -> dict[str, str]:
     return models
 
 
+def _parse_loras(ap: argparse.ArgumentParser, specs: list[str], models: dict,
+                 quantize: str | None) -> dict[str, str]:
+    """``--lora NAME=ADAPTER_DIR`` specs; usage errors as the JAX sidecar's."""
+    lora_dirs: dict[str, str] = {}
+    for spec in specs:
+        name, _, path = spec.partition("=")
+        if not path:
+            ap.error(f"--lora wants NAME=ADAPTER_DIR, got {spec!r}")
+        if name not in models:
+            ap.error(f"--lora {name!r}: no such --model")
+        lora_dirs[name] = path
+    if lora_dirs and quantize:
+        # int8 quantizes exactly the 2-D proj weights LoRA targets; fail
+        # before the base streams to the device, not after
+        ap.error("--lora cannot combine with --quantize "
+                 "(adapters merge into full-precision weights)")
+    return lora_dirs
+
+
 def start(argv=None):
     """Parse ``argv``, start the HTTP front, load every model, and return
     ``(server_set, httpd)`` with the front serving. ``main`` runs this and
     then waits for SIGTERM/SIGINT."""
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     models = _parse_models(args.models)
+    lora_dirs = _parse_loras(ap, args.loras, models, args.quantize)
     servers = {
         name: ModelServer(path, dtype=args.dtype, device=args.device,
                           max_seq_len=args.max_seq_len, name=name,
+                          quantize=args.quantize, speculative_k=args.speculative_k,
+                          lora_dir=lora_dirs.get(name, ""),
                           prefix_cache_size=args.prefix_cache,
                           prefix_cache_max_bytes=args.prefix_cache_max_bytes)
         for name, path in models.items()
     }
     if args.stream_chunk_size < 1:
         raise SystemExit("--stream-chunk-size must be >= 1")
-    sset = ServerSet(servers, stream_chunk_size=args.stream_chunk_size)
+    if args.prefix_cache and args.speculative_k:
+        # the speculative decoder owns single-row streams before the
+        # ChunkedDecoder (the prefix cache's stream seam) is consulted
+        logging.getLogger("modelx.serve").warning(
+            "--prefix-cache is inert under --speculative-k "
+            "(the speculative decoder handles the streams it would accelerate)")
+    sset = ServerSet(servers, stream_chunk_size=args.stream_chunk_size,
+                     dynamic_batch=args.dynamic_batch, max_batch=args.max_batch,
+                     batch_window_ms=args.batch_window_ms)
     httpd = serve(sset, listen=args.listen)  # answers 503 while loading
     try:
         stats = sset.load_all()
@@ -100,6 +150,7 @@ def main(argv=None) -> int:
     stop.wait()
     httpd.shutdown()
     httpd.server_close()
+    sset.close()
     return 0
 
 

@@ -4,7 +4,9 @@ Both packages key params by HF names in HF's [out, in] layout, so no
 transposes happen here: each numpy array becomes a torch tensor on
 ``device``. BF16 (and F8) arrays arrive as ``ml_dtypes`` arrays, recognised
 by their dtype's name (this package never imports ml_dtypes) and
-reinterpreted through their raw bits (``uint16`` for bf16).
+reinterpreted through their raw bits (``uint16`` for bf16). A quantized
+weight arrives as a ``{"q": int8, "scale": fp32}`` pair of arrays and
+becomes the port's ``QTensor``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from modelx_tpu_torch.device import resolve_device
+from modelx_tpu_torch.ops.quant import QTensor
 
 
 # ml_dtypes' extended floats by dtype name -> (same-width numpy int, torch dtype)
@@ -34,11 +37,15 @@ def to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 def from_jax_params(np_params: dict[str, np.ndarray], device=None,
                     dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
-    """The port's params dict from the JAX package's params as numpy arrays.
-    ``dtype`` casts floating tensors; ``device`` defaults to the card."""
+    """The port's params dict from the JAX package's params as numpy arrays
+    (a quantized weight as its ``{"q", "scale"}`` pair). ``dtype`` casts
+    floating tensors; ``device`` defaults to the card."""
     dev = resolve_device(device)
     out = {}
     for name, arr in np_params.items():
+        if isinstance(arr, dict):
+            out[name] = QTensor(q=to_tensor(arr["q"]), scale=to_tensor(arr["scale"])).to(dev)
+            continue
         t = to_tensor(arr).to(dev)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)

@@ -42,8 +42,9 @@ def _imported_modules(path):
 def test_port_imports_no_jax_or_reference_package():
     files = _port_files()
     assert len(files) > 10
-    for new in ("tokenizer.py", "openai_api.py"):
-        assert os.path.join(REPO, "modelx_tpu_torch", "dl", new) in files
+    for new in ("dl/tokenizer.py", "dl/openai_api.py", "dl/lora.py", "ops/quant.py",
+                "models/speculative.py"):
+        assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -57,7 +58,9 @@ def test_serving_entry_leaves_jax_unimported():
         "import sys; import modelx_tpu_torch.dl.serve_main, modelx_tpu_torch.dl.loader, "
         "modelx_tpu_torch.dl.weights, modelx_tpu_torch.models.llama, "
         "modelx_tpu_torch.dl.openai_api, modelx_tpu_torch.dl.tokenizer, "
-        "modelx_tpu_torch.models.decode, modelx_tpu_torch.kernels.build; "
+        "modelx_tpu_torch.models.decode, modelx_tpu_torch.kernels.build, "
+        "modelx_tpu_torch.dl.lora, modelx_tpu_torch.ops.quant, "
+        "modelx_tpu_torch.models.speculative; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -58,6 +58,7 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "FORWARD_SHAPES", ((1, 48), (2, 16)))
     monkeypatch.setattr(chip_smoke, "GENERATE_PROMPTS", (5, 12))
     monkeypatch.setattr(chip_smoke, "NEW_TOKENS", 3)
+    _tiny_options(monkeypatch)
     stats = chip_smoke.phase_main(device="cpu", cfg=cfg)
     assert stats["flash_launches"] == 0  # CPU tensors take the plain version
     assert stats["logit_max_diff"] == 0.0 and stats["argmax_checked"] > 0
@@ -70,6 +71,23 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert stats["flash_launches_text"] == 0 and stats["score_max_diff"] == 0.0
     assert {"tokenizer_load_ms", "encode_tokens_per_s", "chat_s", "sse_first_content_ms",
             "score_ms"} <= set(stats)
+    # and the options phase, on its own count: the burst coalesced, int8 and
+    # LoRA served, speculation ran
+    assert stats["flash_launches_options"] == 0
+    assert stats["batch_device_calls"] < stats["batch_requests"] == 7
+    assert stats["spec_steps"] > 0 and stats["int8_device_gb"] > 0
+    assert stats["int8_linear_max_abs_err"] >= 0 and stats["lora_merge_s"] >= 0
+
+
+def _tiny_options(monkeypatch):
+    """The options phase's shapes cut to the tiny CPU model."""
+    for name, value in (("BATCH_FORWARD_SHAPES", ((1, 12), (2, 30), (1, 5), (3, 9))),
+                        ("BATCH_GREEDY_PROMPTS", (6, 20)),
+                        ("BATCH_SAMPLED", ((9, {"temperature": 0.8, "seed": 21}),)),
+                        ("BATCH_NEW_TOKENS", 4), ("BATCH_WINDOW_MS", 500.0),
+                        ("SPEC_PERIOD", 5), ("SPEC_REPEATS", 4), ("SPEC_NEW_TOKENS", 12),
+                        ("INT8_FORWARD", (1, 40)), ("INT8_PROMPT", 8), ("INT8_NEW_TOKENS", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
 
 
 def test_attention_flops_is_what_the_bound_divides():
@@ -258,3 +276,43 @@ def test_sse_check_fails_on_a_lost_delta():
         chip_smoke.check_sse_deltas([*deltas, end], "abc", chat=True)
     with pytest.raises(RuntimeError, match="ended with"):
         chip_smoke.check_sse_deltas([role, *deltas], "abc", chat=True)
+
+
+def test_options_batch_fails_on_a_broken_batched_answer(text_pod, monkeypatch):
+    from modelx_tpu_torch.dl.serve import Batcher
+
+    port, server, cfg = text_pod
+    _tiny_options(monkeypatch)
+    pack = Batcher._pack
+
+    def shifted(rows):  # every batched row answers for other tokens
+        batch, spans = pack(rows)
+        return (batch + 1) % cfg.vocab_size, spans
+
+    monkeypatch.setattr(Batcher, "_pack", staticmethod(shifted))
+    with pytest.raises(RuntimeError, match="below the maximum"):
+        chip_smoke.options_batch(port, server, cfg, per_forward=0)
+
+
+def test_options_batch_fails_when_nothing_coalesces(text_pod, monkeypatch):
+    port, server, cfg = text_pod
+    _tiny_options(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "BATCH_WINDOW_MS", 0.0)
+    with pytest.raises(RuntimeError, match="did not coalesce"):
+        chip_smoke.options_batch(port, server, cfg, per_forward=0)
+
+
+def test_near_tie_check_reads_the_requests_own_noise(tiny_server):
+    """A sampled answer that differs from the lone one passes only where the
+    replay's Gumbel-perturbed logits put its token near the maximum."""
+    prompt = list(range(3, 23))
+    samp = {"temperature": 0.8, "seed": 21}
+    lone = tiny_server.generate(np.asarray([prompt], np.int32), max_new_tokens=5,
+                                **samp)[0, 20:].tolist()
+    assert chip_smoke.check_near_ties(tiny_server, prompt, lone, lone, "x", samp) == "equal"
+    other = lone[:3] + [(lone[3] + 1) % 256, lone[4]]
+    with pytest.raises(RuntimeError, match="below the maximum"):
+        chip_smoke.check_near_ties(tiny_server, prompt, other, lone, "x", samp)
+    with pytest.raises(RuntimeError, match="replay differs"):  # the wrong seed's noise
+        chip_smoke.check_near_ties(tiny_server, prompt, other, lone, "x",
+                                   {"temperature": 0.8, "seed": 22})

@@ -21,11 +21,13 @@ import jax.numpy as jnp
 from modelx_tpu.models import decode as jdecode
 from modelx_tpu.models import llama as jl
 from modelx_tpu.ops import nn as jnn
+from modelx_tpu.ops import quant as jquant
 from modelx_tpu_torch.dl.weights import from_jax_params
 from modelx_tpu_torch.models import decode as tdecode
 from modelx_tpu_torch.models import llama as tl
 from modelx_tpu_torch.ops import attention as tattn
 from modelx_tpu_torch.ops import nn as tnn
+from modelx_tpu_torch.ops import quant as tquant
 
 FP32_ATOL = 1e-5
 BF16_ATOL = 0.1
@@ -151,8 +153,10 @@ def test_linear_matches_jax_with_bias_after_cast():
     np.testing.assert_allclose(
         tnn.linear(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)).numpy(),
         np.asarray(jnn.linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tnn.linear(torch.from_numpy(x), object())
+    # an int8 QTensor weight: the scale on the fp32 product, the bias after the cast
+    np.testing.assert_allclose(
+        tnn.linear(torch.from_numpy(x), tquant.quantize(w), torch.from_numpy(b)).numpy(),
+        np.asarray(jnn.linear(jnp.asarray(x), jquant.quantize(w), jnp.asarray(b))), atol=1e-5)
 
 
 def test_param_names_shapes_and_init():

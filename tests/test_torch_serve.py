@@ -499,3 +499,98 @@ def test_serve_main_rejects_bad_model_specs():
     for argv in (["--model", "nodir"], ["--model", "a=x", "--model", "a=y"], []):
         with pytest.raises(SystemExit):
             serve_main.start(argv + ["--device", "cpu"])
+
+
+# -- the serving options: --dynamic-batch over HTTP, and the new flags ---------
+
+
+@pytest.fixture(scope="module")
+def batched_pods(pods):
+    """A JAX ServerSet(dynamic_batch=True) pod and the port's
+    ``--dynamic-batch`` pod on the same tiny fp32 checkpoint."""
+    from modelx_tpu.dl.serve import ServerSet as JaxServerSet
+
+    model_dir = pods[2].servers["default"].model_dir
+    jserver = JaxModelServer(model_dir, mesh_spec="dp=1", dtype="float32")
+    jserver.load()
+    jsset = JaxServerSet({"default": jserver}, dynamic_batch=True, batch_window_ms=30.0)
+    jhttpd = jax_serve(jsset, listen=f"127.0.0.1:{free_port()}")
+    tsset, thttpd = serve_main.start([
+        "--model", f"default={model_dir}", "--device", "cpu", "--dtype", "float32",
+        "--listen", f"127.0.0.1:{free_port()}", "--dynamic-batch", "--batch-window-ms", "30"])
+    yield jhttpd.server_address[1], thttpd.server_address[1], tsset
+    for h in (jhttpd, thttpd):
+        h.shutdown()
+        h.server_close()
+    tsset.close()
+    for b in jsset.batchers.values():
+        b.close()
+
+
+BATCHED_REQUESTS = [
+    ("/v1/forward", {"tokens": _TOKS}),
+    ("/v1/default/forward", {"tokens": [_TOKS[0][:5]]}),
+    ("/v1/generate", {"tokens": _TOKS, "max_new_tokens": 6}),
+    ("/v1/generate", {"tokens": _TOKS[:1], "max_new_tokens": 6, "stop_token_ids": [138, 396]}),
+    ("/v1/generate", {"tokens": _TOKS, "max_new_tokens": 6, "temperature": 0.8,
+                      "top_k": 40, "top_p": 0.95, "seed": 7}),
+    ("/v1/generate", {"tokens": _TOKS[1:], "max_new_tokens": 4, "temperature": 0.5}),
+    ("/v1/forward", {"tokens": [[]]}),
+    ("/v1/generate", {"tokens": [[1, 999]]}),
+]
+
+
+@pytest.mark.parametrize("path,body", BATCHED_REQUESTS,
+                         ids=[f"{i}{p}" for i, (p, _) in enumerate(BATCHED_REQUESTS)])
+def test_batched_sidecar_json_identical_to_jax(batched_pods, path, body):
+    jport, tport, _ = batched_pods
+    want = _call(jport, path, body)
+    assert _call(tport, path, body) == want
+
+
+def test_concurrent_batched_requests_identical_to_jax(batched_pods):
+    """Requests sent at once coalesce (fewer device calls than requests) and
+    each answers the JAX pod's bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jport, tport, tsset = batched_pods
+    reqs = BATCHED_REQUESTS[:6]
+    with ThreadPoolExecutor(len(reqs)) as pool:
+        want = list(pool.map(lambda r: _call(jport, *r), reqs))
+    batches = tsset.batchers["default"].batches if tsset.batchers else 0
+    with ThreadPoolExecutor(len(reqs)) as pool:
+        got = list(pool.map(lambda r: _call(tport, *r), reqs))
+    assert got == want and all(status == 200 for status, _ in got)
+    assert tsset.batchers["default"].batches - batches < len(reqs)
+    models = json.loads(_call(tport, "/v1/models")[1])["models"]["default"]
+    assert models["batches"] == tsset.batchers["default"].batches
+
+
+def test_serve_main_parses_the_option_flags():
+    args = serve_main.build_parser().parse_args(["--model", "m=/x"])
+    assert (args.dynamic_batch, args.max_batch, args.batch_window_ms, args.quantize,
+            args.speculative_k, args.loras) == (False, 32, 3.0, None, 0, [])
+    args = serve_main.build_parser().parse_args([
+        "--model", "m=/x", "--dynamic-batch", "--max-batch", "8", "--batch-window-ms", "1.5",
+        "--quantize", "int8", "--speculative-k", "6", "--lora", "m=/a", "--lora", "n=/b"])
+    assert (args.dynamic_batch, args.max_batch, args.batch_window_ms, args.quantize,
+            args.speculative_k, args.loras) == (True, 8, 1.5, "int8", 6, ["m=/a", "n=/b"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "a=/x", "--lora", "a"],
+    ["--model", "a=/x", "--lora", "b=/y"],
+    ["--model", "a=/x", "--lora", "a=/y", "--quantize", "int8"],
+], ids=["no-dir", "no-model", "with-quantize"])
+def test_serve_main_option_usage_errors_equal_jax(argv, capsys):
+    from click.testing import CliRunner
+
+    from modelx_tpu.dl import serve_main as jax_serve_main
+
+    ran = CliRunner().invoke(jax_serve_main.main, argv + ["--no-compile-cache"])
+    assert ran.exit_code == 2
+    want = ran.output.strip().splitlines()[-1].removeprefix("Error: ")
+    with pytest.raises(SystemExit) as exc:
+        serve_main.start(argv + ["--device", "cpu"])
+    assert exc.value.code == 2
+    assert capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1] == want
