@@ -55,6 +55,24 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    merged weights equal a manual merge bit for bit, ``/v1/forward`` runs the
    kernel. One model at a time is loaded beside the main one, and the main
    one is freed before the LoRA server loads.
+7. deploy: the registry deploy path on the same checkpoint, the earlier
+   servers freed, the kernel counts from 0 again. The checkpoint, its
+   tokenizer.json and a modelx.yaml (``modelFiles`` naming the two) go
+   into a local FS registry through the port's store API (the safetensors
+   blob with the tensor-index annotation), the source checkpoint is
+   deleted, and the port's registry serves them from a child process.
+   ``modelxdl-torch REF DEST --device-put --blob-cache-dir D`` runs twice
+   in child processes with ``MODELX_DL_NO_LOCAL_REDIRECT=1``: cold, the
+   bytes come over HTTP and tee into the blob cache, every tensor put on
+   the card equals dest's bytes and dest's files hash to their digests;
+   warm, the pull downloads nothing and the load reads 0 network bytes
+   from the cache. The deploy TTFT (``modelx_tpu_torch.dl.ttft``) runs in
+   fresh processes, cold and warm, its first token launching the kernel
+   ``num_layers`` times; ``modelx-serve-torch --model m=DEST`` answers the
+   main phase's ``/v1/forward`` rows with the same argmax, and
+   ``/healthz`` stays 200 through a registry kill with ``control_plane``
+   no longer ok. Disk: the registry, dest and the blob cache each hold the
+   checkpoint (16.06 GB) once; the phase checks for 3x that first.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -405,10 +423,12 @@ def main(argv=None) -> int:
         "replaces": "modelx_tpu/ops/attention.py:149",
         # null, not 0, when the serving paths did not run (--phases kernels)
         "launches": (main_stats["flash_launches"] + main_stats["flash_launches_text"]
-                     + main_stats["flash_launches_options"] if main_stats else None),
+                     + main_stats["flash_launches_options"] + main_stats["flash_launches_deploy"]
+                     if main_stats else None),
         "launches_by_path": main_stats and {"main": main_stats["flash_launches"],
                                             "text": main_stats["flash_launches_text"],
-                                            "options": main_stats["flash_launches_options"]},
+                                            "options": main_stats["flash_launches_options"],
+                                            "deploy": main_stats["flash_launches_deploy"]},
         "max_abs_err": max((r["max_abs_err"] for r in kernel_rows), default=None),
         "ms": head and head["ms"],
         "call_ms": head and head["call_ms"],
@@ -633,6 +653,17 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
         stats.update(phase_options(port, server, cfg, ckpt, per_forward, stats))
         log(f"options: flash_attention launches on the options path: "
             f"{stats['flash_launches_options']}")
+
+        # phase 7, the registry deploy, with the earlier servers freed: its
+        # own count (the served dest's from 0, plus its TTFT children's)
+        httpd.shutdown()
+        httpd.server_close()
+        httpd = None
+        attn.flash_attention.launches = 0
+        stats.update(phase_deploy(cfg, ckpt, forwards, device, per_forward))
+        log(f"deploy: flash_attention launches on the deploy path: "
+            f"{stats['flash_launches_deploy']} ({stats['flash_launches_deploy_serve']} serving "
+            f"dest, {per_forward} in each TTFT process)")
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -1788,6 +1819,334 @@ def options_lora(cfg, ckpt: str, per_forward: int, device: str) -> dict:
         httpd.shutdown()
         httpd.server_close()
         _free(lserver)
+
+
+# -- phase 7: the registry deploy path ------------------------------------------------
+
+DEPLOY_REPO = "library/llama3-8b"
+DEPLOY_YAML = """description: Llama-3-8B-shaped random weights (chip smoke)
+framework: pytorch
+modelFiles:
+- model.safetensors
+- tokenizer.json
+serving:
+  model_family: llama
+  dtype: bfloat16
+"""
+# a modelxdl-torch run in a fresh process, followed in that process by a
+# tensor-by-tensor comparison of what it put on the device with dest's file
+DL_CHILD = r"""
+import json, os, sys, time
+import torch
+from modelx_tpu_torch.dl import dl_main, safetensors as st
+from modelx_tpu_torch.dl.loader import LocalFileSource
+
+summary = dl_main.run(sys.argv[1:])
+arrays = summary["load"].pop("arrays")
+t0 = time.monotonic()
+bad, checked = [], 0
+for name in sorted(os.listdir(summary["dest"])):
+    if not name.endswith(".safetensors"):
+        continue
+    path = os.path.join(summary["dest"], name)
+    infos, offset = st.read_header_from_file(path)
+    src = LocalFileSource(path)
+    try:
+        for tname, info in infos.items():
+            got = arrays.pop(tname).reshape(-1).view(torch.uint8)
+            want = torch.from_numpy(src.read_range(offset + info.start, info.nbytes))
+            checked += 1
+            if not torch.equal(got, want.to(got.device)):
+                bad.append(tname)
+            del got, want
+    finally:
+        src.close()
+summary["tensor_check"] = {"tensors": checked, "mismatched": bad, "not_in_dest": sorted(arrays),
+                           "seconds": round(time.monotonic() - t0, 3)}
+print(json.dumps(summary), flush=True)
+"""
+
+
+def _child_env() -> dict:
+    """Children run from the checkout (``-c``/``-m`` put it on the path)."""
+    env = dict(os.environ)
+    env["MODELX_DL_NO_LOCAL_REDIRECT"] = "1"  # the bytes take HTTP and the cache tee
+    return env
+
+
+def _run_child(what: str, argv: list, timeout: float = 600.0) -> dict:
+    """Run a child process from the checkout; its last stdout line is JSON."""
+    t0 = time.monotonic()
+    proc = subprocess.run(argv, cwd=REPO, env=_child_env(), capture_output=True, text=True,
+                          timeout=timeout)
+    secs = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"deploy: {what} exited {proc.returncode}\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_seconds"] = round(secs, 3)
+    return out
+
+
+def _sha256_pass(path: str) -> tuple[str, float]:
+    """The file's digest and the seconds its sha256 pass took."""
+    from modelx_tpu_torch.types import Digest
+
+    t0 = time.monotonic()
+    return str(Digest.from_file(path)), time.monotonic() - t0
+
+
+def write_registry(data_dir: str, ckpt: str) -> tuple[object, dict]:
+    """The checkpoint, its tokenizer.json and tokenizer_config.json (left
+    out by modelFiles) and a modelx.yaml, written into a local FS registry
+    through the port's store API; the safetensors blob carries the
+    tensor-index annotation. Returns (manifest, sha256 pass seconds)."""
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.registry.fs import LocalFSProvider
+    from modelx_tpu_torch.registry.store import BlobContent
+    from modelx_tpu_torch.registry.store_fs import FSRegistryStore
+    from modelx_tpu_torch.types import (
+        AnnotationTensorIndex, Descriptor, Manifest, MediaTypeModelConfigYaml,
+        MediaTypeModelFile, MediaTypeModelManifestJson)
+
+    with open(os.path.join(ckpt, "modelx.yaml"), "w") as f:
+        f.write(DEPLOY_YAML)
+    store = FSRegistryStore(LocalFSProvider(data_dir))
+    hashed: dict = {}
+    descs = []
+    for name in ("model.safetensors", "tokenizer.json", "tokenizer_config.json", "modelx.yaml"):
+        path = os.path.join(ckpt, name)
+        digest, secs = _sha256_pass(path)
+        hashed[name] = secs
+        media = MediaTypeModelConfigYaml if name == "modelx.yaml" else MediaTypeModelFile
+        desc = Descriptor(name=name, media_type=media, digest=digest,
+                          size=os.path.getsize(path), mode=0o644)
+        if name.endswith(".safetensors"):
+            infos, offset = st.read_header_from_file(path)
+            desc.annotations[AnnotationTensorIndex] = st.tensor_index_annotation(infos, offset)
+        with open(path, "rb") as f:
+            store.put_blob(DEPLOY_REPO, digest, BlobContent(f, desc.size, media))
+        descs.append(desc)
+    manifest = Manifest(config=descs[-1], blobs=descs[:-1])
+    store.put_manifest(DEPLOY_REPO, "v1", MediaTypeModelManifestJson, manifest)
+    return manifest, hashed
+
+
+def _start_registry(data_dir: str, log_path: str):
+    port = _free_port()
+    log_f = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "modelx_tpu_torch.registry.server_main",
+         "--listen", f"127.0.0.1:{port}", "--data", data_dir],
+        cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT)
+    log_f.close()
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"deploy: the registry exited {proc.returncode}: "
+                               f"{open(log_path).read()[-3000:]}")
+        try:
+            if _http_raw(port, "/healthz")[0] == 200:
+                return proc, f"http://127.0.0.1:{port}"
+        except OSError:
+            pass
+        time.sleep(0.2)
+    proc.kill()
+    raise RuntimeError("deploy: the registry did not answer /healthz in 120 s")
+
+
+def _http_raw(port: int, path: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _deploy_disk(base: str, nbytes: int) -> None:
+    """The registry, dest and the blob cache each hold the checkpoint once
+    more (the checkpoint itself is already on the disk)."""
+    import shutil
+
+    free = shutil.disk_usage(base).free
+    need = int(3 * nbytes * 1.02)
+    log(f"deploy: {base} has {free / 1e9:.1f} GB free; the registry, dest and the blob "
+        f"cache need {need / 1e9:.1f} GB beside the checkpoint")
+    if free < need:
+        raise RuntimeError(f"deploy: {(need - free) / 1e9:.1f} GB short of disk for the "
+                           f"registry, dest and the blob cache")
+
+
+def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int) -> dict:
+    """The registry deploy path (module docstring, phase 7). ``ckpt`` is
+    deleted once the registry holds it; ``forwards`` maps each main-phase
+    /v1/forward shape to (tokens, argmax)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from modelx_tpu_torch.client.remote import RegistryClient
+    from modelx_tpu_torch.dl import manifest_cache, serve_main
+    from modelx_tpu_torch.ops import attention as attn
+
+    on_card = device == "cuda"
+    nbytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+    root = tempfile.mkdtemp(prefix="modelx-deploy-", dir=os.path.dirname(ckpt))
+    stats: dict = {"deploy_bytes": nbytes}
+    reg_dir, dest, cache = (os.path.join(root, d) for d in ("registry", "dest", "blob-cache"))
+    registry = httpd = served = None
+    try:
+        _deploy_disk(root, nbytes)
+        t0 = time.monotonic()
+        manifest, hashed = write_registry(reg_dir, ckpt)
+        stats["deploy_registry_write_s"] = time.monotonic() - t0
+        stats["sha256_s_registry_write"] = hashed["model.safetensors"]
+        shutil.rmtree(ckpt)  # the registry holds it now: free its disk
+        log(f"deploy: wrote {DEPLOY_REPO}@v1 into a local FS registry in "
+            f"{stats['deploy_registry_write_s']:.1f} s (sha256 of the checkpoint "
+            f"{hashed['model.safetensors']:.1f} s, {nbytes / hashed['model.safetensors'] / 1e9:.2f}"
+            f" GB/s); deleted the source checkpoint")
+        registry, base = _start_registry(reg_dir, os.path.join(root, "registry.log"))
+        ref = f"{base}/{DEPLOY_REPO}@v1"
+        dl_argv = [sys.executable, "-c", DL_CHILD, ref, dest, "--device-put",
+                   "--blob-cache-dir", cache] + ([] if on_card else ["--device", "cpu"])
+
+        # cold: an empty blob cache, the bytes over HTTP
+        cold = _run_child("cold modelxdl-torch", dl_argv)
+        weights = [b for b in manifest.blobs if b.name.endswith(".safetensors")]
+        check = cold["tensor_check"]
+        if check["mismatched"] or check["not_in_dest"] or check["tensors"] == 0:
+            raise RuntimeError(f"deploy: tensors on the device differ from dest's file: {check}")
+        for blob in manifest.blobs:
+            want = blob.name in ("model.safetensors", "tokenizer.json")
+            path = os.path.join(dest, blob.name)
+            if os.path.exists(path) != want:
+                raise RuntimeError(f"deploy: modelFiles selection wrong for {blob.name}")
+        digest, secs = _sha256_pass(os.path.join(dest, "model.safetensors"))
+        if digest != weights[0].digest or _sha256_pass(
+                os.path.join(dest, "tokenizer.json"))[0] != next(
+                b.digest for b in manifest.blobs if b.name == "tokenizer.json"):
+            raise RuntimeError("deploy: a pulled file does not hash to its descriptor's digest")
+        stats["sha256_s_dest_verify"] = secs
+        load = cold["load"]
+        if (load["transports"] != {"model.safetensors": "registry"}
+                or load["network_bytes"] != load["bytes"] or cold["blob_cache"]["admitted"] != 1):
+            raise RuntimeError(f"deploy: the cold load did not take HTTP and the cache tee: "
+                               f"{load} {cold['blob_cache']}")
+        stats.update(deploy_cold_pull_s=cold["pull_seconds"], deploy_cold_load_s=load["seconds"],
+                     deploy_cold_gbps=load["gbps"], deploy_cold_transfer_gbps=load["transfer_gbps"],
+                     deploy_cold_total_s=cold["total_seconds"],
+                     deploy_cold_process_s=cold["process_seconds"],
+                     deploy_cold_tensor_check_s=check["seconds"],
+                     sha256_s_cold_admit=cold["blob_cache"]["admit_verify_seconds"])
+        log(f"deploy: cold modelxdl-torch --device-put: {cold['bytes'] / 1e9:.3f} GB pulled in "
+            f"{cold['pull_seconds']} s ({cold['pull']}; the file location, hashed inline), "
+            f"registry->{device} {load['bytes'] / 1e9:.3f} GB in {load['seconds']} s = "
+            f"{load['gbps']:.3f} GB/s over HTTP with the blob cache's admit sha256 "
+            f"({cold['blob_cache']['admit_verify_seconds']:.1f} s), {load['transfer_gbps']:.3f} "
+            f"GB/s for the transfer alone ({load['transfer_seconds']} s, "
+            f"{load['network_bytes']} network bytes); blob cache {cold['blob_cache']}; "
+            f"{check['tensors']} tensors on the device == dest's bytes ({check['seconds']} s); "
+            f"dest's files hash to their digests (sha256 {secs:.1f} s)")
+
+        # warm: the same command again
+        warm = _run_child("warm modelxdl-torch", dl_argv)
+        wload = warm["load"]
+        if (warm["pull"]["downloaded"] or wload["network_bytes"]
+                or warm["blob_cache"]["hits"] != len(weights)
+                or warm["tensor_check"]["mismatched"]
+                or wload["transports"] != {"model.safetensors": "cache"}):
+            raise RuntimeError(f"deploy: the warm deploy touched the network: {warm}")
+        stats.update(deploy_warm_pull_s=warm["pull_seconds"], deploy_warm_load_s=wload["seconds"],
+                     deploy_warm_gbps=wload["gbps"], deploy_warm_transfer_gbps=wload["transfer_gbps"],
+                     deploy_warm_total_s=warm["total_seconds"],
+                     sha256_s_warm_hit=warm["blob_cache"]["hit_verify_seconds"])
+        log(f"deploy: warm modelxdl-torch --device-put: pull {warm['pull_seconds']} s "
+            f"({warm['pull']}: the hash-skip re-hashed dest), registry->{device} "
+            f"{wload['bytes'] / 1e9:.3f} GB in {wload['seconds']} s = {wload['gbps']:.3f} GB/s from "
+            f"the blob cache with its re-verify sha256 "
+            f"({warm['blob_cache']['hit_verify_seconds']:.1f} s), {wload['transfer_gbps']:.3f} "
+            f"GB/s for the transfer alone, 0 network bytes; blob cache {warm['blob_cache']}")
+
+        # deploy TTFT in fresh processes: cold (an emptied blob cache), then warm
+        shutil.rmtree(cache)
+        ttft_argv = [sys.executable, "-m", "modelx_tpu_torch.dl.ttft", base, DEPLOY_REPO,
+                     "--blob-cache-dir", cache] + ([] if on_card else ["--device", "cpu"])
+        ttfts = {}
+        for kind in ("cold", "warm"):
+            t = ttfts[kind] = _run_child(f"{kind} ttft", ttft_argv)
+            if t["flash_launches"] != per_forward or t["warm_blobs"] != (kind == "warm"):
+                raise RuntimeError(f"deploy: {kind} TTFT: flash_launches {t['flash_launches']} "
+                                   f"(want {per_forward}), warm_blobs {t['warm_blobs']}")
+            log(f"deploy: {kind} TTFT {t['ttft_ms']} ms: plan {t['plan_ms']}, load "
+                f"{t['load_ms']} ({t['load_gbps']} GB/s; the transfer {t['transfer_ms']}, the "
+                f"blob cache's sha256 the rest), kernel library thread "
+                f"{t['kernel_thread_ms']} (join {t['kernel_join_ms']}), first token "
+                f"{t['first_exec_ms']} ms; weights ready {t['weights_ready_ms']} ms; first token "
+                f"{t['first_token']} with {t['flash_launches']} flash launches")
+            stats.update({f"ttft_{kind}_{k}": t[k] for k in (
+                "ttft_ms", "plan_ms", "load_ms", "transfer_ms", "kernel_join_ms",
+                "first_exec_ms", "kernel_thread_ms", "weights_ready_ms", "load_gbps")})
+        if ttfts["cold"]["first_token"] != ttfts["warm"]["first_token"]:
+            raise RuntimeError("deploy: cold and warm TTFT answered different first tokens")
+
+        # serve what was pulled: the deploy path's own kernel count from 0
+        attn.flash_attention.launches = 0
+        port = _free_port()
+        sset, httpd = serve_main.start([
+            "--model", f"{MODEL}={dest}", "--listen", f"127.0.0.1:{port}", "--device", device,
+            "--dtype", "bfloat16", "--manifest-cache-dir", os.path.join(root, "manifests")])
+        served = sset.servers[MODEL]
+        log(f"deploy: modelx-serve-torch --model {MODEL}=<dest> up; load "
+            f"{served.stats['load_seconds']} s at {served.stats['load_gbps']} GB/s")
+        for shape, (tokens, want) in forwards.items():
+            before = attn.flash_attention.launches
+            status, body = _http(port, "/v1/forward", {"tokens": tokens.tolist()})
+            rose = attn.flash_attention.launches - before
+            if status != 200 or body["logits_argmax"] != want.tolist() or rose != per_forward:
+                raise RuntimeError(f"deploy: /v1/forward {shape} on dest answered {status}, "
+                                   f"launches {rose}, argmax equal to the main phase's: "
+                                   f"{status == 200 and body['logits_argmax'] == want.tolist()}")
+            log(f"deploy: /v1/forward {list(shape)} on dest == the main phase's argmax; "
+                f"flash_attention launches +{rose}")
+        status, body = _http(port, "/v1/forward", {"tokens": [[1, 2, 3, 4]]})
+        if status != 200 or body["logits_argmax"][0][-1] != ttfts["cold"]["first_token"]:
+            raise RuntimeError("deploy: the TTFT first token differs from the served dest's")
+        client = RegistryClient(base)
+        client.get_manifest(DEPLOY_REPO, "v1")  # pins the manifest
+        status, body = _http(port, "/healthz")
+        if status != 200 or body.get("control_plane", {}).get("state") != "ok":
+            raise RuntimeError(f"deploy: /healthz before the registry kill: {status} {body}")
+        registry.kill()
+        registry.wait(timeout=60)
+        client.close()
+        client.get_manifest(DEPLOY_REPO, "v1")  # served from the pinned manifest
+        status, body = _http(port, "/healthz")
+        state = body.get("control_plane", {}).get("state")
+        if status != 200 or state in (None, "ok") or client.last_source != "cache":
+            raise RuntimeError(f"deploy: /healthz after the registry kill: {status} {body}")
+        log(f"deploy: registry killed: /healthz 200 with control_plane {state} "
+            f"({body['control_plane']}); the pinned manifest served the re-resolve")
+        stats["flash_launches_deploy_serve"] = attn.flash_attention.launches
+        stats["flash_launches_deploy"] = (attn.flash_attention.launches
+                                          + sum(t["flash_launches"] for t in ttfts.values()))
+        if on_card:
+            stats["deploy_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        manifest_cache.configure_default("")
+        return stats
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+            _free(served)
+        if registry is not None and registry.poll() is None:
+            registry.kill()
+            registry.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
 
 
 if __name__ == "__main__":

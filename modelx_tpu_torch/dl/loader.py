@@ -1,23 +1,36 @@
 """Stream safetensors byte ranges into device memory (single device).
 
 Counterpart of ``modelx_tpu/dl/loader.py`` (``LocalFileSource :340``,
-``LoadStats :530``, ``load_safetensors :647``). Each tensor's byte range is
-read into a pinned host staging buffer and copied to the card with a
-``non_blocking`` copy on a side stream; a ring of staging buffers lets the
-read of one chunk overlap the copy of the one before it. The bytes are
-viewed as the tensor's dtype on the device, so BF16 never passes through
-numpy. ``quantize="int8"`` turns the big matmul weights into ``QTensor``s
-on the device, each right after its bytes land there: the link carries the
-checkpoint's bytes and device memory keeps the int8 codes. No mesh or HTTP
-source yet: those come with the multi-device and registry-deploy slices.
+``HTTPSource :379``, ``_FetchGovernor :261``, ``auto_fetch_concurrency
+:246``, ``_read_with_retry :225``, ``LoadStats :530``, ``load_safetensors
+:647``). The tensor index comes from the manifest's ``modelx.tensor.index``
+annotation when the caller has it, else from the header (two small ranged
+reads). Every tensor's bytes are cut into chunks of at most
+``STAGING_CHUNK``; a pool of fetch threads reads the chunks in parallel
+(ranged preads of a local file, or ranged GETs on one kept-alive
+connection per thread), each straight into a pinned host staging buffer
+(``readinto``, no intermediate ``bytes``), and copies it to the card with a
+``non_blocking`` copy on a side stream; a buffer is reused once the event
+of its last copy has fired, so fetches overlap the copies. A governor gates
+the reads: it halves the width when local reads collapse and grows it
+while remote reads show headroom. The bytes are viewed as the tensor's
+dtype on the device, so BF16 never passes through numpy. ``quantize=
+"int8"`` turns the big matmul weights into ``QTensor``s on the device,
+tensor by tensor as they complete: the link carries the checkpoint's bytes
+and device memory keeps the int8 codes. One card, no mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import os
+import queue
 import struct
+import threading
 import time
+import urllib.parse
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -25,8 +38,125 @@ import torch
 from modelx_tpu_torch.dl import safetensors as st
 from modelx_tpu_torch.ops import quant
 
-STAGING_CHUNK = 64 << 20  # bytes per pinned staging buffer
-STAGING_BUFFERS = 4
+STAGING_CHUNK = 32 << 20  # bytes per pinned staging buffer (and per ranged read)
+FETCH_RETRIES = 3  # per-read retry budget
+# bytes of not-yet-complete tensors in flight before the loader waits for
+# the oldest (bounds device memory held as raw bytes when quantizing)
+WINDOW_BYTES = 2 << 30
+
+
+def _read_with_retry(source, offset: int, length: int, out=None,
+                     retries: int = FETCH_RETRIES, timer=None):
+    """Ranged read with exponential backoff: a transient fetch error must
+    not kill a multi-hundred-tensor load. ``timer(nbytes, seconds)`` fires
+    for the successful attempt only: the fetch governor must see transfer
+    time, not backoff sleeps or failed I/O."""
+    for attempt in range(retries):
+        t0 = time.monotonic()
+        try:
+            result = source.read_range(offset, length, out)
+        except OSError:
+            if attempt == retries - 1:
+                raise
+            time.sleep(0.2 * (2 ** attempt))
+        else:
+            if timer is not None:
+                timer(length, time.monotonic() - t0)
+            return result
+
+
+def auto_fetch_concurrency(source) -> int:
+    """Fetch width from the host: local preads are memcpy-bound, so 2 a
+    core (at most 8); HTTP reads wait on sockets, so 4 a core in [8, 16]."""
+    cpu = os.cpu_count() or 1
+    if isinstance(getattr(source, "source", source), LocalFileSource):
+        return max(2, min(8, 2 * cpu))
+    return max(8, min(16, 4 * cpu))
+
+
+class _FetchGovernor:
+    """Admission gate for fetch reads. It halves its width when measured
+    per-thread throughput collapses under ``floor_bps`` and doubles it,
+    up to ``max_width``, while per-thread throughput stays above
+    ``growth_bps``; after 3 backoffs it stops growing. The gate is taken
+    per read, so width changes apply mid-load."""
+
+    MAX_GROWTH_BACKOFFS = 3
+
+    def __init__(self, width: int, floor_bps: float, min_width: int = 2,
+                 max_width: int = 0, growth_bps: float = 0.0) -> None:
+        self.width = max(1, int(width))
+        self.floor_bps = float(floor_bps)
+        self.min_width = min(min_width, self.width)
+        self.max_width = max(self.width, int(max_width))
+        self.growth_bps = float(growth_bps)
+        self._cv = threading.Condition()
+        self._active = 0
+        self._bytes = 0
+        self._busy_s = 0.0
+        self.backoffs = 0
+        self.growths = 0
+
+    def acquire(self) -> None:
+        with self._cv:
+            while self._active >= self.width:
+                self._cv.wait()
+            self._active += 1
+
+    def release(self, nbytes: int, seconds: float) -> None:
+        with self._cv:
+            self._active -= 1
+            self._bytes += nbytes
+            self._busy_s += seconds
+            if (self.floor_bps or self.growth_bps) and self._busy_s >= 0.25:
+                rate = self._bytes / self._busy_s  # per busy thread
+                if self.floor_bps and rate < self.floor_bps and self.width > self.min_width:
+                    self.width = max(self.min_width, self.width // 2)
+                    self.backoffs += 1
+                elif (self.growth_bps and rate >= self.growth_bps
+                      and self.width < self.max_width
+                      and self.backoffs < self.MAX_GROWTH_BACKOFFS):
+                    self.width = min(self.max_width, self.width * 2)
+                    self.growths += 1
+                # decay: recent reads dominate the next verdict
+                self._bytes //= 2
+                self._busy_s /= 2
+            self._cv.notify_all()
+
+
+class _OverlapClock:
+    """Wall time with fetches in flight, with copies being issued, and with
+    both (the overlap the staging ring exists to create)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._n = {"fetch": 0, "put": 0}
+        self._last = time.monotonic()
+        self.busy = {"fetch": 0.0, "put": 0.0}
+        self.overlap_s = 0.0
+
+    def _tick(self) -> None:
+        now = time.monotonic()
+        dt, self._last = now - self._last, now
+        for kind, n in self._n.items():
+            if n > 0:
+                self.busy[kind] += dt
+        if self._n["fetch"] > 0 and self._n["put"] > 0:
+            self.overlap_s += dt
+
+    def enter(self, kind: str) -> None:
+        with self._lock:
+            self._tick()
+            self._n[kind] += 1
+
+    def exit(self, kind: str) -> None:
+        with self._lock:
+            self._tick()
+            self._n[kind] -= 1
+
+
+def _view(buf, length: int) -> memoryview:
+    return memoryview(buf).cast("B")[:length]
 
 
 class LocalFileSource:
@@ -40,7 +170,7 @@ class LocalFileSource:
         """Read ``length`` bytes at ``offset`` into ``out`` (a writable
         buffer of at least ``length`` bytes), or into a new uint8 array."""
         buf = np.empty(length, np.uint8) if out is None else out
-        view = memoryview(buf).cast("B")[:length]
+        view = _view(buf, length)
         n = 0
         while n < length:
             got = os.preadv(self._fd, [view[n:]], offset + n)
@@ -55,13 +185,103 @@ class LocalFileSource:
         os.close(self._fd)
 
 
+class HTTPSource:
+    """Ranged GETs against a URL (the registry's blob endpoint or a
+    presigned URL), on raw ``http.client`` with one kept-alive connection
+    per thread; each response body lands in the caller's buffer with
+    ``readinto``. A colocated client does better with the registry's
+    ``file`` location (``LocalFileSource``)."""
+
+    def __init__(self, url: str, headers: dict[str, str] | None = None) -> None:
+        self.url = url
+        self.headers = headers or {}
+        u = urllib.parse.urlsplit(url)
+        self._https = u.scheme == "https"
+        self._host = u.hostname or ""
+        self._port = u.port or (443 if self._https else 80)
+        self._path = (u.path or "/") + (f"?{u.query}" if u.query else "")
+        self._local = threading.local()
+        self._conns: list[http.client.HTTPConnection] = []
+        self._lock = threading.Lock()
+
+    def _conn(self) -> http.client.HTTPConnection:
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            if self._https:
+                from modelx_tpu_torch.client.remote import insecure_default, ssl_context
+
+                conn = http.client.HTTPSConnection(self._host, self._port, timeout=300,
+                                                   context=ssl_context(insecure_default()))
+            else:
+                conn = http.client.HTTPConnection(self._host, self._port, timeout=300)
+            self._local.conn = conn
+            with self._lock:
+                self._conns.append(conn)
+        return conn
+
+    def _request(self, method: str, headers: dict[str, str]) -> http.client.HTTPResponse:
+        conn = self._conn()
+        try:
+            conn.request(method, self._path, headers=headers)
+            return conn.getresponse()
+        except (OSError, http.client.HTTPException):
+            # a stale kept-alive connection: rebuild it once
+            conn.close()
+            self._local.conn = None
+            conn = self._conn()
+            conn.request(method, self._path, headers=headers)
+            return conn.getresponse()
+
+    def read_range(self, offset: int, length: int, out=None):
+        h = dict(self.headers)
+        h["Range"] = f"bytes={offset}-{offset + length - 1}"
+        resp = self._request("GET", h)
+        try:
+            if resp.status not in (200, 206):
+                body = resp.read(4096)
+                raise OSError(f"ranged read failed: HTTP {resp.status}: {body[:200]!r}")
+            buf = np.empty(length, np.uint8) if out is None else out
+            view = _view(buf, length)
+            if resp.status == 200:  # the server ignored Range
+                view[:] = resp.read()[offset:offset + length]
+                return buf
+            n = 0
+            while n < length:
+                got = resp.readinto(view[n:])
+                if not got:
+                    break
+                n += got
+            if n != length:
+                raise OSError(f"ranged read short: want {length}, got {n}")
+            return buf
+        finally:
+            resp.read()  # drain, so the kept-alive connection stays usable
+
+    def close(self) -> None:
+        with self._lock:
+            conns, self._conns = self._conns, []
+        for conn in conns:
+            conn.close()
+
+
 @dataclasses.dataclass
 class LoadStats:
+    bytes_fetched: int = 0  # read from the source
     bytes_to_device: int = 0  # over the link: the checkpoint's bytes
     bytes_resident: int = 0  # kept in device memory (int8 codes + scales when quantized)
     tensors: int = 0
-    fetch_seconds: float = 0.0  # host time spent in reads
+    fetch_seconds: float = 0.0  # thread-seconds spent in reads
     total_seconds: float = 0.0
+    fetch_width: int = 0  # the governor's final width
+    fetch_backoffs: int = 0  # times the governor halved the width
+    fetch_growths: int = 0  # times it doubled it
+    # wall time with host-to-device copies being issued, and with fetches
+    # and copies both in flight
+    device_put_seconds: float = 0.0
+    overlap_seconds: float = 0.0
+    # pinned staging buffers allocated, and acquires served by a reused one
+    staging_allocs: int = 0
+    staging_reuses: int = 0
 
     @property
     def gbps(self) -> float:
@@ -69,22 +289,28 @@ class LoadStats:
 
 
 class _Staging:
-    """A ring of pinned host buffers, each guarded by the event of the last
+    """A pool of pinned host buffers, each guarded by the event of the last
     copy out of it, feeding non_blocking host-to-device copies on one side
     stream."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, count: int) -> None:
         self.stream = torch.cuda.Stream(device=device)
         self.bufs = [torch.empty(STAGING_CHUNK, dtype=torch.uint8, pin_memory=True)
-                     for _ in range(STAGING_BUFFERS)]
-        self.events: list[torch.cuda.Event | None] = [None] * STAGING_BUFFERS
-        self.next = 0
+                     for _ in range(count)]
+        self.events: list[torch.cuda.Event | None] = [None] * count
+        self.free: queue.SimpleQueue[int] = queue.SimpleQueue()
+        for i in range(count):
+            self.free.put(i)
+        self.reuses = 0
+        self._lock = threading.Lock()
 
     def acquire(self) -> tuple[int, torch.Tensor]:
-        i = self.next
-        self.next = (i + 1) % STAGING_BUFFERS
-        if self.events[i] is not None:
-            self.events[i].synchronize()  # its previous copy has landed
+        i = self.free.get()
+        ev = self.events[i]
+        if ev is not None:
+            ev.synchronize()  # its previous copy has landed
+            with self._lock:
+                self.reuses += 1
         return i, self.bufs[i]
 
     def copy(self, i: int, dst: torch.Tensor, n: int) -> None:
@@ -93,9 +319,19 @@ class _Staging:
             ev = torch.cuda.Event()
             ev.record(self.stream)
         self.events[i] = ev
+        self.free.put(i)
+
+    def release(self, i: int) -> None:
+        self.free.put(i)
 
     def finish(self) -> None:
         self.stream.synchronize()
+
+
+def read_index(source) -> tuple[dict[str, st.TensorInfo], int]:
+    """The safetensors header by two small ranged reads: (tensors, data offset)."""
+    (hlen,) = struct.unpack("<Q", bytes(_read_with_retry(source, 0, 8)))
+    return st.parse_header(bytes(_read_with_retry(source, 8, hlen))), 8 + hlen
 
 
 def load_safetensors(
@@ -103,54 +339,120 @@ def load_safetensors(
     device: torch.device | str,
     dtype: torch.dtype | None = None,
     quantize: str | None = None,
+    tensors: dict[str, st.TensorInfo] | None = None,
+    data_offset: int | None = None,
+    concurrency: int = 0,
 ) -> tuple[dict, LoadStats]:
-    """Load every tensor of one safetensors blob onto ``device``. The header
-    is read with two small ranged reads. ``dtype`` casts floating tensors on
-    the device after the copy (serving an fp32 checkpoint in bf16, or the
-    reverse); integer tensors keep theirs. ``quantize="int8"`` quantizes each
-    eligible weight (2-D, a name ``quant.DEFAULT_ELIGIBLE`` matches) from its
-    stored values, before any cast, and returns it as a ``QTensor``."""
+    """Load every tensor of one safetensors blob onto ``device``.
+
+    ``tensors``/``data_offset`` come from the manifest's tensor-index
+    annotation when the caller has it; otherwise the header is read with
+    two small ranged reads. ``concurrency`` <= 0 takes the width from the
+    host and the source type (``auto_fetch_concurrency``). ``dtype`` casts
+    floating tensors on the device after the copy; integer tensors keep
+    theirs. ``quantize="int8"`` quantizes each eligible weight (2-D, a name
+    ``quant.DEFAULT_ELIGIBLE`` matches) from its stored values, before any
+    cast, and returns it as a ``QTensor``."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantize mode {quantize!r}")
     t0 = time.monotonic()
     device = torch.device(device)
     stats = LoadStats()
-    (hlen,) = struct.unpack("<Q", bytes(source.read_range(0, 8)))
-    tensors = st.parse_header(bytes(source.read_range(8, hlen)))
-    data_offset = 8 + hlen
-    staging = _Staging(device) if device.type == "cuda" else None
+    if tensors is None or data_offset is None:
+        tensors, data_offset = read_index(source)
+    if concurrency <= 0:
+        concurrency = auto_fetch_concurrency(source)
+    # local page-cache reads under ~32 MB/s a thread mean the threads are
+    # fighting the scheduler: halve. Remote reads may double the width
+    # while each thread holds 24 MB/s; local ones regrow only to the start.
+    is_local = isinstance(getattr(source, "source", source), LocalFileSource)
+    governor = _FetchGovernor(
+        concurrency, floor_bps=32e6 if is_local else 0.0,
+        max_width=concurrency if is_local else 2 * concurrency,
+        growth_bps=128e6 if is_local else 24e6)
+    clock = _OverlapClock()
+    staging = _Staging(device, governor.max_width + 2) if device.type == "cuda" else None
+    lock = threading.Lock()
+
+    def fetch(dst: torch.Tensor, offset: int, n: int) -> None:
+        """One chunk: into a staging buffer and onto the card, or (CPU)
+        straight into ``dst``."""
+        sample = [0, 0.0]
+
+        def timer(nbytes: int, secs: float) -> None:
+            sample[0], sample[1] = nbytes, secs
+
+        i, buf = staging.acquire() if staging is not None else (None, None)
+        try:
+            governor.acquire()
+            try:
+                clock.enter("fetch")
+                try:
+                    _read_with_retry(source, data_offset + offset, n,
+                                     dst.numpy() if buf is None else buf.numpy(), timer=timer)
+                finally:
+                    clock.exit("fetch")
+            finally:
+                governor.release(sample[0], sample[1])
+            with lock:
+                stats.bytes_fetched += n
+                stats.fetch_seconds += sample[1]
+            if staging is not None:
+                clock.enter("put")
+                try:
+                    staging.copy(i, dst, n)
+                finally:
+                    clock.exit("put")
+                i = None
+        finally:
+            if i is not None:
+                staging.release(i)
+
     raw: dict[str, torch.Tensor] = {}
     out: dict = {}
-    for name, info in tensors.items():
-        n = info.nbytes
-        if staging is None:
-            dst = torch.empty(n, dtype=torch.uint8)
-            tf = time.monotonic()
-            source.read_range(data_offset + info.start, n, dst.numpy())
-            stats.fetch_seconds += time.monotonic() - tf
-        else:
-            dst = torch.empty(n, dtype=torch.uint8, device=device)
-            if quantize:
-                # dst may reuse the block of a tensor quantized before it:
-                # copy into it only after that quantize has read it
-                staging.stream.wait_stream(torch.cuda.current_stream(device))
-            for off in range(0, n, STAGING_CHUNK):
-                m = min(STAGING_CHUNK, n - off)
-                i, buf = staging.acquire()
-                tf = time.monotonic()
-                source.read_range(data_offset + info.start + off, m, buf.numpy())
-                stats.fetch_seconds += time.monotonic() - tf
-                staging.copy(i, dst[off:off + m], m)
-        stats.bytes_to_device += n
-        stats.tensors += 1
+    pending: list[tuple[str, st.TensorInfo, torch.Tensor, list]] = []
+    in_flight = 0
+
+    def complete(name: str, info: st.TensorInfo, dst: torch.Tensor, futures: list) -> None:
+        for f in futures:
+            f.result()
         if quantize and len(info.shape) == 2 and quant.DEFAULT_ELIGIBLE.search(name):
             if staging is not None:
                 # quantize on the compute stream once this tensor's copies
-                # landed; its bytes are then freed, one tensor at a time
+                # landed; its raw bytes are then freed, one tensor at a time
                 torch.cuda.current_stream(device).wait_stream(staging.stream)
             out[name] = quant.quantize_tensor(dst.view(info.torch_dtype()).reshape(info.shape))
         else:
             raw[name] = dst
+
+    with ThreadPoolExecutor(max_workers=governor.max_width,
+                            thread_name_prefix="modelx-fetch") as pool:
+        try:
+            for name, info in tensors.items():
+                n = info.nbytes
+                dst = torch.empty(n, dtype=torch.uint8, device=device)
+                if quantize and staging is not None:
+                    # dst may reuse the block of a tensor quantized before
+                    # it: copy into it only after that quantize has read it
+                    staging.stream.wait_stream(torch.cuda.current_stream(device))
+                futures = [pool.submit(fetch, dst[off:off + min(STAGING_CHUNK, n - off)],
+                                       info.start + off, min(STAGING_CHUNK, n - off))
+                           for off in range(0, n, STAGING_CHUNK)]
+                pending.append((name, info, dst, futures))
+                in_flight += n
+                stats.bytes_to_device += n
+                stats.tensors += 1
+                while pending and in_flight > WINDOW_BYTES:
+                    head = pending.pop(0)
+                    in_flight -= head[1].nbytes
+                    complete(*head)
+            for head in pending:
+                complete(*head)
+        except BaseException:
+            for *_, futures in pending:
+                for f in futures:
+                    f.cancel()
+            raise
     if staging is not None:
         staging.finish()
     for name, info in tensors.items():
@@ -163,4 +465,12 @@ def load_safetensors(
     out = {name: out[name] for name in tensors}  # the header's order
     stats.bytes_resident = sum(t.nbytes for t in out.values())
     stats.total_seconds = time.monotonic() - t0
+    stats.fetch_width = governor.width
+    stats.fetch_backoffs = governor.backoffs
+    stats.fetch_growths = governor.growths
+    stats.device_put_seconds = clock.busy["put"]
+    stats.overlap_seconds = clock.overlap_s
+    if staging is not None:
+        stats.staging_allocs = len(staging.bufs)
+        stats.staging_reuses = staging.reuses
     return out, stats

@@ -166,3 +166,27 @@ def write_safetensors(path: str, tensors: dict, metadata: dict[str, str] | None 
         f.write(hjson)
         for payload in payloads:
             f.write(memoryview(payload()))
+
+
+def tensor_index_annotation(tensors: dict[str, TensorInfo], data_offset: int) -> str:
+    """The header as the ``modelx.tensor.index`` blob annotation (the JAX
+    package's bytes for the same header)."""
+    index = {
+        name: {"dtype": t.dtype, "shape": list(t.shape), "data_offsets": [t.start, t.end]}
+        for name, t in tensors.items()
+    }
+    return json.dumps({"data_offset": data_offset, "tensors": index}, sort_keys=True)
+
+
+def parse_index_annotation(payload: str) -> tuple[dict[str, TensorInfo], int]:
+    d = json.loads(payload)
+    tensors = {}
+    for name, info in d["tensors"].items():
+        tensors[name] = TensorInfo(
+            name=name,
+            dtype=info["dtype"],
+            shape=tuple(info["shape"]),
+            start=info["data_offsets"][0],
+            end=info["data_offsets"][1],
+        )
+    return tensors, int(d["data_offset"])

@@ -2,7 +2,8 @@
 
 Loads one or more checkpoints onto one device and serves:
 
-    GET  /healthz               readiness (200 once every model is loaded)
+    GET  /healthz               readiness (200 once every model is loaded),
+                                with the registry's ``control_plane`` health
     GET  /v1/models             model inventory + per-model stats
     POST /v1/forward            default model      {"tokens": [[...]]}
                                 -> {"logits_argmax": [[...]]}
@@ -58,6 +59,7 @@ import torch
 
 from modelx_tpu_torch.device import parse_dtype, resolve_device
 from modelx_tpu_torch.dl import families as fam
+from modelx_tpu_torch.dl import manifest_cache
 from modelx_tpu_torch.dl.serving_errors import (
     DEADLINE_HEADER,
     PRIORITY_HEADER,
@@ -921,9 +923,6 @@ def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: 
         return None, (400, {"error": "max_new_tokens must be an integer"})
     if not (1 <= n <= limit):
         return None, (400, {"error": f"max_new_tokens must be in [1, {limit}]"})
-    if tokens.shape[1] + n > server.max_seq_len:
-        return None, (400, {"error": f"prompt ({tokens.shape[1]}) + max_new_tokens ({n}) "
-                                     f"exceeds --max-seq-len {server.max_seq_len}"})
     try:
         samp = {
             "temperature": float(req.get("temperature", 0.0)),
@@ -1129,27 +1128,34 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
         def do_GET(self):
             if self.path == "/healthz":
                 failed = {n: s.load_error for n, s in sset.servers.items() if s.load_error}
+                # registry reachability rides beside readiness, never in it:
+                # a pod serving through a registry outage stays 200
+                cp = manifest_cache.health().status()
                 if sset.ready:
-                    self._json(200, {"status": "ok"})
+                    self._json(200, {"status": "ok", "control_plane": cp})
                 elif failed and all(s.ready or s.load_error for s in sset.servers.values()):
-                    ok = len(failed) < len(sset.servers)
-                    self._json(200 if ok else 503,
-                               {"status": "degraded" if ok else "failed", "failed": failed})
+                    if len(failed) < len(sset.servers):
+                        self._json(200, {"status": "degraded", "failed": failed,
+                                         "control_plane": cp})
+                    else:
+                        self._json(503, {"status": "failed", "control_plane": cp,
+                                         "failed": failed})
                 else:
-                    self._json(503, {"status": "loading"}, headers={"Retry-After": "2"})
+                    self._json(503, {"status": "loading", "control_plane": cp},
+                               headers={"Retry-After": "2"})
             elif self.path == "/v1/models":
                 # one body, two contracts: the native {default, models} keys
                 # plus OpenAI's {object: "list", data: [...]}
                 self._json(200, oai.models_payload(sset))
             elif self.path.startswith("/admin/"):
-                e = NotPortedError("the admin surface", "registry deploy")
+                e = NotPortedError("the admin surface", "model pool")
                 self._json(e.http_status, e.payload())
             else:
                 self._json(404, {"error": "not found"})
 
         def do_DELETE(self):
             if self.path.startswith("/admin/"):
-                e = NotPortedError("the admin surface", "registry deploy")
+                e = NotPortedError("the admin surface", "model pool")
                 return self._json(e.http_status, e.payload())
             self._json(404, {"error": "not found"})
 
@@ -1163,7 +1169,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 return self._json(400, {"error": "request body must be a JSON object"})
             path = self.path.split("?", 1)[0]
             if path.startswith("/admin/"):
-                e = NotPortedError("the admin surface", "registry deploy")
+                e = NotPortedError("the admin surface", "model pool")
                 return self._json(e.http_status, e.payload())
             if path in ("/v1/completions", "/v1/chat/completions"):
                 return self._openai(req, chat=path.endswith("chat/completions"))
@@ -1224,10 +1230,6 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             server.stats["requests"] += 1
             try:
                 if verb == "forward":
-                    if tokens.shape[1] > server.max_seq_len:
-                        return self._json(400, {
-                            "error": f"prompt length {tokens.shape[1]} exceeds "
-                                     f"--max-seq-len {server.max_seq_len}"})
                     out = (sset.batcher_for(server) or server).forward_argmax(tokens)
                     return self._json(200, {"logits_argmax": out.tolist()})
                 checked, err = _check_generate(req, self.headers, tokens, vocab, server,

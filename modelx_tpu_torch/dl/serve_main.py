@@ -17,6 +17,8 @@ import logging
 import signal
 import threading
 
+from modelx_tpu_torch.client import remote
+from modelx_tpu_torch.dl import blob_cache, manifest_cache
 from modelx_tpu_torch.dl.serve import ModelServer, ServerSet, serve
 
 
@@ -35,7 +37,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, cuda:N or cpu); cuda raises when absent")
     ap.add_argument("--max-seq-len", type=int, default=2048,
-                    help="longest prompt (+ max_new_tokens) a request may ask for")
+                    help="sequence length the continuous engine plans for; the plain "
+                         "path serves longer requests, as the JAX sidecar's does")
+    ap.add_argument("--blob-cache-dir", default="",
+                    help="content-addressed local blob cache for registry-backed "
+                         "loads (dl/blob_cache.py): warm restarts of an "
+                         "already-served checkpoint skip the network")
+    ap.add_argument("--blob-cache-max-bytes", type=int, default=0,
+                    help="blob cache size cap; LRU eviction (0 = unbounded)")
+    ap.add_argument("--registry-mirror", dest="registry_mirrors", action="append",
+                    default=[], metavar="URL",
+                    help="read mirror(s) of the registry (comma list; repeatable): "
+                         "manifest/blob GETs fail over to them and ranged blob reads "
+                         "hedge across them")
+    ap.add_argument("--manifest-cache-dir", default="",
+                    help="pin every fetched manifest to this dir: when the registry "
+                         "AND all mirrors are down, digest-pinned cached manifests + "
+                         "the blob cache serve pulls offline (control_plane: offline "
+                         "on /healthz; readiness is never gated on it)")
     ap.add_argument("--stream-chunk-size", type=int, default=8,
                     help="tokens decoded per flush on streaming responses")
     ap.add_argument("--prefix-cache", type=int, default=0,
@@ -96,12 +115,26 @@ def _parse_loras(ap: argparse.ArgumentParser, specs: list[str], models: dict,
     return lora_dirs
 
 
+def configure_registry(args) -> None:
+    """The process-wide registry defaults the flags set, as the JAX
+    sidecar's: the blob cache, the read mirrors (comma lists and repeats
+    both accepted) and the pinned-manifest cache."""
+    if args.blob_cache_dir:
+        blob_cache.configure_default(args.blob_cache_dir, max_bytes=args.blob_cache_max_bytes)
+    if args.registry_mirrors:
+        flat = [p.strip() for m in args.registry_mirrors for p in m.split(",")]
+        remote.set_mirrors([m for m in flat if m])
+    if args.manifest_cache_dir:
+        manifest_cache.configure_default(args.manifest_cache_dir)
+
+
 def start(argv=None):
     """Parse ``argv``, start the HTTP front, load every model, and return
     ``(server_set, httpd)`` with the front serving. ``main`` runs this and
     then waits for SIGTERM/SIGINT."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    configure_registry(args)
     models = _parse_models(args.models)
     lora_dirs = _parse_loras(ap, args.loras, models, args.quantize)
     servers = {

@@ -31,11 +31,13 @@ Regex patterns are translated to Python's ``re``: ``\\p{..}`` classes
 become explicit code-point classes built from ``unicodedata``, and ``\\s``
 is Unicode's White_Space property, as the regex engine of ``tokenizers``
 reads it (Python's ``\\s`` also takes U+001C-U+001F). Python 3.12's
-``unicodedata`` is Unicode 15.0; ``tokenizers`` 0.22's tables are newer,
-so code points first assigned after 15.0 are unassigned (``Cn``) here and
-may tokenize differently. Any component type not listed above raises
-``UnsupportedTokenizerError`` at load, naming it: nothing is ever encoded
-with part of the tokenizer ignored.
+``unicodedata`` is Unicode 15.0 and the regex tables of ``tokenizers``
+0.22 are Unicode 16.0: the 5,812 code points assigned in between take
+their categories from ``UNICODE_AFTER_15_0`` (the normalizers of
+``tokenizers`` leave all of them unchanged, as ``unicodedata`` does). Any
+component type not listed above raises ``UnsupportedTokenizerError`` at
+load, naming it: nothing is ever encoded with part of the tokenizer
+ignored.
 """
 
 from __future__ import annotations
@@ -71,14 +73,57 @@ class UnsupportedTokenizerError(NotImplementedError):
 
 # -- Unicode classes ---------------------------------------------------------
 
+# General categories of the code points Unicode 16.0 assigned that
+# unicodedata (Unicode 15.0) calls Cn, as the regex engine of tokenizers
+# 0.22.2 classes them (each \p{..} class probed over every Cn code point)
+UNICODE_AFTER_15_0 = {
+    "Lu": ((0x1C89, 0x1C89), (0xA7CB, 0xA7CC), (0xA7DA, 0xA7DA), (0xA7DC, 0xA7DC),
+           (0x10D50, 0x10D65)),
+    "Ll": ((0x1C8A, 0x1C8A), (0xA7CD, 0xA7CD), (0xA7DB, 0xA7DB), (0x10D70, 0x10D85)),
+    "Lm": ((0x10D4E, 0x10D4E), (0x10D6F, 0x10D6F), (0x16D40, 0x16D42), (0x16D6B, 0x16D6C)),
+    "Lo": ((0x105C0, 0x105F3), (0x10D4A, 0x10D4D), (0x10D4F, 0x10D4F), (0x10EC2, 0x10EC4),
+           (0x11380, 0x11389), (0x1138B, 0x1138B), (0x1138E, 0x1138E), (0x11390, 0x113B5),
+           (0x113B7, 0x113B7), (0x113D1, 0x113D1), (0x113D3, 0x113D3), (0x11BC0, 0x11BE0),
+           (0x13460, 0x143FA), (0x16100, 0x1611D), (0x16D43, 0x16D6A), (0x18CFF, 0x18CFF),
+           (0x1E5D0, 0x1E5ED), (0x1E5F0, 0x1E5F0), (0x2EBF0, 0x2EE5D)),
+    "Nd": ((0x10D40, 0x10D49), (0x116D0, 0x116E3), (0x11BF0, 0x11BF9), (0x16130, 0x16139),
+           (0x16D70, 0x16D79), (0x1CCF0, 0x1CCF9), (0x1E5F1, 0x1E5FA)),
+    "Mn": ((0x0897, 0x0897), (0x10D69, 0x10D6D), (0x10EFC, 0x10EFC), (0x113BB, 0x113C0),
+           (0x113CE, 0x113CE), (0x113D0, 0x113D0), (0x113D2, 0x113D2), (0x113E1, 0x113E2),
+           (0x11F5A, 0x11F5A), (0x1611E, 0x16129), (0x1612D, 0x1612F), (0x1E5EE, 0x1E5EF)),
+    "Mc": ((0x113B8, 0x113BA), (0x113C2, 0x113C2), (0x113C5, 0x113C5), (0x113C7, 0x113CA),
+           (0x113CC, 0x113CD), (0x113CF, 0x113CF), (0x1612A, 0x1612C)),
+    "Pd": ((0x10D6E, 0x10D6E),),
+    "Po": ((0x1B4E, 0x1B4F), (0x1B7F, 0x1B7F), (0x113D4, 0x113D5), (0x113D7, 0x113D8),
+           (0x11BE1, 0x11BE1), (0x16D6D, 0x16D6F), (0x1E5FF, 0x1E5FF)),
+    "Sm": ((0x10D8E, 0x10D8F),),
+    "So": ((0x2427, 0x2429), (0x2FFC, 0x2FFF), (0x31E4, 0x31E5), (0x31EF, 0x31EF),
+           (0x1CC00, 0x1CCEF), (0x1CD00, 0x1CEB3), (0x1F8B2, 0x1F8BB), (0x1F8C0, 0x1F8C1),
+           (0x1FA89, 0x1FA89), (0x1FA8F, 0x1FA8F), (0x1FABE, 0x1FABE), (0x1FAC6, 0x1FAC6),
+           (0x1FADC, 0x1FADC), (0x1FADF, 0x1FADF), (0x1FAE9, 0x1FAE9), (0x1FBCB, 0x1FBEF)),
+}
+
+
+@functools.cache
+def _newer_categories() -> dict[int, str]:
+    return {cp: cat for cat, ranges in UNICODE_AFTER_15_0.items()
+            for a, b in ranges for cp in range(a, b + 1)}
+
+
+def category(ch: str) -> str:
+    """The general category of ``ch`` as the tables of ``tokenizers`` give it."""
+    return _newer_categories().get(ord(ch)) or unicodedata.category(ch)
+
 
 @functools.cache
 def _category_ranges() -> dict[str, list[tuple[int, int]]]:
     """General category (two letters, and one letter for the major class)
-    -> sorted code-point ranges, from one pass over ``unicodedata``."""
+    -> sorted code-point ranges, from one pass over ``unicodedata`` and
+    ``UNICODE_AFTER_15_0``."""
+    newer = _newer_categories()
     out: dict[str, list[list[int]]] = {}
     for cp in range(0x110000):
-        cat = unicodedata.category(chr(cp))
+        cat = newer.get(cp) or unicodedata.category(chr(cp))
         for key in (cat, cat[0]):
             rngs = out.setdefault(key, [])
             if rngs and rngs[-1][1] == cp - 1:

@@ -1,5 +1,6 @@
 """The port stands alone: no jax, ml_dtypes, tokenizers or modelx_tpu
-imports, and an explicit device with no silent CPU fallback."""
+imports, none of the packages the card's host lacks (requests, click,
+yaml, rich), and an explicit device with no silent CPU fallback."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import torch
 from modelx_tpu_torch.device import parse_dtype, resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "tokenizers", "modelx_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "tokenizers", "modelx_tpu",
+             "requests", "click", "yaml", "rich")
 
 
 def _port_files():
@@ -43,7 +45,11 @@ def test_port_imports_no_jax_or_reference_package():
     files = _port_files()
     assert len(files) > 10
     for new in ("dl/tokenizer.py", "dl/openai_api.py", "dl/lora.py", "ops/quant.py",
-                "models/speculative.py"):
+                "models/speculative.py", "types.py", "errors.py", "utils/retry.py",
+                "utils/miniyaml.py", "client/remote.py", "client/pull.py",
+                "client/model_config.py", "client/extension.py", "dl/blob_cache.py",
+                "dl/manifest_cache.py", "dl/initializer.py", "dl/dl_main.py", "dl/ttft.py",
+                "registry/server.py", "registry/store_fs.py", "registry/server_main.py"):
         assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:
@@ -53,14 +59,29 @@ def test_port_imports_no_jax_or_reference_package():
     assert not bad, bad
 
 
+def _console_script_modules():
+    """The modules behind the port's console scripts in pyproject.toml."""
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    return sorted(v.split(":")[0] for v in scripts.values() if v.startswith("modelx_tpu_torch."))
+
+
 def test_serving_entry_leaves_jax_unimported():
+    scripts = _console_script_modules()
+    assert scripts == ["modelx_tpu_torch.dl.dl_main", "modelx_tpu_torch.dl.serve_main"]
     code = (
-        "import sys; import modelx_tpu_torch.dl.serve_main, modelx_tpu_torch.dl.loader, "
+        f"import sys; import {', '.join(scripts)}; "
+        "import modelx_tpu_torch.dl.serve_main, modelx_tpu_torch.dl.loader, "
         "modelx_tpu_torch.dl.weights, modelx_tpu_torch.models.llama, "
         "modelx_tpu_torch.dl.openai_api, modelx_tpu_torch.dl.tokenizer, "
         "modelx_tpu_torch.models.decode, modelx_tpu_torch.kernels.build, "
         "modelx_tpu_torch.dl.lora, modelx_tpu_torch.ops.quant, "
-        "modelx_tpu_torch.models.speculative; "
+        "modelx_tpu_torch.models.speculative, modelx_tpu_torch.dl.dl_main, "
+        "modelx_tpu_torch.dl.ttft, modelx_tpu_torch.dl.initializer, "
+        "modelx_tpu_torch.client.client, modelx_tpu_torch.client.reference, "
+        "modelx_tpu_torch.registry.server_main; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )

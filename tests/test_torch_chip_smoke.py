@@ -1,9 +1,9 @@
 """chip_smoke.py off the card: it refuses to report without CUDA or without
-the port beside it, its serving and text phases rehearse end to end on the
-CPU at a tiny size (the wrapper's plain version, no kernel launches), its
-build phase's SASS census reads cuobjdump's listing per instantiation, its
-tokenizer.json has Llama-3's layout, and its text checks fail loudly when
-what they check is false."""
+the port beside it, its serving, text, options and deploy phases rehearse
+end to end on the CPU at a tiny size (the wrapper's plain version, no
+kernel launches), its build phase's SASS census reads cuobjdump's listing
+per instantiation, its tokenizer.json has Llama-3's layout, and its text
+checks fail loudly when what they check is false."""
 
 import dataclasses
 import json
@@ -77,6 +77,12 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert stats["batch_device_calls"] < stats["batch_requests"] == 7
     assert stats["spec_steps"] > 0 and stats["int8_device_gb"] > 0
     assert stats["int8_linear_max_abs_err"] >= 0 and stats["lora_merge_s"] >= 0
+    # and the registry deploy, on its own count: cold and warm modelxdl-torch,
+    # cold and warm TTFT in child processes, the pulled dest served
+    assert stats["flash_launches_deploy"] == 0
+    assert {"deploy_cold_gbps", "deploy_warm_gbps", "deploy_cold_pull_s",
+            "sha256_s_registry_write", "sha256_s_dest_verify", "ttft_cold_ttft_ms",
+            "ttft_warm_ttft_ms", "ttft_warm_weights_ready_ms"} <= set(stats)
 
 
 def _tiny_options(monkeypatch):

@@ -208,7 +208,8 @@ def _write_tiny_fp32(dirpath):
 def pods(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("tiny-fp32"))
     _write_tiny_fp32(d)
-    jserver = JaxModelServer(d, mesh_spec="dp=1", dtype="float32")
+    # both at --max-seq-len 32: the plain path serves longer requests
+    jserver = JaxModelServer(d, mesh_spec="dp=1", dtype="float32", max_seq_len=32)
     jserver.load()
     jhttpd = jax_serve(jserver, listen=f"127.0.0.1:{free_port()}")
     wp = str(tmp_path_factory.mktemp("tiny-wordpiece"))
@@ -223,7 +224,7 @@ def pods(tmp_path_factory):
                              "vocab": {"[UNK]": 0, "hello": 1}}}, f)
     sset, thttpd = serve_main.start([
         "--model", f"default={d}", "--model", f"wordpiece={wp}", "--device", "cpu",
-        "--dtype", "float32", "--listen", f"127.0.0.1:{free_port()}"])
+        "--dtype", "float32", "--max-seq-len", "32", "--listen", f"127.0.0.1:{free_port()}"])
     yield jhttpd.server_address[1], thttpd.server_address[1], sset
     for h in (jhttpd, thttpd):
         h.shutdown()
@@ -242,6 +243,7 @@ def _call(port, path, body=None, headers=None):
 
 
 _TOKS = np.random.RandomState(3).randint(0, 512, (2, 12)).tolist()
+_LONG = np.random.RandomState(4).randint(0, 512, (1, 40))
 
 PARITY_REQUESTS = [
     ("/v1/forward", {"tokens": _TOKS}),
@@ -291,6 +293,10 @@ PARITY_REQUESTS = [
     ("/v1/generate", {"text": 5}),
     ("/v1/generate", {"text": "hello", "stream": True}),
     ("/v1/completions", {"prompt": "hello", "seed": 1}),
+    # longer than --max-seq-len 32: served, as the JAX sidecar's plain path does
+    ("/v1/forward", {"tokens": _LONG[:, :40].tolist()}),
+    ("/v1/generate", {"tokens": _LONG[:, :28].tolist(), "max_new_tokens": 8}),
+    ("/v1/generate", {"tokens": _LONG[:, :28].tolist(), "max_new_tokens": 8, "stream": True}),
 ]
 
 
@@ -442,7 +448,9 @@ def test_stream_holds_the_device_lock_one_chunk_at_a_time(pods):
 
 def test_health_models_and_admin(pods):
     _, tport, sset = pods
-    assert _call(tport, "/healthz") == (200, b'{"status": "ok"}')
+    status, raw = _call(tport, "/healthz")
+    assert status == 200 and json.loads(raw)["status"] == "ok"
+    assert json.loads(raw)["control_plane"]["state"] in ("ok", "degraded", "offline")
     status, raw = _call(tport, "/v1/models")
     models = json.loads(raw)
     assert status == 200 and models["default"] == "default"
@@ -452,6 +460,35 @@ def test_health_models_and_admin(pods):
     assert _call(tport, "/admin/models")[0] == 501
     assert _call(tport, "/nope")[0] == 404
     assert sset.servers["default"].cfg.dtype == torch.float32
+
+
+@pytest.mark.parametrize("events", [(), ("ok",), ("failure",), ("ok", "failure", "ok"),
+                                    ("offline_serve",), ("mirror_ok",)],
+                         ids=["fresh", "ok", "offline", "degraded", "offline-serve", "mirror"])
+def test_healthz_control_plane_identical_to_jax(pods, events):
+    """The same control-plane events on both pods' trackers (a frozen
+    clock) give byte-identical /healthz bodies."""
+    from modelx_tpu.dl import manifest_cache as jmc
+    from modelx_tpu_torch.dl import manifest_cache as tmc
+
+    jport, tport, _ = pods
+    trackers = [jmc.health(), tmc.health()]
+    clocks = [h._clock for h in trackers]
+    try:
+        for h in trackers:
+            h._clock = lambda: 1000.0
+            h.reset()
+            for event in events:
+                if event == "mirror_ok":
+                    h.note_ok(mirror=True)
+                else:
+                    getattr(h, f"note_{event}")()
+        want = _call(jport, "/healthz")
+        assert _call(tport, "/healthz") == want and want[0] == 200
+    finally:
+        for h, clock in zip(trackers, clocks):
+            h._clock = clock
+            h.reset()
 
 
 def test_generate_ragged_matches_jax(pods, tmp_path):
@@ -594,3 +631,28 @@ def test_serve_main_option_usage_errors_equal_jax(argv, capsys):
         serve_main.start(argv + ["--device", "cpu"])
     assert exc.value.code == 2
     assert capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1] == want
+
+
+def test_serve_main_registry_flags_set_the_process_defaults(tmp_path, monkeypatch):
+    """--registry-mirror (repeatable, comma lists), --blob-cache-dir,
+    --blob-cache-max-bytes and --manifest-cache-dir configure the
+    process-wide registry defaults, as the JAX sidecar's flags do."""
+    from modelx_tpu_torch.client import remote
+    from modelx_tpu_torch.dl import blob_cache, manifest_cache
+
+    monkeypatch.setattr(remote, "_MIRRORS", [])
+    monkeypatch.setattr(blob_cache, "_default", None)
+    monkeypatch.setattr(blob_cache, "_default_set", False)
+    monkeypatch.setattr(manifest_cache, "_default", None)
+    monkeypatch.setattr(manifest_cache, "_default_configured", False)
+    args = serve_main.build_parser().parse_args([
+        "--model", "m=/x", "--registry-mirror", "http://a:1/, http://b:2",
+        "--registry-mirror", "http://c:3", "--blob-cache-dir", str(tmp_path / "bc"),
+        "--blob-cache-max-bytes", "4096", "--manifest-cache-dir", str(tmp_path / "mc")])
+    serve_main.configure_registry(args)
+    assert remote.default_mirrors() == ["http://a:1", "http://b:2", "http://c:3"]
+    assert remote.RegistryClient("http://p:9").endpoints == [
+        "http://p:9", "http://a:1", "http://b:2", "http://c:3"]
+    cache = blob_cache.default_cache()
+    assert cache.root == str(tmp_path / "bc") and cache.max_bytes == 4096
+    assert manifest_cache.default_cache().root == str(tmp_path / "mc")

@@ -11,9 +11,12 @@ the vocab, and a derandomized hypothesis search over strings drawn from
 the same alphabets.
 
 Unicode versions: Python 3.12's unicodedata is Unicode 15.0, the regex
-tables inside tokenizers 0.22 are newer. The code points first assigned
-after 15.0 (category Cn here) are left out of the generated strings; every
-assigned code point is in play.
+tables inside tokenizers 0.22 are Unicode 16.0. The reader classes the
+5,812 code points assigned in between from its own table
+(``UNICODE_AFTER_15_0``): each \\p{..} class and \\w must take exactly the
+code points the ``tokenizers`` regex engine takes, and every one of the
+5,004 letters and digits among them must encode to the same ids. Code
+points unassigned in both versions stay out of the generated strings.
 """
 
 import copy
@@ -29,8 +32,11 @@ from tokenizers import decoders, models, normalizers, pre_tokenizers, trainers
 
 import chip_smoke
 from modelx_tpu_torch.dl.tokenizer import (
+    UNICODE_AFTER_15_0,
     Tokenizer,
     UnsupportedTokenizerError,
+    _word_class,
+    category,
     split_pieces,
     translate_regex,
 )
@@ -71,8 +77,15 @@ ALPHABET = (
     ".,;:!?'\"-_()[]{}<>|/\\@#$%^&*+=~`"
     "ſKΩéèñüßçÉ́̈中文你好世界。，日本語한국어مرحباनमस्तेﬁＡａ①½"
     "🙂👍🏽🎉🇫🇷💻"
+    # assigned in Unicode 16.0: Lu, Ll, Lo, Nd, Mn, Po, So
+    "\u1c89\u1c8a\U0002ebf0\U00010d40\u0897\u1b4e\u2427"
 )
-assert not [c for c in ALPHABET if unicodedata.category(c) == "Cn"]
+assert not [c for c in ALPHABET if category(c) == "Cn"]
+
+# the code points Unicode 16.0 assigned (Cn in Python 3.12's unicodedata)
+NEWER = sorted(cp for ranges in UNICODE_AFTER_15_0.values()
+               for a, b in ranges for cp in range(a, b + 1))
+NEWER_LN = [cp for cp in NEWER if category(chr(cp))[0] in "LN"]
 
 
 def _bytes_vocab(vocab: dict) -> dict:
@@ -269,8 +282,9 @@ def test_token_to_id_equal(pair):
 
 _pieces = st.one_of(
     st.text(alphabet=ALPHABET, max_size=24),
-    # any assigned code point (Cn: the Unicode-version gap; Cs: not text)
+    # any code point assigned in Unicode 16.0 (Cs: not text)
     st.text(alphabet=st.characters(exclude_categories=("Cn", "Cs")), max_size=8),
+    st.text(alphabet=st.sampled_from([chr(cp) for cp in NEWER]), max_size=8),
     st.sampled_from(["<|begin_of_text|>", "<|eot_id|>", "<|im_end|>", "<s>", "</s>", "XY",
                      " XY ", "w9x", "Ab", "ab", "I'LL", "'s", "12345", "\r\n\n", "   "]),
 )
@@ -358,3 +372,55 @@ def test_unsupported_component_raises_naming_it(part, value, component):
     with pytest.raises(UnsupportedTokenizerError) as e:
         Tokenizer.from_str(_with(base, **{part: value}))
     assert component in str(e.value) and component in e.value.component
+
+
+def test_newer_code_points_are_cn_in_unicodedata():
+    assert len(NEWER) == 5812 and len(NEWER_LN) == 5004
+    assert all(unicodedata.category(chr(cp)) == "Cn" for cp in NEWER)
+
+
+@pytest.mark.parametrize("cls", ["L", "N", "M", "P", "S", "Lu", "Ll", "Lm", "Lo", "Nd",
+                                 "Mn", "Mc", "Pd", "Po", "Sm", "So", "Cn"])
+def test_unicode_16_classes_equal_the_tokenizers_regex(cls):
+    """Membership of every code point Unicode 16.0 assigned, in \\p{cls}
+    and \\w: the port's translated class against the regex engine of
+    ``tokenizers`` (Split with "removed" drops exactly the members)."""
+    text = "".join(chr(cp) for cp in NEWER)
+    for pattern in (rf"\p{{{cls}}}", r"\w") if cls == "L" else (rf"\p{{{cls}}}",):
+        kept = "".join(p for p, _ in pre_tokenizers.Split(
+            tokenizers.Regex(pattern), behavior="removed").pre_tokenize_str(text))
+        want = sorted(set(text) - set(kept))
+        if cls == "Cn":  # the port refuses \p{Cn}; it is empty here in both
+            assert want == []
+            continue
+        rx = re.compile(translate_regex(pattern) if pattern != r"\w"
+                        else "[" + _word_class() + "]")
+        assert [c for c in text if rx.fullmatch(c)] == want, pattern
+
+
+@pytest.mark.parametrize("name", ["llama3", "qwen2", "gpt2"])
+def test_letters_and_digits_of_unicode_16_encode_equal(loaded, name):
+    """All 5,004 letters and digits Unicode 16.0 assigned, each in a
+    contraction, beside a digit and inside a word."""
+    ref, port = loaded[name]
+    for i in range(0, len(NEWER_LN), 500):
+        text = "".join(f" {c}'s{c}1 x{c}," for c in map(chr, NEWER_LN[i:i + 500]))
+        _assert_encode_equal(ref, port, text)
+
+
+def test_unicode_16_letter_contraction_llama3_ids(loaded):
+    ref, port = loaded["llama3"]
+    text = " \u1c89's"
+    assert ref.encode(text).ids == [700, 220, 157, 110, 231, 347]
+    assert port.encode(text) == [700, 220, 157, 110, 231, 347]
+
+
+@pytest.mark.parametrize("kind", ["NFC", "NFD", "NFKC", "NFKD"])
+def test_unicode_16_code_points_normalize_as_tokenizers(kind):
+    """The reader normalizes with unicodedata (Unicode 15.0); the
+    normalizers of tokenizers leave every code point 16.0 assigned as
+    unicodedata does, alone and after a base letter."""
+    ref = getattr(normalizers, kind)()
+    for cp in NEWER:
+        for text in (chr(cp), "a" + chr(cp) + "\u0301"):
+            assert unicodedata.normalize(kind, text) == ref.normalize_str(text), hex(cp)
