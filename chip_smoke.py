@@ -73,6 +73,29 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    ``/healthz`` stays 200 through a registry kill with ``control_plane``
    no longer ok. Disk: the registry, dest and the blob cache each hold the
    checkpoint (16.06 GB) once; the phase checks for 3x that first.
+8. pool: the model pool (``dl/lifecycle.py``, ``dl/tiers.py``) on the
+   pulled dest, once the deploy phase has freed its server, registry and
+   blob cache; the kernel counts from 0 again. ``serve_main`` boots ``a``
+   with ``--allow-admin-load --evict-idle``, a budget of 2.5x the
+   checkpoint's bytes and host and disk tiers of 1.25x. (b) ``POST
+   /admin/models`` loads ``b`` without waiting: meanwhile ``b`` answers 503
+   + ``Retry-After`` on ``/v1/b/forward`` and, in the OpenAI shape, on chat,
+   while ``a`` serves ``/v1/forward`` (timed against its lone time); then
+   ``b``'s argmax equals ``a``'s. (c) Loading ``c`` evicts the least
+   recently used idle model into the host tier. (d) Re-POSTing it promotes
+   it from host (``load_source`` "tier", the same argmax). (e)
+   ``spill_host()`` spools the tier to disk and the next re-POST promotes
+   from disk; the pinned and pageable host-buffer rates are measured in
+   the same call. (f) ``DELETE`` with a stream in flight: new requests 409,
+   the stream ends whole and equal to the non-streamed answer, the last
+   model refuses. (g) A ``serve_main`` child with ``--drain-grace 30`` gets
+   SIGTERM mid-stream: ``/healthz`` 503 "draining" without
+   ``Retry-After``, ``/livez`` 200, the stream whole, exit 0. (h) A pool
+   with no budget admin-loads the checkpoint until a load is refused:
+   devmem's measured veto (507) or a real out-of-memory error taking the
+   shed-and-retry path; no load may end FAILED while a model could have
+   been shed. Disk: the disk tier's spool beside dest (1.25x the
+   checkpoint, checked first with MemAvailable).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -424,11 +447,12 @@ def main(argv=None) -> int:
         # null, not 0, when the serving paths did not run (--phases kernels)
         "launches": (main_stats["flash_launches"] + main_stats["flash_launches_text"]
                      + main_stats["flash_launches_options"] + main_stats["flash_launches_deploy"]
-                     if main_stats else None),
+                     + main_stats["flash_launches_pool"] if main_stats else None),
         "launches_by_path": main_stats and {"main": main_stats["flash_launches"],
                                             "text": main_stats["flash_launches_text"],
                                             "options": main_stats["flash_launches_options"],
-                                            "deploy": main_stats["flash_launches_deploy"]},
+                                            "deploy": main_stats["flash_launches_deploy"],
+                                            "pool": main_stats["flash_launches_pool"]},
         "max_abs_err": max((r["max_abs_err"] for r in kernel_rows), default=None),
         "ms": head and head["ms"],
         "call_ms": head and head["call_ms"],
@@ -461,17 +485,9 @@ MARGIN_TOL = 0.125
 
 
 def _http(port: int, path: str, body=None, timeout: float = 600.0):
-    import urllib.error
-    import urllib.request
-
-    data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
-                                 headers={"Content-Type": "application/json"})
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, json.loads(r.read())
-    except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read() or b"{}")
+    """(status, JSON body) of a GET, or of a POST of ``body``."""
+    status, _, out = _http_full(port, "GET" if body is None else "POST", path, body, timeout)
+    return status, out
 
 
 def _free_port() -> int:
@@ -660,10 +676,15 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
         httpd.server_close()
         httpd = None
         attn.flash_attention.launches = 0
-        stats.update(phase_deploy(cfg, ckpt, forwards, device, per_forward))
+        # phase 8, the model pool, on the pulled dest once the deploy phase
+        # has freed its server, registry and blob cache: its own count
+        stats.update(phase_deploy(cfg, ckpt, forwards, device, per_forward,
+                                  then=lambda dest, root: phase_pool(cfg, dest, forwards,
+                                                                     device, root)))
         log(f"deploy: flash_attention launches on the deploy path: "
             f"{stats['flash_launches_deploy']} ({stats['flash_launches_deploy_serve']} serving "
             f"dest, {per_forward} in each TTFT process)")
+        log(f"pool: flash_attention launches on the pool path: {stats['flash_launches_pool']}")
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -1980,10 +2001,13 @@ def _deploy_disk(base: str, nbytes: int) -> None:
                            f"registry, dest and the blob cache")
 
 
-def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int) -> dict:
+def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
+                 then=None) -> dict:
     """The registry deploy path (module docstring, phase 7). ``ckpt`` is
     deleted once the registry holds it; ``forwards`` maps each main-phase
-    /v1/forward shape to (tokens, argmax)."""
+    /v1/forward shape to (tokens, argmax). ``then(dest, root)`` runs last,
+    with the deploy's server, registry and blob cache gone and the pulled
+    checkpoint still in ``dest``; its stats join the phase's."""
     import shutil
     import tempfile
 
@@ -2137,6 +2161,16 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int) 
         if on_card:
             stats["deploy_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         manifest_cache.configure_default("")
+        if then is not None:
+            httpd.shutdown()
+            httpd.server_close()
+            httpd = None
+            _free(served)
+            registry.kill()
+            registry.wait(timeout=60)
+            shutil.rmtree(reg_dir, ignore_errors=True)
+            shutil.rmtree(cache, ignore_errors=True)
+            stats.update(then(dest, root))
         return stats
     finally:
         if httpd is not None:
@@ -2147,6 +2181,483 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int) 
             registry.kill()
             registry.wait(timeout=60)
         shutil.rmtree(root, ignore_errors=True)
+
+
+# -- phase 8: the model pool ----------------------------------------------------------
+
+# the pool phase's streams: long enough to be mid-flight when the unload or
+# the SIGTERM lands (one token per NDJSON line)
+POOL_STREAM_PROMPT = 128
+POOL_STREAM_TOKENS = 48
+# the measured veto: admin loads of the checkpoint, one after another, until
+# one is refused; six 16.06 GB loads exceed the card's 80 GB
+POOL_VETO_LOADS = 6
+
+
+def _http_full(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    """(status, headers, JSON body) of one request."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read() or b"{}")
+
+
+def _pool_resources(base: str, nbytes: int, on_card: bool) -> None:
+    """The disk tier needs the checkpoint's bytes once more beside it; the
+    host tier (and on the card the pinned-buffer measurement) need them in
+    RAM. Fails with the shortfall."""
+    import shutil
+
+    free = shutil.disk_usage(base).free
+    need_disk = int(1.25 * nbytes * 1.02)
+    mem = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                mem = int(line.split()[1]) * 1024
+    need_mem = int((2.0 if on_card else 1.25) * nbytes)
+    log(f"pool: {base} has {free / 1e9:.1f} GB free (the disk tier needs {need_disk / 1e9:.1f} "
+        f"GB); MemAvailable {mem / 1e9:.1f} GB (the host tier and the pinned buffer need "
+        f"{need_mem / 1e9:.1f} GB)")
+    if free < need_disk:
+        raise RuntimeError(f"pool: {(need_disk - free) / 1e9:.1f} GB short of disk for the "
+                           f"disk tier")
+    if mem < need_mem:
+        raise RuntimeError(f"pool: {(need_mem - mem) / 1e9:.1f} GB short of host RAM for the "
+                           f"host tier")
+
+
+def _wait_pool_state(sset, name: str, want: str, timeout: float = 600.0) -> dict:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        st = sset.pool.states().get(name, {})
+        if st.get("state") == want:
+            return st
+        if st.get("state") == "FAILED":
+            raise RuntimeError(f"pool: {name} FAILED: {st.get('error')}")
+        time.sleep(0.05)
+    raise RuntimeError(f"pool: {name} did not reach {want} in {timeout} s: "
+                       f"{sset.pool.states().get(name)}")
+
+
+def _tier_event(pool, event: str, tier: str) -> dict:
+    evs = [e for e in pool.flightrec.events() if e["event"] == event and e.get("tier") == tier]
+    if not evs:
+        raise RuntimeError(f"pool: no {event} {tier} event in the flight recorder")
+    return evs[-1]
+
+
+def _argmax(port: int, name: str, tokens) -> list:
+    status, body = _http(port, f"/v1/{name}/forward", {"tokens": tokens.tolist()})
+    if status != 200:
+        raise RuntimeError(f"pool: /v1/{name}/forward answered {status} {body}")
+    return body["logits_argmax"]
+
+
+def _stream_lines(port: int, name: str, body: dict):
+    """A streamed /v1/{name}/generate: (response, its first line)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/{name}/generate",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    resp = urllib.request.urlopen(req, timeout=600)
+    if resp.status != 200:
+        raise RuntimeError(f"pool: a stream on {name} answered {resp.status}")
+    return resp, resp.readline()
+
+
+def _stream_tokens(raw: bytes) -> list:
+    lines = [json.loads(x) for x in raw.splitlines() if x.strip()]
+    if not lines or lines[-1] != {"done": True} or any("error" in x for x in lines):
+        raise RuntimeError(f"pool: the stream did not end whole: {lines[-2:]}")
+    return [t for x in lines[:-1] for t in x["tokens"][0]]
+
+
+def phase_pool(cfg, ckpt: str, forwards: dict, device: str, root: str) -> dict:
+    """The model pool (module docstring, phase 8): admin loads while
+    serving, eviction under the budget into the host tier, promotion from
+    host and from disk, the drain of one model and of the pod, and the
+    measured veto. ``ckpt`` holds the checkpoint (every name loads it, so
+    all share one tier content key); ``forwards`` maps each main-phase
+    /v1/forward shape to (tokens, argmax)."""
+    import torch
+
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.ops import attention as attn
+
+    on_card = device == "cuda"
+    nbytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+    _pool_resources(root, nbytes, on_card)
+    stats: dict = {"pool_bytes": nbytes}
+    attn.flash_attention.launches = 0  # the pool path's own count
+    tokens, want = forwards[FORWARD_SHAPES[0]]
+    want = want.tolist()
+    port = _free_port()
+    sset = httpd = None
+    try:
+        # (a) boot a
+        t0 = time.monotonic()
+        sset, httpd = serve_main.start([
+            "--model", f"a={ckpt}", "--device", device, "--dtype", "bfloat16",
+            "--max-seq-len", "2048", "--listen", f"127.0.0.1:{port}", "--allow-admin-load",
+            "--evict-idle", "--hbm-budget-bytes", str(int(2.5 * nbytes)),
+            "--host-state-budget-bytes", str(int(1.25 * nbytes)),
+            "--disk-state-budget-bytes", str(int(1.25 * nbytes)),
+            "--state-spool-dir", os.path.join(root, "spool"),
+            "--staging-dir", os.path.join(root, "staging")])
+        pool = sset.pool
+        a = sset.servers["a"]
+        stats["pool_boot_s"] = time.monotonic() - t0
+        log(f"pool: (a) booted a in {stats['pool_boot_s']:.2f} s (load {a.stats['load_seconds']}"
+            f" s at {a.stats['load_gbps']} GB/s); budget 2.5x, host and disk tiers 1.25x the "
+            f"checkpoint's {nbytes} bytes")
+        if _argmax(port, "a", tokens) != want:
+            raise RuntimeError("pool: a's argmax differs from the main phase's")
+        lone = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            _argmax(port, "a", tokens)
+            lone.append((time.monotonic() - t0) * 1e3)
+        stats["pool_forward_lone_ms"] = statistics.median(lone)
+
+        # (b) load b while a serves
+        status, _, body = _http_full(port, "POST", "/admin/models",
+                                     {"name": "b", "model_dir": ckpt})
+        t_post = time.monotonic()
+        if status != 202 or body["b"]["state"] != "LOADING":
+            raise RuntimeError(f"pool: (b) POST b answered {status} {body}")
+        status, headers, body = _http_full(port, "POST", "/v1/b/forward",
+                                           {"tokens": [[1, 2, 3]]})
+        if status != 503 or "Retry-After" not in headers or "loading" not in body["error"]:
+            raise RuntimeError(f"pool: (b) /v1/b/forward while loading: {status} {headers} {body}")
+        status, headers, body = _http_full(port, "POST", "/v1/chat/completions", {
+            "model": "b", "messages": [{"role": "user", "content": "hi"}], "max_tokens": 2})
+        if (status != 503 or "Retry-After" not in headers
+                or body.get("error", {}).get("type") != "server_error"):
+            raise RuntimeError(f"pool: (b) chat on b while loading: {status} {headers} {body}")
+        during = []
+        while pool.states()["b"]["state"] == "LOADING" and len(during) < 50:
+            t0 = time.monotonic()
+            if _argmax(port, "a", tokens) != want:
+                raise RuntimeError("pool: (b) a answered differently while b loaded")
+            during.append((time.monotonic() - t0) * 1e3)
+        _wait_pool_state(sset, "b", "READY")
+        b = sset.servers["b"]
+        stats.update(pool_cold_load_s=b.stats["load_seconds"],
+                     pool_cold_load_gbps=b.stats["load_gbps"],
+                     pool_cold_ready_s=b.stats["ready_seconds"],
+                     pool_admin_ready_s=time.monotonic() - t_post,
+                     pool_forward_during_load_ms=statistics.median(during) if during else None,
+                     pool_forwards_during_load=len(during))
+        if _argmax(port, "b", tokens) != want:
+            raise RuntimeError("pool: (b) b's argmax differs from a's")
+        during_ms = stats["pool_forward_during_load_ms"]
+        log(f"pool: (b) POST b 202; while it loaded /v1/b/forward and chat answered 503 + "
+            f"Retry-After, and a answered {len(during)} /v1/forward {list(tokens.shape)} at "
+            f"median {during_ms if during_ms is None else round(during_ms, 1)} ms (alone "
+            f"{stats['pool_forward_lone_ms']:.1f} ms); b READY {stats['pool_admin_ready_s']:.2f}"
+            f" s after the POST (load {b.stats['load_seconds']} s at {b.stats['load_gbps']} "
+            f"GB/s, ready {b.stats['ready_seconds']} s); b's argmax == a's")
+
+        # (c) c evicts the least recently used idle model (a) into the host tier
+        status, _, body = _http_full(port, "POST", "/admin/models",
+                                     {"name": "c", "model_dir": ckpt, "wait": True})
+        if status != 200 or body["c"]["state"] != "READY":
+            raise RuntimeError(f"pool: (c) POST c answered {status} {body}")
+        _, _, admin = _http_full(port, "GET", "/admin/models")
+        if (admin["models"]["a"]["state"] != "UNLOADED" or admin["models"]["a"].get("tier") != "host"
+                or admin["pool"]["evictions_total"] != 1):
+            raise RuntimeError(f"pool: (c) eviction: {admin['models']} {admin['pool']}")
+        demote = _tier_event(pool, "tier.demote", "host")
+        stats.update(pool_demote_ms=demote["ms"],
+                     pool_demote_gbps=demote["bytes"] / max(demote["ms"], 1e-3) / 1e6,
+                     pool_c_load_s=sset.servers["c"].stats["load_seconds"],
+                     pool_c_load_source=body["c"]["load_source"])
+        log(f"pool: (c) POST c evicted a (UNLOADED, tier host, evictions_total 1): demoted "
+            f"{demote['bytes'] / 1e9:.3f} GB to pinned host RAM in {demote['ms']} ms "
+            f"({stats['pool_demote_gbps']:.2f} GB/s); c, the same content, then loaded from "
+            f"the {body['c']['load_source']} in {stats['pool_c_load_s']} s")
+
+        # (d) re-POST a: promoted from the host tier
+        status, _, body = _http_full(port, "POST", "/admin/models",
+                                     {"name": "a", "model_dir": ckpt, "wait": True})
+        a = sset.servers.get("a")
+        if (status != 200 or body["a"].get("load_source") != "tier" or a is None
+                or a.stats.get("tier") != "host"):
+            raise RuntimeError(f"pool: (d) re-POST a answered {status} {body}")
+        if _argmax(port, "a", tokens) != want:
+            raise RuntimeError("pool: (d) the promoted a answers a different argmax")
+        stats.update(pool_promote_host_s=a.stats["load_seconds"],
+                     pool_promote_host_gbps=a.stats["load_gbps"],
+                     pool_promote_host_ready_s=a.stats["ready_seconds"])
+        log(f"pool: (d) a promoted from host: {a.stats['load_bytes'] / 1e9:.3f} GB to the card "
+            f"in {a.stats['load_seconds']} s ({a.stats['load_gbps']} GB/s; ready "
+            f"{a.stats['ready_seconds']} s with the warm-up forward) against the cold admin "
+            f"load's {stats['pool_cold_load_s']} s; argmax == before")
+
+        # (e) spill the host tier to disk, re-POST the evicted model
+        gone = next(n for n in ("b", "c") if pool.states()[n]["state"] == "UNLOADED")
+        t0 = time.monotonic()
+        if pool.tiers.spill_host() != 1:
+            raise RuntimeError(f"pool: (e) spill_host moved nothing: {pool.tiers.snapshot()}")
+        spool_s = time.monotonic() - t0
+        status, _, body = _http_full(port, "POST", "/admin/models",
+                                     {"name": gone, "model_dir": ckpt, "wait": True})
+        g = sset.servers.get(gone)
+        if status != 200 or g is None or g.stats.get("tier") != "disk":
+            raise RuntimeError(f"pool: (e) re-POST {gone} answered {status} {body}")
+        if _argmax(port, gone, tokens) != want:
+            raise RuntimeError(f"pool: (e) {gone} promoted from disk answers a different argmax")
+        unspool = _tier_event(pool, "tier.promote", "disk")
+        stats.update(pool_spool_s=spool_s, pool_spool_gbps=nbytes / spool_s / 1e9,
+                     pool_unspool_ms=unspool["ms"],
+                     pool_unspool_gbps=unspool["bytes"] / max(unspool["ms"], 1e-3) / 1e6,
+                     pool_promote_disk_s=g.stats["load_seconds"],
+                     pool_promote_disk_gbps=g.stats["load_gbps"])
+        log(f"pool: (e) spill_host spooled {nbytes / 1e9:.3f} GB in {spool_s:.2f} s "
+            f"({stats['pool_spool_gbps']:.2f} GB/s); {gone} promoted from disk: unspool "
+            f"{unspool['ms']} ms ({stats['pool_unspool_gbps']:.2f} GB/s), to the card "
+            f"{g.stats['load_seconds']} s ({g.stats['load_gbps']} GB/s); argmax == before")
+        if on_card:
+            stats.update(_host_buffers(g.params))
+
+        # (f) DELETE a model with a stream in flight on it
+        serving = [n for n in ("a", "b", "c") if pool.states()[n]["state"] == "READY"]
+        target, last = serving[-1], serving[0]
+        gen = torch.Generator().manual_seed(5)
+        gen_body = {"tokens": torch.randint(0, cfg.vocab_size, (1, POOL_STREAM_PROMPT),
+                                            generator=gen).tolist(),
+                    "max_new_tokens": POOL_STREAM_TOKENS}
+        status, whole = _http(port, f"/v1/{target}/generate", gen_body)
+        if status != 200:
+            raise RuntimeError(f"pool: (f) generate on {target} answered {status} {whole}")
+        resp, first = _stream_lines(port, target, gen_body)
+        status, _, body = _http_full(port, "DELETE", f"/admin/models/{target}?wait=0")
+        if status != 202 or body[target]["state"] != "DRAINING":
+            raise RuntimeError(f"pool: (f) DELETE {target} answered {status} {body}")
+        status, _, body = _http_full(port, "POST", f"/v1/{target}/forward", {"tokens": [[1, 2]]})
+        if status != 409 or "draining" not in body["error"]:
+            raise RuntimeError(f"pool: (f) a request during the drain answered {status} {body}")
+        streamed = _stream_tokens(first + resp.read())
+        if streamed != whole["tokens"][0][POOL_STREAM_PROMPT:]:
+            raise RuntimeError("pool: (f) the drained stream differs from the whole answer")
+        st = _wait_pool_state(sset, target, "UNLOADED")
+        status, _, body = _http_full(port, "DELETE", f"/admin/models/{last}")
+        if status != 409 or "last serving model" not in body["error"]:
+            raise RuntimeError(f"pool: (f) DELETE of the last model answered {status} {body}")
+        stats["pool_drain_s"] = st["drain_seconds"]
+        stats["pool_tiers"] = pool.tiers.snapshot()
+        log(f"pool: (f) DELETE {target} mid-stream: 202, new requests 409, the stream ended "
+            f"whole ({len(streamed)} tokens == the non-streamed answer), drain_seconds "
+            f"{st['drain_seconds']}; DELETE of the last model ({last}) refused 409; tiers "
+            f"{stats['pool_tiers']}")
+
+        # (g) a serve_main child drains its in-flight stream on SIGTERM
+        stats.update(_pod_drain(ckpt, device, gen_body, root))
+
+        # (h) the measured veto, on a pool with no budget
+        httpd.shutdown()
+        httpd.server_close()
+        httpd = None
+        _free(*sset.servers.values())
+        pool.tiers.close()
+        sset = None
+        stats.update(_pool_veto(ckpt, device, root, tokens, want, nbytes))
+        stats["flash_launches_pool"] = attn.flash_attention.launches
+        if on_card and not stats["flash_launches_pool"]:
+            raise RuntimeError("pool: the pool path launched no flash kernel")
+        return stats
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if sset is not None:
+            _free(*sset.servers.values())
+            sset.pool.tiers.close()
+
+
+def _host_buffers(params: dict) -> dict:
+    """Pinned against pageable host buffers for one model's tensors, in one
+    call: the pinned allocation (served from torch's pinned-memory cache
+    when the host tier's buffer was freed before), then device->host and
+    host->device copies through it, against the same copies through
+    pageable tensors. Host->device moves half the bytes: the card holds two
+    models beside the copies."""
+    import torch
+
+    tensors = [t for t in params.values() if isinstance(t, torch.Tensor)]
+    total = sum(t.nbytes for t in tensors)
+    half = tensors[:len(tensors) // 2]
+    half_bytes = sum(t.nbytes for t in half)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    out["pin_alloc_s"] = time.monotonic() - t0
+    views, off = [], 0
+    for t in tensors:
+        views.append(pinned[off:off + t.nbytes].view(t.dtype).view(t.shape))
+        off += t.nbytes
+    t0 = time.monotonic()
+    for v, t in zip(views, tensors):
+        v.copy_(t, non_blocking=True)
+    torch.cuda.synchronize()
+    out["pinned_d2h_gbps"] = total / (time.monotonic() - t0) / 1e9
+    back = [torch.empty_like(t) for t in half]
+    t0 = time.monotonic()
+    for d, v in zip(back, views):
+        d.copy_(v, non_blocking=True)
+    torch.cuda.synchronize()
+    out["pinned_h2d_gbps"] = half_bytes / (time.monotonic() - t0) / 1e9
+    del back, views, pinned
+    t0 = time.monotonic()
+    host = [t.to("cpu") for t in tensors]
+    out["pageable_d2h_gbps"] = total / (time.monotonic() - t0) / 1e9
+    t0 = time.monotonic()
+    back = [h.to("cuda") for h in host[:len(half)]]
+    torch.cuda.synchronize()
+    out["pageable_h2d_gbps"] = half_bytes / (time.monotonic() - t0) / 1e9
+    del back, host
+    torch.cuda.empty_cache()
+    log(f"pool: host buffers for {total / 1e9:.3f} GB: the pin_memory allocation took "
+        f"{out['pin_alloc_s']:.2f} s; pinned d2h {out['pinned_d2h_gbps']:.2f} GB/s, h2d "
+        f"{out['pinned_h2d_gbps']:.2f} GB/s; pageable d2h {out['pageable_d2h_gbps']:.2f} GB/s, "
+        f"h2d {out['pageable_h2d_gbps']:.2f} GB/s")
+    return out
+
+
+def _pod_drain(ckpt: str, device: str, gen_body: dict, root: str) -> dict:
+    """serve_main in a child process with --drain-grace 30: SIGTERM while a
+    stream is in flight."""
+    import signal
+
+    port = _free_port()
+    log_path = os.path.join(root, "pod-drain.log")
+    log_f = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "modelx_tpu_torch.dl.serve_main", "--model", f"m={ckpt}",
+         "--device", device, "--dtype", "bfloat16", "--listen", f"127.0.0.1:{port}",
+         "--drain-grace", "30"],
+        cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT)
+    log_f.close()
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"pool: (g) serve_main exited {proc.returncode}: "
+                                   f"{open(log_path).read()[-3000:]}")
+            try:
+                if _http_raw(port, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise RuntimeError("pool: (g) serve_main did not answer /healthz in 300 s")
+            time.sleep(0.2)
+        status, whole = _http(port, "/v1/m/generate", gen_body)
+        if status != 200:
+            raise RuntimeError(f"pool: (g) generate answered {status} {whole}")
+        resp, first = _stream_lines(port, "m", gen_body)
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        status = headers = body = None
+        while time.monotonic() - t0 < 30:
+            status, headers, body = _http_full(port, "GET", "/healthz", timeout=10)
+            if status == 503:
+                break
+            time.sleep(0.02)
+        if status != 503 or body.get("status") != "draining" or "Retry-After" in headers:
+            raise RuntimeError(f"pool: (g) /healthz after SIGTERM: {status} {headers} {body}")
+        live = _http_raw(port, "/livez")
+        if live[0] != 200:
+            raise RuntimeError(f"pool: (g) /livez while draining answered {live}")
+        streamed = _stream_tokens(first + resp.read())
+        if streamed != whole["tokens"][0][POOL_STREAM_PROMPT:]:
+            raise RuntimeError("pool: (g) the stream across SIGTERM differs from the whole answer")
+        rc = proc.wait(timeout=120)
+        drain_s = time.monotonic() - t0
+        if rc != 0:
+            raise RuntimeError(f"pool: (g) serve_main exited {rc} after SIGTERM: "
+                               f"{open(log_path).read()[-3000:]}")
+        log(f"pool: (g) SIGTERM mid-stream: /healthz 503 draining (no Retry-After), /livez 200, "
+            f"the stream completed whole ({len(streamed)} tokens), exit 0 {drain_s:.2f} s "
+            f"after the signal")
+        return {"pod_drain_s": drain_s}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def _pool_veto(ckpt: str, device: str, root: str, tokens, want: list, nbytes: int) -> dict:
+    """Admin loads of the checkpoint on a pool with no budget until one is
+    refused: devmem's measured veto (507) or a real out-of-memory error on
+    the card (the shed-and-retry path). No load may end FAILED while an
+    idle model could have been shed."""
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.utils import devmem
+
+    on_card = device == "cuda"
+    port = _free_port()
+    sset, httpd = serve_main.start([
+        "--model", f"v0={ckpt}", "--device", device, "--dtype", "bfloat16",
+        "--listen", f"127.0.0.1:{port}", "--allow-admin-load",
+        "--staging-dir", os.path.join(root, "staging-veto")])
+    pool = sset.pool
+    rows = []
+    outcome = "none"
+    try:
+        for i in range(1, POOL_VETO_LOADS):
+            dm = devmem.sample(max_age_s=0)
+            reserved = pool.reserved_bytes()
+            status, _, body = _http_full(port, "POST", "/admin/models",
+                                         {"name": f"v{i}", "model_dir": ckpt, "wait": True})
+            cache = sum(d["reserved_bytes"] - d["allocated_bytes"]
+                        for d in dm.get("devices", {}).values())
+            rows.append({"load": i, "status": status, "reserved_before": reserved,
+                         "measured_in_use_before": dm["hbm_bytes_in_use"],
+                         "measured_reservable_before": dm["hbm_bytes_reservable"],
+                         "allocator_cache_before": cache, "source": dm["source"]})
+            state = body.get(f"v{i}", {}).get("state")
+            log(f"pool: (h) load v{i}: {status} {body.get('error') or state}; before it the pool "
+                f"reserved {reserved / 1e9:.3f} GB, devmem measured {dm['hbm_bytes_in_use'] / 1e9:.3f}"
+                f" GB in use and {dm['hbm_bytes_reservable'] / 1e9:.3f} GB reservable (allocator "
+                f"cache {cache / 1e9:.3f} GB; source {dm['source']})")
+            if status == 507:
+                if "device measures only" not in body["error"]:
+                    raise RuntimeError(f"pool: (h) a 507 that is not the measured veto: {body}")
+                outcome = "measured_veto_507"
+                break
+            if state == "FAILED":
+                idle = [n for n, s in pool.states().items() if s["state"] == "READY"]
+                raise RuntimeError(f"pool: (h) load v{i} FAILED ({body}) with idle models "
+                                   f"{idle} that could have been shed")
+            if status != 200 or state != "READY":
+                raise RuntimeError(f"pool: (h) load v{i} answered {status} {body}")
+            if any(e["event"] == "pool.oom_retry" for e in pool.flightrec.events()):
+                outcome = "oom_shed_and_retry"
+                break
+        loaded = [n for n, s in pool.states().items() if s["state"] == "READY"]
+        if _argmax(port, loaded[-1], tokens) != want:
+            raise RuntimeError(f"pool: (h) {loaded[-1]} answers a different argmax")
+        if on_card and outcome == "none":
+            raise RuntimeError(f"pool: (h) {POOL_VETO_LOADS} loads of {nbytes / 1e9:.1f} GB "
+                               f"were all admitted")
+        log(f"pool: (h) outcome {outcome}, {len(loaded)} models loaded")
+        return {"pool_veto_outcome": outcome, "pool_veto_loaded": len(loaded),
+                "pool_veto_rows": rows}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        _free(*sset.servers.values())
 
 
 if __name__ == "__main__":

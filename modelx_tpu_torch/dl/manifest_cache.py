@@ -198,11 +198,13 @@ class ControlPlaneHealth:
       served from the pinned-manifest cache).
 
     Readiness never gates on this block; it is an operator/rebalancer
-    signal."""
+    signal. State transitions land on the model pool's flight recorder
+    when one is attached (``recorder``)."""
 
     def __init__(self, clock=time.monotonic) -> None:
         self._lock = threading.Lock()
         self._clock = clock
+        self.recorder = None
         self.reset()
 
     def reset(self) -> None:
@@ -220,6 +222,9 @@ class ControlPlaneHealth:
         if prev == state:
             return
         self._state = state
+        rec = self.recorder
+        if rec is not None:
+            rec.record("control_plane.transition", state=state, prev=prev)
         logger.info("control plane %s -> %s", prev, state)
 
     def note_ok(self, mirror: bool = False) -> None:

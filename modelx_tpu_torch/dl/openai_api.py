@@ -79,9 +79,21 @@ def api_error_for(e) -> APIError:
 
 
 def resolve_model(sset, req: dict):
-    """The ``model`` field picks the tenant; absent = the default."""
+    """The ``model`` field picks the tenant; absent = the default. Names in
+    a lifecycle transition (``dl/lifecycle.py``) map as on the native
+    surface: PULLING/LOADING 503 + Retry-After, DRAINING 409, FAILED 503
+    with the reason (the HTTP handler gates first; library callers of
+    ``run_completion`` get the same answers here)."""
+    from modelx_tpu_torch.dl.serving_errors import ServingError
+
     name = req.get("model") or sset.default
     server = sset.servers.get(name)
+    pool = getattr(sset, "pool", None)
+    if pool is not None:
+        try:
+            pool.check_admission(name)
+        except ServingError as e:
+            raise api_error_for(e) from e
     if server is None:
         raise APIError(404, f"model {name!r} not found", "not_found_error")
     if not server.ready:
@@ -628,26 +640,47 @@ def _sse_events(server, tok, chat, gen, first_piece, eos_set, stops, reserve,
 
 def models_payload(sset) -> dict:
     """GET /v1/models body serving both contracts: the native {default,
-    models} keys (per-model stats, the prefix cache's when it is on, the
-    window batcher's device calls once it exists) and OpenAI's
-    {object: "list", data: [...]}."""
+    models} keys and OpenAI's {object: "list", data: [...]}.
+
+    The model pool's set is reflected whole: every lifecycle entry appears
+    with its state (a PULLING/LOADING model before it can serve, a FAILED
+    one with its reason, an UNLOADED one as history), and the OpenAI
+    ``data`` rows carry a ``lifecycle_state``. Until ``/metrics`` is
+    ported, each model's row here also carries the prefix cache's stats
+    when it is on and the window batcher's device calls once it exists."""
+    pool = getattr(sset, "pool", None)
+    lifecycle = pool.states() if pool is not None else {}
     models: dict = {}
     batchers = dict(sset.batchers)
-    for n, s in sset.servers.items():
+    for n, s in list(sset.servers.items()):
         d = {"ready": s.ready, **s.stats}
         if s.load_error:
             d["error"] = s.load_error
+        if n in lifecycle:
+            d["lifecycle"] = lifecycle[n]
         if s._prefix_cache is not None:
             d["prefix_cache"] = s._prefix_cache.stats()
         if n in batchers:
             d["batches"] = batchers[n].batches
         models[n] = d
+    for n, st in lifecycle.items():
+        if n not in models:  # PULLING/FAILED-at-pull/UNLOADED: no server
+            d = {"ready": False, "lifecycle": st}
+            if st.get("error"):
+                d["error"] = st["error"]
+            models[n] = d
     return {
         "default": sset.default,
         "models": models,
         "object": "list",
-        "data": [{"id": n, "object": "model", "created": 0, "owned_by": "modelx-tpu"}
-                 for n in models],
+        # OpenAI clients treat data rows as invokable: UNLOADED models stay
+        # in the native ``models`` history but not here
+        "data": [
+            {"id": n, "object": "model", "created": 0, "owned_by": "modelx-tpu",
+             **({"lifecycle_state": lifecycle[n]["state"]} if n in lifecycle else {})}
+            for n in models
+            if lifecycle.get(n, {}).get("state") != "UNLOADED"
+        ],
     }
 
 

@@ -2,9 +2,12 @@
 
 Loads one or more checkpoints onto one device and serves:
 
-    GET  /healthz               readiness (200 once every model is loaded),
-                                with the registry's ``control_plane`` health
-    GET  /v1/models             model inventory + per-model stats
+    GET  /healthz               readiness: ok, degraded (some models FAILED),
+                                loading, failed or draining (SIGTERM), with
+                                the registry's ``control_plane`` health
+    GET  /livez                 liveness (200 while the process serves)
+    GET  /v1/models             model inventory + per-model stats and
+                                lifecycle states
     POST /v1/forward            default model      {"tokens": [[...]]}
                                 -> {"logits_argmax": [[...]]}
     POST /v1/generate           default model      + {"max_new_tokens": N}
@@ -16,6 +19,11 @@ Loads one or more checkpoints onto one device and serves:
     POST /v1/{model}/generate   named model
     POST /v1/completions        OpenAI surface (dl/openai_api.py), JSON or
     POST /v1/chat/completions   SSE with "stream": true
+    GET  /admin/models          the model pool (dl/lifecycle.py): states,
+    POST /admin/models          accounting, runtime loads ({"name",
+    DELETE /admin/models/{name} "ref"|"model_dir"}) and drained unloads,
+                                behind bearer tokens (--admin-token)
+    GET  /debug/flightrec       the pool's flight recorder (admin-gated)
 
 Requests are checked as the JAX sidecar checks them (2-D non-empty token
 ids inside the vocab, ``max_new_tokens`` in [1, limit], text and tokens
@@ -27,8 +35,13 @@ SSE bytes. Text goes through the model's own ``tokenizer.json``, read by
 ``dl/tokenizer.py`` (the ``tokenizers`` package is not a dependency), and
 chat through the chat template of its ``tokenizer_config.json``. What
 later slices port answers a typed 501 that names the slice:
-``include_timing`` on a stream, the admin routes, and a tokenizer.json
+``include_timing`` on a stream, ``/admin/profile``, and a tokenizer.json
 component the reader does not implement.
+
+Every request passes the model pool: a model that is PULLING or LOADING
+answers 503 + ``Retry-After``, DRAINING 409, FAILED 503 with the reason,
+and the pool counts each request in flight until its last byte, so an
+unload drains it and a SIGTERM'd pod (``ServerSet.draining``) waits for it.
 
 The one-device serving options of the JAX sidecar: ``quantize="int8"``
 (weight-only int8 linears, ``ops/quant.py``), ``lora_dir`` (a PEFT adapter
@@ -60,6 +73,7 @@ import torch
 from modelx_tpu_torch.device import parse_dtype, resolve_device
 from modelx_tpu_torch.dl import families as fam
 from modelx_tpu_torch.dl import manifest_cache
+from modelx_tpu_torch.dl.lifecycle import ModelPool, PoolError
 from modelx_tpu_torch.dl.serving_errors import (
     DEADLINE_HEADER,
     PRIORITY_HEADER,
@@ -87,6 +101,7 @@ DEFAULT_MAX_NEW_TOKENS_LIMIT = 1024
 _UNSET = object()  # tokenizer / chat template not probed yet (absent is cached as None)
 
 _MODEL_ROUTE = re.compile(r"^/v1/(?P<model>[A-Za-z0-9._-]+)/(?P<verb>forward|generate)$")
+_ADMIN_MODEL_ROUTE = re.compile(r"^/admin/models/(?P<model>[A-Za-z0-9._-]+)(?:\?.*)?$")
 
 
 class NotPortedError(Exception):
@@ -305,6 +320,38 @@ class ModelServer:
         self.stats["load_bytes"] = total  # over the link
         self.stats["device_bytes"] = resident  # kept on the device
         self.stats["load_gbps"] = round(total / max(seconds, 1e-9) / 1e9, 3)
+        for shape in self.WARMUP_TOKEN_SHAPES:
+            self.forward_argmax(np.zeros(shape, np.int64))
+        self.stats["ready_seconds"] = round(time.monotonic() - t0, 3)
+        self.ready = True
+        return dict(self.stats)
+
+    def load_from_tier(self, promo) -> dict:
+        """Materialize a demoted model from a tier promotion
+        (``dl/tiers.Promotion``) instead of the checkpoint files: the host
+        or disk tensors go to the device, with no fetch and no safetensors
+        parse, then the same warm-up forward as ``load`` (through the flash
+        kernel on the card)."""
+        from modelx_tpu_torch.dl.tiers import unflatten_params
+
+        t0 = time.monotonic()
+        self.family = promo.family
+        self.cfg = promo.cfg
+        # non-blocking from the host tier's pinned buffer; the synchronize
+        # below makes the tensors whole before the buffer may be touched
+        leaves = [leaf.to(self.device, copy=True, non_blocking=True) for leaf in promo.leaves]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.params = unflatten_params(promo.treedef, leaves)
+        seconds = time.monotonic() - t0
+        self.stats["family"] = self.family.name
+        self.stats["device"] = str(self.device)
+        self.stats["dtype"] = str(self.dtype).removeprefix("torch.")
+        self.stats["load_seconds"] = round(seconds, 3)
+        self.stats["load_bytes"] = promo.nbytes
+        self.stats["device_bytes"] = promo.nbytes
+        self.stats["load_gbps"] = round(promo.nbytes / max(seconds, 1e-9) / 1e9, 3)
+        self.stats["tier"] = promo.tier
         for shape in self.WARMUP_TOKEN_SHAPES:
             self.forward_argmax(np.zeros(shape, np.int64))
         self.stats["ready_seconds"] = round(time.monotonic() - t0, 3)
@@ -809,17 +856,26 @@ class Batcher:
 
 
 class ServerSet:
-    """Named ModelServers behind one HTTP front."""
+    """Named ModelServers behind one HTTP front, and the model pool that
+    owns their lifecycle (``dl/lifecycle.ModelPool``, always built)."""
 
     # the decode budget a request may ask for (native and OpenAI surfaces)
     max_new_tokens_limit = DEFAULT_MAX_NEW_TOKENS_LIMIT
 
     def __init__(self, servers: dict[str, ModelServer], default: str | None = None,
                  stream_chunk_size: int = 8, dynamic_batch: bool = False,
-                 max_batch: int = 32, batch_window_ms: float = 3.0) -> None:
+                 max_batch: int = 32, batch_window_ms: float = 3.0,
+                 hbm_budget_bytes: int = 0, evict_idle: bool = False,
+                 allow_admin_load: bool = False, admin_tokens: tuple[str, ...] = (),
+                 staging_root: str = "", host_state_budget_bytes: int = 0,
+                 disk_state_budget_bytes: int = 0, state_spool_dir: str = "") -> None:
         if not servers:
             raise ValueError("no models")
         self.servers = servers
+        # the model set changes at runtime (the pool's loads and unloads):
+        # every structural change goes through add_server/remove_server
+        # under this lock
+        self._servers_lock = threading.RLock()
         self.stream_chunk_size = int(stream_chunk_size)
         self._dynamic_batch = bool(dynamic_batch)
         self.max_batch = int(max_batch)
@@ -829,24 +885,135 @@ class ServerSet:
         for name, s in servers.items():
             s.name = name  # route key and server identity must agree
         self.default = default or next(iter(servers))
+        # the template for runtime-loaded ModelServers (the pool's admin
+        # loads): the boot set's device, dtype, context budget,
+        # quantization and cache knobs
+        first = next(iter(servers.values()))
+        self.server_defaults: dict = {
+            "device": first.device,
+            "dtype": str(first.dtype).removeprefix("torch."),
+            "max_seq_len": first.max_seq_len,
+            "quantize": first.quantize,
+            "speculative_k": first.speculative_k,
+        }
+        if first._prefix_cache is not None:
+            self.server_defaults.update(
+                prefix_cache_size=first._prefix_cache.capacity,
+                prefix_cache_max_bytes=first._prefix_cache.max_bytes,
+            )
+        # bearer tokens gating the /admin surface (empty = anonymous admin,
+        # for single-tenant dev pods and tests)
+        self.admin_tokens = tuple(admin_tokens)
+        # set on SIGTERM: /healthz answers 503 "draining" so load balancers
+        # stop routing here while in-flight requests finish
+        self.draining = False
+        # live POST count (streams included, until their last byte): the
+        # SIGTERM drain in serve_main waits for it to reach zero
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self.pool = ModelPool(
+            self, hbm_budget_bytes=hbm_budget_bytes, evict_idle=evict_idle,
+            allow_admin_load=allow_admin_load, staging_root=staging_root,
+            host_state_budget_bytes=host_state_budget_bytes,
+            disk_state_budget_bytes=disk_state_budget_bytes,
+            state_spool_dir=state_spool_dir,
+        )
+
+    def request_began(self) -> None:
+        with self._inflight_lock:
+            self._inflight += 1
+
+    def request_ended(self) -> None:
+        with self._inflight_lock:
+            self._inflight -= 1
+
+    @property
+    def inflight(self) -> int:
+        with self._inflight_lock:
+            return self._inflight
+
+    def add_server(self, name: str, server: ModelServer) -> None:
+        """Insert a runtime-loaded model into the routing set (the pool's
+        READY transition)."""
+        with self._servers_lock:
+            server.name = name
+            self.servers[name] = server
+
+    def remove_server(self, name: str, close: bool = True):
+        """Remove a model from routing; returns ``(server, batcher)``. With
+        ``close`` the window batcher closes here; the pool passes
+        ``close=False`` and closes it outside its lock."""
+        with self._servers_lock:
+            server = self.servers.pop(name, None)
+            with self._batcher_lock:
+                batcher = self.batchers.pop(name, None)
+            if self.default == name and self.servers:
+                ready = [n for n, s in self.servers.items() if s.ready]
+                self.default = (ready or list(self.servers))[0]
+        if close and batcher is not None:
+            batcher.close()
+        return server, batcher
 
     @property
     def ready(self) -> bool:
-        return all(s.ready for s in self.servers.values())
+        """Readiness over the healthy set: models whose load crashed are
+        FAILED (reported on /healthz and /v1/models) but do not hold the
+        pod un-ready while the others serve. Empty, all-failed or draining
+        is not ready."""
+        if self.draining:
+            return False
+        with self._servers_lock:
+            healthy = [s for s in self.servers.values() if s.load_error is None]
+        return bool(healthy) and all(s.ready for s in healthy)
 
-    def load_all(self) -> dict:
-        """Load every model in turn; a model that fails is reported on
-        /healthz and /v1/models while the others serve. Raises only when
-        every model failed."""
-        errs = {}
-        for name, s in self.servers.items():
+    def serving_stats(self) -> dict:
+        """Per-model load and locality for GET /admin/models: the queue
+        fields are 0 (the plain path has no backlog; they come from the
+        continuous engine), and the prefix cache's counters."""
+        with self._servers_lock:
+            pairs = list(self.servers.items())
+        out: dict = {}
+        for name, s in pairs:
+            d: dict = {"queue_depth": 0, "active": 0, "waiting": 0}
+            if s._prefix_cache is not None:
+                d["prefix_cache"] = s._prefix_cache.stats()
+            out[name] = d
+        return out
+
+    def load_all(self, concurrent: bool = False) -> dict:
+        """Load every model, driving the pool's LOADING -> READY | FAILED;
+        ``concurrent`` overlaps the loads. A model that fails is FAILED
+        (reported on /healthz and /v1/models) while the others serve.
+        Raises only when every model failed."""
+        def _load(s: ModelServer, catch=Exception) -> None:
+            self.pool.mark_loading(s.name)
             try:
                 s.load()
-            except Exception as e:
-                logger.exception("loading %s failed", name)
-                s.load_error = f"{type(e).__name__}: {e}"
-                errs[name] = e
-        if errs and len(errs) == len(self.servers):
+            except catch as e:
+                s.load_error = str(e)
+                errs[s.name] = e
+                self.pool.mark_failed(s.name, str(e))
+                logger.error("loading %s failed (tenant marked FAILED, others keep "
+                             "serving): %s", s.name, e)
+            else:
+                self.pool.mark_ready(s.name)
+
+        errs: dict[str, BaseException] = {}
+        servers = list(self.servers.values())
+        if concurrent and len(servers) > 1:
+            # worker threads catch BaseException: a crash surfaces as a
+            # FAILED tenant, not a silently dead thread
+            threads = [threading.Thread(target=_load, args=(s, BaseException), daemon=True)
+                       for s in servers]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        else:
+            # on the main thread: Exception only, so a Ctrl-C still aborts
+            for s in servers:
+                _load(s)
+        if errs and len(errs) == len(servers):
             name, err = next(iter(errs.items()))
             raise RuntimeError(f"loading {name} failed: {err}") from err
         return {n: dict(s.stats, **({"error": s.load_error} if s.load_error else {}))
@@ -854,13 +1021,23 @@ class ServerSet:
 
     def resolve(self, path: str) -> tuple[ModelServer | None, str | None]:
         """(server, verb) for a POST path; (None, None) if unroutable."""
-        if path in ("/v1/forward", "/v1/generate"):
-            server = self.servers.get(self.default)
-            return server, (path.rsplit("/", 1)[1] if server else None)
-        m = _MODEL_ROUTE.match(path)
-        if m and m.group("model") in self.servers:
-            return self.servers[m.group("model")], m.group("verb")
+        with self._servers_lock:
+            if path in ("/v1/forward", "/v1/generate"):
+                server = self.servers.get(self.default)
+                return server, (path.rsplit("/", 1)[1] if server else None)
+            m = _MODEL_ROUTE.match(path)
+            if m and m.group("model") in self.servers:
+                return self.servers[m.group("model")], m.group("verb")
         return None, None
+
+    def route_name(self, path: str) -> str | None:
+        """The model name a POST path addresses, resolved or not: the 404
+        path asks the pool about it, so a PULLING/LOADING model answers 503
+        + Retry-After instead of 404."""
+        if path in ("/v1/forward", "/v1/generate"):
+            return self.default
+        m = _MODEL_ROUTE.match(path)
+        return m.group("model") if m else None
 
     def batcher_for(self, server: ModelServer) -> Batcher | None:
         """The model's window batcher, created on first use once the model
@@ -908,6 +1085,14 @@ class ServerSet:
         return server.generate_stream(tokens, max_new_tokens=n,
                                       chunk_size=self.stream_chunk_size,
                                       stop_token_ids=stop_token_ids, **samp)
+
+
+def _query_param(path: str, name: str) -> str:
+    """One query-string value from a raw request path ("" when absent)."""
+    from urllib.parse import parse_qs, urlparse
+
+    vals = parse_qs(urlparse(path).query).get(name)
+    return vals[0] if vals else ""
 
 
 def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: ModelServer,
@@ -1061,12 +1246,22 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
         def _openai(self, req: dict, chat: bool) -> None:
             """/v1/completions + /v1/chat/completions (openai_api.py). SSE
             for stream=true; errors use the OpenAI {"error": {...}} shape."""
+            # the lifecycle gate, in the OpenAI error shape: the same typed
+            # errors the native surface maps
+            name = str(req.get("model") or sset.default)
+            try:
+                sset.pool.check_admission(name)
+                sset.pool.enter(name)  # raises 409 if a drain raced in
+            except ServingError as e:
+                api = oai.api_error_for(e)
+                return self._json(api.status, api.payload, headers=e.headers())
             # an expired budget answers 504 in the OpenAI shape before any work
             timeout_s = parse_deadline_ms(self.headers.get(DEADLINE_HEADER))
             priority = parse_priority(self.headers.get(PRIORITY_HEADER))
             if timeout_s is not None and timeout_s <= 0:
                 e = DeadlineExceededError("admitting", timeout_s)
                 api = oai.api_error_for(e)
+                sset.pool.exit(name)
                 return self._json(api.status, api.payload, headers=e.headers())
             try:
                 # the resume block: headers win over the native field, each
@@ -1124,42 +1319,106 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             except Exception as e:
                 logger.exception("openai api error")
                 return self._json(500, oai.APIError(500, str(e), "server_error").payload)
+            finally:
+                sset.pool.exit(name)
+
+        def _admin_auth(self) -> bool:
+            """Bearer-token filter for the /admin surface (--admin-token);
+            no tokens = anonymous admin. Returns False after writing the
+            401."""
+            if not sset.admin_tokens:
+                return True
+            import hmac
+
+            authz = self.headers.get("Authorization", "")
+            presented = authz[len("Bearer "):] if authz.startswith("Bearer ") else ""
+            # constant time per candidate: the token gates model load/unload
+            if any(hmac.compare_digest(presented, t) for t in sset.admin_tokens):
+                return True
+            self._json(401, {"error": "invalid or missing bearer token"})
+            return False
 
         def do_GET(self):
             if self.path == "/healthz":
-                failed = {n: s.load_error for n, s in sset.servers.items() if s.load_error}
+                failed = sset.pool.failed()
                 # registry reachability rides beside readiness, never in it:
                 # a pod serving through a registry outage stays 200
                 cp = manifest_cache.health().status()
                 if sset.ready:
-                    self._json(200, {"status": "ok", "control_plane": cp})
-                elif failed and all(s.ready or s.load_error for s in sset.servers.values()):
-                    if len(failed) < len(sset.servers):
+                    # degraded: some tenants FAILED, the rest serve
+                    if failed:
                         self._json(200, {"status": "degraded", "failed": failed,
                                          "control_plane": cp})
                     else:
-                        self._json(503, {"status": "failed", "control_plane": cp,
-                                         "failed": failed})
+                        self._json(200, {"status": "ok", "control_plane": cp})
                 else:
-                    self._json(503, {"status": "loading", "control_plane": cp},
-                               headers={"Retry-After": "2"})
+                    status = "draining" if sset.draining else (
+                        "failed" if failed else "loading")
+                    body = {"status": status, "control_plane": cp}
+                    if failed:
+                        body["failed"] = failed
+                    # loading resolves on its own: say when to look again
+                    headers = {} if sset.draining else {"Retry-After": "2"}
+                    self._json(503, body, headers=headers)
+            elif self.path == "/livez":
+                # liveness, apart from readiness: loading and draining are
+                # alive (the engine-broken state that fails it comes with
+                # the continuous engine)
+                self._json(200, {"status": "ok"})
+            elif self.path == "/admin/models":
+                if not self._admin_auth():
+                    return
+                self._json(200, {
+                    "models": sset.pool.states(),
+                    "pool": sset.pool.pool_snapshot(),
+                    "serving": sset.serving_stats(),
+                    "control_plane": manifest_cache.health().status(),
+                })
             elif self.path == "/v1/models":
                 # one body, two contracts: the native {default, models} keys
                 # plus OpenAI's {object: "list", data: [...]}
                 self._json(200, oai.models_payload(sset))
-            elif self.path.startswith("/admin/"):
-                e = NotPortedError("the admin surface", "model pool")
-                self._json(e.http_status, e.payload())
+            elif self.path.split("?", 1)[0] == "/debug/flightrec":
+                # the pool's flight-recorder ring, admin-gated (events carry
+                # request ids), with ?request_id= slicing
+                if not self._admin_auth():
+                    return
+                rid = _query_param(self.path, "request_id") or None
+                self._json(200, {"pool": sset.pool.flightrec.summary(rid)})
             else:
                 self._json(404, {"error": "not found"})
 
         def do_DELETE(self):
-            if self.path.startswith("/admin/"):
-                e = NotPortedError("the admin surface", "model pool")
-                return self._json(e.http_status, e.payload())
-            self._json(404, {"error": "not found"})
+            """DELETE /admin/models/{name}: stop admission (new requests 409
+            while draining, 404 once gone), drain in-flight requests, then
+            free params, decoders and pool-owned staging. ``?wait=0``
+            answers 202 at once and drains in the background."""
+            m = _ADMIN_MODEL_ROUTE.match(self.path)
+            if m is None:
+                return self._json(404, {"error": "not found"})
+            if not self._admin_auth():
+                return
+            if not sset.pool.allow_admin_load:
+                return self._json(403, {
+                    "error": "admin model unloading is disabled "
+                             "(start with --allow-admin-load)"})
+            wait = _query_param(self.path, "wait") not in ("0", "false")
+            try:
+                snap = sset.pool.request_unload(m.group("model"), wait=wait)
+            except PoolError as e:
+                return self._json(e.status, {"error": str(e)}, headers=e.headers or None)
+            return self._json(200 if wait else 202, snap)
 
         def do_POST(self):
+            # pod-level in-flight count for the SIGTERM drain: a request
+            # counts until its last byte (streams included)
+            sset.request_began()
+            try:
+                self._do_POST()
+            finally:
+                sset.request_ended()
+
+        def _do_POST(self):
             length = int(self.headers.get("Content-Length", 0) or 0)
             try:
                 req = json.loads(self.rfile.read(length)) if length else {}
@@ -1168,14 +1427,44 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             if not isinstance(req, dict):
                 return self._json(400, {"error": "request body must be a JSON object"})
             path = self.path.split("?", 1)[0]
-            if path.startswith("/admin/"):
-                e = NotPortedError("the admin surface", "model pool")
+            if path == "/admin/profile":
+                if not self._admin_auth():
+                    return
+                e = NotPortedError("/admin/profile", "observability")
                 return self._json(e.http_status, e.payload())
+            if self.path == "/admin/models":
+                # a runtime load: pull a registry ref (or point at a local
+                # dir) and load it while traffic is live
+                if not self._admin_auth():
+                    return
+                wait = bool(req.get("wait", False))
+                try:
+                    snap = sset.pool.request_load(
+                        str(req.get("name") or ""), ref=str(req.get("ref") or ""),
+                        model_dir=str(req.get("model_dir") or ""), wait=wait)
+                except PoolError as e:
+                    # a 507 that demotion could clear carries Retry-After
+                    return self._json(e.status, {"error": str(e)}, headers=e.headers or None)
+                return self._json(200 if wait else 202, snap)
             if path in ("/v1/completions", "/v1/chat/completions"):
                 return self._openai(req, chat=path.endswith("chat/completions"))
             server, verb = sset.resolve(path)
             if server is None:
+                # a name the routing set does not know may still be a pool
+                # entry: PULLING/LOADING 503 + Retry-After, FAILED 503 + the
+                # reason; only unknown names 404
+                name = sset.route_name(path)
+                err = sset.pool.routing_error(name) if name else None
+                if err is not None:
+                    return self._json(err.http_status, {"error": str(err)},
+                                      headers=err.headers())
                 return self._json(404, {"error": "not found"})
+            try:
+                # DRAINING models still sit in the routing set while their
+                # in-flight requests finish, but admit no new ones (409)
+                sset.pool.check_admission(server.name)
+            except ServingError as e:
+                return self._json(e.http_status, {"error": str(e)}, headers=e.headers())
             # an already-expired propagated budget answers 504 before any
             # tokenization or engine work
             timeout_s = parse_deadline_ms(self.headers.get(DEADLINE_HEADER))
@@ -1217,9 +1506,6 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                     )
             except (ValueError, KeyError, TypeError, OverflowError) as e:
                 return self._json(400, {"error": f"bad request: {e}"})
-            if server.load_error:
-                return self._json(503, {"error": f"model {server.name} failed to load: "
-                                                 f"{server.load_error}"})
             if not server.ready:
                 e = ModelLoadingError(server.name)
                 return self._json(e.http_status, {"error": str(e)}, headers=e.headers())
@@ -1228,6 +1514,13 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 # the embedding gather would raise on the card (JAX's clamps)
                 return self._json(400, {"error": f"token ids must be in [0, {vocab})"})
             server.stats["requests"] += 1
+            try:
+                # in flight until the last byte is written: an unload drains
+                # this request before it frees the model; a drain that began
+                # since the admission check refuses here (409)
+                sset.pool.enter(server.name)
+            except ServingError as e:
+                return self._json(e.http_status, {"error": str(e)}, headers=e.headers())
             try:
                 if verb == "forward":
                     out = (sset.batcher_for(server) or server).forward_argmax(tokens)
@@ -1270,6 +1563,8 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             except Exception as e:  # surface inference errors as 500 JSON
                 logger.exception("inference error")
                 self._json(500, {"error": str(e)})
+            finally:
+                sset.pool.exit(server.name)
 
     host, _, port = listen.rpartition(":")
     httpd = _HTTPServer((host or "0.0.0.0", int(port)), Handler)

@@ -5,9 +5,20 @@
     modelx-serve-torch --model a=/mnt/a --model b=/mnt/b --listen :8000
     modelx-serve-torch --model m=/mnt/m --dynamic-batch --quantize int8
     modelx-serve-torch --model m=/mnt/m --speculative-k 8 --lora m=/mnt/adapter
+    modelx-serve-torch --model m=/mnt/m --allow-admin-load \
+        --hbm-budget-bytes 40000000000 --evict-idle \
+        --host-state-budget-bytes 20000000000 --drain-grace 30
 
 The HTTP front answers 503 on /healthz while the checkpoints load, then
 serves them on the card (``--device cpu`` serves on the host instead).
+With ``--allow-admin-load`` models load and unload at runtime through
+``/admin/models`` (``dl/lifecycle.py``), under ``--hbm-budget-bytes`` with
+LRU eviction (``--evict-idle``) into the host and disk state tiers.
+
+On SIGTERM the pod drains: ``/healthz`` answers 503 "draining", then it
+waits for its in-flight requests (up to ``--drain-grace`` seconds) or
+sleeps ``--drain-seconds``, closes the batchers and exits 0. SIGINT cuts
+the wait short.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import argparse
 import logging
 import signal
 import threading
+import time
 
 from modelx_tpu_torch.client import remote
 from modelx_tpu_torch.dl import blob_cache, manifest_cache
@@ -81,7 +93,70 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="NAME=ADAPTER_DIR",
                     help="merge a PEFT-style LoRA adapter into model NAME at load; "
                          "repeatable")
+    ap.add_argument("--concurrent-load", action="store_true",
+                    help="overlap multi-model loads")
+    # the numbers below parse in start(), so a bad value is the usage error
+    # the JAX sidecar's click gives
+    ap.add_argument("--hbm-budget-bytes", default="0",
+                    help="model lifecycle pool: PER-DEVICE memory budget — a runtime "
+                         "load whose estimated footprint (safetensors sizes) does not "
+                         "fit is refused with 507, or makes room by LRU-evicting idle "
+                         "models under --evict-idle (0 = unbudgeted)")
+    ap.add_argument("--evict-idle", action="store_true",
+                    help="with --hbm-budget-bytes: LRU-evict READY models that have no "
+                         "in-flight requests to make room for a new load instead of "
+                         "refusing it")
+    ap.add_argument("--host-state-budget-bytes", default="0",
+                    help="tiered live state (dl/tiers.py): bound for the host-RAM tier "
+                         "that evicted/unloaded models' params demote into instead of "
+                         "being discarded — a later load of the same content is a tier "
+                         "promotion (no pull/parse). LRU within the tier; overflow "
+                         "spills to the disk tier (0 = host tier off)")
+    ap.add_argument("--disk-state-budget-bytes", default="0",
+                    help="bound for the local-disk tier (raw-tensor spool under "
+                         "--state-spool-dir) that host-tier overflow spills into; disk "
+                         "overflow drops oldest (0 = disk tier off; both 0 = tiering "
+                         "off, eviction discards)")
+    ap.add_argument("--state-spool-dir", default="",
+                    help="where the disk tier spools tensors — put it next to "
+                         "--blob-cache-dir (default: $TMPDIR/modelx-state-spool)")
+    ap.add_argument("--allow-admin-load", action="store_true",
+                    help="enable the runtime lifecycle surface: POST /admin/models "
+                         "pulls+loads a registry ref (or a local dir) while traffic is "
+                         "live, DELETE /admin/models/{name} drains and frees one (GET "
+                         "/admin/models always reports states)")
+    ap.add_argument("--admin-token", dest="admin_tokens", action="append", default=[],
+                    help="bearer token accepted on the /admin surface (repeatable; "
+                         "none = anonymous admin — dev pods only)")
+    ap.add_argument("--staging-dir", default="",
+                    help="where runtime-pulled model blobs land before loading "
+                         "(default: $TMPDIR/modelx-pool-staging)")
+    ap.add_argument("--drain-seconds", default="5.0",
+                    help="on SIGTERM, serve 503 on /healthz for this long (so load "
+                         "balancers drain) before stopping")
+    ap.add_argument("--drain-grace", default="0.0",
+                    help="coordinated drain: on SIGTERM, stop admission and wait for "
+                         "in-flight requests (streams included, to their last byte) to "
+                         "reach zero, up to this many seconds, instead of the fixed "
+                         "--drain-seconds sleep (0 = fixed-sleep drain)")
     return ap
+
+
+_INT_FLAGS = ("hbm_budget_bytes", "host_state_budget_bytes", "disk_state_budget_bytes")
+_FLOAT_FLAGS = ("drain_seconds", "drain_grace")
+
+
+def _parse_numbers(ap: argparse.ArgumentParser, args) -> None:
+    """The pool and drain numbers, with click's usage error for a bad one."""
+    for dest, kind, word in ([(d, int, "integer") for d in _INT_FLAGS]
+                             + [(d, float, "float") for d in _FLOAT_FLAGS]):
+        raw = getattr(args, dest)
+        if isinstance(raw, str):
+            try:
+                setattr(args, dest, kind(raw))
+            except ValueError:
+                flag = "--" + dest.replace("_", "-")
+                ap.error(f"Invalid value for '{flag}': {raw!r} is not a valid {word}.")
 
 
 def _parse_models(specs: list[str]) -> dict[str, str]:
@@ -132,8 +207,13 @@ def start(argv=None):
     """Parse ``argv``, start the HTTP front, load every model, and return
     ``(server_set, httpd)`` with the front serving. ``main`` runs this and
     then waits for SIGTERM/SIGINT."""
+    return _start(argv)[:2]
+
+
+def _start(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    _parse_numbers(ap, args)
     configure_registry(args)
     models = _parse_models(args.models)
     lora_dirs = _parse_loras(ap, args.loras, models, args.quantize)
@@ -148,42 +228,87 @@ def start(argv=None):
     }
     if args.stream_chunk_size < 1:
         raise SystemExit("--stream-chunk-size must be >= 1")
+    log = logging.getLogger("modelx.serve")
     if args.prefix_cache and args.speculative_k:
         # the speculative decoder owns single-row streams before the
         # ChunkedDecoder (the prefix cache's stream seam) is consulted
-        logging.getLogger("modelx.serve").warning(
-            "--prefix-cache is inert under --speculative-k "
-            "(the speculative decoder handles the streams it would accelerate)")
+        log.warning("--prefix-cache is inert under --speculative-k "
+                    "(the speculative decoder handles the streams it would accelerate)")
+    if args.evict_idle and not args.hbm_budget_bytes:
+        log.warning("--evict-idle is inert without --hbm-budget-bytes "
+                    "(eviction only runs to fit a load under the budget)")
+    if args.state_spool_dir and not args.disk_state_budget_bytes:
+        log.warning("--state-spool-dir is inert without --disk-state-budget-bytes "
+                    "(nothing spools to a 0-byte disk tier)")
     sset = ServerSet(servers, stream_chunk_size=args.stream_chunk_size,
                      dynamic_batch=args.dynamic_batch, max_batch=args.max_batch,
-                     batch_window_ms=args.batch_window_ms)
+                     batch_window_ms=args.batch_window_ms,
+                     hbm_budget_bytes=args.hbm_budget_bytes, evict_idle=args.evict_idle,
+                     allow_admin_load=args.allow_admin_load,
+                     admin_tokens=tuple(args.admin_tokens), staging_root=args.staging_dir,
+                     host_state_budget_bytes=args.host_state_budget_bytes,
+                     disk_state_budget_bytes=args.disk_state_budget_bytes,
+                     state_spool_dir=args.state_spool_dir)
     httpd = serve(sset, listen=args.listen)  # answers 503 while loading
     try:
-        stats = sset.load_all()
+        stats = sset.load_all(concurrent=args.concurrent_load)
     except BaseException:
         httpd.shutdown()
         httpd.server_close()
         raise
-    logging.getLogger("modelx.serve").info("loaded: %s", stats)
-    return sset, httpd
+    log.info("loaded: %s", stats)
+    return sset, httpd, args
+
+
+def drain(sset: ServerSet, drain_seconds: float, drain_grace: float,
+          abort: threading.Event) -> None:
+    """The SIGTERM drain: /healthz flips to 503 "draining" (``ready`` is
+    False), then wait for the pod's in-flight requests to reach zero, up
+    to ``drain_grace`` seconds, or (``drain_grace`` 0) sleep
+    ``drain_seconds``. ``abort`` (SIGINT) cuts the wait short."""
+    log = logging.getLogger("modelx.serve")
+    sset.draining = True
+    if not abort.is_set() and drain_grace > 0:
+        log.info("draining: waiting up to %.0fs for %d in-flight request(s)",
+                 drain_grace, sset.inflight)
+        deadline = time.monotonic() + drain_grace
+        while sset.inflight > 0 and time.monotonic() < deadline:
+            if abort.wait(timeout=0.05):
+                break  # Ctrl-C mid-drain: exit now
+        if sset.inflight > 0:
+            log.warning("drain grace expired with %d request(s) still in flight",
+                        sset.inflight)
+    elif not abort.is_set() and drain_seconds > 0:
+        log.info("draining for %.0fs before shutdown", drain_seconds)
+        deadline = time.monotonic() + drain_seconds
+        while time.monotonic() < deadline and not abort.wait(timeout=0.05):
+            pass
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
-    sset, httpd = start(argv)
+    sset, httpd, args = _start(argv)
     stop = threading.Event()
+    abort = threading.Event()  # SIGINT: skip or cut short the drain window
 
-    def _on_signal(_num, _frame):
+    def _on_signal(num, _frame):
+        if num == signal.SIGINT:
+            abort.set()
         stop.set()
 
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
     host, port = httpd.server_address[:2]
     print(f"modelx-serve-torch: serving {sorted(sset.servers)} on {host}:{port}", flush=True)
-    stop.wait()
+    # short timed waits: a signal the kernel hands to another thread runs
+    # its handler only when the main thread next executes Python code, and
+    # an untimed wait would not return to do so
+    while not stop.wait(timeout=0.2):
+        pass
+    drain(sset, args.drain_seconds, args.drain_grace, abort)
+    sset.close()
     httpd.shutdown()
     httpd.server_close()
-    sset.close()
     return 0
 
 

@@ -7,6 +7,10 @@ whose budget is already gone answers 504 before any work, on the native
 and the OpenAI surface alike. ``X-ModelX-Priority`` names its class; both
 reach only the continuous engine, which is not ported.
 
+The model pool's lifecycle errors (``dl/lifecycle.py``) keep the
+reference's statuses and bodies on both surfaces: PULLING/LOADING 503 +
+``Retry-After``, DRAINING 409, FAILED 503 with the reason, UNLOADED 404.
+
 A ``resume`` block continues a severed stream: the emitted token ids and
 the original seed, as the native ``resume`` field or as the
 ``X-ModelX-Resume-*`` headers. Continuing one needs the continuous engine,
@@ -81,8 +85,10 @@ class DeadlineExceededError(ServingError):
 
 
 class ModelLoadingError(ServingError):
-    """The model is still loading: 503 + ``Retry-After``, so load balancers
-    and retrying clients back off."""
+    """The model is mid-materialization (PULLING its blobs or LOADING them
+    onto the device): 503 + ``Retry-After``, so load balancers and retrying
+    clients back off instead of hammering a model that will be READY
+    shortly."""
 
     http_status = 503
 
@@ -95,6 +101,48 @@ class ModelLoadingError(ServingError):
 
     def headers(self) -> dict[str, str]:
         return {"Retry-After": str(self.retry_after)}
+
+
+class ModelUnloadedError(ServingError):
+    """The model was unloaded (or evicted): the name no longer serves. 404,
+    as the routing layer answers unknown names; raised when a request slips
+    past the admission check just as the free completes, so it never runs
+    against a freed server."""
+
+    http_status = 404
+    api_type = "not_found_error"
+
+    def __init__(self, name: str) -> None:
+        super().__init__(f"model {name!r} is not loaded")
+        self.model = name
+
+
+class ModelDrainingError(ServingError):
+    """The model is DRAINING (an unload or eviction is letting its
+    in-flight requests finish). 409: new admissions are refused; once the
+    drain completes the name 404s."""
+
+    http_status = 409
+    api_type = "invalid_request_error"
+
+    def __init__(self, name: str) -> None:
+        super().__init__(f"model {name!r} is draining (being unloaded)")
+        self.model = name
+
+
+class ModelFailedError(ServingError):
+    """The model's load crashed (FAILED in the pool). 503: the slot stays
+    retryable (an admin re-POST of the name retries the load), and the
+    reason rides in the message."""
+
+    http_status = 503
+
+    def __init__(self, name: str, reason: str = "") -> None:
+        super().__init__(
+            f"model {name!r} failed to load" + (f": {reason}" if reason else "")
+        )
+        self.model = name
+        self.reason = reason
 
 
 class MalformedResumeError(ServingError):

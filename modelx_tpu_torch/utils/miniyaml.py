@@ -16,12 +16,15 @@ use:
 - ``#`` comments, a leading ``---`` and a trailing ``...``.
 
 - ``? key`` / ``: value`` entries with a scalar key (pyyaml writes a key
-  that holds a line-break character so).
+  that holds a line-break character so);
+- block scalars, literal ``|`` and folded ``>``, with a chomping
+  indicator (``-`` strip, ``+`` keep) and an explicit indentation
+  indicator, as a mapping value or a sequence item; folded and chomped as
+  pyyaml's scanner folds and chomps them.
 
-Anything else (anchors, aliases, tags, block scalars ``|``/``>``,
-directives, collection keys, merge keys, timestamps, several documents)
-raises ``ValueError``: a value outside the subset is never read as
-something else.
+Anything else (anchors, aliases, tags, directives, collection keys, merge
+keys, timestamps, several documents) raises ``ValueError``: a value
+outside the subset is never read as something else.
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ _END = "\0 \t\n"
 # YAML's printable characters (pyyaml's reader refuses any other)
 _NON_PRINTABLE = re.compile("[^\x09\x0a\x0d\x20-\x7e\x85\xa0-\ud7ff\ue000-\ufffd"
                             "\U00010000-\U0010ffff]")
-_UNSUPPORTED_START = {"&": "anchors", "*": "aliases", "!": "tags", "|": "block scalars",
-                      ">": "block scalars", "%": "directives",
+_UNSUPPORTED_START = {"&": "anchors", "*": "aliases", "!": "tags",
+                      "|": "block scalars inside flow collections",
+                      ">": "block scalars inside flow collections", "%": "directives",
                       "@": "reserved indicators", "`": "reserved indicators"}
 
 
@@ -293,7 +297,89 @@ class _Parser:
             return self.quoted()
         if c in "[{":
             return self.flow()
+        if c in "|>":
+            return self.block_scalar(parent)
         return _resolve(self.plain(flow=False, parent=parent))
+
+    def block_scalar(self, parent: int) -> str:
+        """A literal ``|`` or folded ``>`` scalar in a block whose
+        indentation is ``parent``, scanned as pyyaml's
+        ``scan_block_scalar``. Leaves ``self.pos`` on the line break before
+        the first line it did not take (the caller's ``end_line`` steps
+        over it), or at the end of the text."""
+        folded = self.peek() == ">"
+        self.pos += 1
+        chomping = increment = None  # clip; the indentation auto-detected
+        for _ in range(2):
+            c = self.peek()
+            if c in "+-" and chomping is None:
+                chomping = c == "+"
+            elif c in "0123456789" and increment is None:
+                if c == "0":
+                    raise self.error("the indentation indicator must be 1-9")
+                increment = int(c)
+            else:
+                break
+            self.pos += 1
+        if self.peek() not in _END:
+            raise self.error(f"expected a chomping or indentation indicator, found "
+                             f"{self.peek()!r}")
+        self.end_line()
+        min_indent = max(parent + 1, 1)
+        if increment is None:
+            breaks, max_indent = [], 0
+            while self.peek() in " \n":
+                if self.peek() == "\n":
+                    breaks.append("\n")
+                    self.pos += 1
+                else:
+                    self.pos += 1
+                    max_indent = max(max_indent, self.column())
+            indent = max(min_indent, max_indent)
+        else:
+            indent = min_indent + increment - 1
+            breaks = self.block_breaks(indent)
+        chunks: list[str] = []
+        line_break = ""
+        while self.column() == indent and self.peek() != "\0":
+            chunks += breaks
+            leading_non_space = self.peek() not in " \t"
+            end = self.s.find("\n", self.pos)
+            end = len(self.s) - 1 if end < 0 else end
+            chunks.append(self.s[self.pos:end])
+            self.pos = end
+            line_break = ""
+            if self.peek() == "\n":
+                line_break = "\n"
+                self.pos += 1
+            breaks = self.block_breaks(indent)
+            if self.column() != indent or self.peek() == "\0":
+                break
+            if folded and line_break and leading_non_space and self.peek() not in " \t":
+                if not breaks:
+                    chunks.append(" ")
+            else:
+                chunks.append(line_break)
+        if chomping is not False:
+            chunks.append(line_break)
+        if chomping is True:
+            chunks += breaks
+        if self.peek() != "\0":
+            self.pos = self.s.rfind("\n", 0, self.pos)
+        return "".join(chunks)
+
+    def block_breaks(self, indent: int) -> list[str]:
+        """Inside a block scalar: the indentation up to ``indent`` and the
+        blank lines after a line, one ``\\n`` each."""
+        out = []
+        while self.column() < indent and self.peek() == " ":
+            self.pos += 1
+        while self.peek() == "\n":
+            out.append("\n")
+            self.pos += 1
+            while self.column() < indent and self.peek() == " ":
+                self.pos += 1
+        return out
 
     def check_plain_start(self, flow: bool) -> None:
         c = self.peek()

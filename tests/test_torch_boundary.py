@@ -22,7 +22,8 @@ def _port_files():
              os.path.join(REPO, "scripts", "torch_serve_profile.py"),
              os.path.join(REPO, "scripts", "torch_flash_ab.py"),
              os.path.join(REPO, "tests", "test_torch_build.py"),
-             os.path.join(REPO, "tests", "test_torch_kernels_cuda.py")]
+             os.path.join(REPO, "tests", "test_torch_kernels_cuda.py"),
+             os.path.join(REPO, "tests", "test_torch_pool_cuda.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "modelx_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -49,7 +50,8 @@ def test_port_imports_no_jax_or_reference_package():
                 "utils/miniyaml.py", "client/remote.py", "client/pull.py",
                 "client/model_config.py", "client/extension.py", "dl/blob_cache.py",
                 "dl/manifest_cache.py", "dl/initializer.py", "dl/dl_main.py", "dl/ttft.py",
-                "registry/server.py", "registry/store_fs.py", "registry/server_main.py"):
+                "registry/server.py", "registry/store_fs.py", "registry/server_main.py",
+                "dl/lifecycle.py", "dl/tiers.py", "utils/devmem.py", "utils/flightrec.py"):
         assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:
@@ -81,7 +83,9 @@ def test_serving_entry_leaves_jax_unimported():
         "modelx_tpu_torch.models.speculative, modelx_tpu_torch.dl.dl_main, "
         "modelx_tpu_torch.dl.ttft, modelx_tpu_torch.dl.initializer, "
         "modelx_tpu_torch.client.client, modelx_tpu_torch.client.reference, "
-        "modelx_tpu_torch.registry.server_main; "
+        "modelx_tpu_torch.registry.server_main, modelx_tpu_torch.dl.lifecycle, "
+        "modelx_tpu_torch.dl.tiers, modelx_tpu_torch.utils.devmem, "
+        "modelx_tpu_torch.utils.flightrec; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -1,5 +1,5 @@
 """chip_smoke.py off the card: it refuses to report without CUDA or without
-the port beside it, its serving, text, options and deploy phases rehearse
+the port beside it, its serving, text, options, deploy and pool phases rehearse
 end to end on the CPU at a tiny size (the wrapper's plain version, no
 kernel launches), its build phase's SASS census reads cuobjdump's listing
 per instantiation, its tokenizer.json has Llama-3's layout, and its text
@@ -58,6 +58,9 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "FORWARD_SHAPES", ((1, 48), (2, 16)))
     monkeypatch.setattr(chip_smoke, "GENERATE_PROMPTS", (5, 12))
     monkeypatch.setattr(chip_smoke, "NEW_TOKENS", 3)
+    monkeypatch.setattr(chip_smoke, "POOL_STREAM_PROMPT", 7)
+    monkeypatch.setattr(chip_smoke, "POOL_STREAM_TOKENS", 400)  # in flight at the DELETE
+    monkeypatch.setattr(chip_smoke, "POOL_VETO_LOADS", 3)
     _tiny_options(monkeypatch)
     stats = chip_smoke.phase_main(device="cpu", cfg=cfg)
     assert stats["flash_launches"] == 0  # CPU tensors take the plain version
@@ -83,6 +86,20 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert {"deploy_cold_gbps", "deploy_warm_gbps", "deploy_cold_pull_s",
             "sha256_s_registry_write", "sha256_s_dest_verify", "ttft_cold_ttft_ms",
             "ttft_warm_ttft_ms", "ttft_warm_weights_ready_ms"} <= set(stats)
+    # and the model pool, on its own count: admin loads while serving, the
+    # eviction into the host tier, promotion from host and from disk, the
+    # drain of one model and of a SIGTERM'd child pod, and the veto loads
+    # (no card: no device accounting, so every load is admitted)
+    assert stats["flash_launches_pool"] == 0
+    assert {"pool_cold_load_s", "pool_demote_ms", "pool_promote_host_gbps", "pool_spool_gbps",
+            "pool_unspool_ms", "pool_promote_disk_s", "pool_drain_s", "pod_drain_s",
+            "pool_forward_lone_ms"} <= set(stats)
+    # every name loads one checkpoint, so one content key: c and the
+    # re-POSTed a both promote from the host tier, the last reload from disk
+    assert stats["pool_tiers"]["disk"]["hits"] == 1 and stats["pool_tiers"]["host"]["hits"] == 2
+    assert stats["pool_c_load_source"] == "tier"
+    assert stats["pool_veto_outcome"] == "none" and stats["pool_veto_loaded"] == 3
+    assert all(r["source"] == "none" for r in stats["pool_veto_rows"])
 
 
 def _tiny_options(monkeypatch):

@@ -233,9 +233,27 @@ def test_modelxdl_reports_a_missing_version(deployed, tmp_path, capsys):
 
 
 def test_a_config_outside_the_yaml_subset_pulls_everything(deployed, tmp_path):
-    """ROADMAP C.4: a block scalar is outside the port's YAML reader, so
-    its initializer ignores modelFiles and pulls every blob, where the JAX
-    one (pyyaml) pulls only the selected weights."""
+    """An anchor is outside the port's YAML reader, so its initializer
+    ignores modelFiles and pulls every blob (as the reference answers an
+    invalid file), where the JAX one (pyyaml) pulls only the selected
+    weights."""
+    src = deployed["root"] / "anchor"
+    _write_checkpoint(str(src), jnp.float32)
+    (src / "modelx.yaml").write_text("description: &d text\nframework: *d\n"
+                                     "modelFiles:\n- model.safetensors\n")
+    base = deployed["local"]
+    JaxClient(base, quiet=True).push("library/anchor", "v1", str(src))
+    port = run_initializer(f"{base}/library/anchor@v1", str(tmp_path / "port"), quiet=True)
+    jax_ = jax_run_initializer(f"{base}/library/anchor@v1", str(tmp_path / "jax"), quiet=True)
+    assert (jax_["blobs"], port["blobs"]) == (1, 2)
+    assert sorted(os.listdir(tmp_path / "port")) == ["model.safetensors", "modelx.yaml",
+                                                      "notes.txt"]
+
+
+def test_block_scalar_config_pulls_only_model_files(deployed, tmp_path):
+    """ROADMAP C.4, fixed: the ROADMAP's example (a multi-line
+    ``description: |``) reads as pyyaml reads it, so the port's initializer
+    pulls only ``modelFiles``, as the JAX one does."""
     src = deployed["root"] / "block-scalar"
     _write_checkpoint(str(src), jnp.float32)
     (src / "modelx.yaml").write_text("description: |\n  two lines\n  of text\n"
@@ -244,6 +262,6 @@ def test_a_config_outside_the_yaml_subset_pulls_everything(deployed, tmp_path):
     JaxClient(base, quiet=True).push("library/block", "v1", str(src))
     port = run_initializer(f"{base}/library/block@v1", str(tmp_path / "port"), quiet=True)
     jax_ = jax_run_initializer(f"{base}/library/block@v1", str(tmp_path / "jax"), quiet=True)
-    assert (jax_["blobs"], port["blobs"]) == (1, 2)
-    assert sorted(os.listdir(tmp_path / "port")) == ["model.safetensors", "modelx.yaml",
-                                                      "notes.txt"]
+    assert (jax_["blobs"], port["blobs"]) == (1, 1)
+    assert (sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax"))
+            == ["model.safetensors", "modelx.yaml"])

@@ -362,16 +362,22 @@ def test_stop_sequences_agree(pods):
 
 
 def test_models_payload_agrees(pods):
-    """Both contracts agree, except the JAX pod's lifecycle pool (the
-    registry-deploy slice): its ``lifecycle_state`` on each OpenAI row."""
+    """Both contracts agree, the model pool's ``lifecycle_state`` on each
+    OpenAI row and the ``lifecycle`` entry of each model included (its
+    ``state_age_s`` is a clock reading, masked)."""
     _, _, jraw = _call(pods.jport, "/v1/models")
     _, _, traw = _call(pods.tport, "/v1/models")
     want, got = json.loads(jraw), json.loads(traw)
-    assert {r.pop("lifecycle_state") for r in want["data"]} == {"READY"}
+    assert {r["lifecycle_state"] for r in got["data"]} == {"READY"}
     for key in ("object", "data", "default"):
         assert got[key] == want[key]
     assert list(got["models"]) == list(want["models"])
     assert all(got["models"][n]["ready"] for n in got["models"])
+    for n in want["models"]:
+        lifecycles = [dict(side["models"][n]["lifecycle"]) for side in (want, got)]
+        for lc in lifecycles:
+            lc.pop("state_age_s")
+        assert lifecycles[1] == lifecycles[0]
 
 
 @pytest.mark.parametrize("deadline,path,body", [

@@ -457,7 +457,15 @@ def test_health_models_and_admin(pods):
     stats = models["models"]["default"]
     assert stats["ready"] and stats["family"] == "llama" and stats["device"] == "cpu"
     assert stats["load_bytes"] > 0
-    assert _call(tport, "/admin/models")[0] == 501
+    # the admin surface answers (the model pool); /admin/profile waits for
+    # the observability slice
+    status, raw = _call(tport, "/admin/models")
+    admin = json.loads(raw)
+    assert status == 200 and admin["models"]["default"]["state"] == "READY"
+    assert set(admin) == {"models", "pool", "serving", "control_plane"}
+    status, raw = _call(tport, "/admin/profile", {"duration_s": 1})
+    assert status == 501 and json.loads(raw)["slice"] == "observability"
+    assert _call(tport, "/livez") == (200, b'{"status": "ok"}')
     assert _call(tport, "/nope")[0] == 404
     assert sset.servers["default"].cfg.dtype == torch.float32
 
