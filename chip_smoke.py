@@ -96,6 +96,35 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    shed-and-retry path; no load may end FAILED while a model could have
    been shed. Disk: the disk tier's spool beside dest (1.25x the
    checkpoint, checked first with MemAvailable).
+9. continuous: the continuous engine (``dl/continuous.py``) on the same
+   dest, the kernel counts from 0 again. Eight clients (prompts 128, 512
+   and 1000 tokens + 64, odd ones seeded sampled, the last joining
+   mid-decode) stream from a ``serve_main --continuous-batch --max-slots 8
+   --prefix-cache 4`` child, then send the same requests whole: every
+   answer equals the plain path's one request at a time, or each of its
+   tokens lies within ``OPTIONS_TIE_TOL`` of the maximum on its own prefix
+   (``check_near_ties``), and every stream equals its whole answer. A
+   sampled stream cut after 10 tokens and resumed with ``resume`` continues
+   it (the uninterrupted stream, or near-ties of the plain path); an expired
+   ``X-ModelX-Deadline-Ms`` answers 504; a burst at ``--max-queue-depth 2``
+   sheds 429 with ``Retry-After`` (the reference's status); ``/v1/forward``
+   [1,2048] is timed while the rows decode and alone. In-process engines,
+   one at a time: dense and paged gather at 32 slots (page 16, 32,768 live
+   tokens) answer byte-equal, the dense engine again at pipeline and
+   dispatch depth 1 byte-equal too, in-place equals gather or near-ties, a
+   chunked prefill (``prefill_chunk`` 256) of the 1000-token prompt
+   interleaves with decode rows without skipping a boundary, and
+   ``speculative_k`` 8 on the options phase's self-repeating prompt equals
+   plain greedy or near-ties, accepting as ``models/speculative.py``'s
+   decoder does (its counts when the tokens agree, at least
+   ``CONT_SPEC_MIN_RATE`` of the proposals otherwise). Admission and
+   decode launch the flash kernel 0 times: the path's launches are the
+   warm-ups and the forwards. Printed: tokens/s of the mix (engine, plain
+   one at a time, ``--dynamic-batch``'s batcher, dense / gather / in-place
+   engines), TTFT p50/p99 and the mid-decode join's, boundary host ms and
+   blocking syncs per boundary, device operations and ms per chunk step,
+   KV bytes dense against paged, and the longest gap between a decode
+   row's tokens during the fill with chunked prefill and without.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -447,12 +476,14 @@ def main(argv=None) -> int:
         # null, not 0, when the serving paths did not run (--phases kernels)
         "launches": (main_stats["flash_launches"] + main_stats["flash_launches_text"]
                      + main_stats["flash_launches_options"] + main_stats["flash_launches_deploy"]
-                     + main_stats["flash_launches_pool"] if main_stats else None),
+                     + main_stats["flash_launches_pool"]
+                     + main_stats["flash_launches_continuous"] if main_stats else None),
         "launches_by_path": main_stats and {"main": main_stats["flash_launches"],
                                             "text": main_stats["flash_launches_text"],
                                             "options": main_stats["flash_launches_options"],
                                             "deploy": main_stats["flash_launches_deploy"],
-                                            "pool": main_stats["flash_launches_pool"]},
+                                            "pool": main_stats["flash_launches_pool"],
+                                            "continuous": main_stats["flash_launches_continuous"]},
         "max_abs_err": max((r["max_abs_err"] for r in kernel_rows), default=None),
         "ms": head and head["ms"],
         "call_ms": head and head["call_ms"],
@@ -466,6 +497,7 @@ def main(argv=None) -> int:
         "sass": build_info["sass"],
         "cases": kernel_rows,
     }
+    log(device["card"])  # again at the end: a long run's output is read from its tail
     log(json.dumps({"kernels": [record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"], "count": torch.cuda.device_count()}}))
@@ -677,14 +709,22 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
         httpd = None
         attn.flash_attention.launches = 0
         # phase 8, the model pool, on the pulled dest once the deploy phase
-        # has freed its server, registry and blob cache: its own count
+        # has freed its server, registry and blob cache, then phase 9, the
+        # continuous engine, on the same dest: each its own count
+
+        def pool_then_continuous(dest, root):
+            out = phase_pool(cfg, dest, forwards, device, root)
+            out.update(phase_continuous(cfg, dest, device, root))
+            return out
+
         stats.update(phase_deploy(cfg, ckpt, forwards, device, per_forward,
-                                  then=lambda dest, root: phase_pool(cfg, dest, forwards,
-                                                                     device, root)))
+                                  then=pool_then_continuous))
         log(f"deploy: flash_attention launches on the deploy path: "
             f"{stats['flash_launches_deploy']} ({stats['flash_launches_deploy_serve']} serving "
             f"dest, {per_forward} in each TTFT process)")
         log(f"pool: flash_attention launches on the pool path: {stats['flash_launches_pool']}")
+        log(f"continuous: flash_attention launches on the continuous path: "
+            f"{stats['flash_launches_continuous']} (warm-ups and /v1/forward only)")
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -1610,17 +1650,22 @@ def options_batch(port: int, server, cfg, per_forward: int) -> dict:
             "batch_equal": sum(x == "equal" for x in notes)}
 
 
+def spec_prompt(cfg) -> list:
+    """A seeded ``SPEC_PERIOD``-token period repeated ``SPEC_REPEATS``
+    times: prompt lookup finds its continuation."""
+    import torch
+
+    gen = torch.Generator().manual_seed(8)
+    return torch.randint(0, cfg.vocab_size, (SPEC_PERIOD,), generator=gen).tolist() * SPEC_REPEATS
+
+
 def options_speculation(port: int, server, cfg, ckpt: str) -> dict:
     """``speculative_k`` on the loaded params: a self-repeating prompt's
     greedy tokens against plain greedy, and its stream against its whole
     answer."""
-    import torch
-
     from modelx_tpu_torch.dl.serve import ModelServer, ServerSet, serve
 
-    gen = torch.Generator().manual_seed(8)
-    period = torch.randint(0, cfg.vocab_size, (SPEC_PERIOD,), generator=gen).tolist()
-    prompt = period * SPEC_REPEATS
+    prompt = spec_prompt(cfg)
     body = {"tokens": [prompt], "max_new_tokens": SPEC_NEW_TOKENS}
     t0 = time.monotonic()
     status, plain = _http(port, "/v1/generate", body)
@@ -2658,6 +2703,628 @@ def _pool_veto(ckpt: str, device: str, root: str, tokens, want: list, nbytes: in
         httpd.shutdown()
         httpd.server_close()
         _free(*sset.servers.values())
+
+
+# -- phase 9: the continuous engine ----------------------------------------------------
+
+# the mixed traffic: one client per prompt length, half greedy, half seeded
+# sampled (odd clients), CONT_NEW_TOKENS each; CONT_LATE joins mid-decode,
+# once client 0 has streamed CONT_LATE_AFTER tokens
+CONT_PROMPTS = (128, 512, 1000, 128, 512, 1000, 128, 512)
+CONT_NEW_TOKENS = 64
+CONT_LATE, CONT_LATE_AFTER = 7, 8
+CONT_SLOTS, CONT_MAX_LEN, CONT_CHUNK = 8, 2048, 8
+# the in-process paged engines: 32 slots over a 32,768-token pool of 16-token pages
+PAGED_SLOTS, PAGE_SIZE, KV_LIVE_TOKENS = 32, 16, 32768
+# chunked prefill: a FILL_CLIENT fill lands in PREFILL_CHUNK pieces while
+# the FILL_DECODE_CLIENTS decode
+PREFILL_CHUNK = 256
+FILL_CLIENT, FILL_DECODE_CLIENTS = 2, (0, 6)
+RESUME_CLIENT, RESUME_AFTER = 1, 10
+QUEUE_DEPTH, QUEUE_BURST = 2, 12
+# the engine's speculation on spec_prompt: the share of proposals it must
+# accept where its tokens leave the plain decoder's (which accepted 0.775
+# of them in the options phase; a random prompt gives next to none)
+CONT_SPEC_MIN_RATE = 0.5
+# the serve_main child prints its kernel count when SIGTERM ends it
+SERVE_CHILD = r"""
+import sys
+from modelx_tpu_torch.dl import serve_main
+from modelx_tpu_torch.ops import attention as attn
+rc = serve_main.main(sys.argv[1:])
+print("FLASH_LAUNCHES", attn.flash_attention.launches, flush=True)
+sys.exit(rc)
+"""
+
+
+def _cont_requests(cfg) -> list:
+    import torch
+
+    rng = torch.Generator().manual_seed(9)
+    reqs = []
+    for i, plen in enumerate(CONT_PROMPTS):
+        prompt = torch.randint(0, cfg.vocab_size, (plen,), generator=rng).tolist()
+        # temperature only: a top_k / top_p cut moves with the logits'
+        # last bits, so a bf16 near-tie at its edge is not a near-tie of the
+        # draw (the filters' parity is the CPU tests' and the main phase's)
+        samp = {} if i % 2 == 0 else {"temperature": 0.8, "seed": 100 + i}
+        reqs.append((prompt, samp))
+    return reqs
+
+
+def _post(port: int, path: str, body: dict, headers: dict | None = None,
+          timeout: float = 600.0):
+    """(status, headers, raw body) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _stream_timed(port: int, body: dict, on_token=None, stop_after: int = 0):
+    """A streamed /v1/generate: (tokens, each token's seconds since the
+    request). ``stop_after`` > 0 closes the connection after that many
+    tokens (a client that goes away)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    toks, times, done = [], [], False
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = json.loads(raw)
+            if "error" in line:
+                raise RuntimeError(f"continuous: a stream ended with {line}")
+            if line == {"done": True}:
+                done = True
+                break
+            toks.extend(line["tokens"][0])
+            times.append(time.monotonic() - t0)
+            if on_token is not None:
+                on_token(len(toks))
+            if stop_after and len(toks) >= stop_after:
+                return toks, times
+    if not done:
+        raise RuntimeError("continuous: a stream ended without its done line")
+    return toks, times
+
+
+def _pcts(xs: list) -> tuple[float, float]:
+    import numpy as np
+
+    a = np.asarray(xs, np.float64)
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def _serve_child(ckpt: str, device: str, port: int, root: str):
+    log_path = os.path.join(root, "serve-continuous.log")
+    log_f = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVE_CHILD, "--model", f"{MODEL}={ckpt}", "--device", device,
+         "--dtype", "bfloat16", "--max-seq-len", str(CONT_MAX_LEN), "--listen",
+         f"127.0.0.1:{port}", "--continuous-batch", "--max-slots", str(CONT_SLOTS),
+         "--prefix-cache", "4", "--stream-chunk-size", str(CONT_CHUNK), "--drain-grace", "30"],
+        cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT)
+    log_f.close()
+    deadline = time.monotonic() + 300
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"continuous: serve_main exited {proc.returncode}: "
+                               f"{open(log_path).read()[-3000:]}")
+        try:
+            if _http_raw(port, "/healthz")[0] == 200:
+                return proc, log_path
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            proc.kill()
+            raise RuntimeError("continuous: serve_main did not answer /healthz in 300 s")
+        time.sleep(0.2)
+
+
+def _engine(server, **kw):
+    from modelx_tpu_torch.dl.continuous import ContinuousBatcher
+
+    return ContinuousBatcher(server, chunk_size=CONT_CHUNK, max_len=CONT_MAX_LEN, **kw)
+
+
+def _engine_burst(cb, reqs: list) -> tuple[list, float]:
+    """Submit every request as one burst, in order; (new tokens per
+    request, wall seconds)."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    tickets = cb.submit_many([(p, CONT_NEW_TOKENS, s) for p, s in reqs])
+    outs = [np.concatenate(list(cb._drain_row(t.out)), axis=1)[0].tolist() for t in tickets]
+    return outs, time.monotonic() - t0
+
+
+def _release(cb) -> None:
+    import gc
+
+    import torch
+
+    cb.close()
+    cb.release_device_state()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _step_cost(cb, rows: int, length: int, on_card: bool, reps: int = 5) -> dict:
+    """One chunk step [slots, 1] of an idle engine, with ``rows`` greedy
+    rows at ``length`` positions (each its own pages when paged): device
+    operations (a profiler trace) and ms a step (CUDA events). The engine
+    thread waits on its empty queue meanwhile; the host state is put back."""
+    import torch
+
+    saved = (cb._offsets.copy(), cb._temp.copy())
+    table = cb._table.copy() if cb.page_size else None
+    try:
+        cb._offsets[:] = 0
+        cb._offsets[:rows] = length
+        cb._temp[:] = 0.0
+        if cb.page_size:
+            per = -(-(length + 1) // cb.page_size)
+            cb._table[:] = 0
+            for r in range(rows):
+                cb._table[r, :per] = 1 + r * per + torch.arange(per).numpy()
+        with cb.server._device_lock, torch.inference_mode():
+            cb._chunk(1)  # warm
+            if not on_card:
+                return {"ops": None, "ms": None}
+            ops = _device_events(lambda: cb._chunk(1))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(reps):
+                cb._chunk(1)
+            end.record()
+            torch.cuda.synchronize()
+            return {"ops": ops, "ms": start.elapsed_time(end) / reps}
+    finally:
+        cb._offsets[:], cb._temp[:] = saved
+        if table is not None:
+            cb._table[:] = table
+
+
+def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
+    """The continuous engine (module docstring, phase 9), on the pulled
+    dest: the plain reference and the window batcher in-process, a
+    ``--continuous-batch`` serve_main child over HTTP (mixed traffic,
+    resume, 504, a forward while rows decode), the 429 of a bounded
+    backlog, then in-process engines one at a time: dense and paged gather
+    at 32 slots (byte-equal), in place, chunked prefill with and without,
+    speculation. Its flash launches are counted from 0: the warm-ups and
+    the forwards, none in admission or decode."""
+    import concurrent.futures
+    import signal
+    import threading
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.dl.serve import Batcher, ModelServer, ServerSet, serve
+    from modelx_tpu_torch.ops import attention as attn
+
+    on_card = device == "cuda"
+    per_forward = cfg.num_layers if on_card else 0
+    stats: dict = {}
+    attn.flash_attention.launches = 0  # the continuous path's own count
+    server = ModelServer(ckpt, dtype="bfloat16", device=device, max_seq_len=CONT_MAX_LEN,
+                         name=MODEL)
+    server.load()
+    warm = attn.flash_attention.launches
+    reqs = _cont_requests(cfg)
+    n_new = CONT_NEW_TOKENS
+    proc = httpd = None
+    engines = []
+
+    def no_flash(what, fn):
+        before = attn.flash_attention.launches
+        out = fn()
+        if attn.flash_attention.launches != before:
+            raise RuntimeError(f"continuous: {what} launched the flash kernel "
+                               f"{attn.flash_attention.launches - before} times")
+        return out
+
+    try:
+        # the plain reference, one request at a time (no engine)
+        want, plain_s = [], []
+        for prompt, samp in reqs:
+            t0 = time.monotonic()
+            out = no_flash("the plain decode", lambda: server.generate(
+                np.asarray([prompt], np.int32), max_new_tokens=n_new, **samp))
+            plain_s.append(time.monotonic() - t0)
+            want.append(out[0, len(prompt):].tolist())
+        total = n_new * len(reqs)
+        stats["cont_plain_tps"] = total / sum(plain_s)
+        log(f"continuous: the plain path one request at a time: {total} tokens in "
+            f"{sum(plain_s):.2f} s, {stats['cont_plain_tps']:.1f} tokens/s")
+        # the window batcher, all at once
+        batcher = Batcher(server, max_batch=len(reqs), window_ms=200.0)
+        try:
+            t0 = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
+                got = list(ex.map(lambda r: no_flash("the batcher", lambda: batcher.generate(
+                    np.asarray([r[0]], np.int32), max_new_tokens=n_new, **r[1])), reqs))
+            stats["cont_batcher_tps"] = total / (time.monotonic() - t0)
+            if any(g.shape != (1, len(r[0]) + n_new) for g, r in zip(got, reqs)):
+                raise RuntimeError("continuous: the batcher answered a bad shape")
+            log(f"continuous: --dynamic-batch's batcher, all at once: "
+                f"{stats['cont_batcher_tps']:.1f} tokens/s ({batcher.batches} device calls)")
+        finally:
+            batcher.close()
+
+        # the serve_main child: mixed concurrent traffic over HTTP
+        port = _free_port()
+        t0 = time.monotonic()
+        proc, child_log = _serve_child(ckpt, device, port, root)
+        log(f"continuous: serve_main --continuous-batch --max-slots {CONT_SLOTS} --prefix-cache 4 "
+            f"up in {time.monotonic() - t0:.1f} s")
+        late_go = threading.Event()
+        results = [None] * len(reqs)
+        errors = []
+
+        def client(i):
+            try:
+                if i == CONT_LATE:
+                    late_go.wait(600)
+                prompt, samp = reqs[i]
+                t0 = time.monotonic()
+                on_token = ((lambda n: n >= CONT_LATE_AFTER and late_go.set()) if i == 0
+                            else None)
+                toks, times = _stream_timed(port, {"tokens": [prompt], "max_new_tokens": n_new,
+                                                   **samp}, on_token=on_token)
+                results[i] = (toks, times, t0, time.monotonic())
+            except Exception as e:  # reported below, after every thread ends
+                errors.append(f"client {i}: {e!r}")
+                late_go.set()
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(reqs))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.monotonic() - t0
+        if errors or any(r is None for r in results):
+            raise RuntimeError(f"continuous: streamed clients failed: {errors}")
+        verdicts = []
+        for i, ((prompt, samp), (toks, *_rest)) in enumerate(zip(reqs, results)):
+            verdicts.append(check_near_ties(server, prompt, toks, want[i],
+                                            f"continuous: stream of client {i}", samp))
+        ttfts = [r[1][0] * 1e3 for r in results]
+        stats["cont_tps_engine"] = total / wall
+        stats["cont_ttft_ms_p50"], stats["cont_ttft_ms_p99"] = _pcts(ttfts)
+        stats["cont_ttft_ms_late"] = ttfts[CONT_LATE]
+        log(f"continuous: {len(reqs)} streamed clients (prompts {list(CONT_PROMPTS)} + {n_new}, "
+            f"odd ones sampled, client {CONT_LATE} joining mid-decode): {total} tokens in "
+            f"{wall:.2f} s, {stats['cont_tps_engine']:.1f} tokens/s; TTFT p50 "
+            f"{stats['cont_ttft_ms_p50']:.1f} ms, p99 {stats['cont_ttft_ms_p99']:.1f} ms, the "
+            f"mid-decode join {stats['cont_ttft_ms_late']:.1f} ms; against the plain path: "
+            f"{verdicts}")
+
+        # the same requests whole, at once, with a /v1/forward while they decode
+        fwd_tokens = torch.randint(0, cfg.vocab_size, (1, CONT_MAX_LEN),
+                                   generator=torch.Generator().manual_seed(11)).tolist()
+        whole = [None] * len(reqs)
+
+        def whole_client(i):
+            prompt, samp = reqs[i]
+            status, _, body = _post(port, "/v1/generate", {"tokens": [prompt],
+                                                           "max_new_tokens": n_new, **samp})
+            whole[i] = (status, body)
+
+        threads = [threading.Thread(target=whole_client, args=(i,), daemon=True)
+                   for i in range(len(reqs))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            status, body = _http(port, "/admin/models")
+            if body["serving"][MODEL]["active"] >= len(reqs):
+                break
+            time.sleep(0.01)
+        else:
+            raise RuntimeError("continuous: the whole requests never all decoded at once")
+        tf = time.monotonic()
+        status, _, body = _post(port, "/v1/forward", {"tokens": fwd_tokens})
+        stats["cont_forward_ms_decoding"] = (time.monotonic() - tf) * 1e3
+        active_after = _http(port, "/admin/models")[1]["serving"][MODEL]["active"]
+        if status != 200:
+            raise RuntimeError(f"continuous: /v1/forward while decoding answered {status}")
+        for t in threads:
+            t.join(timeout=900)
+        stats["cont_tps_engine_whole"] = total / (time.monotonic() - t0)
+        for i, (st_, body) in enumerate(whole):
+            if st_ != 200:
+                raise RuntimeError(f"continuous: whole request {i} answered {st_} {body[:300]}")
+            got = json.loads(body)["tokens"][0][len(reqs[i][0]):]
+            if got != results[i][0]:
+                raise RuntimeError(f"continuous: client {i}'s stream differs from its whole "
+                                   f"answer")
+        lone = []
+        for _ in range(3):
+            tf = time.monotonic()
+            status, _, _ = _post(port, "/v1/forward", {"tokens": fwd_tokens})
+            lone.append((time.monotonic() - tf) * 1e3)
+        stats["cont_forward_ms_alone"] = statistics.median(lone)
+        log(f"continuous: the same requests whole, at once: {stats['cont_tps_engine_whole']:.1f}"
+            f" tokens/s, every stream == its whole answer; /v1/forward [1,{CONT_MAX_LEN}] while "
+            f"{len(reqs)} rows decode {stats['cont_forward_ms_decoding']:.1f} ms ({active_after} "
+            f"still active after it) against {stats['cont_forward_ms_alone']:.1f} ms alone")
+
+        # resume: a sampled stream cut after RESUME_AFTER tokens, continued
+        prompt, samp = reqs[RESUME_CLIENT]
+        body = {"tokens": [prompt], "max_new_tokens": n_new, **samp}
+        cut, _ = _stream_timed(port, body, stop_after=RESUME_AFTER)
+        cut = cut[:RESUME_AFTER]
+        rest, _ = _stream_timed(port, dict(body, seed=0, resume={"emitted": cut,
+                                                                 "seed": samp["seed"]}))
+        # its re-prefilled cut may round apart from the decoded one (bf16)
+        verdict = ("equal" if cut + rest == results[RESUME_CLIENT][0] else
+                   "differs; against the plain path: " + check_near_ties(
+                       server, prompt, cut + rest, want[RESUME_CLIENT],
+                       "continuous: the resumed stream", samp))
+        log(f"continuous: a sampled stream cut after {RESUME_AFTER} tokens and resumed with "
+            f"resume {{emitted, seed}}: {len(cut) + len(rest)} tokens, against the "
+            f"uninterrupted stream: {verdict}")
+        stats["cont_resume"] = verdict
+        # an expired propagated deadline
+        status, headers, body = _post(port, "/v1/generate", {"tokens": [prompt[:16]]},
+                                      {"X-ModelX-Deadline-Ms": "0"})
+        if status != 504 or "deadline" not in json.loads(body)["error"]:
+            raise RuntimeError(f"continuous: an expired deadline answered {status} {body}")
+        log("continuous: an expired X-ModelX-Deadline-Ms answered 504")
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=120) != 0:
+            raise RuntimeError(f"continuous: serve_main exited {proc.returncode}: "
+                               f"{open(child_log).read()[-3000:]}")
+        counts = re.findall(r"^FLASH_LAUNCHES (\d+)$", open(child_log).read(), re.M)
+        child_flash = int(counts[-1]) if counts else -1
+        if child_flash != per_forward * (1 + 1 + len(lone)):
+            raise RuntimeError(f"continuous: the child launched the flash kernel {child_flash} "
+                               f"times, want {per_forward * (2 + len(lone))} (its warm-up and "
+                               f"{1 + len(lone)} forwards; none in admission or decode)")
+        proc = None
+
+        # a bounded backlog sheds with 429 + Retry-After
+        # one slot: the first arrival holds it while the burst queues
+        sset = ServerSet({MODEL: server}, continuous_batch=True, max_slots=1,
+                         stream_chunk_size=CONT_CHUNK, max_queue_depth=QUEUE_DEPTH)
+        sset.pool.mark_ready(MODEL)
+        qport = _free_port()
+        httpd = serve(sset, listen=f"127.0.0.1:{qport}")
+        gate = threading.Barrier(QUEUE_BURST)
+        burst = [None] * QUEUE_BURST
+
+        def burst_client(i):
+            gate.wait()
+            burst[i] = _post(qport, "/v1/generate", {"tokens": [reqs[0][0][:16]],
+                                                     "max_new_tokens": 16})
+
+        threads = [threading.Thread(target=burst_client, args=(i,), daemon=True)
+                   for i in range(QUEUE_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        shed = [b for b in burst if b is not None and b[0] == 429]
+        if (not shed or any(b is None or b[0] not in (200, 429) for b in burst)
+                or any("Retry-After" not in b[1] for b in shed)):
+            raise RuntimeError(f"continuous: a burst of {QUEUE_BURST} at --max-queue-depth "
+                               f"{QUEUE_DEPTH} answered {[b and (b[0], b[1]) for b in burst]}")
+        log(f"continuous: a burst of {QUEUE_BURST} at --max-queue-depth {QUEUE_DEPTH}: "
+            f"{len(shed)} answered 429 with Retry-After {shed[0][1]['Retry-After']} "
+            f"({json.loads(shed[0][2])['error']}), the rest 200")
+        stats["cont_shed"] = len(shed)
+        httpd.shutdown()
+        httpd.server_close()
+        httpd = None
+        for cb in sset.cbatchers.values():
+            _release(cb)
+
+        # in-process engines, one at a time: dense and paged gather at 32 slots
+        outs, snaps, kv, cost = {}, {}, {}, {}
+        dense_at = dict(max_slots=PAGED_SLOTS)
+        paged_at = dict(max_slots=PAGED_SLOTS, page_size=PAGE_SIZE, max_live_tokens=KV_LIVE_TOKENS)
+        longest = max(CONT_PROMPTS) + n_new
+        for mode, kw in (("dense", dense_at), ("gather", paged_at),
+                         ("in-place", dict(paged_at, paged_attention="in-place"))):
+            cb = _engine(server, **kw)
+            engines.append(cb)
+            outs[mode], secs = no_flash(f"the {mode} engine", lambda: _engine_burst(cb, reqs))
+            stats[f"cont_tps_{mode}"] = total / secs
+            snaps[mode] = cb.snapshot()
+            kv[mode] = cb.kv_bytes()
+            cost[mode] = _step_cost(cb, len(reqs), longest, on_card)
+            if mode == "dense":
+                # schedule invariance: the same burst again, lockstep (one
+                # chunk per dispatch, none in flight ahead) answers the
+                # same bytes as the pipelined run
+                depths = (cb.pipeline_depth, cb.stats["dispatch_depth_max"])
+                cb.pipeline_depth, cb._depth_cap = 1, 1
+                again, _ = _engine_burst(cb, reqs)
+                if again != outs[mode]:
+                    bad = [i for i, (a, b) in enumerate(zip(again, outs[mode])) if a != b]
+                    raise RuntimeError(f"continuous: pipeline/dispatch depth 1 changed the "
+                                       f"tokens of requests {bad}")
+                log(f"continuous: dense engine at pipeline depth 1, dispatch depth 1 == at "
+                    f"pipeline depth {depths[0]}, dispatch depth up to {depths[1]}, byte "
+                    f"for byte (greedy and sampled)")
+            if mode == "dense" and on_card:
+                # the policed run: greedy rows only, every synchronizing
+                # CUDA call warns (the sampler's filter branch syncs by design)
+                greedy = [r for r in reqs if not r[1]]
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        d0 = cb.stats["dispatches"]
+                        _engine_burst(cb, greedy)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                syncs = [str(w.message)[:120] for w in caught if "synchroniz" in str(w.message)]
+                stats["cont_sync_debug_warnings"] = len(syncs)
+                stats["cont_sync_debug_dispatches"] = cb.stats["dispatches"] - d0
+                log(f"continuous: torch.cuda.set_sync_debug_mode('warn') over a greedy burst: "
+                    f"{len(syncs)} synchronizing calls in {stats['cont_sync_debug_dispatches']} "
+                    f"dispatches {sorted(set(syncs))[:3]}")
+            _release(cb)
+            engines.remove(cb)
+            stats[f"cont_boundary_host_ms_p50_{mode}"] = snaps[mode].get("boundary_host_ms_p50")
+            stats[f"cont_boundary_host_ms_p99_{mode}"] = snaps[mode].get("boundary_host_ms_p99")
+            stats[f"cont_syncs_per_boundary_{mode}"] = snaps[mode]["host_syncs_per_boundary"]
+            stats[f"cont_step_ops_{mode}"], stats[f"cont_step_ms_{mode}"] = (
+                cost[mode]["ops"], cost[mode]["ms"])
+            stats[f"cont_kv_bytes_{mode}"] = kv[mode]
+            log(f"continuous: {mode} engine ({kw}): {stats[f'cont_tps_{mode}']:.1f} tokens/s; "
+                f"boundary host ms p50 {snaps[mode].get('boundary_host_ms_p50')} p99 "
+                f"{snaps[mode].get('boundary_host_ms_p99')}, blocking syncs per steady boundary "
+                f"{snaps[mode]['host_syncs_per_boundary']}; a chunk step with {len(reqs)} rows at "
+                f"{longest} positions: {cost[mode]['ops']} device operations, "
+                f"{cost[mode]['ms'] and round(cost[mode]['ms'], 3)} ms; KV {kv[mode] / 1e9:.3f} GB")
+        if outs["gather"] != outs["dense"]:
+            bad = [i for i, (g, d) in enumerate(zip(outs["gather"], outs["dense"])) if g != d]
+            raise RuntimeError(f"continuous: paged gather differs from dense on requests {bad}")
+        # in place: gather's tokens, or each a near-tie on its own prefix of
+        # the plain path (the reference the replay reproduces)
+        inplace = ["equal" if g == gw else "against the plain path: " + check_near_ties(
+                       server, p, g, w, f"continuous: in-place request {i}", s)
+                   for i, ((p, s), g, gw, w) in enumerate(zip(reqs, outs["in-place"],
+                                                              outs["gather"], want))]
+        dense_v = [check_near_ties(server, p, d, w, f"continuous: dense request {i}", s)
+                   for i, ((p, s), d, w) in enumerate(zip(reqs, outs["dense"], want))]
+        log(f"continuous: gather == dense byte for byte at {PAGED_SLOTS} slots; in-place against "
+            f"gather: {inplace}; dense against the plain path: {dense_v}")
+
+        # chunked prefill: a FILL_CLIENT fill while decode rows stream
+        for chunk in (PREFILL_CHUNK, 0):
+            # one chunk per dispatch: the decode rows' boundaries keep their
+            # cadence until the fill arrives (a deep dispatch would have
+            # planned them to their end)
+            cb = _engine(server, max_slots=CONT_SLOTS, prefill_chunk=chunk, dispatch_depth=1)
+            engines.append(cb)
+            order = []
+            if chunk:
+                real_chunk, real_piece = cb._chunk, cb._piece
+                cb._chunk = lambda *a: (order.append("C"), real_chunk(*a))[1]
+                # "P": a piece landed while decode rows were active, "p":
+                # after they ended (nothing left to interleave with)
+                cb._piece = lambda *a: (order.append("P" if cb._rows else "p"),
+                                        real_piece(*a))[1]
+            dec = {}
+
+            def decode_row(i):
+                prompt, samp = reqs[i]
+                t0 = time.monotonic()
+                toks, times = [], []
+                for piece in cb.stream(np.asarray([prompt], np.int32),
+                                       max_new_tokens=n_new, **samp):
+                    toks.extend(piece[0].tolist())
+                    times.append(time.monotonic())
+                dec[i] = (toks, times)
+
+            threads = [threading.Thread(target=decode_row, args=(i,), daemon=True)
+                       for i in FILL_DECODE_CLIENTS]
+            for t in threads:
+                t.start()
+            chunks0 = cb.stats["chunks"]
+            deadline = time.monotonic() + 300
+            while cb.stats["chunks"] - chunks0 < 2 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            prompt, samp = reqs[FILL_CLIENT]
+            t_fill = time.monotonic()
+            fill = no_flash("the fill", lambda: list(cb.stream(
+                np.asarray([prompt], np.int32), max_new_tokens=n_new, **samp)))
+            for t in threads:
+                t.join(timeout=600)
+            fill_toks = np.concatenate(fill, axis=1)[0].tolist()
+            v = check_near_ties(server, prompt, fill_toks, want[FILL_CLIENT],
+                                f"continuous: the {len(prompt)}-token fill", samp)
+            gaps = []
+            for i, (toks, times) in dec.items():
+                check_near_ties(server, reqs[i][0], toks, want[i], f"continuous: decode row {i}",
+                                reqs[i][1])
+                gaps += [b - a for a, b in zip(times, times[1:]) if b > t_fill]
+            key = f"cont_fill_gap_ms_{'chunked' if chunk else 'monolithic'}"
+            stats[key] = max(gaps) * 1e3 if gaps else None
+            seq = "".join(order)
+            if chunk and (seq.lower().count("p") != -(-len(prompt) // chunk)
+                          or "P" not in seq or "PP" in seq):
+                raise RuntimeError(f"continuous: the fill skipped a decode boundary: {seq}")
+            log(f"continuous: a {len(prompt)}-token fill with prefill_chunk {chunk} while "
+                f"{len(FILL_DECODE_CLIENTS)} rows decode: longest gap between a decode row's "
+                f"tokens {stats[key]:.1f} ms; fill tokens against the plain path: {v}"
+                + (f"; boundaries {seq}" if chunk else ""))
+            _release(cb)
+            engines.remove(cb)
+
+        # speculation inside the engine: a lone greedy row on the options
+        # phase's self-repeating prompt, against plain greedy and against
+        # models/speculative.py's decoder on the same params
+        from modelx_tpu_torch.models.speculative import SpeculativeDecoder
+
+        prompt = spec_prompt(cfg)
+        plain = no_flash("the plain decode", lambda: server.generate(
+            np.asarray([prompt], np.int32), max_new_tokens=n_new))[0, len(prompt):].tolist()
+        with torch.inference_mode():
+            dec_toks, dec = no_flash("the speculative decoder", lambda: SpeculativeDecoder(
+                *server.family.decode_fns(server.params, server.cfg), k=SPEC_K).generate(
+                    server.params, prompt, n_new))
+        cb = _engine(server, max_slots=CONT_SLOTS, speculative_k=SPEC_K)
+        engines.append(cb)
+        got = no_flash("the speculating engine", lambda: cb.generate(
+            np.asarray([prompt], np.int32), max_new_tokens=n_new))[0, len(prompt):].tolist()
+        v = check_near_ties(server, prompt, got, plain, "continuous: speculation")
+        snap = cb.snapshot()
+        steps, proposed, accepted = (snap.get(k, 0) for k in
+                                     ("spec_steps", "spec_proposed", "spec_accepted"))
+        # the same tokens from the same history are the same proposals and
+        # accepts; elsewhere a near-tie moved the history, not the rate
+        if got == dec_toks and (proposed, accepted) != (dec["proposed"], dec["accepted"]):
+            raise RuntimeError(f"continuous: the engine's speculation proposed/accepted "
+                               f"{proposed}/{accepted}, the decoder's {dec['proposed']}/"
+                               f"{dec['accepted']} for the same tokens")
+        if not steps or accepted < CONT_SPEC_MIN_RATE * proposed:
+            raise RuntimeError(f"continuous: the engine accepted {accepted} of {proposed} "
+                               f"proposals in {steps} verify steps (want at least "
+                               f"{CONT_SPEC_MIN_RATE} of them)")
+        stats["cont_spec_accept_rate"] = accepted / proposed
+        log(f"continuous: speculative_k {SPEC_K} on a lone greedy row, a {SPEC_PERIOD}-token "
+            f"period x {SPEC_REPEATS} prompt + {n_new}: {steps} verify steps, {accepted}/"
+            f"{proposed} accepted (the decoder: {dec['accepted']}/{dec['proposed']}, tokens "
+            f"{'equal' if got == dec_toks else 'differ'}); against plain greedy: {v}")
+        _release(cb)
+        engines.remove(cb)
+        inproc = attn.flash_attention.launches
+        if inproc != warm or warm != per_forward:
+            raise RuntimeError(f"continuous: in-process launches {inproc}, want only the "
+                               f"warm-up's {per_forward}")
+        stats["flash_launches_continuous"] = inproc + child_flash
+        return stats
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        for cb in engines:
+            _release(cb)
+        _free(server)
 
 
 if __name__ == "__main__":

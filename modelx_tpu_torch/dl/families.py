@@ -33,8 +33,14 @@ class Family:
     # temperature=, top_k=, top_p=, seeds=) -> generated [B, max_new]
     generate_ragged: Callable[..., torch.Tensor] | None = None
     # (params, cfg) -> (forward, init_kv_cache) for models/decode.py's
-    # ChunkedDecoder (streams); None = the family does not stream
+    # ChunkedDecoder (streams) and the continuous engine; None = the family
+    # does not stream and the engine refuses it
     decode_fns: Callable[..., tuple] | None = None
+    # (params, cfg) -> forward over PAGED kv pools (kv_cache = page pools +
+    # a block table; ops/paged_attention.py reads them in place): the
+    # continuous engine's in-place paged chunk step; None = the engine
+    # keeps its dense-gather chunk for this family
+    paged_decode_fns: Callable[..., Callable] | None = None
 
 
 def _shape(params: dict, name: str) -> tuple[int, ...]:
@@ -123,13 +129,19 @@ def _llama_decode_fns(params, cfg):
     return llama.decode_fns(params, cfg)
 
 
+def _llama_paged_decode_fns(params, cfg):
+    from modelx_tpu_torch.models import llama
+
+    return llama.paged_decode_fns(params, cfg)
+
+
 FAMILIES: dict[str, Family] = {
     "llama": Family("llama", infer_llama_config, _llama_forward,
-                    _llama_generate_ragged, _llama_decode_fns),
+                    _llama_generate_ragged, _llama_decode_fns, _llama_paged_decode_fns),
     # qwen2 differs only in config (biases ride the param dict), so every
     # llama entry point serves it unchanged
     "qwen2": Family("qwen2", infer_qwen2_config, _llama_forward,
-                    _llama_generate_ragged, _llama_decode_fns),
+                    _llama_generate_ragged, _llama_decode_fns, _llama_paged_decode_fns),
 }
 
 

@@ -721,10 +721,10 @@ class ModelPool:
             if state in (UNLOADED, FAILED):
                 # delete the record outright, a FAILED boot tenant's zombie
                 # server included (it would answer 503 forever)
-                server, batcher = self.sset.remove_server(name, close=False)
+                server, batcher, cb = self.sset.remove_server(name, close=False)
                 staged = e.model_dir if e._staged else ""
                 del self.entries[name]
-                deleted_art = (name, server, batcher, staged, e.tier_key, e.model_dir)
+                deleted_art = (name, server, batcher, cb, staged, e.tier_key, e.model_dir)
             elif state == DRAINING:
                 raise PoolError(409, f"model {name!r} is already draining")
             elif state in (PULLING, LOADING):
@@ -772,7 +772,7 @@ class ModelPool:
         Returns the heavy artifacts for ``_finish_free``, run after the
         lock is released."""
         name = e.name
-        server, batcher = self.sset.remove_server(name, close=False)
+        server, batcher, cb = self.sset.remove_server(name, close=False)
         staged = e.model_dir if e._staged else ""
         # demotion material: the key (computed at load admission, or lazily
         # off-lock from the dir) and the dir whose sidecars the tier entry
@@ -791,15 +791,19 @@ class ModelPool:
         else:
             self.stats["unloads_total"] += 1
         logger.info("model %s %s", name, "evicted" if evicted else "unloaded")
-        return name, server, batcher, staged, tier_key, sidecar_src
+        return name, server, batcher, cb, staged, tier_key, sidecar_src
 
     def _finish_free(self, art: tuple) -> None:
-        """The heavy half of freeing a model: the batcher closes, the
+        """The heavy half of freeing a model: the batcher and the
+        continuous engine close (the engine's KV state released), the
         server is demoted, then freed, then the staging dir is removed.
         Never called under the pool lock."""
-        name, server, batcher, staged, tier_key, sidecar_src = art
+        name, server, batcher, cb, staged, tier_key, sidecar_src = art
         if batcher is not None:
             batcher.close()
+        if cb is not None:
+            cb.close()
+            cb.release_device_state()
         if server is not None:
             # demotion instead of discard: stage the params into host RAM
             # or disk before _free_server drops them

@@ -20,6 +20,9 @@ request checks, status codes and JSON/SSE bodies are the JAX sidecar's.
   (``ModelServer.score_logprobs_rows``: the cache-free forward, which runs
   the flash kernel on the card); non-streaming only.
 - ``echo`` and tool calls: a clear 400.
+- ``resume`` on a stream (the native block or the ``X-ModelX-Resume-*``
+  headers): the continuous engine continues the stream from the emitted
+  tokens' text; without it the pod refuses as the JAX sidecar does.
 
 Requires the model to ship a ``tokenizer.json``, read by the port's own
 reader (``dl/tokenizer.py``).
@@ -375,11 +378,15 @@ def eos_for(tok, req: dict) -> tuple[int, ...]:
     return tok.eos_ids()
 
 
-def run_completion(sset, req: dict, chat: bool) -> dict:
+def run_completion(sset, req: dict, chat: bool, timeout_s: float | None = None,
+                   priority: str = "interactive", timing: dict | None = None) -> dict:
     """Non-streaming completions/chat: returns the OpenAI response body.
     Under the dynamic batcher the prompts are submitted together and decode
-    as one ragged device call; otherwise one after another. The EOS trim
-    happens here, after the full budget decoded."""
+    as one ragged device call; otherwise one after another. The continuous
+    engine frees a row's slot at its EOS and honors the propagated deadline
+    remainder and priority class (``timeout_s``, ``priority``) and fills
+    ``timing``; other engines decode the full budget and the EOS trim
+    happens here."""
     server = resolve_model(sset, req)
     tok = tokenizer_for(server)
     prompts = parse_prompts(req, chat, server)
@@ -400,12 +407,19 @@ def run_completion(sset, req: dict, chat: bool) -> dict:
         encode_prompt(tok, server, text, n_tokens, add_special_tokens=not raw_encode)
         for text in prompts
     ]
+    engine_kw: dict = {}
+    if engine is sset.continuous_for(server):
+        if eos:
+            engine_kw["stop_token_ids"] = list(eos)
+        engine_kw.update(deadline_kwargs(timeout_s, priority))
+        if timing is not None:
+            engine_kw["timing"] = timing
 
     def _one(ids: list[int]) -> list[list[int]]:
         # n samples of one prompt = n rows of the same ids in one call: the
         # engine derives per-row (seed + i) streams, OpenAI's n semantics
         out = engine.generate(np.asarray([ids] * n_samples, np.int32),
-                              max_new_tokens=n_tokens, **samp)
+                              max_new_tokens=n_tokens, **engine_kw, **samp)
         return [row[len(ids):].tolist() for row in out]
 
     if len(id_rows) > 1 and engine is not server:
@@ -467,15 +481,18 @@ def run_completion(sset, req: dict, chat: bool) -> dict:
 
 
 def stream_completion(sset, req: dict, chat: bool, timeout_s: float | None = None,
-                      priority: str = "interactive", resume=None) -> Iterator[dict]:
+                      priority: str = "interactive", resume=None,
+                      timing: dict | None = None) -> Iterator[dict]:
     """SSE event bodies for stream=true (one prompt). The first ``next()``
     does all validation and primes the decode, so callers pull one event
     before committing a 200 and bad requests fail with their real status.
 
     ``resume`` is a parsed ``(emitted_token_ids, seed)`` pair: it is
-    validated here (malformed 400, past the budget or EOS 422) and then
-    refused by ``stream_source``, since continuing a stream needs the
-    continuous engine."""
+    validated here (malformed 400, past the budget or EOS 422); the
+    continuous engine re-prefills prompt + emitted and continues the
+    original (seed, step) stream, and ``stream_source`` refuses it without
+    the engine. ``timing`` is the continuous engine's phase breakdown: it
+    rides the opt-in usage chunk when the engine filled it."""
     server = resolve_model(sset, req)
     tok = tokenizer_for(server)
     prompts = parse_prompts(req, chat, server)
@@ -526,6 +543,8 @@ def stream_completion(sset, req: dict, chat: bool, timeout_s: float | None = Non
         kw = deadline_kwargs(timeout_s, priority)
         if resume_step:
             kw["resume_step"] = resume_step
+        if timing is not None:
+            kw["timing"] = timing
         gen = sset.stream_source(server, np.asarray([ids], np.int32), n_tokens,
                                  samp, stop_token_ids=list(eos) or None, **kw)
         try:
@@ -534,7 +553,7 @@ def stream_completion(sset, req: dict, chat: bool, timeout_s: float | None = Non
             # event is the role chunk)
             first_piece = next(gen, None)
             yield from _sse_events(server, tok, chat, gen, first_piece, eos_set, stops,
-                                   reserve, resume_ids, ids, include_usage)
+                                   reserve, resume_ids, ids, include_usage, timing)
         finally:
             gen.close()
 
@@ -542,7 +561,7 @@ def stream_completion(sset, req: dict, chat: bool, timeout_s: float | None = Non
 
 
 def _sse_events(server, tok, chat, gen, first_piece, eos_set, stops, reserve,
-                resume_ids, ids, include_usage) -> Iterator[dict]:
+                resume_ids, ids, include_usage, timing=None) -> Iterator[dict]:
     envelope = _envelope(OBJ_CHAT_CHUNK if chat else OBJ_COMPLETION, server.name)
 
     def content_event(delta: str) -> dict:
@@ -627,7 +646,7 @@ def _sse_events(server, tok, chat, gen, first_piece, eos_set, stops, reserve,
         ],
     }
     if include_usage:  # a final chunk with empty choices carrying the usage
-        yield {
+        usage_event = {
             **envelope,
             "choices": [],
             "usage": {
@@ -636,6 +655,14 @@ def _sse_events(server, tok, chat, gen, first_piece, eos_set, stops, reserve,
                 "total_tokens": len(ids) + len(new_ids) + eos_count,
             },
         }
+        if timing is not None:
+            # close the source first so the engine's finally has filled the
+            # breakdown even when a stop ended the loop early; engines
+            # without phases leave it empty and the chunk unchanged
+            gen.close()
+            if timing:
+                usage_event["timing"] = dict(timing)
+        yield usage_event
 
 
 def models_payload(sset) -> dict:

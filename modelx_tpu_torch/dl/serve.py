@@ -23,7 +23,8 @@ Loads one or more checkpoints onto one device and serves:
     POST /admin/models          accounting, runtime loads ({"name",
     DELETE /admin/models/{name} "ref"|"model_dir"}) and drained unloads,
                                 behind bearer tokens (--admin-token)
-    GET  /debug/flightrec       the pool's flight recorder (admin-gated)
+    GET  /debug/flightrec       the pool's and the continuous engines'
+                                flight recorders (admin-gated)
 
 Requests are checked as the JAX sidecar checks them (2-D non-empty token
 ids inside the vocab, ``max_new_tokens`` in [1, limit], text and tokens
@@ -35,8 +36,8 @@ SSE bytes. Text goes through the model's own ``tokenizer.json``, read by
 ``dl/tokenizer.py`` (the ``tokenizers`` package is not a dependency), and
 chat through the chat template of its ``tokenizer_config.json``. What
 later slices port answers a typed 501 that names the slice:
-``include_timing`` on a stream, ``/admin/profile``, and a tokenizer.json
-component the reader does not implement.
+``/admin/profile`` and a tokenizer.json component the reader does not
+implement.
 
 Every request passes the model pool: a model that is PULLING or LOADING
 answers 503 + ``Retry-After``, DRAINING 409, FAILED 503 with the reason,
@@ -48,9 +49,19 @@ The one-device serving options of the JAX sidecar: ``quantize="int8"``
 merged at load, ``dl/lora.py``), ``speculative_k`` (prompt-lookup
 speculation for single-row requests, ``models/speculative.py``) and, on
 the ``ServerSet``, ``dynamic_batch``: concurrent requests coalesce in a
-``Batcher`` window into one padded forward or one ragged decode. The
-continuous engine is a later slice: without the batcher, requests take the
-device one at a time, a stream one chunk at a time.
+``Batcher`` window into one padded forward or one ragged decode.
+
+``continuous_batch`` puts every generate and single-row stream through the
+model's continuous engine (``dl/continuous.py``): requests join a running
+decode at chunk boundaries, with paged KV, chunked prefill, pipelined
+dispatch, bounded admission and deadlines, in-engine speculation and
+supervision. Then a stream can ``resume`` (the emitted tokens and the seed
+rejoin the row's sample stream at step k) and report its phases
+(``include_timing``); the engine's state rides on ``/healthz`` (503 while
+it restarts or once its breaker opened), ``/livez`` (503 when broken),
+``/admin/models`` and ``/debug/flightrec``. Without it, requests take the
+device one at a time, a stream one chunk at a time, and ``resume`` is
+refused (400) as the JAX sidecar refuses it.
 """
 
 from __future__ import annotations
@@ -73,13 +84,14 @@ import torch
 from modelx_tpu_torch.device import parse_dtype, resolve_device
 from modelx_tpu_torch.dl import families as fam
 from modelx_tpu_torch.dl import manifest_cache
-from modelx_tpu_torch.dl.lifecycle import ModelPool, PoolError
+from modelx_tpu_torch.dl.lifecycle import ModelPool, PoolError, _without_tracebacks
 from modelx_tpu_torch.dl.serving_errors import (
     DEADLINE_HEADER,
     PRIORITY_HEADER,
     RESUME_EMITTED_HEADER,
     RESUME_SEED_HEADER,
     DeadlineExceededError,
+    EngineBrokenError,
     MalformedResumeError,
     ModelLoadingError,
     ResumeExhaustedError,
@@ -868,7 +880,15 @@ class ServerSet:
                  hbm_budget_bytes: int = 0, evict_idle: bool = False,
                  allow_admin_load: bool = False, admin_tokens: tuple[str, ...] = (),
                  staging_root: str = "", host_state_budget_bytes: int = 0,
-                 disk_state_budget_bytes: int = 0, state_spool_dir: str = "") -> None:
+                 disk_state_budget_bytes: int = 0, state_spool_dir: str = "",
+                 continuous_batch: bool = False, max_slots: int = 8,
+                 kv_page_size: int = 0, kv_live_tokens: int = 0,
+                 kv_attention: str = "gather", pipeline_depth: int = 2,
+                 dispatch_depth: int = 0, burst_window_ms: float = 1.0,
+                 prefill_chunk: int = 0, prefill_budget: int = 0,
+                 max_queue_depth: int = 0, request_timeout_s: float = 0.0,
+                 boundary_watchdog_s: float = 0.0, flight_recorder: bool = True,
+                 flightrec_capacity: int = 0, flight_dump_dir: str = "") -> None:
         if not servers:
             raise ValueError("no models")
         self.servers = servers
@@ -882,6 +902,21 @@ class ServerSet:
         self.batch_window_ms = float(batch_window_ms)
         self._batcher_lock = threading.Lock()
         self.batchers: dict[str, Batcher] = {}
+        # the continuous engine's knobs (dl/continuous.py, its parameter
+        # names), one engine per model, built on first use under a per-model lock
+        self._continuous_batch = bool(continuous_batch)
+        self.engine_kwargs = dict(
+            max_slots=int(max_slots), page_size=int(kv_page_size),
+            max_live_tokens=int(kv_live_tokens), paged_attention=str(kv_attention),
+            pipeline_depth=int(pipeline_depth), dispatch_depth=int(dispatch_depth),
+            burst_window_ms=float(burst_window_ms), prefill_chunk=int(prefill_chunk),
+            prefill_budget=int(prefill_budget), max_queue_depth=int(max_queue_depth),
+            request_timeout_s=float(request_timeout_s),
+            boundary_watchdog_s=float(boundary_watchdog_s),
+            flight_recorder=bool(flight_recorder), flightrec_capacity=int(flightrec_capacity),
+            flight_dump_dir=str(flight_dump_dir or ""))
+        self.cbatchers: dict = {}
+        self._engine_locks: dict[str, threading.Lock] = {}
         for name, s in servers.items():
             s.name = name  # route key and server identity must agree
         self.default = default or next(iter(servers))
@@ -940,19 +975,26 @@ class ServerSet:
             self.servers[name] = server
 
     def remove_server(self, name: str, close: bool = True):
-        """Remove a model from routing; returns ``(server, batcher)``. With
-        ``close`` the window batcher closes here; the pool passes
-        ``close=False`` and closes it outside its lock."""
+        """Remove a model from routing; returns ``(server, batcher,
+        engine)``. With ``close`` the window batcher and the continuous
+        engine close here and the engine's KV state is released; the pool
+        passes ``close=False`` and closes them outside its lock."""
         with self._servers_lock:
             server = self.servers.pop(name, None)
             with self._batcher_lock:
                 batcher = self.batchers.pop(name, None)
+                cb = self.cbatchers.pop(name, None)
+                self._engine_locks.pop(name, None)
             if self.default == name and self.servers:
                 ready = [n for n, s in self.servers.items() if s.ready]
                 self.default = (ready or list(self.servers))[0]
-        if close and batcher is not None:
-            batcher.close()
-        return server, batcher
+        if close:
+            if batcher is not None:
+                batcher.close()
+            if cb is not None:
+                cb.close()
+                cb.release_device_state()
+        return server, batcher, cb
 
     @property
     def ready(self) -> bool:
@@ -967,14 +1009,21 @@ class ServerSet:
         return bool(healthy) and all(s.ready for s in healthy)
 
     def serving_stats(self) -> dict:
-        """Per-model load and locality for GET /admin/models: the queue
-        fields are 0 (the plain path has no backlog; they come from the
-        continuous engine), and the prefix cache's counters."""
+        """Per-model load and locality for GET /admin/models:
+        ``queue_depth``/``active``/``waiting`` and ``engine_state`` from the
+        continuous engine (0s when it is off: the plain path has no
+        backlog), and the prefix cache's counters."""
         with self._servers_lock:
-            pairs = list(self.servers.items())
+            pairs = [(n, s, self.cbatchers.get(n)) for n, s in self.servers.items()]
         out: dict = {}
-        for name, s in pairs:
+        for name, s, cb in pairs:
             d: dict = {"queue_depth": 0, "active": 0, "waiting": 0}
+            if cb is not None:
+                snap = cb.snapshot()
+                d["queue_depth"] = int(snap.get("queue_depth", 0))
+                d["active"] = int(snap.get("active", 0))
+                d["waiting"] = int(snap.get("waiting", 0))
+                d["engine_state"] = snap.get("engine_state", "running")
             if s._prefix_cache is not None:
                 d["prefix_cache"] = s._prefix_cache.stats()
             out[name] = d
@@ -1055,31 +1104,133 @@ class ServerSet:
                         server, max_batch=self.max_batch, window_ms=self.batch_window_ms)
         return b
 
+    def continuous_for(self, server: ModelServer):
+        """The model's continuous engine, created on first use (cached
+        decode families only; None without ``continuous_batch``). When on
+        it takes every generate and single-row stream. Construction (the
+        whole KV allocation) runs under a PER-MODEL lock so other tenants'
+        traffic never waits behind it; an out-of-memory allocation demotes
+        idle tenants (``ModelPool.shed_idle_for_bytes``) and retries once."""
+        if (not self._continuous_batch or server.family is None
+                or server.family.decode_fns is None):
+            return None
+        cb = self.cbatchers.get(server.name)
+        if cb is not None:
+            return cb
+        with self._batcher_lock:
+            lk = self._engine_locks.setdefault(server.name, threading.Lock())
+        with lk:
+            cb = self.cbatchers.get(server.name)
+            if cb is None:
+                from modelx_tpu_torch.dl import tiers as tiers_mod
+                from modelx_tpu_torch.dl.continuous import ContinuousBatcher
+
+                max_len = server.max_seq_len
+                page_size = self.engine_kwargs["page_size"]
+                if page_size > 0 and max_len % page_size:
+                    # clamp max_len DOWN to a page multiple (losing < one
+                    # page of context) rather than degrade the page size
+                    clamped = (max_len // page_size) * page_size
+                    if clamped <= 0:
+                        logger.warning("kv_page_size %d exceeds max_len %d for %s; "
+                                       "paged KV disabled", page_size, max_len, server.name)
+                        page_size = 0
+                    else:
+                        logger.warning("max_len %d -> %d for %s (kv_page_size %d multiple)",
+                                       max_len, clamped, server.name, page_size)
+                        max_len = clamped
+
+                def build():
+                    # --speculative-k composes: the engine speculates
+                    # whenever exactly one greedy row is active
+                    return ContinuousBatcher(
+                        server, **{**self.engine_kwargs, "page_size": page_size},
+                        chunk_size=self.stream_chunk_size, max_len=max_len,
+                        prefix_cache=server._prefix_cache, speculative_k=server.speculative_k)
+
+                try:
+                    cb = build()
+                except Exception as exc:
+                    if not tiers_mod.is_resource_exhausted(exc):
+                        raise
+                    # the partial allocation's frames must not keep its
+                    # tensors alive through the retry
+                    _without_tracebacks(exc)
+                    freed = self.pool.shed_idle_for_bytes(0, exclude=server.name)
+                    self.pool.flightrec.record("engine.alloc_oom_retry", model=server.name,
+                                               freed_bytes=freed)
+                    if freed <= 0:
+                        raise EngineBrokenError(
+                            f"KV allocation for {server.name} ran out of device memory "
+                            "and no idle model could be demoted") from exc
+                    logger.warning("KV allocation for %s ran out of device memory; demoted "
+                                   "%d reserved bytes of idle state, retrying once",
+                                   server.name, freed)
+                    try:
+                        cb = build()
+                    except Exception as exc2:
+                        raise EngineBrokenError(
+                            f"KV allocation for {server.name} failed after demoting "
+                            "idle state") from exc2
+                self.cbatchers[server.name] = cb
+        return cb
+
+    def engine_health(self) -> str | None:
+        """Worst continuous-engine state across tenants, or None when every
+        engine is healthy: "engine-broken" (the breaker opened: the pod
+        needs a restart) beats "engine-restarting" (mid-backoff)."""
+        worst = None
+        for cb in list(self.cbatchers.values()):
+            state = getattr(cb, "engine_state", "running")
+            if state == "broken":
+                return "engine-broken"
+            if state == "restarting":
+                worst = "engine-restarting"
+        return worst
+
     def engine_for(self, server: ModelServer, n_rows: int, temperature: float):
-        """The generate-routing policy, as the JAX sidecar's less its
-        continuous engine (a later slice): speculation for a single row
-        (``speculative_k``; greedy token-exact, sampled by modified
-        rejection), then the window batcher, then the plain server."""
+        """The generate-routing policy, as the JAX sidecar's: the
+        continuous engine when on (it speculates itself under
+        ``speculative_k``), then speculation for a single row (greedy
+        token-exact, sampled by modified rejection), then the window
+        batcher, then the plain server."""
+        cb = self.continuous_for(server)
+        if cb is not None:
+            return cb
         if server.speculative_k > 0 and n_rows == 1 and server.family.decode_fns is not None:
             return server
         return self.batcher_for(server) or server
 
     def close(self) -> None:
-        """Close the window batchers (their waiters fail, not hang)."""
+        """Close the window batchers and the continuous engines (their
+        waiters fail, not hang)."""
         with self._batcher_lock:
             batchers, self.batchers = list(self.batchers.values()), {}
+            engines, self.cbatchers = list(self.cbatchers.values()), {}
         for b in batchers:
             b.close()
+        for cb in engines:
+            cb.close()
 
     def stream_source(self, server: ModelServer, tokens, n: int, samp: dict,
                       stop_token_ids=None, timeout_s: float | None = None,
-                      priority: str = "interactive", resume_step: int = 0):
+                      priority: str = "interactive", resume_step: int = 0,
+                      request_id: str = "", timing: dict | None = None):
         """The token-chunk iterator behind a stream, chunked by
-        ``stream_chunk_size``. ``timeout_s``/``priority`` (a propagated
-        deadline remainder and priority class) reach only the continuous
-        engine in the JAX sidecar; the plain path has no deadline
-        machinery, so the handler's up-front expiry check is its whole
-        contract. ``resume_step`` > 0 needs the continuous engine too."""
+        ``stream_chunk_size``. Single-row streams join the continuous
+        engine when it is on; ``timeout_s``/``priority`` (a propagated
+        deadline remainder and priority class), ``resume_step`` (continue a
+        severed stream at step k), ``request_id`` and ``timing`` (the
+        phase breakdown, filled when the stream ends) reach only it. The
+        plain path has no deadline machinery (the handler's up-front expiry
+        check is its whole contract) and no per-step streams to rejoin, so
+        a resume without the engine is refused (400)."""
+        cb = self.continuous_for(server)
+        if cb is not None and tokens.shape[0] == 1:
+            return cb.stream(tokens, max_new_tokens=n, stop_token_ids=stop_token_ids,
+                             timeout_s=timeout_s, priority=priority,
+                             resume_step=resume_step, request_id=request_id,
+                             timing=timing, **samp)
         if resume_step:
             raise MalformedResumeError("resume requires the continuous engine (single-row stream)")
         return server.generate_stream(tokens, max_new_tokens=n,
@@ -1098,10 +1249,11 @@ def _query_param(path: str, name: str) -> str:
 def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: ModelServer,
                     limit: int):
     """Check a generate request as the JAX sidecar does. Returns
-    ``((n, samp, stop_ids), None)`` or ``(None, (status, body))``. A resume
-    block raises its typed ``ServingError``: continuing a stream needs the
-    continuous engine, which is not ported, so a well-formed resume gets
-    the 400 the JAX sidecar without ``--continuous-batch`` answers."""
+    ``((n, samp, stop_ids, resume), None)`` or ``(None, (status, body))``;
+    ``resume`` is the parsed ``(emitted, seed)`` pair or None. A malformed
+    or exhausted resume block raises its typed ``ServingError`` (400 /
+    422); a well-formed one is continued by the continuous engine, or
+    refused by ``stream_source`` without it."""
     try:
         n = int(req.get("max_new_tokens", 16))
     except (TypeError, ValueError):
@@ -1155,8 +1307,7 @@ def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: 
                 f"{len(emitted)} tokens already emitted of a {n}-token budget")
         if stop_ids and any(t in stop_ids for t in emitted):
             raise ResumeExhaustedError("a stop token was already emitted")
-        raise MalformedResumeError("resume requires the continuous engine (single-row stream)")
-    return (n, samp, stop_ids), None
+    return (n, samp, stop_ids, resume), None
 
 
 def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingHTTPServer:
@@ -1212,12 +1363,20 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                     pass
 
         def _stream_generate(self, server, tokens, n, samp, stop_ids,
-                             timeout_s=None, priority="interactive") -> None:
+                             timeout_s=None, priority="interactive", resume_step=0,
+                             include_timing=False) -> None:
             """NDJSON token stream, then {"done": true}; concatenated it
             equals the non-streamed result. A single row streams ONE token
-            per line ({"tokens": [[t]]}), several rows one line per chunk."""
-            gen = sset.stream_source(server, tokens, n, samp, stop_token_ids=stop_ids,
-                                     **deadline_kwargs(timeout_s, priority))
+            per line ({"tokens": [[t]]}), several rows one line per chunk.
+            ``include_timing`` adds a {"timing": ...} line before the done
+            line: the engine's phase breakdown and the handler's total."""
+            kw = deadline_kwargs(timeout_s, priority)
+            if resume_step:
+                kw["resume_step"] = resume_step
+            timing: dict = {}
+            if include_timing:
+                kw["timing"] = timing
+            gen = sset.stream_source(server, tokens, n, samp, stop_token_ids=stop_ids, **kw)
             try:
                 # pull the first chunk BEFORE committing a 200: a bad
                 # request must still be a 4xx
@@ -1227,14 +1386,23 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                     return self._json(400, {"error": str(e)})
 
                 def payloads():
+                    emitted = 0
                     if first is not None:
                         for piece in itertools.chain([first], gen):
                             rows = piece.tolist()
                             if len(rows) == 1:
                                 for t in rows[0]:
+                                    emitted += 1
                                     yield json.dumps({"tokens": [[t]]}).encode() + b"\n"
                             else:
+                                emitted += sum(len(r) for r in rows)
                                 yield json.dumps({"tokens": rows}).encode() + b"\n"
+                    if include_timing:
+                        # closing the source runs the engine's finally, so
+                        # the breakdown is complete
+                        gen.close()
+                        yield json.dumps({"timing": self._finish_timing(timing, emitted)}
+                                         ).encode() + b"\n"
                     yield b'{"done": true}\n'
 
                 self._stream_chunks(
@@ -1242,6 +1410,19 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                     lambda e: json.dumps({"error": str(e)}).encode() + b"\n")
             finally:
                 gen.close()  # a client that went away frees the stream now
+
+        def _finish_timing(self, timing: dict, emitted: int) -> dict:
+            """A phase breakdown completed with the handler's view: wall
+            total, emitted count and the decode rate (tokens after the
+            first over the post-TTFT wall time)."""
+            t = dict(timing)
+            total_ms = round((time.monotonic() - self._t0) * 1e3, 3)
+            t["total_ms"] = total_ms
+            t["tokens"] = emitted
+            ttft = t.get("ttft_ms")
+            if ttft is not None and emitted > 1 and total_ms > ttft:
+                t["decode_tps"] = round((emitted - 1) / ((total_ms - ttft) / 1e3), 2)
+            return t
 
         def _openai(self, req: dict, chat: bool) -> None:
             """/v1/completions + /v1/chat/completions (openai_api.py). SSE
@@ -1280,9 +1461,11 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                         resume = parse_resume(rz.get("emitted"), rz.get("seed"))
                 if resume is not None and not bool(req.get("stream", False)):
                     raise MalformedResumeError("resume requires a streaming request")
+                timing: dict = {}
                 if bool(req.get("stream", False)):
                     events = oai.stream_completion(sset, req, chat, timeout_s=timeout_s,
-                                                   priority=priority, resume=resume)
+                                                   priority=priority, resume=resume,
+                                                   timing=timing)
                     try:
                         try:
                             # validation and decode errors must surface as a
@@ -1308,7 +1491,8 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                                 else {"error": {"message": str(e), "type": "server_error"}}))
                     finally:
                         events.close()  # a client that went away frees the stream now
-                return self._json(200, oai.run_completion(sset, req, chat))
+                return self._json(200, oai.run_completion(sset, req, chat, timeout_s=timeout_s,
+                                                          priority=priority, timing=timing))
             except oai.APIError as e:
                 return self._json(e.status, e.payload, headers=e.headers)
             except ValueError as e:
@@ -1340,11 +1524,16 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
 
         def do_GET(self):
             if self.path == "/healthz":
+                engine = sset.engine_health()
                 failed = sset.pool.failed()
                 # registry reachability rides beside readiness, never in it:
                 # a pod serving through a registry outage stays 200
                 cp = manifest_cache.health().status()
-                if sset.ready:
+                if engine is not None:
+                    # a restarting or circuit-broken engine flips readiness
+                    # so load balancers drain instead of routing into it
+                    self._json(503, {"status": engine, "control_plane": cp})
+                elif sset.ready:
                     # degraded: some tenants FAILED, the rest serve
                     if failed:
                         self._json(200, {"status": "degraded", "failed": failed,
@@ -1361,10 +1550,13 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                     headers = {} if sset.draining else {"Retry-After": "2"}
                     self._json(503, body, headers=headers)
             elif self.path == "/livez":
-                # liveness, apart from readiness: loading and draining are
-                # alive (the engine-broken state that fails it comes with
-                # the continuous engine)
-                self._json(200, {"status": "ok"})
+                # liveness, apart from readiness: fails ONLY once an
+                # engine's breaker opened (a restart is the cure); loading,
+                # draining and a supervised restart are all alive
+                if sset.engine_health() == "engine-broken":
+                    self._json(503, {"status": "engine-broken"})
+                else:
+                    self._json(200, {"status": "ok"})
             elif self.path == "/admin/models":
                 if not self._admin_auth():
                     return
@@ -1379,12 +1571,18 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 # plus OpenAI's {object: "list", data: [...]}
                 self._json(200, oai.models_payload(sset))
             elif self.path.split("?", 1)[0] == "/debug/flightrec":
-                # the pool's flight-recorder ring, admin-gated (events carry
-                # request ids), with ?request_id= slicing
+                # the engines' and the pool's flight-recorder rings,
+                # admin-gated (events carry request ids), with
+                # ?request_id= slicing
                 if not self._admin_auth():
                     return
                 rid = _query_param(self.path, "request_id") or None
-                self._json(200, {"pool": sset.pool.flightrec.summary(rid)})
+                body = {}
+                for n, cb in list(sset.cbatchers.items()):
+                    if cb.flightrec is not None:
+                        body[n] = cb.flightrec.summary(rid)
+                body["pool"] = sset.pool.flightrec.summary(rid)
+                self._json(200, body)
             else:
                 self._json(404, {"error": "not found"})
 
@@ -1410,6 +1608,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             return self._json(200 if wait else 202, snap)
 
         def do_POST(self):
+            self._t0 = time.monotonic()
             # pod-level in-flight count for the SIGTERM drain: a request
             # counts until its last byte (streams included)
             sset.request_began()
@@ -1529,18 +1728,38 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                                                sset.max_new_tokens_limit)
                 if err is not None:
                     return self._json(*err)
-                n, samp, stop_ids = checked
+                n, samp, stop_ids, resume = checked
+                resume_step = 0
+                if resume is not None:
+                    # re-prefill prompt + emitted and continue the ORIGINAL
+                    # (seed, step) stream at step k; resume.seed pins the seed
+                    emitted, rseed = resume
+                    samp["seed"] = int(rseed)
+                    resume_step = len(emitted)
+                    tokens = np.concatenate([tokens, np.asarray([emitted], np.int32)], axis=1)
+                    n -= resume_step
                 if bool(req.get("stream", False)):
                     if stop_ids and tokens.shape[0] > 1:
                         # per-row early stop breaks the [B, k]-aligned stream
                         return self._json(400, {
                             "error": "stop_token_ids with stream is single-row only"})
-                    if bool(req.get("include_timing", False)):
-                        raise NotPortedError("include_timing", "observability")
+                    include_timing = bool(req.get("include_timing", False))
+                    if include_timing and sset.continuous_for(server) is None:
+                        raise NotPortedError("include_timing without the continuous engine",
+                                             "observability")
                     return self._stream_generate(server, tokens, n, samp, stop_ids,
-                                                 timeout_s=timeout_s, priority=priority)
+                                                 timeout_s=timeout_s, priority=priority,
+                                                 resume_step=resume_step,
+                                                 include_timing=include_timing)
                 engine = sset.engine_for(server, tokens.shape[0], samp["temperature"])
-                rows = engine.generate(tokens, max_new_tokens=n, **samp).tolist()
+                if engine is sset.continuous_for(server):
+                    # the engine frees each row's slot at its stop token and
+                    # honors the propagated deadline remainder
+                    rows = engine.generate(tokens, max_new_tokens=n, stop_token_ids=stop_ids,
+                                           timeout_s=timeout_s, priority=priority,
+                                           **samp).tolist()
+                else:
+                    rows = engine.generate(tokens, max_new_tokens=n, **samp).tolist()
                 if stop_ids:
                     # trim each row's GENERATED part at its first stop (inclusive)
                     stops, plen = set(stop_ids), tokens.shape[1]
@@ -1554,7 +1773,10 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 if tok is not None:  # a text request: decode the new tokens
                     resp["text"] = tok.decode(rows[0][tokens.shape[1]:])
                 self._json(200, resp)
-            except ServingError as e:  # the resume refusals (400, 422)
+            except ServingError as e:
+                # typed serving failures carry their status: 429 (queue
+                # full, + Retry-After), 504 (deadline), 503 (engine broken
+                # or restarting), 400 (quarantined, malformed resume), 422
                 self._json(e.http_status, {"error": str(e)}, headers=e.headers())
             except NotPortedError as e:
                 self._json(e.http_status, e.payload())

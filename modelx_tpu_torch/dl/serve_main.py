@@ -5,6 +5,8 @@
     modelx-serve-torch --model a=/mnt/a --model b=/mnt/b --listen :8000
     modelx-serve-torch --model m=/mnt/m --dynamic-batch --quantize int8
     modelx-serve-torch --model m=/mnt/m --speculative-k 8 --lora m=/mnt/adapter
+    modelx-serve-torch --model m=/mnt/m --continuous-batch --max-slots 32 \
+        --kv-page-size 16 --kv-live-tokens 32768 --prefill-chunk 256
     modelx-serve-torch --model m=/mnt/m --allow-admin-load \
         --hbm-budget-bytes 40000000000 --evict-idle \
         --host-state-budget-bytes 20000000000 --drain-grace 30
@@ -13,12 +15,14 @@ The HTTP front answers 503 on /healthz while the checkpoints load, then
 serves them on the card (``--device cpu`` serves on the host instead).
 With ``--allow-admin-load`` models load and unload at runtime through
 ``/admin/models`` (``dl/lifecycle.py``), under ``--hbm-budget-bytes`` with
-LRU eviction (``--evict-idle``) into the host and disk state tiers.
+LRU eviction (``--evict-idle``) into the host and disk state tiers. With
+``--continuous-batch`` every generate and single-row stream goes through
+the model's continuous engine (``dl/continuous.py``) and its knobs below.
 
 On SIGTERM the pod drains: ``/healthz`` answers 503 "draining", then it
 waits for its in-flight requests (up to ``--drain-grace`` seconds) or
-sleeps ``--drain-seconds``, closes the batchers and exits 0. SIGINT cuts
-the wait short.
+sleeps ``--drain-seconds``, closes the batchers and engines and exits 0.
+SIGINT cuts the wait short.
 """
 
 from __future__ import annotations
@@ -78,6 +82,79 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = entry cap only)")
     ap.add_argument("--dynamic-batch", action="store_true",
                     help="coalesce concurrent forward requests into one device call")
+    ap.add_argument("--continuous-batch", action="store_true",
+                    help="iteration-level (in-flight) batching: generate/stream requests "
+                         "join a running decode at chunk boundaries (supersedes "
+                         "--dynamic-batch for generate traffic; composes with "
+                         "--speculative-k: a lone greedy row speculates inside the engine)")
+    ap.add_argument("--max-slots", type=int, default=8,
+                    help="continuous batching: concurrent decode slots (KV cache rows "
+                         "held on the device)")
+    ap.add_argument("--kv-page-size", type=int, default=0,
+                    help="continuous batching: paged KV: the engine state becomes a pool "
+                         "of PAGE_SIZE-token pages + a block table, so device memory "
+                         "scales with live tokens instead of max_slots x max_seq_len (use "
+                         "with --max-slots 16+; 0 = dense)")
+    ap.add_argument("--kv-live-tokens", type=int, default=0,
+                    help="paged KV: pool capacity in tokens (default max_slots x "
+                         "max_seq_len / 4)")
+    ap.add_argument("--kv-attention", default="gather", choices=["gather", "in-place"],
+                    help="paged KV chunk attention: 'gather' (default) builds each "
+                         "layer's dense view of the pages, the same logits as every other "
+                         "decode path; 'in-place' reads the page pools directly (blockwise "
+                         "softmax, per-step transient = one page block; sampled rows may "
+                         "flip at bf16 near-ties)")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="continuous batching: decode chunks kept in flight before "
+                         "syncing the oldest, hiding the dispatch/fetch round-trip behind "
+                         "device work (stop and disconnect exits lag by up to DEPTH "
+                         "chunks of wasted compute; 1 = lockstep)")
+    ap.add_argument("--dispatch-depth", type=int, default=0,
+                    help="continuous batching: decode chunks per dispatch in steady "
+                         "decode (no admission, prefill piece or first token due); any "
+                         "pending boundary event snaps back to one. EOS/cancel/deadline "
+                         "detection lags by up to the dispatch's span (wasted compute, "
+                         "never wrong tokens). 0 = auto (4 in steady decode); 1 = one "
+                         "chunk per dispatch")
+    ap.add_argument("--burst-window-ms", type=float, default=1.0,
+                    help="continuous batching: when a request hits an IDLE engine, wait "
+                         "this long for co-arrivals so the burst admits as one prefill "
+                         "and decodes in step (0 = off)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="continuous batching: chunked prefill: prompts longer than this "
+                         "many tokens (16-bucketed) land piece by piece between decode "
+                         "chunks instead of as one monolithic admission prefill, bounding "
+                         "the stall a long admission inflicts on the running batch "
+                         "(0 = off)")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="chunked prefill: per-boundary token budget: decode rows spend "
+                         "chunk_size each first, prefill pieces pack into the remainder "
+                         "(the head piece always lands; 0 = one piece per filling row per "
+                         "boundary)")
+    ap.add_argument("--max-queue-depth", type=int, default=0,
+                    help="continuous batching: bound the admission backlog: a submit past "
+                         "this many not-yet-admitted rows is shed with 429 + Retry-After "
+                         "instead of queueing into unbounded latency (0 = unbounded)")
+    ap.add_argument("--request-timeout", type=float, default=0.0,
+                    help="continuous batching: per-request deadline in seconds: a request "
+                         "older than this expires with 504 at the next chunk boundary, "
+                         "queued, prefilling or decoding (0 = no deadline)")
+    ap.add_argument("--boundary-watchdog-s", type=float, default=0.0,
+                    help="continuous batching: treat a dispatch that makes no "
+                         "chunk-boundary progress for this many seconds as a crash: the "
+                         "engine's restart/breaker machinery applies and waiters get a "
+                         "typed 503 instead of hanging (0 = off)")
+    ap.add_argument("--flight-dump-dir", default="",
+                    help="continuous batching: on an engine crash, watchdog fire or "
+                         "circuit-break, write the flight recorder's last events + "
+                         "per-slot state as a JSON-lines black-box file here (the live "
+                         "ring is GET /debug/flightrec; empty = no dump files)")
+    ap.add_argument("--flightrec-capacity", type=int, default=0,
+                    help="flight recorder ring size in events (0 = default 512)")
+    ap.add_argument("--flight-recorder", action=argparse.BooleanOptionalAction, default=True,
+                    help="record structured engine events (admission, dispatch, "
+                         "readback, preemption, EOS, deadline, crash) into a bounded "
+                         "in-memory ring")
     ap.add_argument("--max-batch", type=int, default=32,
                     help="dynamic batching: max requests coalesced per device call")
     ap.add_argument("--batch-window-ms", type=float, default=3.0,
@@ -229,9 +306,20 @@ def _start(argv=None):
     if args.stream_chunk_size < 1:
         raise SystemExit("--stream-chunk-size must be >= 1")
     log = logging.getLogger("modelx.serve")
-    if args.prefix_cache and args.speculative_k:
+    if args.continuous_batch and args.speculative_k:
+        log.info("--continuous-batch + --speculative-k: the engine speculates "
+                 "whenever a single greedy row has the device to itself")
+    if args.prefill_chunk and not args.continuous_batch:
+        log.warning("--prefill-chunk is inert without --continuous-batch "
+                    "(chunked prefill is the continuous engine's admission policy)")
+    if (args.max_queue_depth or args.request_timeout) and not args.continuous_batch:
+        log.warning("--max-queue-depth/--request-timeout are inert without "
+                    "--continuous-batch (bounded admission is the continuous "
+                    "engine's submit policy)")
+    if args.prefix_cache and args.speculative_k and not args.continuous_batch:
         # the speculative decoder owns single-row streams before the
-        # ChunkedDecoder (the prefix cache's stream seam) is consulted
+        # ChunkedDecoder (the prefix cache's stream seam) is consulted;
+        # under --continuous-batch the engine's admission uses the cache
         log.warning("--prefix-cache is inert under --speculative-k "
                     "(the speculative decoder handles the streams it would accelerate)")
     if args.evict_idle and not args.hbm_budget_bytes:
@@ -248,7 +336,19 @@ def _start(argv=None):
                      admin_tokens=tuple(args.admin_tokens), staging_root=args.staging_dir,
                      host_state_budget_bytes=args.host_state_budget_bytes,
                      disk_state_budget_bytes=args.disk_state_budget_bytes,
-                     state_spool_dir=args.state_spool_dir)
+                     state_spool_dir=args.state_spool_dir,
+                     continuous_batch=args.continuous_batch, max_slots=args.max_slots,
+                     kv_page_size=args.kv_page_size, kv_live_tokens=args.kv_live_tokens,
+                     kv_attention=args.kv_attention, pipeline_depth=args.pipeline_depth,
+                     dispatch_depth=args.dispatch_depth,
+                     burst_window_ms=args.burst_window_ms,
+                     prefill_chunk=args.prefill_chunk, prefill_budget=args.prefill_budget,
+                     max_queue_depth=args.max_queue_depth,
+                     request_timeout_s=args.request_timeout,
+                     boundary_watchdog_s=args.boundary_watchdog_s,
+                     flight_recorder=args.flight_recorder,
+                     flightrec_capacity=args.flightrec_capacity,
+                     flight_dump_dir=args.flight_dump_dir)
     httpd = serve(sset, listen=args.listen)  # answers 503 while loading
     try:
         stats = sset.load_all(concurrent=args.concurrent_load)

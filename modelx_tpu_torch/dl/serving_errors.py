@@ -5,7 +5,11 @@ serves; a copy, since the port imports nothing of the JAX package).
 ``X-ModelX-Deadline-Ms`` carries the caller's remaining budget: a request
 whose budget is already gone answers 504 before any work, on the native
 and the OpenAI surface alike. ``X-ModelX-Priority`` names its class; both
-reach only the continuous engine, which is not ported.
+reach only the continuous engine (``dl/continuous.py``): a live budget
+clamps its per-request expiry, and batch-class rows queue behind
+interactive ones. The engine's own refusals keep the reference's statuses:
+a full backlog 429 + ``Retry-After``, a quarantined request 400, a dead or
+restarting engine 503.
 
 The model pool's lifecycle errors (``dl/lifecycle.py``) keep the
 reference's statuses and bodies on both surfaces: PULLING/LOADING 503 +
@@ -14,8 +18,8 @@ reference's statuses and bodies on both surfaces: PULLING/LOADING 503 +
 A ``resume`` block continues a severed stream: the emitted token ids and
 the original seed, as the native ``resume`` field or as the
 ``X-ModelX-Resume-*`` headers. Continuing one needs the continuous engine,
-so a well-formed resume is refused exactly as the JAX sidecar without
-``--continuous-batch`` refuses it.
+so without ``--continuous-batch`` a well-formed resume is refused exactly
+as the JAX sidecar refuses it.
 """
 
 from __future__ import annotations
@@ -82,6 +86,50 @@ class DeadlineExceededError(ServingError):
             f"(--request-timeout {timeout_s:g}s)"
         )
         self.state = state
+
+
+class QueueFullError(ServingError):
+    """Admission backlog is at --max-queue-depth: shed NOW with 429 so the
+    client backs off, instead of queueing into unbounded latency."""
+
+    http_status = 429
+    api_type = "rate_limit_error"
+
+    def __init__(self, depth: int, limit: int, retry_after: float = 1.0,
+                 message: str | None = None) -> None:
+        super().__init__(
+            message
+            or f"admission queue full ({depth} waiting, limit {limit}); retry later"
+        )
+        self.retry_after = max(1, int(retry_after))
+
+    def headers(self) -> dict[str, str]:
+        return {"Retry-After": str(self.retry_after)}
+
+
+class PoisonedRequestError(ServingError):
+    """This exact request crashed the engine loop repeatedly; it is
+    quarantined and rejected up front: re-admitting it would turn one bad
+    request into a restart livelock."""
+
+    http_status = 400
+    api_type = "invalid_request_error"
+
+    def __init__(self, crashes: int) -> None:
+        super().__init__(
+            f"request quarantined: it crashed the engine {crashes} times"
+        )
+
+
+class EngineBrokenError(ServingError):
+    """The engine loop died while this request was in flight (or the
+    circuit breaker opened). 503: the supervisor restarts the engine, so
+    a retry against this pod (or another) is the right client move."""
+
+    http_status = 503
+
+    def __init__(self, message: str = "serving engine failed") -> None:
+        super().__init__(message)
 
 
 class ModelLoadingError(ServingError):

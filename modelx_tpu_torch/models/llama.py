@@ -10,8 +10,11 @@ hand-written flash kernel on the card (``ops/attention.flash_attention``);
 cached prefill and decode attend through the plain reference, as in the
 JAX package. The KV cache is written in place.
 
-Not ported yet: the paged KV table (continuous-engine slice) and ring /
-Ulysses sequence parallelism (multi-device slice).
+With ``paged_table`` the cached decode reads PAGED KV: the cache leaves are
+page pools [P, page_size, Hkv, D] and attention reads them in place
+(``ops/paged_attention.py``), the continuous engine's in-place chunk step.
+
+Not ported yet: ring / Ulysses sequence parallelism (multi-device slice).
 """
 
 from __future__ import annotations
@@ -199,10 +202,19 @@ def decoder_layer(
     cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_offset=0,
     attention_impl: str = "auto",
+    paged_table: torch.Tensor | None = None,
+    paged_blocks: int | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """One transformer block. ``lp`` holds the layer's params keyed by the
     unprefixed HF suffix. Returns (x, the (k, v) cache written in place, or
-    None for a cache-free forward)."""
+    None for a cache-free forward).
+
+    ``paged_table`` switches the cached decode to PAGED layout: the cache
+    leaves are page pools [P, page_size, Hkv, D], the table maps each row
+    to its pages, and attention reads the pool in place
+    (``ops/paged_attention.py``; ``paged_blocks`` is its host-known ragged
+    bound). Single-token steps only (s == 1), the shape the continuous
+    engine's chunk step drives."""
     b, s = x.shape[:2]
     h = _rms_norm(x, lp["input_layernorm.weight"], cfg.rms_eps)
     q = _linear(h, lp["self_attn.q_proj.weight"], lp.get("self_attn.q_proj.bias"))
@@ -212,7 +224,19 @@ def decoder_layer(
     k = _rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), positions, cfg.rope_theta)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
 
-    if cache is not None:
+    if cache is not None and paged_table is not None:
+        from modelx_tpu_torch.ops.paged_attention import paged_attention, write_token_kv
+
+        if s != 1:
+            raise ValueError(
+                f"paged decode is single-token only (got seq len {s}); "
+                "multi-token blocks (spec verify) take the dense path")
+        ck, cv = cache  # pools [P, ps, Hkv, D]
+        write_token_kv(ck, k, paged_table, cache_offset)
+        write_token_kv(cv, v, paged_table, cache_offset)
+        attn_out = paged_attention(q[:, 0], ck, cv, paged_table, cache_offset + 1,
+                                   n_blocks=paged_blocks)[:, None]  # [B, 1, Hq, D]
+    elif cache is not None:
         ck, cv = cache
         _write_cache(ck, k, cache_offset)
         _write_cache(cv, v, cache_offset)
@@ -237,15 +261,16 @@ def forward(
     kv_cache: dict | None = None,
     cache_offset=0,
     attention_impl: str = "auto",
-    paged_table=None,
+    paged_table: torch.Tensor | None = None,
     mesh=None,
+    paged_blocks: int | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (logits [B, S, V], kv_cache written in place, or None).
 
     Prefill: kv_cache=None. Decode: pass the cache and the current offset
-    (an int, or a [B] tensor of per-row offsets); tokens is [B, s]."""
-    if paged_table is not None:
-        raise NotImplementedError("paged KV comes with the continuous-engine slice")
+    (an int, or a [B] tensor of per-row offsets); tokens is [B, s]. With
+    ``paged_table``, kv_cache holds PAGE POOLS and attention reads them in
+    place (see decoder_layer; single-token decode, a [B] offset tensor)."""
     if mesh is not None:
         raise NotImplementedError(
             "meshes (ring/Ulysses, tensor parallel) come with the multi-device slice")
@@ -268,7 +293,8 @@ def forward(
                 lp[suffix] = params[p + suffix]
         cache = (kv_cache[f"k{i}"], kv_cache[f"v{i}"]) if kv_cache is not None else None
         x, _ = decoder_layer(lp, x, positions, cfg, cache=cache, cache_offset=cache_offset,
-                             attention_impl=attention_impl)
+                             attention_impl=attention_impl, paged_table=paged_table,
+                             paged_blocks=paged_blocks)
 
     x = _rms_norm(x, params["model.norm.weight"], cfg.rms_eps)
     head = params.get("lm_head.weight", params["model.embed_tokens.weight"])
@@ -316,6 +342,17 @@ def decode_fns(params, cfg: LlamaConfig):
         return forward(p, t, cfg, kv_cache=kv_cache, cache_offset=cache_offset)
 
     return fwd, (lambda b, max_len: init_kv_cache(cfg, b, max_len, device=device))
+
+
+def paged_decode_fns(params, cfg: LlamaConfig):
+    """The forward over PAGED kv pools (the continuous engine's in-place
+    chunk step): ``fwd(p, t, kv_cache, cache_offset, table, n_blocks)``."""
+
+    def fwd(p, t, kv_cache, cache_offset, table, n_blocks=None):
+        return forward(p, t, cfg, kv_cache=kv_cache, cache_offset=cache_offset,
+                       paged_table=table, paged_blocks=n_blocks)
+
+    return fwd
 
 
 def ragged_greedy_generate(

@@ -51,7 +51,8 @@ def test_port_imports_no_jax_or_reference_package():
                 "client/model_config.py", "client/extension.py", "dl/blob_cache.py",
                 "dl/manifest_cache.py", "dl/initializer.py", "dl/dl_main.py", "dl/ttft.py",
                 "registry/server.py", "registry/store_fs.py", "registry/server_main.py",
-                "dl/lifecycle.py", "dl/tiers.py", "utils/devmem.py", "utils/flightrec.py"):
+                "dl/lifecycle.py", "dl/tiers.py", "utils/devmem.py", "utils/flightrec.py",
+                "dl/continuous.py", "ops/paged_attention.py", "utils/promexp.py"):
         assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:
@@ -85,7 +86,8 @@ def test_serving_entry_leaves_jax_unimported():
         "modelx_tpu_torch.client.client, modelx_tpu_torch.client.reference, "
         "modelx_tpu_torch.registry.server_main, modelx_tpu_torch.dl.lifecycle, "
         "modelx_tpu_torch.dl.tiers, modelx_tpu_torch.utils.devmem, "
-        "modelx_tpu_torch.utils.flightrec; "
+        "modelx_tpu_torch.utils.flightrec, modelx_tpu_torch.dl.continuous, "
+        "modelx_tpu_torch.ops.paged_attention, modelx_tpu_torch.utils.promexp; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )

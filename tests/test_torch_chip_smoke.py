@@ -62,6 +62,7 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "POOL_STREAM_TOKENS", 400)  # in flight at the DELETE
     monkeypatch.setattr(chip_smoke, "POOL_VETO_LOADS", 3)
     _tiny_options(monkeypatch)
+    _tiny_continuous(monkeypatch)
     stats = chip_smoke.phase_main(device="cpu", cfg=cfg)
     assert stats["flash_launches"] == 0  # CPU tensors take the plain version
     assert stats["logit_max_diff"] == 0.0 and stats["argmax_checked"] > 0
@@ -100,6 +101,20 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert stats["pool_c_load_source"] == "tier"
     assert stats["pool_veto_outcome"] == "none" and stats["pool_veto_loaded"] == 3
     assert all(r["source"] == "none" for r in stats["pool_veto_rows"])
+    # and the continuous engine, on its own count: the mixed traffic through
+    # a serve_main child, resume, 504 and 429, dense == gather, in-place,
+    # chunked prefill with and without, speculation, and every figure the
+    # kernels line and PERF.md take
+    assert stats["flash_launches_continuous"] == 0
+    assert stats["cont_shed"] >= 1 and stats["cont_resume"]
+    assert {"cont_plain_tps", "cont_batcher_tps", "cont_tps_engine", "cont_tps_engine_whole",
+            "cont_ttft_ms_p50", "cont_ttft_ms_p99", "cont_ttft_ms_late",
+            "cont_forward_ms_decoding", "cont_forward_ms_alone", "cont_tps_dense",
+            "cont_tps_gather", "cont_tps_in-place", "cont_fill_gap_ms_chunked",
+            "cont_fill_gap_ms_monolithic", "cont_boundary_host_ms_p50_dense"} <= set(stats)
+    assert stats["cont_kv_bytes_gather"] < stats["cont_kv_bytes_dense"]
+    assert stats["cont_syncs_per_boundary_dense"] <= 1
+    assert stats["cont_spec_accept_rate"] >= chip_smoke.CONT_SPEC_MIN_RATE
 
 
 def _tiny_options(monkeypatch):
@@ -110,6 +125,16 @@ def _tiny_options(monkeypatch):
                         ("BATCH_NEW_TOKENS", 4), ("BATCH_WINDOW_MS", 500.0),
                         ("SPEC_PERIOD", 5), ("SPEC_REPEATS", 4), ("SPEC_NEW_TOKENS", 12),
                         ("INT8_FORWARD", (1, 40)), ("INT8_PROMPT", 8), ("INT8_NEW_TOKENS", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def _tiny_continuous(monkeypatch):
+    """The continuous phase's shapes cut to the tiny CPU model: short
+    prompts, 2-token chunks so the decode rows outlast the fill's pieces."""
+    for name, value in (("CONT_PROMPTS", (5, 12, 40, 5, 12, 40, 5, 12)),
+                        ("CONT_NEW_TOKENS", 16), ("CONT_LATE_AFTER", 2), ("CONT_CHUNK", 2),
+                        ("CONT_MAX_LEN", 128), ("KV_LIVE_TOKENS", 1024), ("PREFILL_CHUNK", 16),
+                        ("RESUME_AFTER", 3)):
         monkeypatch.setattr(chip_smoke, name, value)
 
 

@@ -185,7 +185,12 @@ def test_decode_helpers_match_jax():
 def test_later_slice_features_raise(fp32_llama):
     _, _, tcfg, tp = fp32_llama
     tok = torch.as_tensor(_tokens(tcfg, (1, 4)))
-    with pytest.raises(NotImplementedError, match="paged"):
-        tl.forward(tp, tok, tcfg, paged_table=torch.zeros(1, 1))
+    # the paged branch (the continuous engine's in-place step) is
+    # single-token only, as in the JAX package
+    pools = {n: torch.zeros((3, 4) + c.shape[2:]) for n, c in tl.init_kv_cache(
+        tcfg, 1, 4, dtype=torch.float32).items()}
+    with pytest.raises(ValueError, match="paged decode is single-token only"):
+        tl.forward(tp, tok, tcfg, kv_cache=pools, cache_offset=torch.zeros(1, dtype=torch.long),
+                   paged_table=torch.zeros((1, 1), dtype=torch.long))
     with pytest.raises(NotImplementedError, match="multi-device"):
         tl._attend(*(torch.zeros(1, 4, 2, 32),) * 3, causal=True, q_offset=0, impl="ring")
