@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one H100
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases kernels,families
 
 Phases, in order, each failing the run (exit code != 0) on any error:
 
@@ -125,6 +126,26 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    blocking syncs per boundary, device operations and ms per chunk step,
    KV bytes dense against paged, and the longest gap between a decode
    row's tokens during the fill with chunked prefill and without.
+10. families: the other generative families, one seeded random bf16
+   checkpoint at a time, each written, served by ``serve_main`` and
+   deleted before the next (free disk checked first; Gemma-2-9B's 18.48 GB
+   is the peak), the kernel counts from 0 again: Gemma-2-9B (42 layers,
+   head_dim 256, softcap 50, window 4096 on the even layers), Phi-3-mini-4k
+   (32 layers, head_dim 96), Mixtral-8x7B cut to ``MIXTRAL_LAYERS`` of its
+   32 layers (all 32 take 93.4 GB), written in HF's per-expert layout so
+   the loader folds the experts, and GPT-2 125M. For each: the inferred
+   config equals the written one, ``/v1/forward`` [1, 2048] (gpt2: [1,
+   1024]) launches the kernel once a layer (gpt2: never) and its argmax
+   equals the plain attention's or each differing position is within
+   ``OPTIONS_TIE_TOL`` of its maximum, greedy 128 + 32 runs, its NDJSON
+   stream equals it, a seeded sampled request repeats. gemma2 also: a [1,
+   6144] forward past the window against the plain attention, a 4,500-token
+   prompt + 16 greedy tokens through the windowed dense cache (each token
+   within ``OPTIONS_TIE_TOL`` of a cache-free forward's maximum on its own
+   prefix), a ``--continuous-batch --max-slots 4`` child answering 4
+   clients and in-process gather and in-place paged engines (near-ties of
+   the plain path). phi3: a ``--quantize int8`` server's forward. gpt2:
+   prompts past ``n_positions`` answer the JAX sidecar's 400.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -311,6 +332,9 @@ ATTN_CASES = [
     ("gemma2 softcap+window", 1, 16, 8, 1024, 256, True, 256 ** -0.5, 50.0, 256, "bfloat16"),
     ("ragged S=1000", 2, 32, 8, 1000, 128, True, None, 0.0, 0, "bfloat16"),
     ("fp32 ragged S=333", 1, 8, 2, 333, 128, True, None, 0.0, 0, "float32"),
+    ("phi3-mini prefill", 1, 32, 32, 2048, 96, True, None, 0.0, 0, "bfloat16"),
+    ("fp32 head_dim 96 ragged S=333", 1, 8, 8, 333, 96, True, None, 0.0, 0, "float32"),
+    ("gemma2-9b window", 1, 16, 8, 6144, 256, True, 256 ** -0.5, 50.0, 4096, "bfloat16"),
 ]
 
 
@@ -444,12 +468,14 @@ def phase_kernels() -> list[dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main",
-                    help="comma list of phases after device+build: kernels, main")
+    ap.add_argument("--phases", default="kernels,main,families",
+                    help="comma list of phases after device+build: kernels, main (phases "
+                         "4-9), families (phase 10)")
     args = ap.parse_args(argv)
     phases = {p.strip() for p in args.phases.split(",") if p.strip()}
-    if not phases <= {"kernels", "main"}:
-        ap.error(f"unknown phases {sorted(phases - {'kernels', 'main'})}")
+    known = {"kernels", "main", "families"}
+    if not phases <= known:
+        ap.error(f"unknown phases {sorted(phases - known)}")
 
     import torch
 
@@ -466,24 +492,25 @@ def main(argv=None) -> int:
     build_info = phase_build()
     kernel_rows = phase_kernels() if "kernels" in phases else []
     main_stats = phase_main() if "main" in phases else {}
+    fam_stats = phase_families() if "families" in phases else {}
 
+    # each path's own count: every one starts at 0 just before its run
+    by_path = {path: stats[key] for stats, path, key in (
+        (main_stats, "main", "flash_launches"), (main_stats, "text", "flash_launches_text"),
+        (main_stats, "options", "flash_launches_options"),
+        (main_stats, "deploy", "flash_launches_deploy"),
+        (main_stats, "pool", "flash_launches_pool"),
+        (main_stats, "continuous", "flash_launches_continuous"),
+        (fam_stats, "families", "flash_launches_families")) if stats}
     head = next((r for r in kernel_rows if r["case"] == "llama3-8b prefill"), None)
     record = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "modelx_tpu_torch/csrc/flash_attention.cu",
         "replaces": "modelx_tpu/ops/attention.py:149",
-        # null, not 0, when the serving paths did not run (--phases kernels)
-        "launches": (main_stats["flash_launches"] + main_stats["flash_launches_text"]
-                     + main_stats["flash_launches_options"] + main_stats["flash_launches_deploy"]
-                     + main_stats["flash_launches_pool"]
-                     + main_stats["flash_launches_continuous"] if main_stats else None),
-        "launches_by_path": main_stats and {"main": main_stats["flash_launches"],
-                                            "text": main_stats["flash_launches_text"],
-                                            "options": main_stats["flash_launches_options"],
-                                            "deploy": main_stats["flash_launches_deploy"],
-                                            "pool": main_stats["flash_launches_pool"],
-                                            "continuous": main_stats["flash_launches_continuous"]},
+        # null, not 0, when no serving path ran (--phases kernels)
+        "launches": sum(by_path.values()) if by_path else None,
+        "launches_by_path": by_path,
         "max_abs_err": max((r["max_abs_err"] for r in kernel_rows), default=None),
         "ms": head and head["ms"],
         "call_ms": head and head["call_ms"],
@@ -2804,13 +2831,17 @@ def _pcts(xs: list) -> tuple[float, float]:
     return float(np.percentile(a, 50)), float(np.percentile(a, 99))
 
 
-def _serve_child(ckpt: str, device: str, port: int, root: str):
-    log_path = os.path.join(root, "serve-continuous.log")
+def _serve_child(ckpt: str, device: str, port: int, root: str, name: str = MODEL,
+                 slots: int | None = None):
+    """A ``serve_main --continuous-batch`` child serving ``ckpt`` as ``name``
+    with ``slots`` slots (``CONT_SLOTS``); (the process, its log's path)
+    once it answers /healthz."""
+    log_path = os.path.join(root, f"serve-continuous-{name}.log")
     log_f = open(log_path, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-c", SERVE_CHILD, "--model", f"{MODEL}={ckpt}", "--device", device,
+        [sys.executable, "-c", SERVE_CHILD, "--model", f"{name}={ckpt}", "--device", device,
          "--dtype", "bfloat16", "--max-seq-len", str(CONT_MAX_LEN), "--listen",
-         f"127.0.0.1:{port}", "--continuous-batch", "--max-slots", str(CONT_SLOTS),
+         f"127.0.0.1:{port}", "--continuous-batch", "--max-slots", str(slots or CONT_SLOTS),
          "--prefix-cache", "4", "--stream-chunk-size", str(CONT_CHUNK), "--drain-grace", "30"],
         cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT)
     log_f.close()
@@ -2836,13 +2867,13 @@ def _engine(server, **kw):
     return ContinuousBatcher(server, chunk_size=CONT_CHUNK, max_len=CONT_MAX_LEN, **kw)
 
 
-def _engine_burst(cb, reqs: list) -> tuple[list, float]:
-    """Submit every request as one burst, in order; (new tokens per
-    request, wall seconds)."""
+def _engine_burst(cb, reqs: list, n_new: int | None = None) -> tuple[list, float]:
+    """Submit every request as one burst, in order, each for ``n_new``
+    tokens (``CONT_NEW_TOKENS``); (new tokens per request, wall seconds)."""
     import numpy as np
 
     t0 = time.monotonic()
-    tickets = cb.submit_many([(p, CONT_NEW_TOKENS, s) for p, s in reqs])
+    tickets = cb.submit_many([(p, n_new or CONT_NEW_TOKENS, s) for p, s in reqs])
     outs = [np.concatenate(list(cb._drain_row(t.out)), axis=1)[0].tolist() for t in tickets]
     return outs, time.monotonic() - t0
 
@@ -3325,6 +3356,446 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
         for cb in engines:
             _release(cb)
         _free(server)
+
+
+# -- phase 10: the other generative families -----------------------------------------
+
+FAMILY_FORWARD_LEN = 2048  # /v1/forward [1, S]; gpt2 at its n_positions
+FAMILY_PROMPT, FAMILY_NEW = 128, 32
+FAMILY_SAMPLED = {"temperature": 0.8, "seed": 17}
+# gemma2: a forward and a decode past its 4096-key sliding window
+GEMMA_LONG_FORWARD = 6144
+GEMMA_LONG_PROMPT, GEMMA_LONG_NEW = 4500, 16
+# gemma2 through the continuous engine: clients (odd ones sampled), slots,
+# and the page size of the in-process paged engines (64-token pages keep
+# the in-place loop at 17 blocks a step for a 1032-token row)
+GEMMA_ENGINE_PROMPTS = (128, 512, 1000, 128)
+GEMMA_ENGINE_SLOTS, GEMMA_PAGE_SIZE = 4, 64
+# Mixtral-8x7B's depth cut: all 32 layers take 93.4 GB in bf16, more than
+# the card's 80; every layer is of one kind, so 4 keep the pattern
+MIXTRAL_LAYERS = 4
+
+
+def family_configs() -> list:
+    """(family, config) of each checkpoint the phase writes, in order:
+    Gemma-2-9B, Phi-3-mini-4k (head_dim 96), Mixtral-8x7B at
+    ``MIXTRAL_LAYERS`` layers, GPT-2 125M; every one bf16."""
+    import dataclasses
+
+    import torch
+
+    from modelx_tpu_torch.models import gemma2, gpt2, llama, mixtral
+
+    phi3_mini = llama.LlamaConfig(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                                  num_layers=32, num_heads=32, num_kv_heads=32, head_dim=96,
+                                  rope_theta=10000.0, rms_eps=1e-5)
+    return [
+        ("gemma2", gemma2.Gemma2Config.gemma2_9b()),
+        ("phi3", phi3_mini),
+        ("mixtral", dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                                        num_layers=MIXTRAL_LAYERS)),
+        ("gpt2", dataclasses.replace(gpt2.GPT2Config.gpt2_125m(), dtype=torch.bfloat16)),
+    ]
+
+
+def hf_expert_layout(params: dict) -> dict:
+    """Stacked ``...experts.wN.weight`` [E, ...] tensors as HF's per-expert
+    ``...experts.<i>.wN.weight`` entries (views), the layout the loader
+    folds back (``dl/loader.fuse_expert_tensors``)."""
+    out = {}
+    for name, t in params.items():
+        m = re.match(r"^(.+\.experts)\.(w[123])\.weight$", name)
+        if m:
+            out.update({f"{m.group(1)}.{i}.{m.group(2)}.weight": t[i] for i in range(t.shape[0])})
+        else:
+            out[name] = t
+    return out
+
+
+def _kernel_vs_plain(server, module, tokens, got: list, what: str) -> str:
+    """The kernel path's argmax (``got``, from /v1/forward) against the same
+    forward through the plain attention on the same device: equal, or each
+    differing position's token within ``OPTIONS_TIE_TOL`` of the plain
+    logits' maximum there."""
+    import torch
+
+    def plain():
+        with torch.inference_mode():
+            t = torch.as_tensor(tokens, dtype=torch.int64).to(server.device)
+            logits = module.forward(server.params, t, server.cfg, attention_impl="reference")[0]
+            g = torch.as_tensor(got, dtype=torch.int64).to(server.device)
+            gaps = logits.max(-1).values.float() - logits.gather(-1, g[..., None])[..., 0].float()
+            finite = bool(torch.isfinite(logits).all())
+            return (logits.argmax(-1) != g).sum().item(), gaps.max().item(), finite
+
+    n_diff, worst, finite = _uncounted(plain)
+    if not finite:
+        raise RuntimeError(f"{what}: non-finite logits through the plain attention")
+    if worst > OPTIONS_TIE_TOL:
+        raise RuntimeError(f"{what}: {n_diff} positions differ from the plain attention's "
+                           f"argmax, one {worst:.4f} below its maximum (tolerance "
+                           f"{OPTIONS_TIE_TOL})")
+    return ("equal to the plain attention's argmax" if n_diff == 0 else
+            f"{n_diff} positions differ from the plain attention's argmax, each within "
+            f"{worst:.4f} of its maximum")
+
+
+def _layer0_attention_vs_plain(server, tokens, what: str) -> str:
+    """Mixtral: the top-2 router turns a bf16 rounding difference between
+    two attention paths into another expert, so their logits are not
+    near-ties of each other. The kernel is held instead on layer 0's own
+    q, k and v against the plain version in fp32, within the kernels
+    phase's bf16 tolerance (``TOL``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from modelx_tpu_torch.models import llama
+    from modelx_tpu_torch.ops import attention as attn
+    from modelx_tpu_torch.ops.nn import linear
+
+    cfg, p = server.cfg, server.params
+
+    def compare():
+        with torch.inference_mode():
+            t = torch.as_tensor(tokens, dtype=torch.int64).to(server.device)
+            b, s = t.shape
+            positions = llama.positions_for(t, False)
+            x = F.embedding(t, p["model.embed_tokens.weight"]).to(cfg.dtype)
+            h = llama._rms_norm(x, p["model.layers.0.input_layernorm.weight"], cfg.rms_eps)
+            qkv = []
+            for name, heads in (("q", cfg.num_heads), ("k", cfg.num_kv_heads),
+                                ("v", cfg.num_kv_heads)):
+                y = linear(h, p[f"model.layers.0.self_attn.{name}_proj.weight"])
+                y = y.reshape(b, s, heads, cfg.head_dim)
+                y = y if name == "v" else llama._rope(y, positions, cfg.rope_theta)
+                qkv.append(y.transpose(1, 2).contiguous())
+            out = attn.flash_attention(*qkv, causal=True).float()
+            ref = attn.attention_reference(*(y.float() for y in qkv), causal=True)
+            atol, rtol = TOL["bfloat16"]
+            diff = (out - ref).abs()
+            return float(diff.max()), bool((diff <= atol + rtol * ref.abs()).all())
+
+    err, ok = _uncounted(compare)
+    if not ok:
+        raise RuntimeError(f"{what}: layer 0's attention through the kernel differs from the "
+                           f"plain version by {err:.3e}")
+    return f"layer 0's attention within the bf16 tolerance of the plain version ({err:.3e})"
+
+
+def phase_families(device: str = "cuda", configs: list | None = None) -> dict:
+    """The other generative families (module docstring, phase 10): one
+    seeded random checkpoint at a time (``family_configs``), written with
+    the port's writer, served by ``serve_main``, and deleted before the
+    next. Its flash launches are counted from 0."""
+    import gc
+    import importlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.ops import attention as attn
+
+    on_card = device == "cuda"
+    stats: dict = {}
+    attn.flash_attention.launches = 0  # the families path's own count
+    child_flash = 0
+    for seed, (name, cfg) in enumerate(configs or family_configs()):
+        module = importlib.import_module(f"modelx_tpu_torch.models.{name}")
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        nbytes = 2 * sum(math.prod(s) for s in module.param_shapes(cfg).values())
+        ckpt = _checkpoint_dir(nbytes)
+        httpd = proc = None
+        servers = []
+        try:
+            t0 = time.monotonic()
+            params = module.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                        dtype=torch.bfloat16)
+            w1 = "model.layers.0.block_sparse_moe.experts.w1.weight"
+            written = hf_expert_layout(params) if name == "mixtral" else params
+            st.write_safetensors(os.path.join(ckpt, "model.safetensors"), written)
+            stacked = params[w1] if name == "mixtral" else None
+            del params, written
+            log(f"families: {name}: wrote a seeded random checkpoint ({cfg}; {nbytes / 1e9:.3f} "
+                f"GB{', HF per-expert layout' if name == 'mixtral' else ''}) in "
+                f"{time.monotonic() - t0:.1f} s")
+
+            launches0 = attn.flash_attention.launches
+            has_kernel = name != "gpt2"  # gpt2's attention is the plain reference, as in JAX
+            per_forward = cfg.num_layers if on_card and has_kernel else 0
+            port = _free_port()
+            sset, httpd = serve_main.start([
+                "--model", f"{name}={ckpt}", "--listen", f"127.0.0.1:{port}", "--device", device,
+                "--dtype", "bfloat16", "--max-seq-len", str(CONT_MAX_LEN)])
+            server = sset.servers[name]
+            servers.append(server)
+            if server.cfg != cfg:
+                raise RuntimeError(f"families: {name}: inferred config {server.cfg} is not the "
+                                   f"written {cfg}")
+            if stacked is not None:
+                if not torch.equal(server.params[w1], stacked):
+                    raise RuntimeError("families: mixtral: the loader's fused expert tensor "
+                                       "differs from the per-expert tensors written")
+                del stacked
+            s = server.stats
+            stats[f"fam_{name}_load_gbps"] = s["load_gbps"]
+            rng = torch.Generator().manual_seed(100 + seed)
+            flen = min(FAMILY_FORWARD_LEN, getattr(cfg, "n_positions", FAMILY_FORWARD_LEN))
+            tokens = torch.randint(0, cfg.vocab_size, (1, flen), generator=rng).tolist()
+            fwd_ms = []
+            for _ in range(2):
+                before = attn.flash_attention.launches
+                t0 = time.monotonic()
+                status, body = _http(port, "/v1/forward", {"tokens": tokens})
+                fwd_ms.append((time.monotonic() - t0) * 1e3)
+                if status != 200 or np.asarray(body["logits_argmax"]).shape != (1, flen):
+                    raise RuntimeError(f"families: {name}: /v1/forward answered {status} "
+                                       f"{str(body)[:300]}")
+                if attn.flash_attention.launches - before != per_forward:
+                    raise RuntimeError(f"families: {name}: /v1/forward launched the kernel "
+                                       f"{attn.flash_attention.launches - before} times, want "
+                                       f"{per_forward}")
+            got = body["logits_argmax"]
+            stats[f"fam_{name}_forward_ms"] = fwd_ms[1]
+            if name == "mixtral":
+                vs_plain = _layer0_attention_vs_plain(server, tokens, "families: mixtral")
+            elif has_kernel:
+                vs_plain = _kernel_vs_plain(server, module, tokens, got, f"families: {name}")
+            else:
+                vs_plain = "none on this family's path"
+
+            prompt = torch.randint(0, cfg.vocab_size, (1, FAMILY_PROMPT), generator=rng).tolist()
+            body = {"tokens": prompt, "max_new_tokens": FAMILY_NEW}
+            before = attn.flash_attention.launches
+            t0 = time.monotonic()
+            status, out = _http(port, "/v1/generate", body)
+            secs = time.monotonic() - t0
+            if status != 200 or len(out["tokens"][0]) != FAMILY_PROMPT + FAMILY_NEW:
+                raise RuntimeError(f"families: {name}: /v1/generate answered {status} "
+                                   f"{str(out)[:300]}")
+            greedy = out["tokens"][0][FAMILY_PROMPT:]
+            stats[f"fam_{name}_greedy_tps"] = FAMILY_NEW / secs
+            streamed, _, _ = _stream(port, body)
+            if streamed != greedy:
+                raise RuntimeError(f"families: {name}: the NDJSON stream differs from the "
+                                   f"whole answer")
+            sampled = [_sampled(port, {**body, **FAMILY_SAMPLED}, FAMILY_PROMPT, FAMILY_NEW)[0]
+                       for _ in range(2)]
+            if sampled[0] != sampled[1]:
+                raise RuntimeError(f"families: {name}: a seeded sampled request did not repeat")
+            if attn.flash_attention.launches != before:
+                raise RuntimeError(f"families: {name}: generation launched the cache-free "
+                                   f"kernel")
+            log(f"families: {name}: load {s['load_bytes'] / 1e9:.3f} GB in {s['load_seconds']} s, "
+                f"{s['load_gbps']} GB/s; /v1/forward [1,{flen}] {fwd_ms[1]:.1f} ms (first "
+                f"{fwd_ms[0]:.1f}), kernel {vs_plain}; greedy {FAMILY_PROMPT} + {FAMILY_NEW} "
+                f"{stats[f'fam_{name}_greedy_tps']:.1f} tokens/s; the stream == the whole "
+                f"answer; a seeded sampled request repeats")
+
+            extra = {"gemma2": _gemma2_extra, "phi3": _phi3_extra,
+                     "gpt2": _gpt2_extra}.get(name)
+            if extra is not None:
+                stats_x, child, httpd = extra(sset, httpd, server, module, cfg, ckpt, device,
+                                             per_forward, rng)
+                stats.update(stats_x)
+                child_flash += child
+            stats[f"fam_{name}_launches"] = attn.flash_attention.launches - launches0
+            log(f"families: {name}: flash_attention launches {stats[f'fam_{name}_launches']}"
+                f" in-process{f', {child} in the engine child' if name == 'gemma2' else ''}")
+        finally:
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+            _free(*servers)
+            shutil.rmtree(ckpt, ignore_errors=True)
+    stats["flash_launches_families"] = attn.flash_attention.launches + child_flash
+    return stats
+
+
+def _gemma2_extra(sset, httpd, server, module, cfg, ckpt, device, per_forward, rng):
+    """gemma2 past its sliding window, and through the continuous engine:
+    a [1, GEMMA_LONG_FORWARD] forward held against the plain attention; a
+    GEMMA_LONG_PROMPT decode through the windowed dense cache, each token
+    within ``OPTIONS_TIE_TOL`` of a cache-free forward's maximum on its own
+    prefix; a ``--continuous-batch`` child and in-process gather and
+    in-place paged engines against the plain path."""
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.ops import attention as attn
+
+    stats: dict = {}
+    port = httpd.server_address[1]
+    tokens = torch.randint(0, cfg.vocab_size, (1, GEMMA_LONG_FORWARD), generator=rng).tolist()
+    before = attn.flash_attention.launches
+    t0 = time.monotonic()
+    status, body = _http(port, "/v1/forward", {"tokens": tokens})
+    stats["fam_gemma2_long_forward_ms"] = (time.monotonic() - t0) * 1e3
+    if status != 200 or attn.flash_attention.launches - before != per_forward:
+        raise RuntimeError(f"families: gemma2: /v1/forward [1,{GEMMA_LONG_FORWARD}] answered "
+                           f"{status}, {attn.flash_attention.launches - before} launches")
+    v = _kernel_vs_plain(server, module, tokens, body["logits_argmax"], "families: gemma2 long")
+    log(f"families: gemma2: /v1/forward [1,{GEMMA_LONG_FORWARD}] (window {cfg.sliding_window} "
+        f"on the {(cfg.num_layers + 1) // 2} even layers) "
+        f"{stats['fam_gemma2_long_forward_ms']:.1f} ms; {v}")
+
+    prompt = torch.randint(0, cfg.vocab_size, (GEMMA_LONG_PROMPT,), generator=rng).tolist()
+    status, out = _http(port, "/v1/generate", {"tokens": [prompt],
+                                               "max_new_tokens": GEMMA_LONG_NEW})
+    if status != 200:
+        raise RuntimeError(f"families: gemma2: the long generate answered {status} {out}")
+    new = out["tokens"][0][GEMMA_LONG_PROMPT:]
+
+    def prefix_gaps():
+        with torch.inference_mode():
+            t = torch.tensor([prompt + new[:-1]], device=server.device)
+            logits = server.family.forward(server.params, t, server.cfg)[0, len(prompt) - 1:]
+            g = torch.tensor(new, device=server.device)
+            return (logits.max(-1).values.float()
+                    - logits.gather(-1, g[:, None])[:, 0].float()).tolist()
+
+    gaps = _uncounted(prefix_gaps)
+    if max(gaps) > OPTIONS_TIE_TOL:
+        raise RuntimeError(f"families: gemma2: a token of the {GEMMA_LONG_PROMPT}-token decode "
+                           f"lies {max(gaps):.4f} below the cache-free maximum on its prefix")
+    log(f"families: gemma2: {GEMMA_LONG_PROMPT}-token prompt + {GEMMA_LONG_NEW} greedy through "
+        f"the windowed dense cache: every token within {max(gaps):.4f} of the cache-free "
+        f"forward's maximum on its own prefix ({sum(g == 0 for g in gaps)} of "
+        f"{len(gaps)} the maximum)")
+
+    # the continuous engine: a serve_main child, then in-process paged engines
+    reqs = []
+    for i, plen in enumerate(GEMMA_ENGINE_PROMPTS):
+        p = torch.randint(0, cfg.vocab_size, (plen,), generator=rng).tolist()
+        reqs.append((p, {} if i % 2 == 0 else {"temperature": 0.8, "seed": 200 + i}))
+    want = [server.generate(np.asarray([p], np.int32), max_new_tokens=FAMILY_NEW, **s)
+            [0, len(p):].tolist() for p, s in reqs]
+    httpd.shutdown()  # the child loads its own copy; the in-process server stays
+    httpd.server_close()
+    child_port = _free_port()
+    proc, child_log = _serve_child(ckpt, device, child_port, ckpt, name="gemma2",
+                                   slots=GEMMA_ENGINE_SLOTS)
+    try:
+        answers = [None] * len(reqs)
+
+        def client(i):
+            p, samp = reqs[i]
+            answers[i] = _post(child_port, "/v1/generate", {"tokens": [p],
+                                                            "max_new_tokens": FAMILY_NEW, **samp})
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(reqs))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        stats["fam_gemma2_engine_tps"] = FAMILY_NEW * len(reqs) / (time.monotonic() - t0)
+        verdicts = []
+        for i, ((p, samp), ans) in enumerate(zip(reqs, answers)):
+            if ans is None or ans[0] != 200:
+                raise RuntimeError(f"families: gemma2: engine client {i} answered "
+                                   f"{ans and ans[:3:2]}")
+            got = json.loads(ans[2])["tokens"][0][len(p):]
+            verdicts.append(check_near_ties(server, p, got, want[i],
+                                            f"families: gemma2 engine client {i}", samp))
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=120) != 0:
+            raise RuntimeError(f"families: gemma2: the engine child exited {proc.returncode}: "
+                               f"{open(child_log).read()[-3000:]}")
+        counts = re.findall(r"^FLASH_LAUNCHES (\d+)$", open(child_log).read(), re.M)
+        child = int(counts[-1]) if counts else -1
+        if child != per_forward:
+            raise RuntimeError(f"families: gemma2: the engine child launched the kernel {child} "
+                               f"times, want its warm-up's {per_forward}")
+        proc = None
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    log(f"families: gemma2: serve_main --continuous-batch --max-slots {GEMMA_ENGINE_SLOTS}, "
+        f"{len(reqs)} clients (prompts {list(GEMMA_ENGINE_PROMPTS)} + {FAMILY_NEW}, odd ones "
+        f"sampled) at once: {stats['fam_gemma2_engine_tps']:.1f} tokens/s; against the plain "
+        f"path: {verdicts}")
+
+    outs = {}
+    for mode in ("gather", "in-place"):
+        cb = _engine(server, max_slots=GEMMA_ENGINE_SLOTS, page_size=GEMMA_PAGE_SIZE,
+                     max_live_tokens=GEMMA_ENGINE_SLOTS * CONT_MAX_LEN, paged_attention=mode)
+        try:
+            before = attn.flash_attention.launches
+            outs[mode], secs = _engine_burst(cb, reqs, FAMILY_NEW)
+            if attn.flash_attention.launches != before:
+                raise RuntimeError(f"families: gemma2: the {mode} engine launched the kernel")
+            stats[f"fam_gemma2_tps_{mode}"] = FAMILY_NEW * len(reqs) / secs
+        finally:
+            _release(cb)
+    inplace = ["equal" if a == b else check_near_ties(
+                   server, p, a, w, f"families: gemma2 in-place request {i}", s)
+               for i, ((p, s), a, b, w) in enumerate(zip(reqs, outs["in-place"], outs["gather"],
+                                                         want))]
+    log(f"families: gemma2: paged engines ({GEMMA_PAGE_SIZE}-token pages): gather "
+        f"{stats['fam_gemma2_tps_gather']:.1f} tokens/s, in place "
+        f"{stats['fam_gemma2_tps_in-place']:.1f}; in place against gather: {inplace}")
+    return stats, child, None
+
+
+def _phi3_extra(sset, httpd, server, module, cfg, ckpt, device, per_forward, rng):
+    """Phi-3 int8: a ``--quantize int8`` server's /v1/forward runs the kernel
+    (head_dim 96) once a layer."""
+    import torch
+
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.ops import attention as attn
+
+    httpd.shutdown()
+    httpd.server_close()
+    _free(server)
+    port = _free_port()
+    sset, httpd = serve_main.start([
+        "--model", f"phi3={ckpt}", "--listen", f"127.0.0.1:{port}", "--device", device,
+        "--dtype", "bfloat16", "--quantize", "int8"])
+    q = sset.servers["phi3"]
+    tokens = torch.randint(0, cfg.vocab_size, (1, FAMILY_FORWARD_LEN), generator=rng).tolist()
+    before = attn.flash_attention.launches
+    t0 = time.monotonic()
+    status, body = _http(port, "/v1/forward", {"tokens": tokens})
+    ms = (time.monotonic() - t0) * 1e3
+    rose = attn.flash_attention.launches - before
+    if status != 200 or rose != per_forward:
+        raise RuntimeError(f"families: phi3 int8: /v1/forward answered {status}, {rose} launches "
+                           f"(want {per_forward})")
+    _free(q)
+    log(f"families: phi3: --quantize int8 ({q.stats['device_bytes'] / 1e9:.3f} GB on the "
+        f"device): /v1/forward [1,{FAMILY_FORWARD_LEN}] {ms:.1f} ms, {rose} launches")
+    return {"fam_phi3_int8_forward_ms": ms}, 0, httpd
+
+
+def _gpt2_extra(sset, httpd, server, module, cfg, ckpt, device, per_forward, rng):
+    """gpt2's learned positions: a prompt past ``n_positions`` answers the
+    JAX sidecar's 400 on /v1/forward, and prompt + max_new_tokens past it on
+    /v1/generate."""
+    port = httpd.server_address[1]
+    n = cfg.n_positions
+    checks = (("/v1/forward", {"tokens": [[1] * (n + 1)]},
+               f"prompt length {n + 1} exceeds the model's {n}-position context"),
+              ("/v1/generate", {"tokens": [[1] * (n - 8)], "max_new_tokens": 16},
+               f"prompt ({n - 8}) + max_new_tokens (16) exceeds the model's {n}-position "
+               f"context"))
+    for path, body, want in checks:
+        status, out = _http(port, path, body)
+        if status != 400 or out != {"error": want}:
+            raise RuntimeError(f"families: gpt2: {path} past n_positions answered {status} {out}")
+    log(f"families: gpt2: prompts past n_positions {n} answer 400 on /v1/forward and "
+        f"/v1/generate, the JAX sidecar's bodies")
+    return {}, 0, httpd
 
 
 if __name__ == "__main__":

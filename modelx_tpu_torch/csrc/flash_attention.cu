@@ -17,7 +17,7 @@
 // At [4, 32, 512, 128] the work is 4x smaller per byte and bytes bound it
 // (~12.5 us against ~9 us of operations).
 //
-// bf16 (D = 64, 128, 256; the serving path) runs on the tensor cores:
+// bf16 (D = 64, 96, 128, 256; the serving path) runs on the tensor cores:
 // - 3 warpgroups a block: warpgroup 0 is the producer (one thread issues
 //   every TMA load; the group gives its registers away with setmaxnreg, 24
 //   a thread, to the consumers' 240), warpgroups 1 and 2 each own 64 rows
@@ -44,6 +44,12 @@
 //   kept per thread and reduced once at the end. scale*log2(e) folds into
 //   the exp2's FFMA; the scale is applied to fp32 S, not to q. Only
 //   diagonal, window-edge and ragged tiles pay for the mask;
+// - D = 96 (Phi-3-mini) runs as the D = 128 tile: the tensor maps' inner
+//   extent is 96, so the second 64-column box of every row lands with its
+//   columns 96-127 zero-filled by TMA. Q K^T takes only the D / 16 = 6
+//   k16 steps that hold real columns; P V computes 128 output columns, of
+//   which 96-127 are exact zeros, and the store writes the first 96. The
+//   padding costs a quarter of the P V product's tensor-core work;
 // - tiles: BK = 128 keys for D <= 128, 64 for D = 256. Shared memory:
 //   q 128*D*2 B + 2 stages * (k + v) BK*D*2 B each = 80 KB at D = 64,
 //   160 KB at D = 128 and 192 KB at D = 256 (the card allows 227 KB);
@@ -288,13 +294,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
-  static constexpr int BK = D <= 128 ? 128 : 64;  // keys per kv tile
+  static constexpr int DP = (D + 63) / 64 * 64;   // columns in shared memory (96 -> 128)
+  static constexpr int BK = DP <= 128 ? 128 : 64; // keys per kv tile
   static constexpr int STAGES = 2;                // depth of the kv ring
-  static constexpr int NB = D / 64;               // 128-byte column boxes per row
+  static constexpr int NB = DP / 64;              // 128-byte column boxes per row
   static constexpr int Q_BOX = 64 * 128;          // one box: 64 rows x 64 columns
-  static constexpr int Q_BYTES = WG_BQ * D * 2;
+  static constexpr int Q_BYTES = WG_BQ * DP * 2;
   static constexpr int KV_BOX = BK * 128;         // one box: BK rows x 64 columns
-  static constexpr int KV_BYTES = BK * D * 2;     // a k or a v tile
+  static constexpr int KV_BYTES = BK * DP * 2;    // a k or a v tile (zero columns included)
   // q_full, q_empty, then k_full, v_full, k_empty, v_empty for each stage
   static constexpr int BAR_BYTES = 8 * (2 + 4 * STAGES);
   // 1024: slack to put the tiles on a 1024-byte boundary (the swizzle's period)
@@ -397,6 +404,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                int window) {
   using T = Tile<D>;
   constexpr int BKT = T::BK;
+  constexpr int DP = T::DP;
   constexpr int S = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (mx::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -484,7 +492,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 
     // per tile: this warpgroup's first row, this thread's two rows
     int qw0 = 0, qpos0 = 0, qpos1 = 0;
-    float acc[D / 2];
+    float acc[DP / 2];            // O, zero past column D
     float m0, m1;                 // running max of rows qpos0, qpos1 (log2 units)
     float l0, l1;                 // this thread's share of their row sums
     float sc[BKT / 2];            // S of one tile, then its p = exp2(x - m) in place
@@ -493,7 +501,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     float alpha0 = 1.f, alpha1 = 1.f;
 
     // S = Q K^T for the tile in stage s: D/16 steps of m64nBKk16 (the first
-    // overwrites sc), committed as one wgmma group and not waited for
+    // overwrites sc; columns past D are zeros and take no step), committed
+    // as one wgmma group and not waited for
     auto issue_qk = [&](int s) {
       mx::fence_regs(sc);
       mx::wgmma_fence();
@@ -507,7 +516,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       mx::wgmma_commit();
     };
 
-    // O += P V for the tile in stage s: BK/16 steps of m64nDk16, each twice
+    // O += P V for the tile in stage s: BK/16 steps of m64nDPk16, each twice
     // (P's high and low bf16 terms), P from registers
     auto issue_pv = [&](int s) {
       mx::fence_regs(acc);
@@ -517,8 +526,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 #pragma unroll
       for (int kk = 0; kk < BKT / 16; ++kk) {
         const uint64_t db = mx::sw128_desc(sV + s * T::KV_BYTES + kk * 16 * 128, T::KV_BOX, 1024);
-        mma_pv<D>(acc, ph[kk], db);
-        mma_pv<D>(acc, pl[kk], db);
+        mma_pv<DP>(acc, ph[kk], db);
+        mma_pv<DP>(acc, pl[kk], db);
       }
       mx::wgmma_commit();
     };
@@ -623,7 +632,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     auto rescale_o = [&]() {
       if (__all_sync(0xffffffffu, alpha0 == 1.f && alpha1 == 1.f)) return;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DP / 8; ++i) {
         acc[4 * i + 0] *= alpha0;
         acc[4 * i + 1] *= alpha0;
         acc[4 * i + 2] *= alpha1;
@@ -658,7 +667,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       qpos0 = qw0 + row;
       qpos1 = qpos0 + 8;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
       m0 = m1 = -INFINITY;
       l0 = l1 = 0.f;
       const int n = c.ntiles;
@@ -719,7 +728,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       }
       kv_count += n;
 
-      // epilogue: finish the row sums across the quad, divide, store the rows below Sq
+      // epilogue: finish the row sums across the quad, divide, store the
+      // rows below Sq and the columns below D
       l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -769,7 +779,8 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A contiguous bf16 [BH, S, D] tensor as a 3-D map (D, S, BH), boxes of
-// 64 columns x `rows` rows x 1 head, 128-byte swizzle, zeros outside.
+// 64 columns x `rows` rows x 1 head, 128-byte swizzle, zeros outside (past
+// S, and past D when D is not a multiple of 64: D = 96's second box).
 bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int D, int S, int BH,
               int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
@@ -858,6 +869,8 @@ extern "C" int mx_flash_attention(const void* q, const void* k, const void* v, v
   switch (D) {
     case 64:
       return (int)launch<64>(dtype, q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, s);
+    case 96:
+      return (int)launch<96>(dtype, q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, s);
     case 128:
       return (int)launch<128>(dtype, q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, s);
     case 256:

@@ -3,9 +3,9 @@
 
 Counterpart of ``modelx_tpu/dl/families.py``. The checkpoint describes
 itself: ``infer_config`` recovers the architecture from tensor shapes and
-``apply_sidecar_config`` reconciles it with a pulled ``config.json``. This
-slice registers ``llama`` and ``qwen2``; the other families the JAX package
-serves raise "not yet ported".
+``apply_sidecar_config`` reconciles it with a pulled ``config.json``. The
+generative families are registered (llama, qwen2, phi3, gemma2, mixtral,
+gpt2); bert, the JAX package's encoder, raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ import torch
 
 from modelx_tpu_torch.dl.sharding import infer_family
 
-# families the JAX package serves that later slices port
-NOT_YET_PORTED = ("gemma2", "phi3", "mixtral", "gpt2", "bert")
+# families the JAX package serves that a later slice ports
+NOT_YET_PORTED = ("bert",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,38 +110,157 @@ def infer_qwen2_config(params: dict):
     return dataclasses.replace(cfg, qkv_bias=True, rms_eps=1e-6, rope_theta=1_000_000.0)
 
 
-def _llama_forward(params, tokens, cfg):
+# -- phi3 ---------------------------------------------------------------------
+
+
+def infer_phi3_config(params: dict):
+    """Phi-3's fused shapes: qkv rows = q + 2*kv with q == hidden in every
+    released dense variant (mini 32 x 96, medium 40 x 128). head_dim:
+    medium's GQA (kv rows != hidden) means 128; mini's MHA means hidden/32
+    = 96. Returns a ``llama.LlamaConfig`` (the module reuses llama's
+    decoder). rope_theta 10000 is the 4k variants'; the 128k variants'
+    longrope scaling leaves no trace in shapes, and
+    ``apply_sidecar_config`` refuses it from the pulled config.json."""
     from modelx_tpu_torch.models import llama
 
-    return llama.forward(params, tokens, cfg)[0]
+    vocab, hidden = _shape(params, "model.embed_tokens.weight")
+    layers = 0
+    while f"model.layers.{layers}.self_attn.qkv_proj.weight" in params:
+        layers += 1
+    qkv_rows = _shape(params, "model.layers.0.self_attn.qkv_proj.weight")[0]
+    inter = _shape(params, "model.layers.0.mlp.gate_up_proj.weight")[0] // 2
+    kv_rows = (qkv_rows - hidden) // 2
+    if hidden <= 512:  # toy checkpoints: 4 q heads by convention
+        head_dim = max(hidden // 4, 8)
+    elif kv_rows != hidden:  # GQA (phi-3-medium): 128 everywhere released
+        head_dim = 128
+    else:  # MHA (phi-3-mini): 32 heads of hidden/32
+        head_dim = hidden // 32
+    return llama.LlamaConfig(
+        vocab_size=vocab, hidden_size=hidden, intermediate_size=inter,
+        num_layers=layers, num_heads=hidden // head_dim,
+        num_kv_heads=kv_rows // head_dim, head_dim=head_dim,
+        rope_theta=10000.0, rms_eps=1e-5, tie_embeddings=False,
+        dtype=_act_dtype(params, "model.embed_tokens.weight"),
+    )
 
 
-def _llama_generate_ragged(params, tokens, row_lens, cfg, max_new_tokens=16, **sampling):
-    from modelx_tpu_torch.models import llama
-
-    return llama.ragged_greedy_generate(params, tokens, row_lens, cfg,
-                                        max_new_tokens=max_new_tokens, **sampling)
+# -- gemma2 -------------------------------------------------------------------
 
 
-def _llama_decode_fns(params, cfg):
-    from modelx_tpu_torch.models import llama
+def infer_gemma2_config(params: dict):
+    """Gemma2's shapes are llama-like; head_dim is 256 in every released
+    checkpoint but 27b's (hidden 4608: head_dim 128, query_pre_attn_scalar
+    hidden/heads = 144 instead of head_dim). The softcaps and the 4096
+    sliding window are architecture constants that shapes cannot reveal."""
+    from modelx_tpu_torch.models import gemma2
 
-    return llama.decode_fns(params, cfg)
+    vocab, hidden = _shape(params, "model.embed_tokens.weight")
+    layers = 0
+    while f"model.layers.{layers}.self_attn.q_proj.weight" in params:
+        layers += 1
+    q = _shape(params, "model.layers.0.self_attn.q_proj.weight")[0]
+    kv = _shape(params, "model.layers.0.self_attn.k_proj.weight")[0]
+    inter = _shape(params, "model.layers.0.mlp.gate_proj.weight")[0]
+    if hidden <= 512:  # toy checkpoints
+        head_dim, qpas, window = 32, 32.0, 16
+    elif hidden >= 4608:  # gemma2-27b
+        head_dim, window = 128, 4096
+        qpas = float(hidden // (q // head_dim))
+    else:  # 2b / 9b
+        head_dim, qpas, window = 256, 256.0, 4096
+    return gemma2.Gemma2Config(
+        vocab_size=vocab, hidden_size=hidden, intermediate_size=inter,
+        num_layers=layers, num_heads=q // head_dim,
+        num_kv_heads=kv // head_dim, head_dim=head_dim,
+        query_pre_attn_scalar=qpas, sliding_window=window,
+        dtype=_act_dtype(params, "model.embed_tokens.weight"),
+    )
 
 
-def _llama_paged_decode_fns(params, cfg):
-    from modelx_tpu_torch.models import llama
+# -- mixtral ------------------------------------------------------------------
 
-    return llama.paged_decode_fns(params, cfg)
+
+def infer_mixtral_config(params: dict):
+    """Mixtral's stacked expert shapes ([E, F, D], folded by the loader)
+    give the expert count and width; top-2 routing and rope theta 1e6 are
+    the config's defaults."""
+    from modelx_tpu_torch.models import mixtral
+
+    vocab, hidden = _shape(params, "model.embed_tokens.weight")
+    layers = 0
+    while f"model.layers.{layers}.self_attn.q_proj.weight" in params:
+        layers += 1
+    q = _shape(params, "model.layers.0.self_attn.q_proj.weight")[0]
+    kv = _shape(params, "model.layers.0.self_attn.k_proj.weight")[0]
+    num_experts, inter, _ = _shape(params, "model.layers.0.block_sparse_moe.experts.w1.weight")
+    head_dim = 128 if q % 128 == 0 and q // 128 >= 8 else max(q // 32, 32)
+    if hidden <= 512:
+        head_dim = 32
+    return mixtral.MixtralConfig(
+        vocab_size=vocab, hidden_size=hidden, intermediate_size=inter,
+        num_layers=layers, num_heads=q // head_dim, num_kv_heads=kv // head_dim,
+        head_dim=head_dim, num_experts=num_experts,
+        dtype=_act_dtype(params, "model.embed_tokens.weight"),
+    )
+
+
+# -- gpt2 ---------------------------------------------------------------------
+
+
+def infer_gpt2_config(params: dict):
+    """GPT-2: hidden/64 heads (4 for toy checkpoints); ``n_positions`` is
+    the learned position table's length."""
+    from modelx_tpu_torch.models import gpt2
+
+    vocab, hidden = _shape(params, "wte.weight")
+    n_pos = _shape(params, "wpe.weight")[0]
+    layers = 0
+    while f"h.{layers}.attn.c_attn.weight" in params:
+        layers += 1
+    num_heads = max(hidden // 64, 1)
+    if hidden <= 128:  # toy checkpoints
+        num_heads = 4
+    return gpt2.GPT2Config(
+        vocab_size=vocab, n_positions=n_pos, hidden_size=hidden,
+        num_layers=layers, num_heads=num_heads,
+        dtype=_act_dtype(params, "wte.weight"),
+    )
+
+
+def _family(module: str) -> tuple:
+    """(forward, generate_ragged, decode_fns, paged_decode_fns) adapters of
+    ``modelx_tpu_torch.models.<module>``, imported on first call."""
+    import importlib
+
+    def mod():
+        return importlib.import_module(f"modelx_tpu_torch.models.{module}")
+
+    def forward(params, tokens, cfg):
+        return mod().forward(params, tokens, cfg)[0]
+
+    def generate_ragged(params, tokens, row_lens, cfg, max_new_tokens=16, **sampling):
+        return mod().ragged_greedy_generate(params, tokens, row_lens, cfg,
+                                            max_new_tokens=max_new_tokens, **sampling)
+
+    def decode_fns(params, cfg):
+        return mod().decode_fns(params, cfg)
+
+    def paged_decode_fns(params, cfg):
+        return mod().paged_decode_fns(params, cfg)
+
+    return forward, generate_ragged, decode_fns, paged_decode_fns
 
 
 FAMILIES: dict[str, Family] = {
-    "llama": Family("llama", infer_llama_config, _llama_forward,
-                    _llama_generate_ragged, _llama_decode_fns, _llama_paged_decode_fns),
+    "llama": Family("llama", infer_llama_config, *_family("llama")),
     # qwen2 differs only in config (biases ride the param dict), so every
     # llama entry point serves it unchanged
-    "qwen2": Family("qwen2", infer_qwen2_config, _llama_forward,
-                    _llama_generate_ragged, _llama_decode_fns, _llama_paged_decode_fns),
+    "qwen2": Family("qwen2", infer_qwen2_config, *_family("llama")),
+    "phi3": Family("phi3", infer_phi3_config, *_family("phi3")),
+    "gemma2": Family("gemma2", infer_gemma2_config, *_family("gemma2")),
+    "mixtral": Family("mixtral", infer_mixtral_config, *_family("mixtral")),
+    "gpt2": Family("gpt2", infer_gpt2_config, *_family("gpt2")),
 }
 
 

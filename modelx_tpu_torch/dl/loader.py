@@ -17,7 +17,9 @@ while remote reads show headroom. The bytes are viewed as the tensor's
 dtype on the device, so BF16 never passes through numpy. ``quantize=
 "int8"`` turns the big matmul weights into ``QTensor``s on the device,
 tensor by tensor as they complete: the link carries the checkpoint's bytes
-and device memory keeps the int8 codes. One card, no mesh.
+and device memory keeps the int8 codes. HF's per-expert MoE tensors
+(``...experts.<i>.w1.weight``) load as one stacked [E, ...] tensor read
+from the members' byte ranges (``fuse_expert_tensors``). One card, no mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import dataclasses
 import http.client
 import os
 import queue
+import re
 import struct
 import threading
 import time
@@ -328,6 +331,54 @@ class _Staging:
         self.stream.synchronize()
 
 
+_EXPERT_NAME = re.compile(r"^(.+\.experts)\.(\d+)\.(.+)$")
+
+
+def fuse_expert_tensors(tensors: dict[str, st.TensorInfo]) -> dict[str, st.TensorInfo]:
+    """Fold HF per-expert entries (``...experts.<i>.w1.weight``) into
+    virtual stacked tensors (``...experts.w1.weight``, shape [E, ...]),
+    the layout ``models/mixtral.py`` consumes: the stacked tensor's bytes
+    are its members' byte ranges, in expert order. A group whose indices
+    are not 0..E-1 or whose members differ in shape or dtype passes
+    through unfused. (The JAX twin also takes partition rules that may
+    keep a group unfused for its mesh; on one card every uniform group
+    fuses.)"""
+    groups: dict[str, dict[int, st.TensorInfo]] = {}
+    out: dict[str, st.TensorInfo] = {}
+    for name, info in tensors.items():
+        m = _EXPERT_NAME.match(name)
+        if m:
+            groups.setdefault(f"{m.group(1)}.{m.group(3)}", {})[int(m.group(2))] = info
+        else:
+            out[name] = info
+    for key, members in groups.items():
+        idxs = sorted(members)
+        first = members[idxs[0]]
+        uniform = idxs == list(range(len(idxs))) and all(
+            m.shape == first.shape and m.dtype == first.dtype for m in members.values())
+        if not uniform:
+            for info in members.values():
+                out[info.name] = info
+            continue
+        ms = [members[i] for i in idxs]
+        out[key] = st.TensorInfo(
+            name=key, dtype=first.dtype, shape=(len(ms), *first.shape),
+            start=first.start, end=first.start + sum(m.nbytes for m in ms), members=ms)
+    return out
+
+
+def _byte_runs(info: st.TensorInfo) -> list[tuple[int, int, int]]:
+    """(offset in the tensor, offset in the data section, length) of each
+    contiguous run of ``info``'s bytes, cut at ``STAGING_CHUNK``."""
+    runs, at = [], 0
+    for part in info.members or [info]:
+        for off in range(0, part.nbytes, STAGING_CHUNK):
+            n = min(STAGING_CHUNK, part.nbytes - off)
+            runs.append((at + off, part.start + off, n))
+        at += part.nbytes
+    return runs
+
+
 def read_index(source) -> tuple[dict[str, st.TensorInfo], int]:
     """The safetensors header by two small ranged reads: (tensors, data offset)."""
     (hlen,) = struct.unpack("<Q", bytes(_read_with_retry(source, 0, 8)))
@@ -360,6 +411,7 @@ def load_safetensors(
     stats = LoadStats()
     if tensors is None or data_offset is None:
         tensors, data_offset = read_index(source)
+    tensors = fuse_expert_tensors(tensors)
     if concurrency <= 0:
         concurrency = auto_fetch_concurrency(source)
     # local page-cache reads under ~32 MB/s a thread mean the threads are
@@ -435,9 +487,8 @@ def load_safetensors(
                     # dst may reuse the block of a tensor quantized before
                     # it: copy into it only after that quantize has read it
                     staging.stream.wait_stream(torch.cuda.current_stream(device))
-                futures = [pool.submit(fetch, dst[off:off + min(STAGING_CHUNK, n - off)],
-                                       info.start + off, min(STAGING_CHUNK, n - off))
-                           for off in range(0, n, STAGING_CHUNK)]
+                futures = [pool.submit(fetch, dst[at:at + size], src, size)
+                           for at, src, size in _byte_runs(info)]
                 pending.append((name, info, dst, futures))
                 in_flight += n
                 stats.bytes_to_device += n

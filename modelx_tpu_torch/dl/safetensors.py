@@ -50,6 +50,10 @@ class TensorInfo:
     shape: tuple[int, ...]
     start: int  # byte offsets relative to data section start
     end: int
+    # a stacked tensor folded from per-expert entries (``dl/loader.py
+    # fuse_expert_tensors``): its bytes are these members', in order, and
+    # start/end are the first member's start and start + the total
+    members: "list[TensorInfo] | None" = None
 
     @property
     def nbytes(self) -> int:

@@ -276,7 +276,8 @@ class ModelServer:
     def load(self) -> dict:
         """Load every *.safetensors under model_dir onto the device; the
         checkpoint headers determine the architecture."""
-        from modelx_tpu_torch.dl.loader import LocalFileSource, load_safetensors
+        from modelx_tpu_torch.dl.loader import (LocalFileSource, fuse_expert_tensors,
+                                                load_safetensors)
         from modelx_tpu_torch.dl.safetensors import read_header_from_file
 
         t0 = time.monotonic()
@@ -288,6 +289,9 @@ class ModelServer:
             infos, _ = read_header_from_file(path)
             infos_all.update(infos)
         self.family = fam.detect(list(infos_all))
+        # the loader's expert fusion: header shapes as the params arrive
+        # (stacked [E, ...] experts)
+        infos_all = fuse_expert_tensors(infos_all)
         abstract = {
             n: (t.to(self.dtype) if t.is_floating_point() else t)
             for n, t in fam.abstract_params(infos_all).items()
@@ -1126,6 +1130,9 @@ class ServerSet:
                 from modelx_tpu_torch.dl.continuous import ContinuousBatcher
 
                 max_len = server.max_seq_len
+                n_pos = getattr(server.cfg, "n_positions", 0) or 0
+                if n_pos:  # gpt2: no wpe row past n_positions
+                    max_len = min(max_len, n_pos)
                 page_size = self.engine_kwargs["page_size"]
                 if page_size > 0 and max_len % page_size:
                     # clamp max_len DOWN to a page multiple (losing < one
@@ -1260,6 +1267,11 @@ def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: 
         return None, (400, {"error": "max_new_tokens must be an integer"})
     if not (1 <= n <= limit):
         return None, (400, {"error": f"max_new_tokens must be in [1, {limit}]"})
+    n_pos = getattr(server.cfg, "n_positions", 0) or 0
+    if n_pos and tokens.shape[1] + n > n_pos:
+        # absolute-position families (gpt2): no wpe row past n_positions
+        return None, (400, {"error": f"prompt ({tokens.shape[1]}) + max_new_tokens ({n}) "
+                                     f"exceeds the model's {n_pos}-position context"})
     try:
         samp = {
             "temperature": float(req.get("temperature", 0.0)),
@@ -1712,6 +1724,11 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             if vocab and (int(tokens.min()) < 0 or int(tokens.max()) >= vocab):
                 # the embedding gather would raise on the card (JAX's clamps)
                 return self._json(400, {"error": f"token ids must be in [0, {vocab})"})
+            n_pos = getattr(server.cfg, "n_positions", 0) or 0
+            if n_pos and tokens.shape[1] > n_pos:
+                # absolute-position families (gpt2): no wpe row past n_positions
+                return self._json(400, {"error": f"prompt length {tokens.shape[1]} exceeds "
+                                                 f"the model's {n_pos}-position context"})
             server.stats["requests"] += 1
             try:
                 # in flight until the last byte is written: an unload drains

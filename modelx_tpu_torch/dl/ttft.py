@@ -44,7 +44,7 @@ def measure_once(base: str, repo: str, version: str = "v1", blob_cache_dir: str 
     from modelx_tpu_torch.dl import blob_cache as bc
     from modelx_tpu_torch.dl import families as fam
     from modelx_tpu_torch.dl.initializer import _blob_source, blob_index, weight_blobs
-    from modelx_tpu_torch.dl.loader import load_safetensors, read_index
+    from modelx_tpu_torch.dl.loader import fuse_expert_tensors, load_safetensors, read_index
     from modelx_tpu_torch.ops import attention as attn
 
     # pre-clock: the pod runtime boots before the model request reaches
@@ -72,7 +72,7 @@ def measure_once(base: str, repo: str, version: str = "v1", blob_cache_dir: str 
         infos.update(parsed)
         blobs.append((blob, parsed, off))
     family = fam.detect(list(infos))
-    cfg = family.infer_config(fam.abstract_params(infos))
+    cfg = family.infer_config(fam.abstract_params(fuse_expert_tensors(infos)))
     t_plan = time.monotonic()
 
     kernel: dict = {}

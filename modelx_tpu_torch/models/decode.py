@@ -95,6 +95,31 @@ def _make_picker(b: int, device, temperature=None, top_k=None, top_p=None, seeds
     return pick
 
 
+def family_fns(forward, init_kv_cache, cfg, device):
+    """A family's cached forward and cache allocator as this module, the
+    streams and the continuous engine call them: ``fwd(p, t, kv_cache,
+    cache_offset)`` over ``forward(p, t, cfg, kv_cache=, cache_offset=)``
+    and ``init(b, max_len)`` over ``init_kv_cache(cfg, b, max_len,
+    device=)``, on the params' ``device``."""
+
+    def fwd(p, t, kv_cache, cache_offset):
+        return forward(p, t, cfg, kv_cache=kv_cache, cache_offset=cache_offset)
+
+    return fwd, (lambda b, max_len: init_kv_cache(cfg, b, max_len, device=device))
+
+
+def paged_family_fn(forward, cfg):
+    """A family's forward over PAGED kv pools, as the engine's in-place
+    chunk step calls it: ``fwd(p, t, kv_cache, cache_offset, table,
+    n_blocks)`` over ``forward(..., paged_table=, paged_blocks=)``."""
+
+    def fwd(p, t, kv_cache, cache_offset, table, n_blocks=None):
+        return forward(p, t, cfg, kv_cache=kv_cache, cache_offset=cache_offset,
+                       paged_table=table, paged_blocks=n_blocks)
+
+    return fwd
+
+
 def ragged_greedy_generate(
     forward,
     init_kv_cache,

@@ -25,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from modelx_tpu_torch.models import decode
 from modelx_tpu_torch.ops import attention as attn_ops
 from modelx_tpu_torch.ops.nn import linear as _linear
 
@@ -194,6 +195,53 @@ def _write_cache(c: torch.Tensor, u: torch.Tensor, offset) -> None:
         c[:, off:off + s] = u
 
 
+def attend_layer(q, k, v, cache, cache_offset, attention_impl: str = "auto",
+                 paged_table: torch.Tensor | None = None, paged_blocks: int | None = None,
+                 **attn_kw) -> torch.Tensor:
+    """One layer's causal attention, q: [B, s, H, D], k/v: [B, s, Hkv, D]
+    -> [B, s, H, D]. With a cache, k and v are written into it in place
+    first: into the page pools when ``paged_table`` is given (single-token
+    steps; ``ops/paged_attention.py`` reads the pools in place), else into
+    the dense [B, max_len, Hkv, D] cache, which the plain reference reads.
+    Without one, ``attention_impl`` picks the cache-free attention (the
+    flash kernel on the card). ``attn_kw`` (``scale``, ``logit_softcap``,
+    ``window``) reach whichever attention runs."""
+    s = q.shape[1]
+    if cache is not None and paged_table is not None:
+        from modelx_tpu_torch.ops.paged_attention import paged_attention, write_token_kv
+
+        if s != 1:
+            raise ValueError(
+                f"paged decode is single-token only (got seq len {s}); "
+                "multi-token blocks (spec verify) take the dense path")
+        ck, cv = cache  # pools [P, ps, Hkv, D]
+        write_token_kv(ck, k, paged_table, cache_offset)
+        write_token_kv(cv, v, paged_table, cache_offset)
+        return paged_attention(q[:, 0], ck, cv, paged_table, cache_offset + 1,
+                               n_blocks=paged_blocks, **attn_kw)[:, None]  # [B, 1, Hq, D]
+    if cache is not None:
+        ck, cv = cache
+        _write_cache(ck, k, cache_offset)
+        _write_cache(cv, v, cache_offset)
+        return _attend(q, ck, cv, causal=True, q_offset=cache_offset, impl="reference",
+                       **attn_kw)
+    return _attend(q, k, v, causal=True, q_offset=0, impl=attention_impl, **attn_kw)
+
+
+def positions_for(tokens: torch.Tensor, cached: bool, cache_offset=0) -> torch.Tensor:
+    """[B, s] positions of ``tokens``: from 0 for a cache-free forward, else
+    from ``cache_offset`` (an int, or a [B] tensor of per-row offsets)."""
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, device=dev)[None, :]
+    off = cache_offset if cached else 0
+    if isinstance(off, torch.Tensor) and off.ndim:
+        positions = positions + off.to(dev)[:, None]
+    else:
+        positions = positions + int(off)
+    return positions.expand(b, s)
+
+
 def decoder_layer(
     lp: dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -204,10 +252,15 @@ def decoder_layer(
     attention_impl: str = "auto",
     paged_table: torch.Tensor | None = None,
     paged_blocks: int | None = None,
+    mlp_fn=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """One transformer block. ``lp`` holds the layer's params keyed by the
     unprefixed HF suffix. Returns (x, the (k, v) cache written in place, or
     None for a cache-free forward).
+
+    ``mlp_fn(h)`` replaces the dense SwiGLU FFN when given (the post-norm
+    hidden states go in, the FFN output comes out): Mixtral passes its
+    sparse-MoE block here so the attention half stays shared.
 
     ``paged_table`` switches the cached decode to PAGED layout: the cache
     leaves are page pools [P, page_size, Hkv, D], the table maps each row
@@ -223,31 +276,14 @@ def decoder_layer(
     q = _rope(q.reshape(b, s, cfg.num_heads, cfg.head_dim), positions, cfg.rope_theta)
     k = _rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), positions, cfg.rope_theta)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-
-    if cache is not None and paged_table is not None:
-        from modelx_tpu_torch.ops.paged_attention import paged_attention, write_token_kv
-
-        if s != 1:
-            raise ValueError(
-                f"paged decode is single-token only (got seq len {s}); "
-                "multi-token blocks (spec verify) take the dense path")
-        ck, cv = cache  # pools [P, ps, Hkv, D]
-        write_token_kv(ck, k, paged_table, cache_offset)
-        write_token_kv(cv, v, paged_table, cache_offset)
-        attn_out = paged_attention(q[:, 0], ck, cv, paged_table, cache_offset + 1,
-                                   n_blocks=paged_blocks)[:, None]  # [B, 1, Hq, D]
-    elif cache is not None:
-        ck, cv = cache
-        _write_cache(ck, k, cache_offset)
-        _write_cache(cv, v, cache_offset)
-        attn_out = _attend(q, ck, cv, causal=True, q_offset=cache_offset, impl="reference")
-    else:
-        attn_out = _attend(q, k, v, causal=True, q_offset=0, impl=attention_impl)
-
+    attn_out = attend_layer(q, k, v, cache, cache_offset, attention_impl, paged_table,
+                            paged_blocks)
     attn_out = attn_out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     x = x + _linear(attn_out, lp["self_attn.o_proj.weight"])
 
     h = _rms_norm(x, lp["post_attention_layernorm.weight"], cfg.rms_eps)
+    if mlp_fn is not None:
+        return x + mlp_fn(h), cache
     gate = _linear(h, lp["mlp.gate_proj.weight"])
     up = _linear(h, lp["mlp.up_proj.weight"])
     x = x + _linear(F.silu(gate) * up, lp["mlp.down_proj.weight"])
@@ -274,16 +310,7 @@ def forward(
     if mesh is not None:
         raise NotImplementedError(
             "meshes (ring/Ulysses, tensor parallel) come with the multi-device slice")
-    b, s = tokens.shape
-    dev = tokens.device
-    off = cache_offset if kv_cache is not None else 0
-    positions = torch.arange(s, device=dev)[None, :]
-    if isinstance(off, torch.Tensor) and off.ndim:
-        positions = positions + off.to(dev)[:, None]
-    else:
-        positions = positions + int(off)
-    positions = positions.expand(b, s)
-
+    positions = positions_for(tokens, kv_cache is not None, cache_offset)
     x = F.embedding(tokens, params["model.embed_tokens.weight"]).to(cfg.dtype)
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}."
@@ -301,7 +328,7 @@ def forward(
     return _linear(x, head), kv_cache
 
 
-def _attend(q, k, v, causal: bool, q_offset, impl: str):
+def _attend(q, k, v, causal: bool, q_offset, impl: str, **attn_kw):
     """q: [B, S, H, D], k/v: [B, Sk, Hkv, D]. Transposes to [B, H, S, D] and
     picks the implementation: ``auto`` is the flash kernel on the card and
     the reference on the CPU."""
@@ -309,9 +336,10 @@ def _attend(q, k, v, causal: bool, q_offset, impl: str):
     if impl == "auto":
         impl = "flash" if q.is_cuda else "reference"
     if impl == "flash":
-        out = attn_ops.flash_attention(qt, kt, vt, causal=causal)
+        out = attn_ops.flash_attention(qt, kt, vt, causal=causal, **attn_kw)
     elif impl == "reference":
-        out = attn_ops.attention_reference(qt, kt, vt, causal=causal, q_offset=q_offset)
+        out = attn_ops.attention_reference(qt, kt, vt, causal=causal, q_offset=q_offset,
+                                           **attn_kw)
     elif impl in ("ring", "ulysses"):
         raise NotImplementedError(f"{impl} attention comes with the multi-device slice")
     else:
@@ -336,23 +364,14 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
 def decode_fns(params, cfg: LlamaConfig):
     """(forward, init_kv_cache) for ``models/decode.py``: the cached forward
     and a cache allocator on the params' device."""
-    device = params["model.embed_tokens.weight"].device
-
-    def fwd(p, t, kv_cache, cache_offset):
-        return forward(p, t, cfg, kv_cache=kv_cache, cache_offset=cache_offset)
-
-    return fwd, (lambda b, max_len: init_kv_cache(cfg, b, max_len, device=device))
+    return decode.family_fns(forward, init_kv_cache, cfg,
+                             params["model.embed_tokens.weight"].device)
 
 
 def paged_decode_fns(params, cfg: LlamaConfig):
     """The forward over PAGED kv pools (the continuous engine's in-place
     chunk step): ``fwd(p, t, kv_cache, cache_offset, table, n_blocks)``."""
-
-    def fwd(p, t, kv_cache, cache_offset, table, n_blocks=None):
-        return forward(p, t, cfg, kv_cache=kv_cache, cache_offset=cache_offset,
-                       paged_table=table, paged_blocks=n_blocks)
-
-    return fwd
+    return decode.paged_family_fn(forward, cfg)
 
 
 def ragged_greedy_generate(
@@ -368,9 +387,6 @@ def ragged_greedy_generate(
 ) -> torch.Tensor:
     """Ragged-batch decode, greedy or per-row-sampled (models/decode.py);
     returns the generated tokens [B, max_new_tokens] only."""
-    from modelx_tpu_torch.models import decode
-
-    fwd, init = decode_fns(params, cfg)
     return decode.ragged_greedy_generate(
-        fwd, init, params, prompt, row_lens, max_new_tokens=max_new_tokens,
+        *decode_fns(params, cfg), params, prompt, row_lens, max_new_tokens=max_new_tokens,
         temperature=temperature, top_k=top_k, top_p=top_p, seeds=seeds)

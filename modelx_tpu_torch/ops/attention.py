@@ -16,7 +16,7 @@ import torch
 NEG_INF = -1e30
 
 # head dims the CUDA kernel is instantiated for (csrc/flash_attention.cu)
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

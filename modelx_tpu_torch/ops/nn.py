@@ -22,6 +22,16 @@ import torch.nn.functional as F
 from modelx_tpu_torch.ops.quant import QTensor
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Statistics in fp32 (the biased variance), cast back, THEN the affine
+    in the activation dtype, as the JAX twin does."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * weight + bias
+
+
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     """y = x @ w.T (+ b) with w stored [out, in] (torch Linear layout);
     ``w`` may be an int8 ``QTensor`` (weight-only quantization)."""
@@ -39,3 +49,9 @@ def _int8_product(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     codes = q.to(x.dtype)  # a transient copy of the weight in the activation dtype
     y = torch.mm(x.reshape(-1, x.shape[-1]), codes.T, out_dtype=torch.float32)
     return y.reshape(*x.shape[:-1], q.shape[0])
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """y = x @ w (+ b) with w stored [in, out] (HF GPT-2's Conv1D layout)."""
+    y = torch.matmul(x, w).to(x.dtype)
+    return y if b is None else y + b

@@ -53,6 +53,23 @@ def test_reference_matches_jax_flash_and_reference(case):
     assert np.abs(port).sum() > 0
 
 
+@pytest.mark.parametrize("kw", [{}, {"causal": False}, {"logit_softcap": 30.0, "window": 40}],
+                         ids=["causal", "noncausal", "softcap_window"])
+def test_head_dim_96_matches_jax_flash(kw):
+    """Phi-3-mini's head_dim, which the CUDA kernel runs as its 128 tile
+    with zero columns: the plain version the kernel is held to equals the
+    Pallas kernel (interpret mode) and JAX's reference at D = 96."""
+    q, k, v = _inputs(5, h=4, hkv=4, s=96, d=96)
+    port = tattn.attention_reference(*(torch.from_numpy(x) for x in (q, k, v)), **kw).numpy()
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jref = np.asarray(jattn.attention_reference(jq, jk, jv, **kw))
+    jflash = np.asarray(jattn.flash_attention(jq, jk, jv, interpret=True, block_q=32,
+                                              block_k=32, **kw))
+    np.testing.assert_allclose(port, jref, atol=FP32_ATOL)
+    np.testing.assert_allclose(port, jflash, atol=FP32_ATOL)
+    assert 96 in tattn.KERNEL_HEAD_DIMS
+
+
 def test_reference_per_row_q_offset_matches_jax():
     """[B] q_offset (ragged cached decode): each row's queries sit at their
     own positions against a longer cache."""

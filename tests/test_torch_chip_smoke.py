@@ -117,6 +117,54 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert stats["cont_spec_accept_rate"] >= chip_smoke.CONT_SPEC_MIN_RATE
 
 
+def _tiny_families():
+    """family_configs at the JAX tiny presets, each as config inference
+    reads it back (mixtral at inference's rope theta)."""
+    from modelx_tpu_torch.models import gemma2, gpt2, mixtral
+
+    return [("gemma2", gemma2.Gemma2Config.tiny(vocab_size=256)),
+            ("phi3", dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=256),
+                                         dtype=torch.bfloat16)),
+            ("mixtral", dataclasses.replace(mixtral.MixtralConfig.tiny(vocab_size=256),
+                                            rope_theta=1e6)),
+            ("gpt2", dataclasses.replace(gpt2.GPT2Config.tiny(), dtype=torch.bfloat16))]
+
+
+def test_families_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 10 at the tiny presets: gemma2's long forward and decode cut
+    past its 16-key window, the engines run, gpt2 answers its 400s."""
+    for name, value in (("FAMILY_FORWARD_LEN", 48), ("FAMILY_PROMPT", 12), ("FAMILY_NEW", 4),
+                        ("GEMMA_LONG_FORWARD", 40), ("GEMMA_LONG_PROMPT", 30),
+                        ("GEMMA_LONG_NEW", 4), ("GEMMA_ENGINE_PROMPTS", (5, 12, 20, 5)),
+                        ("GEMMA_PAGE_SIZE", 16), ("CONT_MAX_LEN", 64), ("CONT_CHUNK", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    stats = chip_smoke.phase_families(device="cpu", configs=_tiny_families())
+    assert stats["flash_launches_families"] == 0  # CPU tensors take the plain version
+    for name in ("gemma2", "phi3", "mixtral", "gpt2"):
+        assert stats[f"fam_{name}_launches"] == 0
+        assert {f"fam_{name}_load_gbps", f"fam_{name}_forward_ms",
+                f"fam_{name}_greedy_tps"} <= set(stats)
+    assert {"fam_gemma2_long_forward_ms", "fam_gemma2_engine_tps", "fam_gemma2_tps_gather",
+            "fam_gemma2_tps_in-place", "fam_phi3_int8_forward_ms"} <= set(stats)
+
+
+def test_hf_expert_layout_is_what_the_loader_folds_back(tmp_path):
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl.loader import LocalFileSource, load_safetensors
+    from modelx_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig.tiny(vocab_size=64)
+    params = mixtral.init_params(cfg, torch.Generator().manual_seed(0))
+    written = chip_smoke.hf_expert_layout(params)
+    assert "model.layers.1.block_sparse_moe.experts.3.w2.weight" in written
+    assert not any(n.endswith("experts.w1.weight") for n in written)
+    path = str(tmp_path / "model.safetensors")
+    st.write_safetensors(path, written)
+    loaded, _ = load_safetensors(LocalFileSource(path), "cpu")
+    assert loaded.keys() == params.keys()
+    assert all(torch.equal(loaded[n], params[n]) for n in params)
+
+
 def _tiny_options(monkeypatch):
     """The options phase's shapes cut to the tiny CPU model."""
     for name, value in (("BATCH_FORWARD_SHAPES", ((1, 12), (2, 30), (1, 5), (3, 9))),

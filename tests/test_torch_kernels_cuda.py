@@ -39,7 +39,7 @@ def _tol(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2), (8, 1)])  # GQA ratios 1, 4, 8
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda_device, d, dtype, h, hkv):
     seed = d if hkv == 2 else d + hkv  # (8, 2) keeps the inputs it had before GQA 1 and 8
@@ -77,7 +77,7 @@ RAGGED_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,b,h,hkv,sq,sk", RAGGED_CASES)
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [96, 128, 256])
 def test_kernel_ragged_and_unequal_lengths(cuda_device, dtype, b, h, hkv, sq, sk, d):
     """Any Sq/Sk, including Sq != Sk (causal is top-left aligned, as in the
     TPU kernel and attention_reference with q_offset=0)."""

@@ -131,8 +131,9 @@ def test_infer_family_matches_jax(names):
 def test_detect_refuses_later_slice_families_and_unknowns():
     assert tfam.detect(["model.layers.0.self_attn.q_proj.weight"]).name == "llama"
     assert tfam.detect(["model.layers.0.self_attn.q_proj.bias"]).name == "qwen2"
+    assert tfam.detect(["model.layers.0.block_sparse_moe.gate.weight"]).name == "mixtral"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfam.detect(["model.layers.0.block_sparse_moe.gate.weight"])
+        tfam.detect(["embeddings.word_embeddings.weight"])
     with pytest.raises(ValueError, match="cannot determine"):
         tfam.detect(["mystery.weight"])
     with pytest.raises(ValueError, match="cannot determine"):  # the gemma3 refusal

@@ -185,6 +185,28 @@ def _llama2() -> dict:
     return spec
 
 
+def _gemma() -> dict:
+    """Gemma's (and Gemma-2's) published layout: BPE with byte_fallback
+    behind a lone ``Replace(" ", "▁")`` normalizer (no ``Prepend``: no
+    dummy prefix), no pre-tokenizer, a ``<bos>`` template, and the decoder
+    ``Sequence[Replace, ByteFallback, Fuse]`` (nothing to strip)."""
+    spec = _sentencepiece_bpe()
+    spec["normalizer"] = {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}
+    spec["pre_tokenizer"] = None
+    spec["decoder"] = {"type": "Sequence", "decoders": _SP_DECODER["decoders"][:3]}
+    return spec
+
+
+def test_gemma_layout_encodes_and_decodes_equal():
+    """The port's reader takes Gemma's tokenizer.json components as they
+    are: ids and strings equal the ``tokenizers`` package's."""
+    text = json.dumps(_gemma())
+    ref, port = tokenizers.Tokenizer.from_str(text), Tokenizer.from_str(text)
+    for t in FIXED + CORPUS[:12] + ["  two  spaces ", "é€ß 🙂"]:
+        _assert_encode_equal(ref, port, t)
+        _assert_decode_equal(ref, port, ref.encode(t).ids)
+
+
 def _mistral() -> dict:
     spec = _sentencepiece_bpe()
     spec["normalizer"] = None
