@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one H100
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases kernels,main,deploy,artifacts
     python3 chip_smoke.py --phases kernels,families
 
 Phases, in order, each failing the run (exit code != 0) on any error:
@@ -74,7 +75,32 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    ``/healthz`` stays 200 through a registry kill with ``control_plane``
    no longer ok. Disk: the registry, dest and the blob cache each hold the
    checkpoint (16.06 GB) once; the phase checks for 3x that first.
-8. pool: the model pool (``dl/lifecycle.py``, ``dl/tiers.py``) on the
+8. artifacts: the derived-artifact stores (``dl/program_store.py``,
+   ``dl/kv_store.py``, ``dl/outbox.py``) on the deploy phase's registry
+   (restarted over its data) and warm blob cache, dest's weights moved aside
+   for two staging copies (free disk checked first) and back after; the
+   kernel counts are the two pods'. Each pod is a ``serve_main
+   --allow-admin-load --continuous-batch --prefix-cache 4`` child booting a
+   tiny GPT-2 (plain attention: nothing binds the kernel library before the
+   admin load). (a) Pod A (``--publish-kv --kv-publish-threshold 2
+   --publish-programs --publish-outbox-dir``) admin-loads the ref: the
+   manifest gains a ``.programs-<env>.tar`` whose library hashes equal to
+   the one phase 2 built; a 1,000-token base prompt and two branches off
+   it make the base hot, and the manifest gains its ``.kv-<env>-<hash>.tar``,
+   whose leaves are the layout (32 layers x K, V x [1, 1008, 8, 128] bf16).
+   (b) Pod B, with ``MODELX_COMPILE_CACHE`` an empty directory, no nvcc in
+   reach and ``--kv-fetch-through``, admin-loads the same ref: it installs
+   the library (``kernel_library`` origin ``"bundle"``) and the KV bundle,
+   its ``/v1/forward`` [1, 2048] equals the main phase's argmax, and a third
+   branch, greedy and seeded sampled, whole and streamed, answers pod A's
+   bytes from the installed prefix (``hits_installed``, the engine's
+   installed admissions). (c) Pod A makes a second base hot; pod B's miss
+   on it fetches the bundle through, and its next request hits it and
+   answers pod A's tokens. Printed: bundle bytes, publish and install
+   times, pod B's ready seconds against phase 2's nvcc seconds, the outbox
+   depth while publishes land, and the first streamed token on the
+   installed prefix against a prompt of the same length with none.
+9. pool: the model pool (``dl/lifecycle.py``, ``dl/tiers.py``) on the
    pulled dest, once the deploy phase has freed its server, registry and
    blob cache; the kernel counts from 0 again. ``serve_main`` boots ``a``
    with ``--allow-admin-load --evict-idle``, a budget of 2.5x the
@@ -97,7 +123,7 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    shed-and-retry path; no load may end FAILED while a model could have
    been shed. Disk: the disk tier's spool beside dest (1.25x the
    checkpoint, checked first with MemAvailable).
-9. continuous: the continuous engine (``dl/continuous.py``) on the same
+10. continuous: the continuous engine (``dl/continuous.py``) on the same
    dest, the kernel counts from 0 again. Eight clients (prompts 128, 512
    and 1000 tokens + 64, odd ones seeded sampled, the last joining
    mid-decode) stream from a ``serve_main --continuous-batch --max-slots 8
@@ -126,11 +152,12 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    blocking syncs per boundary, device operations and ms per chunk step,
    KV bytes dense against paged, and the longest gap between a decode
    row's tokens during the fill with chunked prefill and without.
-10. families: the other generative families, one seeded random bf16
+11. families: the other generative families, one seeded random bf16
    checkpoint at a time, each written, served by ``serve_main`` and
-   deleted before the next (free disk checked first; Gemma-2-9B's 18.48 GB
-   is the peak), the kernel counts from 0 again: Gemma-2-9B (42 layers,
-   head_dim 256, softcap 50, window 4096 on the even layers), Phi-3-mini-4k
+   deleted before the next (free disk checked first; Mixtral's 12.13 GB
+   is the peak), the kernel counts from 0 again: Gemma-2-9B cut to
+   ``GEMMA_LAYERS`` of its 42 layers for the time limit (head_dim 256,
+   softcap 50, window 4096 on the even layers), Phi-3-mini-4k
    (32 layers, head_dim 96), Mixtral-8x7B cut to ``MIXTRAL_LAYERS`` of its
    32 layers (all 32 take 93.4 GB), written in HF's per-expert layout so
    the loader folds the experts, and GPT-2 125M. For each: the inferred
@@ -166,6 +193,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+CARD = "no card (CPU rehearsal)"  # nvidia-smi's name and power limit, once read
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -241,6 +269,8 @@ def phase_device() -> dict:
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    global CARD
+    CARD = card
     log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"count {torch.cuda.device_count()}")
     log(card)
@@ -310,7 +340,7 @@ def phase_build() -> dict:
     sass = dump_sass(build.nvcc_path(), build.library_path())
     if sass is None:
         log("sass census: not available (no cuobjdump beside nvcc)")
-        return {"build_s": secs, "sass": None}
+        return {"build_s": secs, "built": built, "sass": None}
     census = sass_census(sass)
     for name, counts in sorted(census.items()):
         log(f"sass census: {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
@@ -318,7 +348,7 @@ def phase_build() -> dict:
                 if census.get(f"flash_fwd_bf16<{d}>", {}).get("HGMMA", 0) == 0]
     if no_hgmma:
         raise RuntimeError(f"no HGMMA (tensor-core) instruction in {no_hgmma}")
-    return {"build_s": secs, "sass": census}
+    return {"build_s": secs, "built": built, "sass": census}
 
 
 # -- phase 3: kernels against their plain versions ---------------------------------
@@ -468,14 +498,15 @@ def phase_kernels() -> list[dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,main,families",
+    known = ("kernels", "main") + LATER_PHASES + ("families",)
+    ap.add_argument("--phases", default=",".join(known),
                     help="comma list of phases after device+build: kernels, main (phases "
-                         "4-9), families (phase 10)")
+                         "4-6), deploy (7), artifacts (8), pool (9), continuous (10), "
+                         "families (11); any of deploy..continuous runs main and deploy too")
     args = ap.parse_args(argv)
     phases = {p.strip() for p in args.phases.split(",") if p.strip()}
-    known = {"kernels", "main", "families"}
-    if not phases <= known:
-        ap.error(f"unknown phases {sorted(phases - known)}")
+    if not phases <= set(known):
+        ap.error(f"unknown phases {sorted(phases - set(known))}")
 
     import torch
 
@@ -488,20 +519,35 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
 
+    t_run = time.monotonic()
     device = phase_device()
     build_info = phase_build()
-    kernel_rows = phase_kernels() if "kernels" in phases else []
-    main_stats = phase_main() if "main" in phases else {}
-    fam_stats = phase_families() if "families" in phases else {}
+    walls = {"build": time.monotonic() - t_run}
+
+    def timed(name, fn):
+        t0 = time.monotonic()
+        out = fn()
+        walls[name] = time.monotonic() - t0
+        log(f"wall: the {name} phase{'s' if name == 'main' else ''} took {walls[name]:.1f} s "
+            f"({time.monotonic() - t_run:.1f} s into the run)")
+        return out
+
+    kernel_rows = timed("kernels", phase_kernels) if "kernels" in phases else []
+    later = tuple(p for p in LATER_PHASES if p in phases)
+    main_stats = (timed("main", lambda: phase_main(
+        later=later, build_s=build_info["build_s"] if build_info["built"] else None))
+        if phases & {"main", *LATER_PHASES} else {})
+    fam_stats = timed("families", phase_families) if "families" in phases else {}
 
     # each path's own count: every one starts at 0 just before its run
     by_path = {path: stats[key] for stats, path, key in (
         (main_stats, "main", "flash_launches"), (main_stats, "text", "flash_launches_text"),
         (main_stats, "options", "flash_launches_options"),
         (main_stats, "deploy", "flash_launches_deploy"),
+        (main_stats, "artifacts", "flash_launches_artifacts"),
         (main_stats, "pool", "flash_launches_pool"),
         (main_stats, "continuous", "flash_launches_continuous"),
-        (fam_stats, "families", "flash_launches_families")) if stats}
+        (fam_stats, "families", "flash_launches_families")) if key in stats}
     head = next((r for r in kernel_rows if r["case"] == "llama3-8b prefill"), None)
     record = {
         "name": "flash_attention",
@@ -521,6 +567,8 @@ def main(argv=None) -> int:
         "tflops": head and head["tflops"],
         "at": "q [1,32,2048,128] bf16, 8 kv heads, causal",
         "build_s": build_info["build_s"],
+        "built_by_nvcc": build_info["built"],
+        "phase_walls_s": walls,
         "sass": build_info["sass"],
         "cases": kernel_rows,
     }
@@ -573,10 +621,18 @@ def _checkpoint_dir(nbytes: int) -> str:
     return tempfile.mkdtemp(prefix="modelx-smoke-", dir=best)
 
 
-def phase_main(device: str = "cuda", cfg=None) -> dict:
-    """Drive the serving path. ``device="cpu"`` with a small ``cfg`` is a
-    rehearsal of this phase's control flow (the CPU tests run it): there
-    the kernel wrapper runs its plain version and launches nothing."""
+LATER_PHASES = ("deploy", "artifacts", "pool", "continuous")
+
+
+def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
+               build_s: float | None = None) -> dict:
+    """Drive the serving path (phases 4-6), then those of ``later`` on its
+    checkpoint: deploy runs whenever any of them does, since the artifacts
+    phase runs on its registry and the pool and continuous phases on its
+    dest. ``build_s`` is phase 2's nvcc seconds (None: the library was
+    cached). ``device="cpu"`` with a small ``cfg`` is a rehearsal of the
+    control flow (the CPU tests run it): there the kernel wrapper runs its
+    plain version and launches nothing."""
     import shutil
 
     import torch
@@ -729,29 +785,49 @@ def phase_main(device: str = "cuda", cfg=None) -> dict:
         log(f"options: flash_attention launches on the options path: "
             f"{stats['flash_launches_options']}")
 
-        # phase 7, the registry deploy, with the earlier servers freed: its
-        # own count (the served dest's from 0, plus its TTFT children's)
         httpd.shutdown()
         httpd.server_close()
         httpd = None
+        if not later:
+            return stats
+        # phase 7, the registry deploy, with the earlier servers freed: its
+        # own count (the served dest's from 0, plus its TTFT children's)
         attn.flash_attention.launches = 0
-        # phase 8, the model pool, on the pulled dest once the deploy phase
-        # has freed its server, registry and blob cache, then phase 9, the
-        # continuous engine, on the same dest: each its own count
+        # phase 8, the derived-artifact stores, on the deploy's registry data
+        # and warm blob cache (its count: its two pods'); then phase 9, the
+        # model pool, on the pulled dest once the registry and blob cache are
+        # gone, then phase 10, the continuous engine, on the same dest: each
+        # its own count
 
-        def pool_then_continuous(dest, root):
-            out = phase_pool(cfg, dest, forwards, device, root)
-            out.update(phase_continuous(cfg, dest, device, root))
+        def artifacts(reg_dir, cache, dest, root, digest):
+            t0 = time.monotonic()
+            out = phase_artifacts(cfg, reg_dir, cache, dest, root, digest, forwards, device,
+                                  per_forward, build_s)
+            out["art_phase_s"] = time.monotonic() - t0
+            log(f"artifacts: flash_attention launches on the artifacts path: "
+                f"{out['flash_launches_artifacts']} (pods A and B: the admin load's warm-up "
+                f"and one /v1/forward each); the phase took {out['art_phase_s']:.1f} s")
             return out
 
-        stats.update(phase_deploy(cfg, ckpt, forwards, device, per_forward,
-                                  then=pool_then_continuous))
+        def pool_then_continuous(dest, root):
+            out = {}
+            if "pool" in later:
+                out.update(phase_pool(cfg, dest, forwards, device, root))
+                log(f"pool: flash_attention launches on the pool path: "
+                    f"{out['flash_launches_pool']}")
+            if "continuous" in later:
+                out.update(phase_continuous(cfg, dest, device, root))
+                log(f"continuous: flash_attention launches on the continuous path: "
+                    f"{out['flash_launches_continuous']} (warm-ups and /v1/forward only)")
+            return out
+
+        stats.update(phase_deploy(
+            cfg, ckpt, forwards, device, per_forward,
+            artifacts=artifacts if "artifacts" in later else None,
+            then=pool_then_continuous if {"pool", "continuous"} & set(later) else None))
         log(f"deploy: flash_attention launches on the deploy path: "
             f"{stats['flash_launches_deploy']} ({stats['flash_launches_deploy_serve']} serving "
             f"dest, {per_forward} in each TTFT process)")
-        log(f"pool: flash_attention launches on the pool path: {stats['flash_launches_pool']}")
-        log(f"continuous: flash_attention launches on the continuous path: "
-            f"{stats['flash_launches_continuous']} (warm-ups and /v1/forward only)")
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -2074,12 +2150,14 @@ def _deploy_disk(base: str, nbytes: int) -> None:
 
 
 def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
-                 then=None) -> dict:
+                 artifacts=None, then=None) -> dict:
     """The registry deploy path (module docstring, phase 7). ``ckpt`` is
     deleted once the registry holds it; ``forwards`` maps each main-phase
-    /v1/forward shape to (tokens, argmax). ``then(dest, root)`` runs last,
-    with the deploy's server, registry and blob cache gone and the pulled
-    checkpoint still in ``dest``; its stats join the phase's."""
+    /v1/forward shape to (tokens, argmax). With the deploy's server freed,
+    ``artifacts(reg_dir, cache, dest, root, digest)`` runs on the registry's
+    data and the warm blob cache; ``then(dest, root)`` runs last, with the
+    registry and blob cache gone and the pulled checkpoint still in
+    ``dest``. Their stats join the phase's."""
     import shutil
     import tempfile
 
@@ -2233,16 +2311,19 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
         if on_card:
             stats["deploy_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         manifest_cache.configure_default("")
-        if then is not None:
+        if then is not None or artifacts is not None:
             httpd.shutdown()
             httpd.server_close()
             httpd = None
             _free(served)
             registry.kill()
             registry.wait(timeout=60)
+            if artifacts is not None:
+                stats.update(artifacts(reg_dir, cache, dest, root, weights[0].digest))
             shutil.rmtree(reg_dir, ignore_errors=True)
             shutil.rmtree(cache, ignore_errors=True)
-            stats.update(then(dest, root))
+            if then is not None:
+                stats.update(then(dest, root))
         return stats
     finally:
         if httpd is not None:
@@ -2255,7 +2336,404 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
         shutil.rmtree(root, ignore_errors=True)
 
 
-# -- phase 8: the model pool ----------------------------------------------------------
+# -- the artifacts phase: the derived-artifact stores -------------------------------
+
+# the shared prompt heads the pods make hot, and each answer's length
+ART_BASE_LEN = 1000
+ART_NEW_TOKENS = 16
+# temperature only, as the continuous phase's sampled rows
+ART_SAMPLED = {"temperature": 0.8, "seed": 13}
+# how long a publish, a sweep (every 5 s) or a fetch-through may take to land
+ART_DEADLINE_S = 120.0
+
+
+def _artifacts_disk(base: str, nbytes: int) -> None:
+    """Two pods each pull the checkpoint into their own staging dir."""
+    import shutil
+
+    free = shutil.disk_usage(base).free
+    need = int(2 * nbytes * 1.02)
+    log(f"artifacts: {base} has {free / 1e9:.1f} GB free; two staging copies need "
+        f"{need / 1e9:.1f} GB")
+    if free < need:
+        raise RuntimeError(f"artifacts: {(need - free) / 1e9:.1f} GB short of disk for the "
+                           f"two pods' staging copies")
+
+
+def _no_toolkit_env(root: str) -> dict:
+    """An environment with no CUDA toolkit in reach: a kernel build would
+    fail for want of nvcc."""
+    path = os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                           if p and not os.path.exists(os.path.join(p, "nvcc")))
+    return {"CUDA_HOME": os.path.join(root, "no-cuda-toolkit"), "PATH": path}
+
+
+def _art_pod(what: str, root: str, boot: str, device: str, env: dict, flags: list):
+    """An artifacts pod: a ``_serve_child`` booting the tiny ``boot`` model
+    with ``--allow-admin-load``; (process, port, log path)."""
+    port = _free_port()
+    proc, log_path = _serve_child(
+        boot, device, port, root, name="boot", what=f"artifacts: pod {what}",
+        extra=("--allow-admin-load", "--staging-dir", os.path.join(root, f"staging-{what}"),
+               *flags), env=env)
+    return proc, port, log_path
+
+
+def _art_generate(port: int, prompt: list, stream: bool, **samp) -> tuple[bytes, float]:
+    """The raw body of a /v1/MODEL/generate, whole or NDJSON, and the
+    seconds to its first line (client side)."""
+    import urllib.request
+
+    body = {"tokens": [prompt], "max_new_tokens": ART_NEW_TOKENS, **samp}
+    if stream:
+        body["stream"] = True
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/{MODEL}/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        first = r.readline()
+        first_s = time.monotonic() - t0
+        raw = first + r.read()
+    if stream:
+        _stream_tokens(raw)  # whole, with its done line
+    return raw, first_s
+
+
+def _answers(port: int, prompt: list) -> dict:
+    """Greedy and seeded sampled answers to ``prompt``, whole and streamed."""
+    return {(kind, stream): _art_generate(port, prompt, stream, **samp)[0]
+            for kind, samp in (("greedy", {}), ("sampled", ART_SAMPLED))
+            for stream in (False, True)}
+
+
+def _admin_json(port: int) -> dict:
+    status, body = _http(port, "/admin/models")
+    if status != 200:
+        raise RuntimeError(f"artifacts: /admin/models answered {status} {body}")
+    return body
+
+
+def _model_stats(port: int) -> dict:
+    status, body = _http(port, "/v1/models")
+    if status != 200:
+        raise RuntimeError(f"artifacts: /v1/models answered {status} {body}")
+    return body["models"][MODEL]
+
+
+def _pool_events(port: int, event: str) -> list:
+    status, body = _http(port, "/debug/flightrec")
+    if status != 200:
+        raise RuntimeError(f"artifacts: /debug/flightrec answered {status}")
+    return [e for e in body["pool"]["events"] if e["event"] == event]
+
+
+def _installed_admits(port: int) -> int:
+    """The engine's admissions that decoded from installed KV (its
+    ``dispatch_admit`` events marked ``installed_kv``)."""
+    status, body = _http(port, "/debug/flightrec")
+    if status != 200 or MODEL not in body:
+        raise RuntimeError(f"artifacts: no engine ring for {MODEL}: {status}")
+    return sum(1 for e in body[MODEL]["events"]
+               if e["event"] == "dispatch_admit" and e.get("installed_kv"))
+
+
+def _wait_for(what: str, fn, samples: list | None = None, outbox_port: int = 0):
+    """Poll ``fn`` until it returns a true value (within ``ART_DEADLINE_S``);
+    with ``outbox_port`` each poll also records the pod's outbox depth."""
+    t0 = time.monotonic()
+    while True:
+        if outbox_port and samples is not None:
+            ob = _admin_json(outbox_port)["pool"].get("outbox", {})
+            samples.append((round(time.monotonic() - t0, 2), ob.get("depth")))
+        got = fn()
+        if got:
+            return got, time.monotonic() - t0
+        if time.monotonic() - t0 > ART_DEADLINE_S:
+            raise RuntimeError(f"artifacts: {what} did not happen in {ART_DEADLINE_S} s")
+        time.sleep(0.5)
+
+
+def _manifest_blobs(base: str, media: str) -> list:
+    from modelx_tpu_torch.client.remote import RegistryClient
+
+    client = RegistryClient(base)
+    try:
+        return [b for b in client.get_manifest(DEPLOY_REPO, "v1").blobs if b.media_type == media]
+    finally:
+        client.close()
+
+
+def _blob(base: str, desc) -> bytes:
+    from modelx_tpu_torch.client.remote import RegistryClient
+
+    client = RegistryClient(base)
+    try:
+        return b"".join(client.get_blob_content(DEPLOY_REPO, desc.digest))
+    finally:
+        client.close()
+
+
+def _check_kv_layout(cfg, data: bytes, n_tokens: int) -> dict:
+    """The KV bundle is the family's cache of the stored length: num_layers
+    x (K, V) leaves of [1, stored_len, kv heads, head_dim] bf16, and the tar
+    adds only its headers and padding to them and the meta."""
+    import hashlib
+    import io
+    import tarfile
+
+    from modelx_tpu_torch.dl import kv_store
+    from modelx_tpu_torch.models.decode import pad_seq_len
+
+    meta = kv_store._bundle_meta(data)
+    stored = meta["storedLen"]
+    shape = [1, stored, cfg.num_kv_heads, cfg.head_dim]
+    leaf_bytes = cfg.num_layers * 2 * stored * cfg.num_kv_heads * cfg.head_dim * 2
+    leaves = meta["leaves"]
+    if (stored != pad_seq_len(n_tokens) or len(leaves) != 2 * cfg.num_layers
+            or any(x["shape"] != shape or x["dtype"] != "bfloat16" for x in leaves)
+            or sum(x["size"] for x in leaves) != leaf_bytes):
+        raise RuntimeError(f"artifacts: the KV bundle's leaves are not the layout: stored "
+                           f"{stored}, {len(leaves)} leaves, first {leaves[0]}")
+    with tarfile.open(fileobj=io.BytesIO(data), mode="r:") as tar:
+        names = tar.getnames()
+        meta_len = tar.getmember("meta.json").size
+        for x in leaves:
+            raw = tar.extractfile(x["name"]).read()
+            if hashlib.sha256(raw).hexdigest() != x["sha256"]:
+                raise RuntimeError(f"artifacts: KV leaf {x['name']} does not hash to its meta")
+    overhead = len(data) - leaf_bytes - meta_len
+    bound = 2 * 512 * len(names) + 10240  # a header and padding per member, the end record
+    if names[0] != "meta.json" or not 0 <= overhead <= bound:
+        raise RuntimeError(f"artifacts: the KV tar is {len(data)} bytes for {leaf_bytes} of "
+                           f"leaves and {meta_len} of meta (overhead {overhead} > {bound})")
+    return {"stored_len": stored, "leaf_bytes": leaf_bytes, "meta_bytes": meta_len,
+            "overhead": overhead}
+
+
+def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest: str,
+                    forwards: dict, device: str, per_forward: int, build_s: float | None) -> dict:
+    """The derived-artifact stores (module docstring, phase 8): two pods on
+    the deploy phase's registry and warm blob cache. Pod A publishes the
+    kernel library and a hot prefix's KV; pod B, with an empty build
+    directory and no CUDA toolkit in reach, installs both at its admin load
+    and fetches a second prefix through. ``dest``'s weights are moved aside
+    for the two staging copies and come back from the blob cache after."""
+    import dataclasses
+    import hashlib
+    import shutil
+
+    import torch
+
+    from modelx_tpu_torch.dl import blob_cache, kv_store, program_store
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.kernels import build
+    from modelx_tpu_torch.models import gpt2
+    from modelx_tpu_torch.types import MediaTypeModelKVCache, MediaTypeModelProgram
+
+    on_card = device == "cuda"
+    weights = os.path.join(dest, "model.safetensors")
+    nbytes = os.path.getsize(weights)
+    cached = blob_cache.BlobCache(cache).entry_path(digest)
+    if not os.path.isfile(cached):
+        raise RuntimeError("artifacts: the blob cache lost the checkpoint")
+    os.unlink(weights)  # the blob cache holds the same bytes
+    stats: dict = {}
+    registry = pod_a = pod_b = None
+    try:
+        _artifacts_disk(root, nbytes)
+        registry, base = _start_registry(reg_dir, os.path.join(root, "registry-artifacts.log"))
+        ref = f"{base}/{DEPLOY_REPO}@v1"
+        # the pods' boot model: serve_main needs one, and gpt2's plain
+        # attention launches no kernel, so nothing binds the library before
+        # the admin load
+        boot = os.path.join(root, "boot-gpt2")
+        os.makedirs(boot)
+        tiny = dataclasses.replace(gpt2.GPT2Config.tiny(), dtype=torch.bfloat16)
+        st.write_safetensors(os.path.join(boot, "model.safetensors"),
+                             gpt2.init_params(tiny, torch.Generator().manual_seed(0)))
+        rng = torch.Generator().manual_seed(10)
+
+        def draw(n):
+            return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+        bases = [draw(ART_BASE_LEN), draw(ART_BASE_LEN)]
+        branches = [[b + draw(2) for _ in range(5)] for b in bases]
+        env_a = {}
+        if on_card:
+            library = build.library_path()  # phase 2's
+        else:
+            # no nvcc here: a stand-in file under the library's name
+            env_a["MODELX_COMPILE_CACHE"] = os.path.join(root, "build-a")
+            os.makedirs(env_a["MODELX_COMPILE_CACHE"])
+            library = os.path.join(env_a["MODELX_COMPILE_CACHE"], build.library_name())
+            with open(library, "wb") as f:
+                f.write(b"a stand-in kernel library (CPU rehearsal)")
+        with open(library, "rb") as f:
+            library_sha = hashlib.sha256(f.read()).hexdigest()
+        outbox = os.path.join(root, "outbox")
+
+        # (a) pod A loads and publishes
+        pod_a, port_a, log_a = _art_pod("a", root, boot, device, env_a, [
+            "--publish-kv", "--kv-publish-threshold", "2", "--publish-programs",
+            "--publish-outbox-dir", outbox, "--blob-cache-dir", cache])
+        t0 = time.monotonic()
+        status, body = _http(port_a, "/admin/models", {"name": MODEL, "ref": ref, "wait": True})
+        load_a = time.monotonic() - t0
+        if status != 200 or body[MODEL]["state"] != "READY":
+            raise RuntimeError(f"artifacts: pod A's admin load answered {status} {body}")
+        depth: list = []
+        progs, _ = _wait_for("the program bundle's publish",
+                             lambda: _manifest_blobs(base, MediaTypeModelProgram), depth, port_a)
+        (prog,) = progs
+        members = program_store._bundle_meta(_blob(base, prog))["artifacts"]
+        if [m["sha256"] for m in members] != [library_sha]:
+            raise RuntimeError(f"artifacts: the program bundle's library is not phase 2's: "
+                               f"{members}")
+        (drained,) = [e for e in _pool_events(port_a, "outbox.drained")
+                      if e["kind"] == "programs"]
+        stats.update(art_program_bytes=prog.size, art_program_publish_s=drained["seconds"],
+                     art_load_a_s=load_a)
+        log(f"artifacts: pod A admin-loaded {DEPLOY_REPO}@v1 in {load_a:.2f} s and published "
+            f"{prog.name} ({prog.size} bytes; its library hashes equal to "
+            f"{'phase 2' if on_card else 'the stand-in'}'s) through the outbox in "
+            f"{drained['seconds']:.3f} s ({CARD})")
+
+        for prompt in [bases[0]] + branches[0][:2]:
+            _art_generate(port_a, prompt, False)
+        kvs, waited = _wait_for(
+            "the KV publish",
+            lambda: (_admin_json(port_a)["serving"][MODEL]["prefix_cache"]["published_total"]
+                     >= 1 and _manifest_blobs(base, MediaTypeModelKVCache)), depth, port_a)
+        (kv_desc,) = kvs
+        layout = _check_kv_layout(cfg, _blob(base, kv_desc), ART_BASE_LEN)
+        (enq,) = _pool_events(port_a, "kv.publish_enqueued")
+        (kv_drained,) = [e for e in _pool_events(port_a, "outbox.drained")
+                         if e["kind"] == "kvcache"]
+        stats.update(art_kv_bytes=kv_desc.size, art_kv_build_ms=enq["build_ms"],
+                     art_kv_publish_s=kv_drained["seconds"], art_kv_published_after_s=waited,
+                     art_kv_stored_len=layout["stored_len"])
+        log(f"artifacts: pod A: {ART_BASE_LEN}-token base, two branches: {kv_desc.name} "
+            f"published {waited:.1f} s after the last request ({kv_desc.size} bytes = "
+            f"{layout['leaf_bytes']} of leaves ({cfg.num_layers} x 2 x {layout['stored_len']} x "
+            f"{cfg.num_kv_heads} x {cfg.head_dim} x 2 B) + {layout['meta_bytes']} meta + "
+            f"{layout['overhead']} tar); built in {enq['build_ms']:.1f} ms, published in "
+            f"{kv_drained['seconds']:.3f} s ({CARD})")
+        want = _answers(port_a, branches[0][2])
+        tokens, argmax = forwards[FORWARD_SHAPES[0]]
+        if _argmax(port_a, MODEL, tokens) != argmax.tolist():
+            raise RuntimeError("artifacts: pod A's /v1/forward differs from the main phase's")
+
+        # (b) pod B: an empty build dir, no toolkit; installs at its load
+        build_b = os.path.join(root, "build-b")
+        os.makedirs(build_b)
+        pod_b, port_b, log_b = _art_pod("b", root, boot, device, {
+            "MODELX_COMPILE_CACHE": build_b, **_no_toolkit_env(root)}, [
+            "--kv-fetch-through", "--blob-cache-dir", cache])
+        t0 = time.monotonic()
+        status, body = _http(port_b, "/admin/models", {"name": MODEL, "ref": ref, "wait": True})
+        load_b = time.monotonic() - t0
+        if status != 200 or body[MODEL]["state"] != "READY":
+            raise RuntimeError(f"artifacts: pod B's admin load answered {status} {body}")
+        ms = _model_stats(port_b)
+        programs, kv, lib = ms.get("programs", {}), ms.get("kv", {}), ms.get("kernel_library")
+        if programs.get("installed", 0) < 1 or programs.get("skipped") or kv.get(
+                "installed", 0) < 1 or kv.get("skipped"):
+            raise RuntimeError(f"artifacts: pod B installed programs {programs}, kv {kv}")
+        if on_card and (lib is None or lib["origin"] != "bundle" or lib["nvcc_seconds"]):
+            raise RuntimeError(f"artifacts: pod B's kernel library came from {lib}")
+        with open(os.path.join(build_b, build.library_name()), "rb") as f:
+            if hashlib.sha256(f.read()).hexdigest() != library_sha:
+                raise RuntimeError("artifacts: pod B's installed library is not pod A's")
+        if _argmax(port_b, MODEL, tokens) != argmax.tolist():
+            raise RuntimeError("artifacts: pod B's /v1/forward differs from the main phase's")
+        stats.update(art_load_b_s=load_b, art_ready_b_s=ms["ready_seconds"],
+                     art_program_install_ms=programs["ms"], art_kv_install_ms=kv["ms"],
+                     art_nvcc_s=build_s)
+        log(f"artifacts: pod B (MODELX_COMPILE_CACHE empty, no nvcc in reach) admin-loaded in "
+            f"{load_b:.2f} s, ready {ms['ready_seconds']} s with the library from "
+            f"{(lib or {}).get('origin', 'no card')} (installed in {programs['ms']} ms; phase 2's "
+            f"nvcc build: {'cached' if build_s is None else f'{build_s:.3f} s'}); "
+            f"{kv['installed']} KV bundle installed in {kv['ms']} ms; /v1/forward "
+            f"{list(tokens.shape)} == the main phase's argmax ({CARD})")
+
+        _art_generate(port_b, [1, 2, 3], False)  # the engine starts outside the timing
+        got = _answers(port_b, branches[0][2])
+        if got != want:
+            bad = [k for k in want if got[k] != want[k]]
+            raise RuntimeError(f"artifacts: pod B's answers from the installed prefix differ "
+                               f"from pod A's: {bad}")
+        _, ttft_hit = _art_generate(port_b, branches[0][3], True)
+        _, ttft_cold = _art_generate(port_b, draw(ART_BASE_LEN + 2), True)
+        last_miss = time.monotonic()
+        pc = _admin_json(port_b)["serving"][MODEL]["prefix_cache"]
+        admits = _installed_admits(port_b)
+        if pc["hits_installed"] < 1 or admits < 1:
+            raise RuntimeError(f"artifacts: pod B decoded from no installed entry: {pc}, "
+                               f"{admits} admissions")
+        stats.update(art_ttft_installed_ms=ttft_hit * 1e3, art_ttft_cold_ms=ttft_cold * 1e3,
+                     art_hits_installed=pc["hits_installed"], art_installed_admits=admits)
+        log(f"artifacts: pod B answers base+[e,f] greedy and sampled, whole and streamed, "
+            f"byte for byte as pod A; hits_installed {pc['hits_installed']}, "
+            f"prefix_hits_installed {admits}; first streamed token {ttft_hit * 1e3:.1f} ms "
+            f"on the installed prefix against {ttft_cold * 1e3:.1f} ms for "
+            f"{ART_BASE_LEN + 2} tokens with no prefix ({CARD})")
+
+        # (c) fetch-through: pod A makes a second prefix hot after pod B is up
+        for prompt in [bases[1]] + branches[1][:2]:
+            _art_generate(port_a, prompt, False)
+        _wait_for("the second KV publish",
+                  lambda: len(_manifest_blobs(base, MediaTypeModelKVCache)) >= 2, depth, port_a)
+        want2 = _art_generate(port_a, branches[1][3], False)[0]
+        # the fetcher keeps a manifest read for MANIFEST_TTL_S: let the one
+        # its last miss read (before this publish) expire first
+        time.sleep(max(0.0, last_miss + kv_store.KVFetcher.MANIFEST_TTL_S + 0.5
+                       - time.monotonic()))
+        _art_generate(port_b, branches[1][2], False)  # a miss: the fetcher hears of it
+
+        def fetched():
+            f = _admin_json(port_b)["pool"].get("kv_fetchers", {}).get(MODEL, {})
+            return f if f.get("installed_total", 0) >= 1 else None
+
+        fetch, fetch_s = _wait_for("the fetch-through install", fetched)
+        before = _admin_json(port_b)["serving"][MODEL]["prefix_cache"]["hits_installed"]
+        if _art_generate(port_b, branches[1][3], False)[0] != want2:
+            raise RuntimeError("artifacts: pod B's answer from the fetched prefix differs from "
+                               "pod A's")
+        after = _admin_json(port_b)["serving"][MODEL]["prefix_cache"]["hits_installed"]
+        if after <= before:
+            raise RuntimeError("artifacts: pod B's request after the fetch did not hit it")
+        stats.update(art_fetch_install_ms=fetch["install_ms_total"], art_fetch_after_s=fetch_s,
+                     art_outbox_depth=depth)
+        log(f"artifacts: fetch-through: pod B's miss installed the second prefix in "
+            f"{fetch['install_ms_total']:.1f} ms ({fetch_s:.1f} s after the miss); the next "
+            f"request hit it and answered pod A's tokens ({CARD})")
+        log(f"artifacts: pod A's outbox depth (seconds into each wait, depth): {depth}")
+
+        launches_a = _stop_serve_child(pod_a, log_a, "artifacts: pod A")
+        pod_a = None
+        launches_b = _stop_serve_child(pod_b, log_b, "artifacts: pod B")
+        pod_b = None
+        # each pod: the admin load's warm-up and one /v1/forward [1, 2048]
+        if launches_a != 2 * per_forward or launches_b != 2 * per_forward:
+            raise RuntimeError(f"artifacts: flash launches A {launches_a}, B {launches_b}, want "
+                               f"{2 * per_forward} each")
+        stats["flash_launches_artifacts"] = launches_a + launches_b
+        return stats
+    finally:
+        for pod in (pod_a, pod_b):
+            if pod is not None and pod.poll() is None:
+                pod.kill()
+                pod.wait(timeout=60)
+        if registry is not None and registry.poll() is None:
+            registry.kill()
+            registry.wait(timeout=60)
+        for d in ("staging-a", "staging-b"):
+            shutil.rmtree(os.path.join(root, d), ignore_errors=True)
+        os.replace(cached, weights)  # dest whole again for the phases after
+
+
+# -- phase 9: the model pool ----------------------------------------------------------
 
 # the pool phase's streams: long enough to be mid-flight when the unload or
 # the SIGTERM lands (one token per NDJSON line)
@@ -2354,7 +2832,7 @@ def _stream_tokens(raw: bytes) -> list:
 
 
 def phase_pool(cfg, ckpt: str, forwards: dict, device: str, root: str) -> dict:
-    """The model pool (module docstring, phase 8): admin loads while
+    """The model pool (module docstring, phase 9): admin loads while
     serving, eviction under the budget into the host tier, promotion from
     host and from disk, the drain of one model and of the pod, and the
     measured veto. ``ckpt`` holds the checkpoint (every name loads it, so
@@ -2732,7 +3210,7 @@ def _pool_veto(ckpt: str, device: str, root: str, tokens, want: list, nbytes: in
         _free(*sset.servers.values())
 
 
-# -- phase 9: the continuous engine ----------------------------------------------------
+# -- phase 10: the continuous engine ----------------------------------------------------
 
 # the mixed traffic: one client per prompt length, half greedy, half seeded
 # sampled (odd clients), CONT_NEW_TOKENS each; CONT_LATE joins mid-decode,
@@ -2832,23 +3310,26 @@ def _pcts(xs: list) -> tuple[float, float]:
 
 
 def _serve_child(ckpt: str, device: str, port: int, root: str, name: str = MODEL,
-                 slots: int | None = None):
-    """A ``serve_main --continuous-batch`` child serving ``ckpt`` as ``name``
-    with ``slots`` slots (``CONT_SLOTS``); (the process, its log's path)
-    once it answers /healthz."""
-    log_path = os.path.join(root, f"serve-continuous-{name}.log")
+                 slots: int | None = None, what: str = "continuous", extra: tuple = (),
+                 env: dict | None = None):
+    """A ``serve_main --continuous-batch --prefix-cache 4`` child serving
+    ``ckpt`` as ``name`` with ``slots`` slots (``CONT_SLOTS``), ``extra``
+    flags and ``env`` over the children's environment; (the process, its
+    log's path) once it answers /healthz. ``what`` prefixes its errors."""
+    log_path = os.path.join(root, f"serve-{re.sub(r'[^A-Za-z0-9]+', '-', what)}-{name}.log")
     log_f = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-c", SERVE_CHILD, "--model", f"{name}={ckpt}", "--device", device,
          "--dtype", "bfloat16", "--max-seq-len", str(CONT_MAX_LEN), "--listen",
          f"127.0.0.1:{port}", "--continuous-batch", "--max-slots", str(slots or CONT_SLOTS),
-         "--prefix-cache", "4", "--stream-chunk-size", str(CONT_CHUNK), "--drain-grace", "30"],
-        cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT)
+         "--prefix-cache", "4", "--stream-chunk-size", str(CONT_CHUNK), "--drain-grace", "30",
+         *extra],
+        cwd=REPO, env={**_child_env(), **(env or {})}, stdout=log_f, stderr=subprocess.STDOUT)
     log_f.close()
     deadline = time.monotonic() + 300
     while True:
         if proc.poll() is not None:
-            raise RuntimeError(f"continuous: serve_main exited {proc.returncode}: "
+            raise RuntimeError(f"{what}: serve_main exited {proc.returncode}: "
                                f"{open(log_path).read()[-3000:]}")
         try:
             if _http_raw(port, "/healthz")[0] == 200:
@@ -2857,8 +3338,21 @@ def _serve_child(ckpt: str, device: str, port: int, root: str, name: str = MODEL
             pass
         if time.monotonic() > deadline:
             proc.kill()
-            raise RuntimeError("continuous: serve_main did not answer /healthz in 300 s")
+            raise RuntimeError(f"{what}: serve_main did not answer /healthz in 300 s")
         time.sleep(0.2)
+
+
+def _stop_serve_child(proc, log_path: str, what: str) -> int:
+    """SIGTERM a ``_serve_child``, wait for its drain and exit 0; the flash
+    launches it printed on the way out."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    if proc.wait(timeout=120) != 0:
+        raise RuntimeError(f"{what}: serve_main exited {proc.returncode}: "
+                           f"{open(log_path).read()[-3000:]}")
+    counts = re.findall(r"^FLASH_LAUNCHES (\d+)$", open(log_path).read(), re.M)
+    return int(counts[-1]) if counts else -1
 
 
 def _engine(server, **kw):
@@ -2928,7 +3422,7 @@ def _step_cost(cb, rows: int, length: int, on_card: bool, reps: int = 5) -> dict
 
 
 def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
-    """The continuous engine (module docstring, phase 9), on the pulled
+    """The continuous engine (module docstring, phase 10), on the pulled
     dest: the plain reference and the window batcher in-process, a
     ``--continuous-batch`` serve_main child over HTTP (mixed traffic,
     resume, 504, a forward while rows decode), the 429 of a bounded
@@ -2937,7 +3431,6 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
     speculation. Its flash launches are counted from 0: the warm-ups and
     the forwards, none in admission or decode."""
     import concurrent.futures
-    import signal
     import threading
     import warnings
 
@@ -3119,12 +3612,7 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
         if status != 504 or "deadline" not in json.loads(body)["error"]:
             raise RuntimeError(f"continuous: an expired deadline answered {status} {body}")
         log("continuous: an expired X-ModelX-Deadline-Ms answered 504")
-        proc.send_signal(signal.SIGTERM)
-        if proc.wait(timeout=120) != 0:
-            raise RuntimeError(f"continuous: serve_main exited {proc.returncode}: "
-                               f"{open(child_log).read()[-3000:]}")
-        counts = re.findall(r"^FLASH_LAUNCHES (\d+)$", open(child_log).read(), re.M)
-        child_flash = int(counts[-1]) if counts else -1
+        child_flash = _stop_serve_child(proc, child_log, "continuous")
         if child_flash != per_forward * (1 + 1 + len(lone)):
             raise RuntimeError(f"continuous: the child launched the flash kernel {child_flash} "
                                f"times, want {per_forward * (2 + len(lone))} (its warm-up and "
@@ -3358,7 +3846,7 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
         _free(server)
 
 
-# -- phase 10: the other generative families -----------------------------------------
+# -- phase 11: the other generative families -----------------------------------------
 
 FAMILY_FORWARD_LEN = 2048  # /v1/forward [1, S]; gpt2 at its n_positions
 FAMILY_PROMPT, FAMILY_NEW = 128, 32
@@ -3374,12 +3862,15 @@ GEMMA_ENGINE_SLOTS, GEMMA_PAGE_SIZE = 4, 64
 # Mixtral-8x7B's depth cut: all 32 layers take 93.4 GB in bf16, more than
 # the card's 80; every layer is of one kind, so 4 keep the pattern
 MIXTRAL_LAYERS = 4
+# Gemma-2-9B's depth cut, for the smoke's time limit: 14 of its 42 layers
+# keep the alternation of windowed (even) and global (odd) layers
+GEMMA_LAYERS = 14
 
 
 def family_configs() -> list:
     """(family, config) of each checkpoint the phase writes, in order:
-    Gemma-2-9B, Phi-3-mini-4k (head_dim 96), Mixtral-8x7B at
-    ``MIXTRAL_LAYERS`` layers, GPT-2 125M; every one bf16."""
+    Gemma-2-9B at ``GEMMA_LAYERS`` layers, Phi-3-mini-4k (head_dim 96),
+    Mixtral-8x7B at ``MIXTRAL_LAYERS`` layers, GPT-2 125M; every one bf16."""
     import dataclasses
 
     import torch
@@ -3390,7 +3881,8 @@ def family_configs() -> list:
                                   num_layers=32, num_heads=32, num_kv_heads=32, head_dim=96,
                                   rope_theta=10000.0, rms_eps=1e-5)
     return [
-        ("gemma2", gemma2.Gemma2Config.gemma2_9b()),
+        ("gemma2", dataclasses.replace(gemma2.Gemma2Config.gemma2_9b(),
+                                       num_layers=GEMMA_LAYERS)),
         ("phi3", phi3_mini),
         ("mixtral", dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
                                         num_layers=MIXTRAL_LAYERS)),
@@ -3483,7 +3975,7 @@ def _layer0_attention_vs_plain(server, tokens, what: str) -> str:
 
 
 def phase_families(device: str = "cuda", configs: list | None = None) -> dict:
-    """The other generative families (module docstring, phase 10): one
+    """The other generative families (module docstring, phase 11): one
     seeded random checkpoint at a time (``family_configs``), written with
     the port's writer, served by ``serve_main``, and deleted before the
     next. Its flash launches are counted from 0."""
@@ -3623,7 +4115,6 @@ def _gemma2_extra(sset, httpd, server, module, cfg, ckpt, device, per_forward, r
     within ``OPTIONS_TIE_TOL`` of a cache-free forward's maximum on its own
     prefix; a ``--continuous-batch`` child and in-process gather and
     in-place paged engines against the plain path."""
-    import signal
     import threading
 
     import numpy as np
@@ -3706,12 +4197,7 @@ def _gemma2_extra(sset, httpd, server, module, cfg, ckpt, device, per_forward, r
             got = json.loads(ans[2])["tokens"][0][len(p):]
             verdicts.append(check_near_ties(server, p, got, want[i],
                                             f"families: gemma2 engine client {i}", samp))
-        proc.send_signal(signal.SIGTERM)
-        if proc.wait(timeout=120) != 0:
-            raise RuntimeError(f"families: gemma2: the engine child exited {proc.returncode}: "
-                               f"{open(child_log).read()[-3000:]}")
-        counts = re.findall(r"^FLASH_LAUNCHES (\d+)$", open(child_log).read(), re.M)
-        child = int(counts[-1]) if counts else -1
+        child = _stop_serve_child(proc, child_log, "families: gemma2: the engine child")
         if child != per_forward:
             raise RuntimeError(f"families: gemma2: the engine child launched the kernel {child} "
                                f"times, want its warm-up's {per_forward}")

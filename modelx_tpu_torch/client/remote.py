@@ -5,7 +5,9 @@
 carrying size/name/media-type/annotations, retries with backoff and
 ``Retry-After``, read mirrors walked in a sticky rotation, hedged ranged
 blob GETs, and stale-while-revalidate manifests through the pinned
-manifest cache.
+manifest cache. The write half (manifest PUT and HEAD, blob PUT through
+the server) serves the derived-artifact publishes (``dl/program_store.py``,
+``dl/kv_store.py``); pushes of whole model directories come with the CLI.
 
 Connections are kept alive and reused per endpoint (``_ConnectionPool``),
 as a ``requests.Session`` pools them: a pull of many blobs, or many ranged
@@ -15,11 +17,12 @@ GETs, costs one TCP handshake per concurrent stream, not one per request.
 from __future__ import annotations
 
 import http.client
+import io
 import logging
 import ssl
 import threading
 import urllib.parse
-from typing import Any, Iterator
+from typing import Any, BinaryIO, Iterator
 
 from modelx_tpu_torch import errors
 from modelx_tpu_torch.types import BlobLocation, Descriptor, Manifest
@@ -421,6 +424,23 @@ class RegistryClient:
             cache.put(self.registry, repository, ver, manifest)
         return manifest
 
+    def put_manifest(self, repository: str, version: str, manifest: Manifest) -> None:
+        self._request(
+            "PUT",
+            f"/{repository}/manifests/{self._version(version)}",
+            data=manifest.encode(),
+            headers={"Content-Type": manifest.media_type},
+        )
+
+    def exists_manifest(self, repository: str, version: str = "") -> bool:
+        try:
+            self._request("HEAD", f"/{repository}/manifests/{self._version(version)}")
+            return True
+        except errors.ErrorInfo as e:
+            if e.http_status == 404:
+                return False
+            raise
+
     # -- blobs -----------------------------------------------------------------
 
     def head_blob(self, repository: str, digest: str) -> bool:
@@ -468,6 +488,22 @@ class RegistryClient:
         resp = self._request("GET", path, headers=headers, stream=True)
         return resp.iter_content(chunk_size=1024 * 1024)
 
+    def upload_blob_content(self, repository: str, desc: Descriptor,
+                            content: BinaryIO | bytes) -> None:
+        """Direct PUT through the server, streamed in 1 MiB pieces under
+        the descriptor's Content-Length."""
+        if isinstance(content, bytes):
+            content = io.BytesIO(content)
+        self._request(
+            "PUT",
+            f"/{repository}/blobs/{desc.digest}",
+            data=_sized_iter(content, desc.size),
+            headers={
+                "Content-Type": desc.media_type or "application/octet-stream",
+                "Content-Length": str(desc.size),
+            },
+        )
+
     def get_blob_location(
         self, repository: str, desc: Descriptor, purpose: str
     ) -> BlobLocation | None:
@@ -490,3 +526,12 @@ class RegistryClient:
             raise
         return BlobLocation.from_json(r.json())
 
+
+def _sized_iter(f: BinaryIO, size: int, chunk: int = 1024 * 1024) -> Iterator[bytes]:
+    remaining = size
+    while remaining > 0:
+        data = f.read(min(chunk, remaining))
+        if not data:
+            break
+        remaining -= len(data)
+        yield data

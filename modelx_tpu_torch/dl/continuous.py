@@ -1033,8 +1033,15 @@ class ContinuousBatcher:
         # this dispatch is attributable to ONE request (poison quarantine)
         self._suspect_fp = prep["fp"]
         self._suspect_rid = prep["ticket"].request_id
+        # registry-installed prefix KV (dl/kv_store.py): this admission
+        # decodes from fleet-shared state, the proof that a fresh pod
+        # skipped a shared prefix's prefill
+        installed = (prep["hit"] is not None and self.prefix_cache is not None
+                     and self.prefix_cache.entry_origin(ids[: prep["hit"][0]]) == "installed")
+        if installed:
+            self.stats["prefix_hits_installed"] += 1
         self._rec("dispatch_admit", slot=slot, request_id=prep["ticket"].request_id,
-                  prompt_len=s, cached=prep["hit"] is not None, installed_kv=False)
+                  prompt_len=s, cached=prep["hit"] is not None, installed_kv=installed)
         hit = prep["hit"]
         with self.server._device_lock:
             if hit is not None:

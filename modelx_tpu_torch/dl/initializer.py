@@ -137,11 +137,26 @@ def run_initializer(
     return summary
 
 
+def _link_or_copy(src: str, dst: str) -> None:
+    """``dst`` as a hard link of ``src`` when both lie on one filesystem,
+    else a copy: a cache hit materializes without a second copy of the
+    bytes on disk. Safe because nothing writes a pulled file in place (the
+    puller replaces files whole)."""
+    tmp = f"{dst}.link-{os.getpid()}"
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, dst)
+        return
+    os.replace(tmp, dst)
+
+
 def pull_model(uri: str, dest: str, cache=None, quiet: bool = True) -> dict:
     """Pull a registry ref into ``dest`` through the local blob cache: file
-    blobs the cache holds are copied from it (zero network reads; the
-    puller's hash-skip then finds them up to date), and freshly pulled
-    blobs are admitted for the next load.
+    blobs the cache holds are hard-linked from it (copied across
+    filesystems; zero network reads; the puller's hash-skip then finds
+    them up to date), and freshly pulled blobs are admitted for the next
+    load the same way.
 
     When the manifest came off the pinned cache because every registry
     endpoint is down (``last_source == "cache"``), the pull runs offline:
@@ -181,7 +196,7 @@ def pull_model(uri: str, dest: str, cache=None, quiet: bool = True) -> dict:
             target = os.path.join(dest, blob.name)
             os.makedirs(os.path.dirname(target) or ".", exist_ok=True)
             try:
-                shutil.copyfile(hit, target)
+                _link_or_copy(hit, target)
                 os.chmod(target, blob.mode or 0o644)
                 cache_hits += 1
             except OSError:
@@ -218,7 +233,7 @@ def pull_model(uri: str, dest: str, cache=None, quiet: bool = True) -> dict:
                 # process must not overwrite each other's copies
                 fd, tmp = tempfile.mkstemp(dir=cache.root, prefix=".pull-admit-")
                 os.close(fd)
-                shutil.copyfile(target, tmp)
+                _link_or_copy(target, tmp)
             except OSError:
                 continue
             if cache.admit_file(blob.digest, tmp) is not None:

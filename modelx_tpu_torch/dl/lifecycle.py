@@ -37,9 +37,16 @@ reference. Evicted and unloaded models are demoted to host RAM or disk
 content is promoted back. A load that hits ``torch.cuda.OutOfMemoryError``
 demotes idle models and retries once.
 
-The port serves one device: no mesh, and a weight-shard factor of 1. The
-registry-publish hooks of the reference's pool (the outbox, the prefix-KV
-publisher and fetch-through, program bundles) belong to a later slice.
+The derived-artifact hooks ride on runtime (registry-ref) loads, as in
+the reference: with ``publish_programs`` a load that turns READY publishes
+the kernel library bundle to its model version (``dl/program_store.py``),
+with ``attach_kv_publisher`` a background sweep ships hot prefix-KV entries
+(``dl/kv_store.py``; flushed once more when a model drains), and with
+``kv_fetch_through`` a prefix-cache miss consults the version's published
+KV. With ``attach_outbox`` both publishes spool to disk and a drainer
+pushes them (``dl/outbox.py``), so a registry outage never blocks a load.
+
+The port serves one device: no mesh, and a weight-shard factor of 1.
 """
 
 from __future__ import annotations
@@ -196,12 +203,28 @@ class ModelPool:
         # the local blob cache the pull path tees through (None = the
         # process default, dl/blob_cache.configure_default / --blob-cache-dir)
         self.blob_cache = blob_cache
+        # --publish-programs: a ref-based load that reaches READY attaches
+        # its kernel library to the model's registry version, so the next
+        # puller binds it without nvcc (dl/program_store.py)
+        self.publish_programs = False
+        # --publish-kv: sweep live prefix caches for entries hot enough to
+        # ship as kv bundles; --kv-fetch-through: a prefix-cache miss
+        # consults the registry (dl/kv_store.py)
+        self.publish_kv = False
+        self.kv_publish_threshold = 2
+        self.kv_fetch_through = False
+        self.kv_publisher = None
+        self._kv_fetchers: dict = {}
         self.drain_timeout_s = float(drain_timeout_s)
         # the pool's flight recorder: tier promotions and demotions, OOM
         # shed-and-retry, control-plane transitions (/debug/flightrec)
         from modelx_tpu_torch.utils.flightrec import FlightRecorder
 
         self.flightrec = FlightRecorder(capacity=256)
+        # the durable publish outbox, when attached: program and kv
+        # publishes spool to disk and a background drainer pushes them
+        self.outbox = None
+        self.outbox_drainer = None
         from modelx_tpu_torch.dl import manifest_cache
 
         manifest_cache.health().recorder = self.flightrec
@@ -225,6 +248,118 @@ class ModelPool:
             e.server = server
             e.model_dir = server.model_dir
             self.entries[name] = e
+
+    # -- derived-artifact publishes -------------------------------------------
+
+    def attach_outbox(self, spool_dir: str, max_entries: int | None = None,
+                      max_bytes: int | None = None, backoff_s: float | None = None,
+                      start: bool = True) -> None:
+        """Enable the durable publish outbox (``--publish-outbox-dir``):
+        program and kv publishes enqueue to the on-disk spool and the
+        background drainer replays them through the registry with backoff.
+        Entries a previous process generation left drain too."""
+        from modelx_tpu_torch.dl import kv_store, program_store
+        from modelx_tpu_torch.dl import outbox as outbox_mod
+
+        kwargs = {}
+        if max_entries is not None:
+            kwargs["max_entries"] = max_entries
+        if max_bytes is not None:
+            kwargs["max_bytes"] = max_bytes
+        self.outbox = outbox_mod.Outbox(spool_dir, **kwargs)
+        dkwargs = {"recorder": self.flightrec}
+        if backoff_s is not None:
+            dkwargs["backoff_s"] = backoff_s
+        self.outbox_drainer = outbox_mod.Drainer(self.outbox, **dkwargs)
+        # one spool, two artifact kinds: each entry replays through its own
+        # publisher (kind-less entries default to "programs")
+        self.outbox_drainer.register_handler(
+            "programs", lambda _k, ref, data: program_store.publish_bundle(ref, data))
+        self.outbox_drainer.register_handler(
+            kv_store.OUTBOX_KIND, lambda _k, ref, data: kv_store.publish_bundle(ref, data))
+        if start:
+            self.outbox_drainer.start()
+
+    def stop_outbox(self) -> None:
+        if self.outbox_drainer is not None:
+            self.outbox_drainer.stop()
+
+    def attach_kv_publisher(self, threshold: int | None = None, interval_s: float = 5.0,
+                            start: bool = True) -> None:
+        """Enable the prefix-KV publisher (``--publish-kv``): a background
+        sweep bundles hot PrefixKVCache entries of every ref-loaded model and
+        hands them to the outbox (kind ``"kvcache"``) when one is attached,
+        or publishes them directly."""
+        from modelx_tpu_torch.dl import kv_store
+
+        if threshold is not None:
+            self.kv_publish_threshold = max(1, int(threshold))
+        self.publish_kv = True
+
+        def targets():
+            with self._lock:
+                return [(e.ref, e.server) for e in self.entries.values()
+                        if e.ref and e.server is not None
+                        and self._effective_state(e) in (READY, DRAINING)]
+
+        def sink(ref: str, data: bytes) -> None:
+            if self.outbox is not None:
+                if not self.outbox.enqueue(kv_store.OUTBOX_KIND, ref, data):
+                    raise RuntimeError("outbox refused kv bundle")
+                if self.outbox_drainer is not None:
+                    self.outbox_drainer.kick()
+            else:
+                kv_store.publish_bundle(ref, data)
+            self.flightrec.record("kv.publish_enqueued", ref=ref, bytes=len(data),
+                                  build_ms=round(self.kv_publisher.last_build_ms, 3))
+
+        self.kv_publisher = kv_store.KVPublisher(
+            targets, sink, threshold=self.kv_publish_threshold, interval_s=interval_s)
+        if start:
+            self.kv_publisher.start()
+
+    def stop_kv(self) -> None:
+        if self.kv_publisher is not None:
+            self.kv_publisher.stop()
+        with self._lock:
+            fetchers = list(self._kv_fetchers.values())
+            self._kv_fetchers.clear()
+        for f in fetchers:
+            f.stop()
+
+    def _after_runtime_load(self, name: str, e: ModelEntry, server) -> None:
+        """The derived-artifact hooks of a ref-based load that turned READY,
+        off the serving path: a failure costs the next puller its shortcut,
+        never this load."""
+        if self.publish_programs and e.ref:
+            from modelx_tpu_torch.dl import program_store
+            from modelx_tpu_torch.kernels import build
+
+            try:
+                if self.outbox is not None:
+                    data = program_store.bundle_for_server(e.ref, server, build.build_dir())
+                    if data is not None:
+                        self.outbox.enqueue("programs", e.ref, data)
+                        if self.outbox_drainer is not None:
+                            self.outbox_drainer.kick()
+                else:
+                    program_store.publish_for_server(e.ref, server, build.build_dir())
+            except Exception:
+                logger.exception("program publish for %s failed", name)
+        if self.kv_fetch_through and e.ref:
+            from modelx_tpu_torch.dl import kv_store
+
+            try:
+                fetcher = kv_store.fetcher_for_server(e.ref, server,
+                                                      blob_cache=self.blob_cache)
+                if fetcher is not None:
+                    with self._lock:
+                        self._kv_fetchers[name] = fetcher
+                    self.flightrec.record("kv.fetch_through_attached", model=name)
+            except Exception:
+                logger.exception("kv fetch-through attach for %s failed", name)
+        if self.kv_publisher is not None:
+            self.kv_publisher.kick()
 
     # -- state transitions driven by ServerSet.load_all -----------------------
 
@@ -383,6 +518,15 @@ class ModelPool:
         snap["hbm_measured_source"] = dm["source"]
         if self.tiers.enabled:
             snap["tiers"] = self.tiers.snapshot()
+        if self.outbox is not None:
+            snap["outbox"] = (self.outbox_drainer.snapshot() if self.outbox_drainer is not None
+                              else self.outbox.snapshot())
+        if self.kv_publisher is not None:
+            snap["kv_publisher"] = self.kv_publisher.snapshot()
+        with self._lock:
+            fetchers = dict(self._kv_fetchers)
+        if fetchers:
+            snap["kv_fetchers"] = {n: f.snapshot() for n, f in fetchers.items()}
         return snap
 
     def failed(self) -> dict[str, str]:
@@ -685,6 +829,7 @@ class ModelPool:
                 return
             logger.info("model %s loaded at runtime (%s)%s", name, e.ref or e.model_dir,
                         f" [promoted from {promo.tier} tier]" if promo else "")
+            self._after_runtime_load(name, e, server)
         except BaseException as exc:  # FAILED is a state, not a crash
             from modelx_tpu_torch.dl.manifest_cache import OfflineUnavailableError
 
@@ -741,6 +886,14 @@ class ModelPool:
             return {name: {"state": "DELETED"}}
 
         def _drain() -> None:
+            if self.kv_publisher is not None:
+                # the last call before the prefix cache frees: an entry past
+                # the threshold ships now (the outbox owns it from here, so
+                # a dead registry cannot block the drain)
+                try:
+                    self.kv_publisher.flush()
+                except Exception:
+                    logger.exception("kv flush on drain of %s failed", name)
             with self._lock:
                 deadline = time.monotonic() + timeout
                 while e.inflight > 0 and time.monotonic() < deadline:
@@ -799,6 +952,10 @@ class ModelPool:
         server is demoted, then freed, then the staging dir is removed.
         Never called under the pool lock."""
         name, server, batcher, cb, staged, tier_key, sidecar_src = art
+        with self._lock:
+            fetcher = self._kv_fetchers.pop(name, None)
+        if fetcher is not None:
+            fetcher.stop()
         if batcher is not None:
             batcher.close()
         if cb is not None:

@@ -284,6 +284,7 @@ class ModelServer:
         paths = sorted(glob.glob(os.path.join(self.model_dir, "*.safetensors")))
         if not paths:
             raise FileNotFoundError(f"no safetensors under {self.model_dir}")
+        self._install_program_bundles()
         infos_all: dict = {}
         for path in paths:
             infos, _ = read_header_from_file(path)
@@ -338,9 +339,63 @@ class ModelServer:
         self.stats["load_gbps"] = round(total / max(seconds, 1e-9) / 1e9, 3)
         for shape in self.WARMUP_TOKEN_SHAPES:
             self.forward_argmax(np.zeros(shape, np.int64))
+        self._note_kernel_library()
         self.stats["ready_seconds"] = round(time.monotonic() - t0, 3)
         self.ready = True
+        self._install_kv_bundles()
         return dict(self.stats)
+
+    def _install_program_bundles(self) -> None:
+        """Install kernel-library bundles pulled next to the weights
+        (``.programs-*.tar``, ``dl/program_store.py``) into the build
+        directory BEFORE the warm-up forward can reach
+        ``kernels.build.load_library``, which then binds the installed
+        library without running nvcc. An optimization only: any failure is
+        logged and counted, and the library builds with nvcc."""
+        from modelx_tpu_torch.dl import program_store
+        from modelx_tpu_torch.kernels import build
+
+        t0 = time.monotonic()
+        try:
+            pstats = program_store.install_from_dir(self.model_dir, build.build_dir())
+        except Exception as e:
+            logger.warning("program bundle install failed: %s", e)
+            return
+        if pstats["bundles"] or pstats["skipped"]:
+            self.stats["programs"] = {
+                k: pstats[k] for k in ("bundles", "installed", "present", "skipped")}
+            self.stats["programs"]["ms"] = round((time.monotonic() - t0) * 1e3, 3)
+
+    def _note_kernel_library(self) -> None:
+        """Where the bound kernel library came from ("nvcc", "bundle" or
+        "cached") and nvcc's seconds, once a forward on the card bound it."""
+        from modelx_tpu_torch.kernels import build
+
+        info = build.library_info()
+        if info is not None:
+            self.stats["kernel_library"] = {"origin": info["origin"],
+                                            "nvcc_seconds": info["nvcc_seconds"]}
+
+    def _install_kv_bundles(self) -> None:
+        """Install prefix-KV bundles pulled next to the weights
+        (``.kv-*.tar``, ``dl/kv_store.py``) into the prefix cache, once the
+        family is known (its ``init_kv_cache`` validates the leaves). An
+        optimization only: any failure is logged and the prompt prefills
+        cold."""
+        if self._prefix_cache is None:
+            return
+        from modelx_tpu_torch.dl import kv_store
+
+        t0 = time.monotonic()
+        try:
+            kstats = kv_store.install_for_server(self, self.model_dir)
+        except Exception as e:
+            logger.warning("kv bundle install failed: %s", e)
+            return
+        if kstats and (kstats["bundles"] or kstats["skipped"]):
+            self.stats["kv"] = {
+                k: kstats[k] for k in ("bundles", "installed", "present", "skipped")}
+            self.stats["kv"]["ms"] = round((time.monotonic() - t0) * 1e3, 3)
 
     def load_from_tier(self, promo) -> dict:
         """Materialize a demoted model from a tier promotion
@@ -370,8 +425,10 @@ class ModelServer:
         self.stats["tier"] = promo.tier
         for shape in self.WARMUP_TOKEN_SHAPES:
             self.forward_argmax(np.zeros(shape, np.int64))
+        self._note_kernel_library()
         self.stats["ready_seconds"] = round(time.monotonic() - t0, 3)
         self.ready = True
+        self._install_kv_bundles()
         return dict(self.stats)
 
     def _tokens(self, tokens) -> torch.Tensor:

@@ -10,6 +10,9 @@
     modelx-serve-torch --model m=/mnt/m --allow-admin-load \
         --hbm-budget-bytes 40000000000 --evict-idle \
         --host-state-budget-bytes 20000000000 --drain-grace 30
+    modelx-serve-torch --model m=/mnt/m --allow-admin-load --continuous-batch \
+        --prefix-cache 4 --publish-programs --publish-kv --kv-fetch-through \
+        --publish-outbox-dir /var/modelx/outbox
 
 The HTTP front answers 503 on /healthz while the checkpoints load, then
 serves them on the card (``--device cpu`` serves on the host instead).
@@ -18,6 +21,10 @@ With ``--allow-admin-load`` models load and unload at runtime through
 LRU eviction (``--evict-idle``) into the host and disk state tiers. With
 ``--continuous-batch`` every generate and single-row stream goes through
 the model's continuous engine (``dl/continuous.py``) and its knobs below.
+Runtime loads can publish their kernel library and hot prefix KV to the
+model version and install what other pods published (``--publish-*``,
+``--kv-fetch-through``; ``dl/program_store.py``, ``dl/kv_store.py``),
+through a durable outbox (``--publish-outbox-dir``).
 
 On SIGTERM the pod drains: ``/healthz`` answers 503 "draining", then it
 waits for its in-flight requests (up to ``--drain-grace`` seconds) or
@@ -71,6 +78,32 @@ def build_parser() -> argparse.ArgumentParser:
                          "AND all mirrors are down, digest-pinned cached manifests + "
                          "the blob cache serve pulls offline (control_plane: offline "
                          "on /healthz; readiness is never gated on it)")
+    ap.add_argument("--publish-programs", action="store_true",
+                    help="after a runtime (registry-ref) load reaches READY, attach the "
+                         "pod's kernel library to the model version as a program bundle "
+                         "(application/vnd.modelx.program.v1) so the next puller binds "
+                         "it without running nvcc")
+    ap.add_argument("--publish-kv", action="store_true",
+                    help="sweep the prefix caches of runtime (registry-ref) loaded models "
+                         "for entries hit at least --kv-publish-threshold times and attach "
+                         "them to the model version as kv bundles "
+                         "(application/vnd.modelx.kvcache.v1) so replicas skip "
+                         "re-prefilling shared prompt prefixes")
+    ap.add_argument("--kv-publish-threshold", type=int, default=2,
+                    help="prefix-cache hit count at which an entry becomes hot enough to "
+                         "publish (with --publish-kv)")
+    ap.add_argument("--kv-fetch-through", action="store_true",
+                    help="on a prefix-cache miss, consult the model version's published kv "
+                         "bundles and install a matching prefix (bounded by "
+                         "--prefix-cache-max-bytes; runtime loads only)")
+    ap.add_argument("--publish-outbox-dir", default="",
+                    help="durable publish outbox: --publish-programs and --publish-kv "
+                         "bundles spool here and a background drainer pushes them with "
+                         "backoff, so a registry outage never blocks or fails a load "
+                         "(pending entries survive pod restarts)")
+    ap.add_argument("--outbox-max-entries", type=int, default=0,
+                    help="outbox spool bound; a full spool drops new publishes with a "
+                         "counted warning (0 = default 64)")
     ap.add_argument("--stream-chunk-size", type=int, default=8,
                     help="tokens decoded per flush on streaming responses")
     ap.add_argument("--prefix-cache", type=int, default=0,
@@ -280,6 +313,35 @@ def configure_registry(args) -> None:
         manifest_cache.configure_default(args.manifest_cache_dir)
 
 
+def configure_publishes(sset: ServerSet, args) -> None:
+    """The derived-artifact flags on the pool, with the JAX sidecar's
+    warnings for the combinations that do nothing."""
+    log = logging.getLogger("modelx.serve")
+    pool = sset.pool
+    if (args.publish_programs or args.publish_kv) and args.publish_outbox_dir:
+        pool.attach_outbox(args.publish_outbox_dir,
+                           max_entries=args.outbox_max_entries or None)
+    if args.publish_programs:
+        pool.publish_programs = True
+        if not args.allow_admin_load:
+            log.warning("--publish-programs only fires on runtime (registry-ref) loads; "
+                        "without --allow-admin-load none happen")
+    if args.publish_kv:
+        pool.attach_kv_publisher(threshold=args.kv_publish_threshold)
+        if not args.prefix_cache:
+            log.warning("--publish-kv is inert without --prefix-cache "
+                        "(there is no prefix KV to publish)")
+    if args.kv_fetch_through:
+        pool.kv_fetch_through = True
+        if not args.prefix_cache:
+            log.warning("--kv-fetch-through is inert without --prefix-cache "
+                        "(there is no prefix cache to install into)")
+    if args.publish_outbox_dir and not (args.publish_programs or args.publish_kv):
+        log.warning("--publish-outbox-dir is inert without --publish-programs or "
+                    "--publish-kv (only derived-artifact publishes spool through "
+                    "the outbox)")
+
+
 def start(argv=None):
     """Parse ``argv``, start the HTTP front, load every model, and return
     ``(server_set, httpd)`` with the front serving. ``main`` runs this and
@@ -349,6 +411,7 @@ def _start(argv=None):
                      flight_recorder=args.flight_recorder,
                      flightrec_capacity=args.flightrec_capacity,
                      flight_dump_dir=args.flight_dump_dir)
+    configure_publishes(sset, args)
     httpd = serve(sset, listen=args.listen)  # answers 503 while loading
     try:
         stats = sset.load_all(concurrent=args.concurrent_load)
@@ -407,6 +470,10 @@ def main(argv=None) -> int:
         pass
     drain(sset, args.drain_seconds, args.drain_grace, abort)
     sset.close()
+    # pending outbox entries stay on disk; the next generation's drainer
+    # publishes them (that persistence is the point)
+    sset.pool.stop_kv()
+    sset.pool.stop_outbox()
     httpd.shutdown()
     httpd.server_close()
     return 0

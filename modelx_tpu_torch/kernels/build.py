@@ -1,10 +1,20 @@
 """Build the flash-attention CUDA source with nvcc and bind it with ctypes.
 
 ``csrc/flash_attention.cu`` (with the headers beside it) is compiled on
-first use, for ``sm_90a``, into a shared library with a plain C interface
-under ``modelx_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
-hash of every file under ``csrc/`` and the flags: a changed source or
-header rebuilds, an unchanged tree loads the cached library.
+first use, for ``sm_90a``, into a shared library with a plain C interface,
+named by a hash of every file under ``csrc/`` and the flags: a changed
+source or header rebuilds, an unchanged tree loads the cached library.
+
+The library lives in the build directory: ``$MODELX_COMPILE_CACHE`` when
+it is set (the JAX sidecar keeps its persistent XLA cache there), else
+``modelx_tpu_torch/_build/`` (listed in ``.gitignore``). The program store
+(``dl/program_store.py``) ships this library with a model version and
+installs a pulled one into the same directory, so a pod that pulls it
+serves its first cache-free forward without running nvcc, or without
+nvcc at all. ``library_info()`` says where the loaded library came from:
+``"nvcc"`` (built by this process, with nvcc's seconds), ``"bundle"``
+(installed from the registry by this process) or ``"cached"`` (found on
+disk).
 
 Nothing here runs at import time: the CPU tests import this module on a
 box without nvcc.
@@ -18,15 +28,18 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCE = os.path.join(CSRC, "flash_attention.cu")
+# the default build directory; $MODELX_COMPILE_CACHE overrides it
 BUILD_DIR = os.path.join(_PKG, "_build")
+ARCH = "sm_90a"
 # The source reaches cuTensorMapEncodeTiled through cudaGetDriverEntryPoint,
 # so nothing links against libcuda; its headers are found beside it.
 NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    f"-gencode=arch=compute_{ARCH[3:]},code={ARCH}", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -40,6 +53,15 @@ _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 # nvcc's register/shared-memory report (-Xptxas -v) when this process built
 build_log = ""
+# where each library path this process built or installed came from:
+# path -> ("nvcc", seconds) or ("bundle", None)
+_origins: dict[str, tuple[str, float | None]] = {}
+_info: dict | None = None  # library_info() once load_library has bound one
+
+
+def build_dir() -> str:
+    """Where the library is built, cached and installed."""
+    return os.environ.get("MODELX_COMPILE_CACHE") or BUILD_DIR
 
 
 def nvcc_path() -> str:
@@ -64,8 +86,29 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
+def library_name() -> str:
+    return f"flash_attention-{source_digest()[:16]}.so"
+
+
 def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"flash_attention-{source_digest()[:16]}.so")
+    return os.path.join(build_dir(), library_name())
+
+
+def nvcc_version() -> str:
+    """nvcc's ``release`` line (e.g. "Cuda compilation tools, release
+    12.9, V12.9.86"), or "" where there is no nvcc."""
+    try:
+        proc = subprocess.run([nvcc_path(), "--version"], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, timeout=60)
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return ""
+    lines = [ln.strip() for ln in proc.stdout.splitlines() if "release" in ln]
+    return lines[0] if lines else ""
+
+
+def note_installed(path: str) -> None:
+    """Record that the program store installed ``path`` in this process."""
+    _origins[os.path.realpath(path)] = ("bundle", None)
 
 
 def compile_library(source: str, out: str) -> str:
@@ -88,7 +131,9 @@ def build() -> bool:
     out = library_path()
     if os.path.exists(out):
         return False
+    t0 = time.monotonic()
     build_log = compile_library(SOURCE, out)
+    _origins[os.path.realpath(out)] = ("nvcc", time.monotonic() - t0)
     return True
 
 
@@ -102,12 +147,23 @@ def bind(path: str) -> ctypes.CDLL:
 
 def load_library() -> ctypes.CDLL:
     """The bound flash-attention library, built on first use."""
-    global _lib
+    global _lib, _info
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is None:
             build()
-            _lib = bind(library_path())
+            path = library_path()
+            lib = bind(path)
+            origin, secs = _origins.get(os.path.realpath(path), ("cached", None))
+            _info = {"origin": origin, "path": path, "nvcc_seconds": secs}
+            _lib = lib
     return _lib
+
+
+def library_info() -> dict | None:
+    """``{"origin", "path", "nvcc_seconds"}`` of the bound library (origin
+    "nvcc", "bundle" or "cached"; seconds only for "nvcc"), or None before
+    ``load_library`` has bound one."""
+    return dict(_info) if _info is not None else None
 

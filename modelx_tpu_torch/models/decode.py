@@ -19,6 +19,7 @@ greedy takes the argmax, which is what ``sample`` returns for such rows.
 from __future__ import annotations
 
 import collections
+import logging
 import threading
 
 import numpy as np
@@ -27,6 +28,8 @@ import torch
 from modelx_tpu_torch.ops import prng
 from modelx_tpu_torch.ops import sampling as sampling_ops
 from modelx_tpu_torch.utils.tswheel import RateSet
+
+logger = logging.getLogger("modelx.decode")
 
 SEQ_BUCKET = 16
 
@@ -176,8 +179,11 @@ class PrefixKVCache:
     survives, even alone over the byte cap, so a long conversation still
     hits on its next turn.
 
-    The registry's KV store (publishing hot entries, installing fetched
-    ones) is not ported: its counters in ``stats()`` stay 0.
+    The registry's KV store (``dl/kv_store.py``) rides on it: per-key hit
+    counts drive the publish threshold (``take_publishable``), each entry
+    records its origin (``"local"``, or ``"installed"`` from a registry
+    bundle, which is never published again and whose hits count apart in
+    ``hits_installed``), and an optional ``fetcher`` hears of every miss.
     """
 
     def __init__(self, capacity: int = 4, max_bytes: int = 0) -> None:
@@ -190,7 +196,18 @@ class PrefixKVCache:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        # the KV store's plumbing: per-key hits (the publish threshold),
+        # each entry's origin, and the keys already taken for publishing
+        self._hits_by_key: dict[tuple, int] = {}
+        self._origin: dict[tuple, str] = {}
+        self._published: set[tuple] = set()
+        self.hits_installed = 0
+        self.installed_total = 0
+        self.published_total = 0
         self._rates = RateSet(("hit", "miss"))
+        # optional kv_store.KVFetcher: told of every miss (outside the
+        # lock, an O(1) bounded enqueue) so published bundles fetch through
+        self.fetcher = None
 
     def lookup(self, ids, max_total: int | None = None) -> tuple[int, object] | None:
         """Longest stored key that is a STRICT prefix of ``ids`` (the suffix
@@ -209,14 +226,25 @@ class PrefixKVCache:
                     continue
                 if best is None or len(key) > len(best):
                     best = key
-            if best is None:
-                self.misses += 1
-                self._rates.mark("miss")
-                return None
-            self._od.move_to_end(best)
-            self.hits += 1
-            self._rates.mark("hit")
-            return len(best), self._od[best]
+            if best is not None:
+                self._od.move_to_end(best)
+                self.hits += 1
+                self._hits_by_key[best] = self._hits_by_key.get(best, 0) + 1
+                if self._origin.get(best) == "installed":
+                    self.hits_installed += 1
+                self._rates.mark("hit")
+                return len(best), self._od[best]
+            self.misses += 1
+            self._rates.mark("miss")
+            fetcher = self.fetcher
+        # outside the lock: even an O(1) enqueue must not lengthen the
+        # critical section every admission scan shares
+        if fetcher is not None:
+            try:
+                fetcher.on_miss(ids)
+            except Exception:
+                logger.debug("kv fetcher on_miss failed", exc_info=True)
+        return None
 
     @staticmethod
     def _entry_meta(entry) -> tuple[int, int | None]:
@@ -233,15 +261,27 @@ class PrefixKVCache:
     def _pop_lru(self) -> None:
         key, _ = self._od.popitem(last=False)
         self._bytes -= self._meta.pop(key)[0]
+        self._hits_by_key.pop(key, None)
+        self._origin.pop(key, None)
+        self._published.discard(key)
 
-    def put(self, ids, entry) -> None:
+    def put(self, ids, entry, origin: str = "local") -> None:
         key = tuple(int(t) for t in ids)
         meta = self._entry_meta(entry)
         with self._lock:
             if key in self._od:
                 self._bytes -= self._meta[key][0]
+                # a re-put of a key (the engine refreshes entries) keeps an
+                # installed entry installed: registry KV is never ours to
+                # publish again
+                if origin == "local":
+                    origin = self._origin.get(key, "local")
             self._od[key] = entry
             self._meta[key] = meta
+            self._origin[key] = origin
+            if origin == "installed":
+                self.installed_total += 1
+                self._published.add(key)  # already in the registry
             self._bytes += meta[0]
             self._od.move_to_end(key)
             while len(self._od) > self.capacity:
@@ -249,11 +289,36 @@ class PrefixKVCache:
             while self.max_bytes and self._bytes > self.max_bytes and len(self._od) > 1:
                 self._pop_lru()
 
+    def entry_origin(self, ids) -> str | None:
+        """"local" or "installed" for a stored key, None when absent."""
+        key = tuple(int(t) for t in ids)
+        with self._lock:
+            return self._origin.get(key)
+
+    def take_publishable(self, threshold: int = 2) -> list[tuple[tuple, object]]:
+        """Hot local entries worth shipping to the registry: hit at least
+        ``threshold`` times, origin "local", not taken before. The returned
+        keys are marked published (the outbox owns durability from here: a
+        failed publish retries the spooled bytes, not the entry)."""
+        out = []
+        with self._lock:
+            for key, entry in self._od.items():
+                if key in self._published or self._origin.get(key, "local") != "local":
+                    continue
+                if self._hits_by_key.get(key, 0) < max(1, int(threshold)):
+                    continue
+                self._published.add(key)
+                self.published_total += 1
+                out.append((key, entry))
+        return out
+
     def stats(self) -> dict:
         with self._lock:
             out = {"hits": self.hits, "misses": self.misses,
                    "entries": len(self._od), "bytes": self._bytes,
-                   "hits_installed": 0, "installed_total": 0, "published_total": 0}
+                   "hits_installed": self.hits_installed,
+                   "installed_total": self.installed_total,
+                   "published_total": self.published_total}
         out.update(self._rates.snapshot())
         return out
 
@@ -263,6 +328,9 @@ class PrefixKVCache:
             self._od.clear()
             self._meta.clear()
             self._bytes = 0
+            self._hits_by_key.clear()
+            self._origin.clear()
+            self._published.clear()
 
 
 class ChunkedDecoder:

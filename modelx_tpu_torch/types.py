@@ -31,8 +31,9 @@ MediaTypeModelManifestJson = "application/vnd.modelx.model.manifest.v1.json"
 MediaTypeModelConfigYaml = "application/vnd.modelx.model.config.v1.yaml"
 MediaTypeModelFile = "application/vnd.modelx.model.file.v1"
 MediaTypeModelDirectoryTarGz = "application/vnd.modelx.model.directory.v1.tar+gzip"
-# derived bundles a JAX pod attaches to a model version (compiled programs,
-# prefix-KV entries): pulled as files, never loaded onto the device here
+# derived bundles attached to a model version (compiled programs, prefix-KV
+# entries; dl/program_store.py, dl/kv_store.py): pulled as files next to the
+# weights and installed at load, never loaded as weights
 MediaTypeModelProgram = "application/vnd.modelx.program.v1"
 MediaTypeModelKVCache = "application/vnd.modelx.kvcache.v1"
 
@@ -40,6 +41,23 @@ MediaTypeModelKVCache = "application/vnd.modelx.kvcache.v1"
 
 AnnotationShardSpec = "modelx.shard.spec"
 AnnotationTensorIndex = "modelx.tensor.index"
+# program-bundle environment stamp (dl/program_store.py): lets a puller pick
+# the matching bundle from the manifest alone; the install re-verifies
+# against the bundle's own meta.json regardless. The keys are the JAX
+# package's; the port writes its torch version where it writes the jax one
+AnnotationProgramJax = "modelx.program.jax"
+AnnotationProgramBackend = "modelx.program.backend"
+AnnotationProgramCode = "modelx.program.code"
+AnnotationProgramCount = "modelx.program.artifacts"
+AnnotationProgramMesh = "modelx.program.mesh"
+# kv-bundle stamp (dl/kv_store.py): code and mesh as for programs, the
+# weight content key, the prefix length and its hash: enough for a puller
+# to match a missed prompt against the manifest without fetching a blob
+AnnotationKVCode = "modelx.kv.code"
+AnnotationKVMesh = "modelx.kv.mesh"
+AnnotationKVModel = "modelx.kv.model"
+AnnotationKVTokens = "modelx.kv.tokens"
+AnnotationKVPrefix = "modelx.kv.prefix"
 
 # --- blob location purposes -------------------------------------------------
 

@@ -61,6 +61,8 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "POOL_STREAM_PROMPT", 7)
     monkeypatch.setattr(chip_smoke, "POOL_STREAM_TOKENS", 400)  # in flight at the DELETE
     monkeypatch.setattr(chip_smoke, "POOL_VETO_LOADS", 3)
+    monkeypatch.setattr(chip_smoke, "ART_BASE_LEN", 40)
+    monkeypatch.setattr(chip_smoke, "ART_NEW_TOKENS", 4)
     _tiny_options(monkeypatch)
     _tiny_continuous(monkeypatch)
     stats = chip_smoke.phase_main(device="cpu", cfg=cfg)
@@ -87,6 +89,17 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert {"deploy_cold_gbps", "deploy_warm_gbps", "deploy_cold_pull_s",
             "sha256_s_registry_write", "sha256_s_dest_verify", "ttft_cold_ttft_ms",
             "ttft_warm_ttft_ms", "ttft_warm_weights_ready_ms"} <= set(stats)
+    # and the derived-artifact stores, on their own count (the two pods'):
+    # pod A published the (stand-in) library and the hot prefix's KV, pod B
+    # installed both at its load, answered pod A's bytes from the installed
+    # prefix and fetched the second prefix through
+    assert stats["flash_launches_artifacts"] == 0
+    assert stats["art_kv_stored_len"] == 48 and stats["art_hits_installed"] >= 1
+    assert stats["art_installed_admits"] >= 1 and stats["art_nvcc_s"] is None
+    assert {"art_program_bytes", "art_program_publish_s", "art_kv_bytes", "art_kv_build_ms",
+            "art_kv_publish_s", "art_load_b_s", "art_ready_b_s", "art_program_install_ms",
+            "art_kv_install_ms", "art_ttft_installed_ms", "art_ttft_cold_ms",
+            "art_fetch_install_ms", "art_outbox_depth", "art_phase_s"} <= set(stats)
     # and the model pool, on its own count: admin loads while serving, the
     # eviction into the host tier, promotion from host and from disk, the
     # drain of one model and of a SIGTERM'd child pod, and the veto loads

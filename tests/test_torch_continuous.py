@@ -76,7 +76,7 @@ def model(tmp_path_factory):
         port_out = server.generate(prompts[name], max_new_tokens=N_NEW, **samp)
         assert np.array_equal(jax_out, port_out), key  # the two plain paths agree
         want[key] = port_out
-    return {"server": server, "prompts": prompts, "want": want}
+    return {"server": server, "prompts": prompts, "want": want, "jserver": jserver}
 
 
 def _want(model, name, samp):
@@ -198,6 +198,47 @@ def test_prefix_cache_second_turn_matches_plain(model):
         assert all(v["k0"].shape[1] % 16 == 0 for v in pc._od.values())
     finally:
         cb.close()
+
+
+@pytest.mark.parametrize("page_size", [0, 16], ids=["dense", "paged"])
+@pytest.mark.parametrize("samp", [{}, SAMPLED], ids=["greedy", "sampled"])
+def test_installed_prefix_kv_resumes_exactly_and_is_counted(model, page_size, samp):
+    """A prefix captured on one engine, bundled (dl/kv_store.py) and
+    installed into a second engine's cache: the second decodes from it the
+    tokens of a local prefill and of the JAX package's plain path, exactly
+    in fp32, and counts the admission in ``prefix_hits_installed``."""
+    from modelx_tpu_torch.dl import kv_store
+
+    server = model["server"]
+    history = model["prompts"]["mid"][0].tolist()
+    turn2 = np.asarray([history + [4, 4, 2]], np.int32)
+    pc1 = PrefixKVCache(capacity=4)
+    cb1 = ContinuousBatcher(server, max_slots=4, chunk_size=4, page_size=page_size,
+                            prefix_cache=pc1)
+    try:
+        cb1.generate(np.asarray([history], np.int32), max_new_tokens=4, **samp)
+        local = cb1.generate(turn2, max_new_tokens=7, **samp)  # a local hit
+        assert cb1.stats["prefix_hits_installed"] == 0
+    finally:
+        cb1.close()
+    entry = dict(pc1.take_publishable(1))[tuple(history)]
+    _fwd, init = server.family.decode_fns(server.params, server.cfg)
+    pc2 = PrefixKVCache(capacity=4)
+    stats = kv_store.install_bundle(kv_store.build_bundle(history, entry), init, pc2)
+    assert stats["installed"] == 1, stats["reasons"]
+    cb2 = ContinuousBatcher(server, max_slots=4, chunk_size=4, page_size=page_size,
+                            prefix_cache=pc2)
+    try:
+        got = cb2.generate(turn2, max_new_tokens=7, **samp)
+        installed = cb2.stats["prefix_hits_installed"]
+        admits = [e for e in cb2.flightrec.events() if e["event"] == "dispatch_admit"]
+    finally:
+        cb2.close()
+    want = np.asarray(model["jserver"].generate(turn2, max_new_tokens=7, **samp))
+    np.testing.assert_array_equal(local, want)
+    np.testing.assert_array_equal(got, want)
+    assert installed == 1 and pc2.hits_installed == 1
+    assert [e["installed_kv"] for e in admits] == [True]
 
 
 def test_chunked_prefill_matches_plain_and_interleaves_with_decode(model):

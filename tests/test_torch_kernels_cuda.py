@@ -100,3 +100,37 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 3, 16, 16, 64, seed=0)
     with pytest.raises(ValueError, match="H % Hkv"):
         tattn.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+def test_a_bundled_library_installs_and_launches(cuda_device, tmp_path, monkeypatch):
+    """The program store's bundle of the built library (dl/program_store.py)
+    installs into an empty build directory, binds with origin "bundle"
+    without running nvcc, and its kernel matches the plain version (bf16
+    tolerance above) on the Llama-3-8B head layout."""
+    from modelx_tpu_torch.dl import program_store
+    from modelx_tpu_torch.kernels import build
+
+    build.build()  # this tree's library: nvcc, or the build directory's copy
+    data = program_store.build_bundle(build.build_dir(), keys=[build.library_name()])
+    meta = program_store._bundle_meta(data)
+    assert meta["sourceDigest"] == build.source_digest() and "release" in meta["nvcc"]
+    monkeypatch.setenv("MODELX_COMPILE_CACHE", str(tmp_path / "cc"))
+    assert program_store.install_bundle(data, build.build_dir())["installed"] == 1
+
+    def no_nvcc(*a, **k):
+        raise AssertionError("nvcc ran")
+
+    monkeypatch.setattr(build, "compile_library", no_nvcc)
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_info", None)
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 32, 8, 256, 256, 128, seed=5)
+    before = tattn.flash_attention.launches
+    out = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.launches == before + 1
+    info = build.library_info()
+    assert info["origin"] == "bundle" and info["path"].startswith(str(tmp_path / "cc"))
+    atol, rtol = _tol(torch.bfloat16)
+    ref = tattn.attention_reference(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)

@@ -853,7 +853,11 @@ def test_serve_main_parses_the_pool_flags(model_dirs, tmp_path, caplog):
     (["--evict-idle"], "--evict-idle is inert without --hbm-budget-bytes"),
     (["--state-spool-dir", "/tmp/x"], "--state-spool-dir is inert without "
                                       "--disk-state-budget-bytes"),
-], ids=["evict-idle", "state-spool-dir"])
+    (["--publish-kv"], "--publish-kv is inert without --prefix-cache"),
+    (["--kv-fetch-through"], "--kv-fetch-through is inert without --prefix-cache"),
+    (["--publish-outbox-dir", "/tmp/x"], "--publish-outbox-dir is inert without "
+                                         "--publish-programs or --publish-kv"),
+], ids=["evict-idle", "state-spool-dir", "publish-kv", "kv-fetch-through", "outbox-dir"])
 def test_inert_flag_warnings_equal_jax(model_dirs, argv, warning, caplog):
     from modelx_tpu_torch.dl import serve_main
 
@@ -863,6 +867,7 @@ def test_inert_flag_warnings_equal_jax(model_dirs, argv, warning, caplog):
                                         "--listen", f"127.0.0.1:{free_port()}", *argv])
     httpd.shutdown()
     httpd.server_close()
+    sset.pool.stop_kv()
     assert any(r.getMessage().startswith(warning) for r in caplog.records)
     with open(os.path.join(REPO, "modelx_tpu", "dl", "serve_main.py")) as f:
         src = f.read()
@@ -887,3 +892,149 @@ def test_pool_flag_usage_errors_equal_jax(argv, capsys):
         serve_main.start(argv + ["--device", "cpu"])
     assert exc.value.code == 2
     assert capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1] == want
+
+
+# -- the derived-artifact hooks (dl/program_store.py, dl/kv_store.py, dl/outbox.py) ----
+
+
+def test_serve_main_parses_the_publish_flags(model_dirs, tmp_path, caplog):
+    from modelx_tpu_torch.dl import serve_main
+
+    with caplog.at_level("WARNING", logger="modelx.serve"):
+        sset, httpd = serve_main.start([
+            "--model", f"a={model_dirs['a']}", "--device", "cpu", "--dtype", "float32",
+            "--listen", f"127.0.0.1:{free_port()}", "--prefix-cache", "4", "--publish-programs",
+            "--publish-kv", "--kv-publish-threshold", "3", "--kv-fetch-through",
+            "--publish-outbox-dir", str(tmp_path / "ob"), "--outbox-max-entries", "5"])
+    try:
+        pool = sset.pool
+        assert (pool.publish_programs, pool.publish_kv, pool.kv_publish_threshold,
+                pool.kv_fetch_through) == (True, True, 3, True)
+        assert pool.outbox.max_entries == 5 and pool.outbox.root == str(tmp_path / "ob")
+        assert pool.outbox_drainer.snapshot()["running"]
+        snap = pool.pool_snapshot()
+        assert snap["outbox"]["depth"] == 0 and snap["kv_publisher"]["threshold"] == 3
+        # publishes ride on runtime loads only, as the JAX sidecar warns
+        assert any(r.getMessage().startswith("--publish-programs only fires on runtime "
+                                             "(registry-ref) loads") for r in caplog.records)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sset.pool.stop_kv()
+        sset.pool.stop_outbox()
+    assert not pool.outbox_drainer.snapshot()["running"]
+    defaults = serve_main.build_parser().parse_args(["--model", "m=/x"])
+    assert (defaults.publish_programs, defaults.publish_kv, defaults.kv_publish_threshold,
+            defaults.kv_fetch_through, defaults.publish_outbox_dir,
+            defaults.outbox_max_entries) == (False, False, 2, False, "", 0)
+
+
+def _stream_raw(port, name, tokens):
+    return _http(port, "POST", f"/v1/{name}/generate",
+                 {"tokens": [tokens], "max_new_tokens": 4, "stream": True})
+
+
+def test_runtime_loads_publish_install_and_fetch_through(model_dirs, registry, tmp_path,
+                                                         monkeypatch, fresh_trackers):
+    """A JAX pod and a port pod, each publishing into its own repo of the
+    port's registry: the same streams make the same prefix hot, the KV
+    publisher ships the same key through the outbox on both, a drain
+    flushes one more; the port's runtime load also spools its kernel
+    library. A second port load of the version installs both bundles at
+    its load and attaches a fetch-through worker, which its unload stops."""
+    from modelx_tpu.dl import kv_store as jkv
+    from modelx_tpu_torch.dl import kv_store as tkv
+    from modelx_tpu_torch.dl import program_store as tps
+    from modelx_tpu_torch.kernels import build
+    from modelx_tpu_torch.types import MediaTypeModelKVCache, MediaTypeModelProgram
+
+    for side in ("jax", "port"):
+        JaxClient(registry, quiet=True).push(f"library/pub-{side}", "v1", model_dirs["a"])
+    monkeypatch.setenv("MODELX_COMPILE_CACHE", str(tmp_path / "cc-a"))
+    os.makedirs(build.build_dir())
+    with open(build.library_path(), "wb") as f:
+        f.write(b"a stand-in kernel library")
+    pair = Pair.build(model_dirs, tmp=tmp_path, allow_admin_load=True)
+    jpool, tpool = pair.pools()
+    try:
+        for side, pool in (("jax", jpool), ("port", tpool)):
+            pool.attach_outbox(str(tmp_path / f"{side}-outbox"), start=False)
+            pool.attach_kv_publisher(threshold=2, start=False)
+        tpool.publish_programs = True
+        for side, pool in (("jax", jpool), ("port", tpool)):
+            snap = pool.request_load("p", ref=f"{registry}/library/pub-{side}@v1", wait=True)
+            assert snap["p"]["state"] == "READY"
+        assert tpool.outbox.depth() == 1  # the library, spooled off the load's path
+        assert tpool.outbox_drainer.drain_once()
+        blobs = tserve_manifest(registry, "library/pub-port")
+        (prog,) = [b for b in blobs if b.media_type == MediaTypeModelProgram]
+        assert prog.name == tps.bundle_name()
+        # the same streams heat the same prefix on both pods
+        hot = [5, 6, 7, 8, 9]
+        for tokens in (hot, hot + [4], hot + [2]):
+            pair.agree("POST", "/v1/p/generate", {"tokens": [tokens], "max_new_tokens": 4,
+                                                  "stream": True})
+        assert jpool.kv_publisher.flush() == tpool.kv_publisher.flush() == 1
+        assert tpool.kv_publisher.snapshot() == jpool.kv_publisher.snapshot()
+        spooled = {}
+        for side, pool, mod in (("jax", jpool, jkv), ("port", tpool, tkv)):
+            _seq, meta, data = pool.outbox.peek()
+            assert meta["kind"] == "kvcache"
+            spooled[side] = mod._bundle_meta(data)["tokens"]
+            while pool.outbox_drainer.drain_once():
+                pass
+            assert pool.outbox.depth() == 0
+        assert spooled["port"] == spooled["jax"] == hot
+        assert tpool.pool_snapshot()["outbox"]["drained_kvcache_total"] == \
+            jpool.pool_snapshot()["outbox"]["drained_kvcache_total"] == 1
+        (enq,) = [e for e in tpool.flightrec.events() if e["event"] == "kv.publish_enqueued"]
+        assert enq["bytes"] > 0 and enq["build_ms"] >= 0
+
+        # a second load of the version installs both bundles at its load
+        monkeypatch.setenv("MODELX_COMPILE_CACHE", str(tmp_path / "cc-b"))
+        tpool.kv_fetch_through = True
+        assert tpool.request_load("q", ref=f"{registry}/library/pub-port@v1",
+                                  wait=True)["q"]["state"] == "READY"
+        q = pair.t.servers["q"]
+        assert q.stats["programs"]["installed"] == 1 and q.stats["kv"]["installed"] == 1
+        assert os.path.isfile(build.library_path())  # into the new build directory
+        # its own publish of the same library is a registry no-op
+        assert tpool.outbox.depth() == 1 and tpool.outbox_drainer.drain_once()
+        assert [b for b in tserve_manifest(registry, "library/pub-port")
+                if b.media_type == MediaTypeModelProgram] == [prog]
+        status, _, raw = _stream_raw(pair.ports[1], "q", hot + [3])
+        assert status == 200 and q._prefix_cache.hits_installed == 1
+        assert tpool.pool_snapshot()["kv_fetchers"]["q"]["running"]
+        fetcher = tpool._kv_fetchers["q"]
+        assert q._prefix_cache.fetcher is fetcher
+
+        # a drain flushes the publisher once more: a prefix hot since the sweep
+        hot2 = [9, 8, 7, 6, 5]
+        for tokens in (hot2, hot2 + [1], hot2 + [2]):
+            pair.agree("POST", "/v1/p/generate", {"tokens": [tokens], "max_new_tokens": 4,
+                                                  "stream": True})
+        for pool in (jpool, tpool):
+            pool.request_unload("p", wait=True)
+            assert pool.outbox.depth() == 1
+        assert tpool.kv_publisher.snapshot() == jpool.kv_publisher.snapshot()
+        tpool.request_unload("q", wait=True)
+        assert "q" not in tpool._kv_fetchers and not fetcher.snapshot()["running"]
+        assert "kv_fetchers" not in tpool.pool_snapshot()
+        kvs = [b for b in tserve_manifest(registry, "library/pub-port")
+               if b.media_type == MediaTypeModelKVCache]
+        assert len(kvs) == 1
+    finally:
+        pair.close()
+        for pool in (jpool, tpool):
+            pool.stop_kv()
+            pool.stop_outbox()
+
+
+def tserve_manifest(registry, repo):
+    from modelx_tpu_torch.client.remote import RegistryClient
+
+    client = RegistryClient(registry)
+    try:
+        return client.get_manifest(repo, "v1").blobs
+    finally:
+        client.close()

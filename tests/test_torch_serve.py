@@ -665,3 +665,50 @@ def test_serve_main_registry_flags_set_the_process_defaults(tmp_path, monkeypatc
     cache = blob_cache.default_cache()
     assert cache.root == str(tmp_path / "bc") and cache.max_bytes == 4096
     assert manifest_cache.default_cache().root == str(tmp_path / "mc")
+
+
+def test_load_installs_pulled_kv_bundles_as_the_jax_server(tmp_path):
+    """``ModelServer.load`` installs the ``.kv-*.tar`` next to the weights
+    into its prefix cache, after the warm-up, as the JAX server does: each
+    package's own bundle of the same hot prefix installs, another pod's
+    junk is counted as skipped, and the hot prompt then decodes the same
+    tokens in both from the installed entry (fp32, exact)."""
+    import shutil
+
+    from modelx_tpu.dl import kv_store as jkv
+    from modelx_tpu_torch.dl import kv_store as tkv
+
+    src = tmp_path / "m"
+    _write_tiny_fp32(str(src))
+    hot = [5, 6, 7, 8, 9]
+
+    def stream(server, ids):
+        pieces = server.generate_stream(np.asarray([ids], np.int32), max_new_tokens=6,
+                                        chunk_size=4)
+        return np.concatenate([np.asarray(p) for p in pieces], axis=1)[0].tolist()
+
+    got = {}
+    for side, cls, mod, kw in (
+            ("jax", JaxModelServer, jkv, {"mesh_spec": "dp=1"}),
+            ("port", ModelServer, tkv, {"device": "cpu"})):
+        pod1 = cls(str(src), dtype="float32", max_seq_len=64, prefix_cache_size=4, **kw)
+        pod1.load()
+        stream(pod1, hot)
+        want = stream(pod1, hot + [4])
+        (ids, entry), = pod1._prefix_cache.take_publishable(1)
+        d = tmp_path / side
+        shutil.copytree(src, d)
+        # the JAX pod stamps its own mesh (dp=1); the port has one card
+        mesh = {"mesh": pod1.mesh} if side == "jax" else {}
+        data = mod.build_bundle(ids, entry, **mesh)
+        meta = mod._bundle_meta(data)
+        (d / mod.bundle_name(mod.env_key(**mesh), meta["prefixHash"])).write_bytes(data)
+        (d / (".kv-deadbeef0000-" + "0" * 16 + ".tar")).write_bytes(b"another pod's junk")
+        pod2 = cls(str(d), dtype="float32", max_seq_len=64, prefix_cache_size=4, **kw)
+        stats = pod2.load()
+        assert stream(pod2, hot + [4]) == want
+        got[side] = ({k: stats["kv"][k] for k in ("bundles", "installed", "present",
+                                                   "skipped")},
+                     pod2._prefix_cache.hits_installed, want)
+    assert got["port"] == got["jax"] == ({"bundles": 2, "installed": 1, "present": 0,
+                                          "skipped": 1}, 1, got["jax"][2])
