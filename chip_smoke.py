@@ -28,9 +28,20 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    streams concatenate to the non-streamed tokens, a stop token ends a
    stream, a prompt that extends an earlier one hits the prefix cache and
    streams a cold run's tokens, and none of it launches the cache-free
-   kernel. The sampler is held against its plain version on the card
-   (fused == always-sort bytes at [4, vocab]; card draws == CPU draws) and
-   timed, with device launches per sampled and greedy decode step.
+   kernel. Then the observability surface of the same server (started with
+   ``--access-log`` and ``--trace-dir`` in a temporary directory):
+   ``/metrics`` counts every POST the phase sent and carries the card's
+   measured memory, its Prometheus view parses line by line, a forward
+   sent with ``X-ModelX-Request-Id`` gets it back with ``X-ModelX-Attempt``
+   and ``/v1/trace?request_id=`` gives its ``serve.request`` and
+   ``serve.request/serve.forward`` spans, ``/v1/profile`` (2 s) while two
+   [1, 2048] forwards run writes a Chrome trace holding at least
+   ``2 x num_layers`` flash-kernel events and as many cuBLAS GEMMs, six
+   ``/admin/profile`` calls leave 4 capture dirs, the access log has one
+   line per POST, and a span's host cost is timed. The sampler is held
+   against its plain version on the card (fused == always-sort bytes at
+   [4, vocab]; card draws == CPU draws) and timed, with device launches
+   per sampled and greedy decode step.
 5. text: the same server with a tokenizer.json of Llama-3's components
    (written here, 128,000 regular tokens and the 256 special ones) and
    Llama-3-Instruct's chat template: ``{"text": ...}`` on /v1/generate ==
@@ -172,7 +183,13 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    prefix), a ``--continuous-batch --max-slots 4`` child answering 4
    clients and in-process gather and in-place paged engines (near-ties of
    the plain path). phi3: a ``--quantize int8`` server's forward. gpt2:
-   prompts past ``n_positions`` answer the JAX sidecar's 400.
+   prompts past ``n_positions`` answer the JAX sidecar's 400. Then
+   BERT-base (0.44 GB fp32, as HF ships it): the inferred config equals
+   the written one, ``/v1/forward`` [1, 512] and [8, 512] timed, its
+   features at [1, 128] equal the port's fp32 forward on the CPU within
+   ``BERT_FEATURE_TOL``, ``/v1/generate`` answers the JAX sidecar's 400, a
+   513-token forward gpt2's 400 before any device work and a forward after
+   it 200, and no flash launch (bert's attention is the plain reference).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -194,6 +211,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CARD = "no card (CPU rehearsal)"  # nvidia-smi's name and power limit, once read
+# POSTs this script sent, per server port: what a pod's /metrics requests
+# and its access log must count
+POSTS: dict[int, int] = {}
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -642,11 +662,15 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
     from modelx_tpu_torch.models import llama
     from modelx_tpu_torch.ops import attention as attn
 
+    import tempfile
+
     on_card = device == "cuda"
     # full width AND full depth: the whole run takes about a minute of the limit
     cfg = cfg or llama.LlamaConfig.llama3_8b()
     nbytes = 2 * sum(math.prod(s) for s in llama.param_shapes(cfg).values())
     ckpt = _checkpoint_dir(nbytes)
+    # the main server's access log and profiler captures
+    obs_dir = tempfile.mkdtemp(prefix="modelx-smoke-obs-")
     stats: dict = {}
     httpd = None
     try:
@@ -672,7 +696,8 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
         sset, httpd = serve_main.start([
             "--model", f"{MODEL}={ckpt}", "--listen", f"127.0.0.1:{port}",
             "--device", device, "--dtype", "bfloat16", "--max-seq-len", "2048",
-            "--prefix-cache", "4"])
+            "--prefix-cache", "4", "--access-log", os.path.join(obs_dir, "access.jsonl"),
+            "--trace-dir", os.path.join(obs_dir, "trace")])
         start_s = time.monotonic() - t0
         status, body = _http(port, "/healthz")
         if status != 200:
@@ -735,6 +760,9 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
         stats.update(phase_sampling(port, server, cfg, greedy))
         if attn.flash_attention.launches != before:
             raise RuntimeError("sampled or streamed generation launched the cache-free kernel")
+        # the observability surface on the same server (its profile window's
+        # forwards count on the main path)
+        stats.update(phase_observability(port, sset, cfg, obs_dir, per_forward, on_card))
         stats["flash_launches"] = attn.flash_attention.launches
         log(f"main: flash_attention launches on the main path: {stats['flash_launches']}")
 
@@ -833,6 +861,7 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
             httpd.shutdown()
             httpd.server_close()
         shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(obs_dir, ignore_errors=True)
     return stats
 
 
@@ -852,6 +881,7 @@ def _stream(port: int, body: dict, timeout: float = 600.0):
     seconds in all). Fails on a non-200, an error line or a missing done."""
     import urllib.request
 
+    POSTS[port] = POSTS.get(port, 0) + 1
     req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate",
                                  data=json.dumps({**body, "stream": True}).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -1008,6 +1038,188 @@ def phase_sampling(port: int, server, cfg, greedy: dict) -> dict:
         f"{first_cold * 1e3:.1f} ms cold; stats {pc.stats()}")
     stats.update(prefix_first_line_ms_warm=first_warm * 1e3,
                  prefix_first_line_ms_cold=first_cold * 1e3)
+    return stats
+
+
+# -- phase 4, continued: the observability surface ------------------------------------
+
+PROFILE_SECONDS = 2.0
+PROFILE_FORWARD = (1, 2048)
+ADMIN_PROFILES = 6
+ADMIN_PROFILE_SECONDS = 0.2
+# the cuBLAS GEMM kernels' names on Hopper (cuBLAS's own sm90 kernels, its
+# nvjet kernels, CUTLASS-generated ones)
+GEMM_NAME = re.compile(r"gemm|nvjet|cutlass|xmma", re.IGNORECASE)
+_PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="'
+                          r'(\\.|[^"\\])*",?)*\})? (\S+)$')
+
+
+def check_prometheus(text: str) -> int:
+    """Every line of a text exposition is a ``# HELP``, a ``# TYPE`` or a
+    valid sample with a float value; returns the sample count."""
+    samples = 0
+    for line in text.splitlines():
+        if line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if m is None:
+            raise RuntimeError(f"observability: unparseable /metrics line {line!r}")
+        float(m.group(4))
+        samples += 1
+    return samples
+
+
+def trace_kernels(path: str) -> dict[str, int]:
+    """Kernel events of a ``torch.profiler`` Chrome trace by name."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    counts: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def phase_observability(port: int, sset, cfg, obs_dir: str, per_forward: int,
+                        on_card: bool) -> dict:
+    """The main server's observability surface, after the main path's
+    requests: ``/metrics`` counts every POST sent (JSON) and parses as
+    Prometheus text, with the card's measured memory; a forward sent with
+    ``X-ModelX-Request-Id`` gets it and ``X-ModelX-Attempt`` back, and
+    ``/v1/trace?request_id=`` gives its two spans; ``/v1/profile`` while two
+    [1, 2048] forwards run captures the flash kernel and the cuBLAS GEMMs
+    on the card; six ``/admin/profile`` calls leave 4 capture dirs; the
+    access log has one line per POST. Times the host cost of a span."""
+    import threading
+
+    import torch
+
+    from modelx_tpu_torch.ops import attention as attn
+    from modelx_tpu_torch.utils import trace
+
+    stats: dict = {}
+    status, metrics = _http(port, "/metrics")
+    want = POSTS.get(port, 0)
+    if status != 200 or metrics[MODEL]["requests"] != want:
+        raise RuntimeError(f"observability: /metrics answered {status}, requests "
+                           f"{metrics.get(MODEL, {}).get('requests')}, want the {want} sent")
+    dev = metrics.get("device", {})
+    if on_card and not (dev.get("source") == "memory_stats" and dev["hbm_bytes_in_use"] > 0):
+        raise RuntimeError(f"observability: /metrics device is not a measurement: {dev}")
+    status, headers, raw = _http_raw(port, "/metrics?format=prometheus")
+    samples = check_prometheus(raw.decode())
+    if status != 200 or not headers.get("Content-Type", "").startswith("text/plain"):
+        raise RuntimeError(f"observability: the Prometheus view answered {status} {headers}")
+    log(f"observability: /metrics counts the {want} POSTs sent; device in use "
+        f"{dev.get('hbm_bytes_in_use', 0) / 1e9:.3f} GB ({dev.get('source')}); the Prometheus "
+        f"view parses, {samples} samples")
+
+    rid = "smoke-obs-1"
+    tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(7))
+    status, headers, _ = _post(port, "/v1/forward", {"tokens": tokens.tolist()},
+                               headers={"X-ModelX-Request-Id": rid, "X-ModelX-Attempt": "2"})
+    if (status, headers.get("X-ModelX-Request-Id"), headers.get("X-ModelX-Attempt")) != (
+            200, rid, "2"):
+        raise RuntimeError(f"observability: the request id did not echo: {status} {headers}")
+    # the request's span closes after its last byte: poll briefly for it
+    want_spans = {"serve.request": 1, "serve.request/serve.forward": 1}
+    deadline = time.monotonic() + 10
+    while True:
+        status, spans = _http(port, f"/v1/trace?request_id={rid}")
+        counts = {p: a["count"] for p, a in spans.items()}
+        if counts == want_spans or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    if counts != want_spans:
+        raise RuntimeError(f"observability: /v1/trace?request_id= gave {counts}")
+
+    # spans time host work only: their cost is the tracer's whole cost
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with trace.span("smoke.cost"):
+            pass
+    stats["obs_span_us"] = (time.perf_counter() - t0) / n * 1e6
+
+    # the profile window: the forwards start once the profiler runs
+    long_tokens = torch.randint(0, cfg.vocab_size, PROFILE_FORWARD,
+                                generator=torch.Generator().manual_seed(8)).tolist()
+    fwd_ms, errors = [], []
+
+    def forwards():
+        try:
+            deadline = time.monotonic() + 120
+            while not trace.profile_active():
+                if time.monotonic() > deadline:
+                    raise RuntimeError("the profiler never started")
+                time.sleep(0.005)
+            for _ in range(2):
+                t1 = time.monotonic()
+                st, _ = _http(port, "/v1/forward", {"tokens": long_tokens})
+                fwd_ms.append((time.monotonic() - t1) * 1e3)
+                if st != 200:
+                    raise RuntimeError(f"/v1/forward answered {st}")
+        except Exception as e:
+            errors.append(e)
+
+    before = attn.flash_attention.launches
+    th = threading.Thread(target=forwards, daemon=True)
+    th.start()
+    t0 = time.monotonic()
+    status, body = _http(port, "/v1/profile", {"seconds": PROFILE_SECONDS})
+    profile_s = time.monotonic() - t0
+    th.join(timeout=300)
+    if status != 200 or errors or len(fwd_ms) != 2:
+        raise RuntimeError(f"observability: /v1/profile answered {status} {body}; the window's "
+                           f"forwards: {fwd_ms} {errors}")
+    if attn.flash_attention.launches - before != 2 * per_forward:
+        raise RuntimeError("observability: the window's forwards did not launch the kernel "
+                           "once a layer each")
+    path = os.path.join(body["trace_dir"], trace.TRACE_FILE)
+    kernels = trace_kernels(path)
+    flash = sum(c for k, c in kernels.items() if "flash_fwd" in k)
+    gemms = sum(c for k, c in kernels.items() if GEMM_NAME.search(k))
+    stats.update(obs_profile_s=profile_s, obs_trace_bytes=os.path.getsize(path),
+                 obs_profile_flash_events=flash, obs_profile_gemm_events=gemms,
+                 obs_profile_forward_ms=fwd_ms)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    log(f"observability: /v1/profile {PROFILE_SECONDS} s took {profile_s:.2f} s (the first "
+        f"start loads the profiler); trace {stats['obs_trace_bytes'] / 1e6:.2f} MB with "
+        f"{sum(kernels.values())} kernel events: {flash} flash, {gemms} GEMM; the window's "
+        f"[1,{PROFILE_FORWARD[1]}] forwards {[round(x, 1) for x in fwd_ms]} ms; top kernels "
+        f"{[(kernel_label(k)[:60], c) for k, c in top]}")
+    if on_card and (flash < 2 * cfg.num_layers or gemms < 2 * cfg.num_layers):
+        raise RuntimeError(f"observability: the capture holds {flash} flash and {gemms} GEMM "
+                           f"events, want >= {2 * cfg.num_layers} each")
+
+    t0 = time.monotonic()
+    for _ in range(ADMIN_PROFILES):
+        status, body = _http(port, "/admin/profile", {"duration_s": ADMIN_PROFILE_SECONDS})
+        if status != 200:
+            raise RuntimeError(f"observability: /admin/profile answered {status} {body}")
+    captures = os.path.join(sset.trace_dir, "captures")
+    kept = os.listdir(captures)
+    if len(kept) != 4:
+        raise RuntimeError(f"observability: {ADMIN_PROFILES} captures left {kept}, want 4")
+    stats["obs_admin_profiles_s"] = time.monotonic() - t0
+    stats["obs_capture_bytes"] = sum(os.path.getsize(os.path.join(r, f))
+                                     for r, _, fs in os.walk(captures) for f in fs)
+
+    # a line is written once its request's last byte is out: poll briefly
+    deadline = time.monotonic() + 10
+    while True:
+        with open(os.path.join(obs_dir, "access.jsonl")) as f:
+            lines = [json.loads(x) for x in f.read().splitlines()]
+        if len(lines) >= POSTS[port] or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    if len(lines) != POSTS[port] or lines[-1]["path"] != "/admin/profile":
+        raise RuntimeError(f"observability: the access log has {len(lines)} lines for the "
+                           f"{POSTS[port]} POSTs sent")
+    log(f"observability: request id echoed with its attempt, /v1/trace sliced it to {counts}; "
+        f"{ADMIN_PROFILES} /admin/profile captures in {stats['obs_admin_profiles_s']:.2f} s left "
+        f"4 dirs ({stats['obs_capture_bytes'] / 1e6:.2f} MB); the access log has one line per "
+        f"POST ({len(lines)}); a span costs {stats['obs_span_us']:.2f} us of host time")
     return stats
 
 
@@ -2125,14 +2337,15 @@ def _start_registry(data_dir: str, log_path: str):
 
 
 def _http_raw(port: int, path: str):
+    """(status, headers, raw body) of a GET."""
     import urllib.error
     import urllib.request
 
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
-            return r.status, r.read()
+            return r.status, dict(r.headers), r.read()
     except urllib.error.HTTPError as e:
-        return e.code, e.read()
+        return e.code, dict(e.headers), e.read()
 
 
 def _deploy_disk(base: str, nbytes: int) -> None:
@@ -2750,6 +2963,8 @@ def _http_full(port: int, method: str, path: str, body=None, timeout: float = 60
     import urllib.request
 
     data = None if body is None else json.dumps(body).encode()
+    if method == "POST":
+        POSTS[port] = POSTS.get(port, 0) + 1
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
                                  headers={"Content-Type": "application/json"})
     try:
@@ -3263,6 +3478,7 @@ def _post(port: int, path: str, body: dict, headers: dict | None = None,
     import urllib.error
     import urllib.request
 
+    POSTS[port] = POSTS.get(port, 0) + 1
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json", **(headers or {})})
     try:
@@ -3870,12 +4086,13 @@ GEMMA_LAYERS = 14
 def family_configs() -> list:
     """(family, config) of each checkpoint the phase writes, in order:
     Gemma-2-9B at ``GEMMA_LAYERS`` layers, Phi-3-mini-4k (head_dim 96),
-    Mixtral-8x7B at ``MIXTRAL_LAYERS`` layers, GPT-2 125M; every one bf16."""
+    Mixtral-8x7B at ``MIXTRAL_LAYERS`` layers, GPT-2 125M, every one bf16;
+    then BERT-base in fp32, as HF ships it."""
     import dataclasses
 
     import torch
 
-    from modelx_tpu_torch.models import gemma2, gpt2, llama, mixtral
+    from modelx_tpu_torch.models import bert, gemma2, gpt2, llama, mixtral
 
     phi3_mini = llama.LlamaConfig(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
                                   num_layers=32, num_heads=32, num_kv_heads=32, head_dim=96,
@@ -3887,6 +4104,7 @@ def family_configs() -> list:
         ("mixtral", dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
                                         num_layers=MIXTRAL_LAYERS)),
         ("gpt2", dataclasses.replace(gpt2.GPT2Config.gpt2_125m(), dtype=torch.bfloat16)),
+        ("bert", bert.BertConfig.bert_base()),
     ]
 
 
@@ -3995,6 +4213,15 @@ def phase_families(device: str = "cuda", configs: list | None = None) -> dict:
     attn.flash_attention.launches = 0  # the families path's own count
     child_flash = 0
     for seed, (name, cfg) in enumerate(configs or family_configs()):
+        if name == "bert":  # the encoder: forwards only (phase_bert)
+            launches0 = attn.flash_attention.launches
+            stats.update(phase_bert(cfg, device, seed))
+            stats["fam_bert_launches"] = attn.flash_attention.launches - launches0
+            if stats["fam_bert_launches"]:
+                raise RuntimeError(f"families: bert launched the flash kernel "
+                                   f"{stats['fam_bert_launches']} times, want 0 (its "
+                                   f"attention is the plain reference, as in JAX)")
+            continue
         module = importlib.import_module(f"modelx_tpu_torch.models.{name}")
         gc.collect()
         if on_card:
@@ -4105,6 +4332,119 @@ def phase_families(device: str = "cuda", configs: list | None = None) -> dict:
             _free(*servers)
             shutil.rmtree(ckpt, ignore_errors=True)
     stats["flash_launches_families"] = attn.flash_attention.launches + child_flash
+    return stats
+
+
+BERT_FORWARD_SHAPES = ((1, 512), (8, 512))
+BERT_CHECK_LEN = 128
+# the card's fp32 features against the CPU's on the same weights: TF32 is
+# off, so the two differ only in accumulation order through 12 post-LN
+# layers (unit-variance features)
+BERT_FEATURE_TOL = 1e-3
+
+
+def phase_bert(cfg, device: str, seed: int) -> dict:
+    """BERT-base (module docstring, phase 11), seeded random fp32 weights
+    written with the port's writer and served by ``serve_main``: the
+    inferred config equals the written one; ``/v1/forward`` at
+    ``BERT_FORWARD_SHAPES`` (timed), its features at [1, BERT_CHECK_LEN]
+    against the port's fp32 forward on the CPU over the same weights
+    within ``BERT_FEATURE_TOL``; ``/v1/generate`` refused with the JAX
+    sidecar's 400; a forward one past the position table refused with
+    gpt2's 400 before any device work, and a forward after it answers (the
+    CUDA context survived). The caller checks that no kernel launched."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.models import bert
+
+    stats: dict = {}
+    nbytes = 4 * sum(math.prod(s) for s in bert.param_shapes(cfg).values())
+    ckpt = _checkpoint_dir(nbytes)
+    httpd = None
+    servers = []
+    try:
+        t0 = time.monotonic()
+        params = bert.init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                                  dtype=torch.float32)
+        path = os.path.join(ckpt, "model.safetensors")
+        st.write_safetensors(path, params)
+        del params
+        stats["fam_bert_write_s"] = time.monotonic() - t0
+        stats["fam_bert_bytes"] = os.path.getsize(path)
+        port = _free_port()
+        sset, httpd = serve_main.start([
+            "--model", f"bert={ckpt}", "--listen", f"127.0.0.1:{port}", "--device", device,
+            "--dtype", "float32", "--max-seq-len", str(cfg.max_position_embeddings)])
+        server = sset.servers["bert"]
+        servers.append(server)
+        if server.cfg != cfg:
+            raise RuntimeError(f"families: bert: inferred config {server.cfg} is not the "
+                               f"written {cfg}")
+        s = server.stats
+        stats["fam_bert_load_gbps"] = s["load_gbps"]
+        rng = torch.Generator().manual_seed(100 + seed)
+        for shape in BERT_FORWARD_SHAPES:
+            tokens = torch.randint(0, cfg.vocab_size, shape, generator=rng).tolist()
+            ms = []
+            for _ in range(2):
+                t0 = time.monotonic()
+                status, body = _http(port, "/v1/forward", {"tokens": tokens})
+                ms.append((time.monotonic() - t0) * 1e3)
+                if status != 200 or np.asarray(body["logits_argmax"]).shape != shape:
+                    raise RuntimeError(f"families: bert: /v1/forward {list(shape)} answered "
+                                       f"{status} {str(body)[:300]}")
+            stats[f"fam_bert_forward_ms_{shape[0]}x{shape[1]}"] = ms[1]
+            stats[f"fam_bert_forward_ms_{shape[0]}x{shape[1]}_first"] = ms[0]
+
+        # the card's features against the CPU's fp32 forward on the same weights
+        tokens = torch.randint(0, cfg.vocab_size, (1, BERT_CHECK_LEN), generator=rng)
+        host = {k: v.cpu() for k, v in st.read_tensors(path).items()}
+        with torch.inference_mode():
+            card_seq, card_pool = (t.float().cpu() for t in bert.forward(
+                server.params, tokens.to(server.device), server.cfg))
+            cpu_seq, cpu_pool = bert.forward(host, tokens, cfg)
+        err = max(float((card_seq - cpu_seq).abs().max()),
+                  float((card_pool - cpu_pool).abs().max()))
+        finite = bool(torch.isfinite(card_seq).all() and torch.isfinite(card_pool).all())
+        if not finite or err > BERT_FEATURE_TOL:
+            raise RuntimeError(f"families: bert: features differ from the CPU's by {err:.3e} "
+                               f"(tolerance {BERT_FEATURE_TOL}; finite {finite})")
+        stats["fam_bert_feature_err"] = err
+        del host
+
+        status, body = _http(port, "/v1/generate", {"tokens": tokens.tolist(),
+                                                    "max_new_tokens": 4})
+        if (status, body) != (400, {"error": "family bert is not generative"}):
+            raise RuntimeError(f"families: bert: /v1/generate answered {status} {body}")
+        n = cfg.max_position_embeddings
+        status, body = _http(port, "/v1/forward", {"tokens": [[1] * (n + 1)]})
+        want = f"prompt length {n + 1} exceeds the model's {n}-position context"
+        if (status, body) != (400, {"error": want}):
+            raise RuntimeError(f"families: bert: a {n + 1}-token forward answered {status} {body}")
+        status, body = _http(port, "/v1/forward", {"tokens": [[1] * n]})
+        if status != 200:
+            raise RuntimeError(f"families: bert: the forward after the refusal answered "
+                               f"{status} {str(body)[:200]}")
+        log(f"families: bert: wrote {stats['fam_bert_bytes'] / 1e9:.3f} GB fp32 in "
+            f"{stats['fam_bert_write_s']:.1f} s; load {s['load_seconds']} s "
+            f"({s['load_gbps']} GB/s); /v1/forward "
+            + ", ".join(f"{list(sh)} {stats[f'fam_bert_forward_ms_{sh[0]}x{sh[1]}']:.1f} ms "
+                        f"(first {stats[f'fam_bert_forward_ms_{sh[0]}x{sh[1]}_first']:.1f})"
+                        for sh in BERT_FORWARD_SHAPES)
+            + f"; features [1,{BERT_CHECK_LEN}] within {err:.2e} of the CPU's fp32 forward; "
+            f"/v1/generate refused as the JAX sidecar refuses it; a {n + 1}-token forward "
+            f"answered 400 and the next forward 200")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        _free(*servers)
+        shutil.rmtree(ckpt, ignore_errors=True)
     return stats
 
 

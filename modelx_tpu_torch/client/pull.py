@@ -33,6 +33,7 @@ from modelx_tpu_torch.types import (
     Manifest,
     MediaTypeModelDirectoryTarGz,
 )
+from modelx_tpu_torch.utils import trace
 
 
 class _HashingFile:
@@ -107,6 +108,10 @@ class Puller:
     # -- files ----------------------------------------------------------------
 
     def _pull_file(self, repository: str, desc: Descriptor, directory: str) -> None:
+        with trace.span("pull.blob", blob=desc.name, bytes=desc.size):
+            self._pull_file_inner(repository, desc, directory)
+
+    def _pull_file_inner(self, repository: str, desc: Descriptor, directory: str) -> None:
         target = os.path.join(directory, desc.name)
         if os.path.isfile(target) and str(Digest.from_file(target)) == desc.digest:
             self._count("up_to_date")  # hash-skip

@@ -102,7 +102,7 @@ from modelx_tpu_torch.models.decode import SEQ_BUCKET, pad_seq_len, stop_cut
 from modelx_tpu_torch.ops import prng
 from modelx_tpu_torch.ops import sampling as sampling_ops
 from modelx_tpu_torch.ops.paged_attention import page_coords, ragged_blocks
-from modelx_tpu_torch.utils import devmem, flightrec, promexp, tswheel
+from modelx_tpu_torch.utils import devmem, flightrec, promexp, trace, tswheel
 
 logger = logging.getLogger("modelx.serve")
 
@@ -791,7 +791,8 @@ class ContinuousBatcher:
         block[slot, 0] = tok_val
         if prop:
             block[slot, 1:1 + len(prop)] = prop
-        with self.server._device_lock:
+        with trace.span("continuous.spec_verify", proposed=len(prop)), \
+                self.server._device_lock:
             argm_dev = self._verify(block)[slot]
             fetch = self._fetch(argm_dev)
         # the spec boundary's one blocking readback: acceptance decides the
@@ -995,10 +996,12 @@ class ContinuousBatcher:
                 if len(group) == 1:
                     singles.append(group[0])
                     continue
-                self._admit_group(group)
+                with trace.span("continuous.admit_many", rows=len(group)):
+                    self._admit_group(group)
                 self.stats["admit_batches"] = self.stats.get("admit_batches", 0) + 1
             for p in singles:
-                self._admit_one(p)
+                with trace.span("continuous.admit"):
+                    self._admit_one(p)
         except BaseException as e:
             for p in preps:
                 if not p["finished"]:
@@ -1112,7 +1115,7 @@ class ContinuousBatcher:
             elif self.page_size > 0 and not self._reserve_upto(slot, bucket):
                 plen = 0  # the seed's pages are not free: fill it all
             else:
-                with self.server._device_lock:
+                with trace.span("continuous.fill_seed", prefix=plen), self.server._device_lock:
                     if self.page_size > 0:
                         n_pg = -(-bucket // self.page_size)
                         self._insert(stored, [slot], bucket,
@@ -1182,7 +1185,11 @@ class ContinuousBatcher:
         fill.ticket.prefill_pieces += 1
         self._rec("fill_piece", slot=slot, request_id=fill.ticket.request_id,
                   tokens=take, last=last)
-        with self.server._device_lock:
+        # the engine thread has no request context: re-bind the ticket's id
+        # so the piece joins its request's timeline
+        with trace.request_context(fill.ticket.request_id), \
+                trace.span("continuous.prefill_flip" if last else "continuous.prefill_piece",
+                           tokens=take), self.server._device_lock:
             first = self._piece(fill, piece_len, take, last)
             fetch = self._fetch(first) if last else None
         if not last:
@@ -1312,7 +1319,8 @@ class ContinuousBatcher:
         depth = self._pick_depth()
         n_steps = depth * self.chunk_size
         self._rec("dispatch", depth=depth, n_steps=n_steps, active=len(self._rows), devices=1)
-        with self.server._device_lock:
+        with trace.span("continuous.chunk", active=len(self._rows), depth=depth), \
+                self.server._device_lock:
             block = self._chunk(n_steps)
             fetch = self._fetch(block)
         self._tok_host = None

@@ -4,8 +4,9 @@
 Counterpart of ``modelx_tpu/dl/families.py``. The checkpoint describes
 itself: ``infer_config`` recovers the architecture from tensor shapes and
 ``apply_sidecar_config`` reconciles it with a pulled ``config.json``. The
-generative families are registered (llama, qwen2, phi3, gemma2, mixtral,
-gpt2); bert, the JAX package's encoder, raises "not yet ported".
+generative families (llama, qwen2, phi3, gemma2, mixtral, gpt2) and the
+encoder, bert, are registered; bert has no decode entry points, so a
+generate on it is refused as the JAX sidecar refuses it.
 """
 
 from __future__ import annotations
@@ -19,9 +20,6 @@ from typing import Any, Callable
 import torch
 
 from modelx_tpu_torch.dl.sharding import infer_family
-
-# families the JAX package serves that a later slice ports
-NOT_YET_PORTED = ("bert",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +226,40 @@ def infer_gpt2_config(params: dict):
     )
 
 
+# -- bert ---------------------------------------------------------------------
+
+
+def infer_bert_config(params: dict):
+    """BERT: hidden/64 heads (4 for toy checkpoints, hidden <= 128); the
+    position and token-type tables give their sizes."""
+    from modelx_tpu_torch.models import bert
+
+    vocab, hidden = _shape(params, "bert.embeddings.word_embeddings.weight")
+    max_pos = _shape(params, "bert.embeddings.position_embeddings.weight")[0]
+    type_vocab = _shape(params, "bert.embeddings.token_type_embeddings.weight")[0]
+    layers = 0
+    while f"bert.encoder.layer.{layers}.attention.self.query.weight" in params:
+        layers += 1
+    inter = _shape(params, "bert.encoder.layer.0.intermediate.dense.weight")[0]
+    num_heads = max(hidden // 64, 1)
+    if hidden <= 128:
+        num_heads = 4
+    return bert.BertConfig(
+        vocab_size=vocab, hidden_size=hidden, num_layers=layers,
+        num_heads=num_heads, intermediate_size=inter,
+        max_position_embeddings=max_pos, type_vocab_size=type_vocab,
+        dtype=_act_dtype(params, "bert.embeddings.word_embeddings.weight"),
+    )
+
+
+def _bert_forward(params, tokens, cfg):
+    """The sequence output [B, S, E]: an encoder's "logits" are features
+    (argmax over E is what ``/v1/forward`` answers, as in the JAX twin)."""
+    from modelx_tpu_torch.models import bert
+
+    return bert.forward(params, tokens, cfg)[0]
+
+
 def _family(module: str) -> tuple:
     """(forward, generate_ragged, decode_fns, paged_decode_fns) adapters of
     ``modelx_tpu_torch.models.<module>``, imported on first call."""
@@ -261,6 +293,9 @@ FAMILIES: dict[str, Family] = {
     "gemma2": Family("gemma2", infer_gemma2_config, *_family("gemma2")),
     "mixtral": Family("mixtral", infer_mixtral_config, *_family("mixtral")),
     "gpt2": Family("gpt2", infer_gpt2_config, *_family("gpt2")),
+    # the encoder: no decode entry points (generate is refused, no batcher,
+    # no continuous engine)
+    "bert": Family("bert", infer_bert_config, _bert_forward),
 }
 
 
@@ -327,15 +362,9 @@ def apply_sidecar_config(cfg, sidecar: dict, family_name: str):
 
 
 def detect(tensor_names) -> Family:
-    """Family from tensor names; raises for unrecognized checkpoints and for
-    families a later slice ports."""
+    """Family from tensor names; raises for unrecognized checkpoints."""
     names = list(tensor_names)
     name = infer_family(names)
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"model family {name!r} is not yet ported to modelx_tpu_torch "
-            f"(ported: {sorted(FAMILIES)})"
-        )
     if not name or name not in FAMILIES:
         raise ValueError(
             f"cannot determine model family from tensors ({names[:4]}...); "

@@ -36,6 +36,7 @@ from modelx_tpu_torch.types import (
     MediaTypeModelKVCache,
     MediaTypeModelProgram,
 )
+from modelx_tpu_torch.utils import trace
 from modelx_tpu_torch.utils.retry import retriable_status
 
 logger = logging.getLogger("modelx.dl")
@@ -75,21 +76,23 @@ def _resolve_selected(uri: str, quiet: bool):
     outside the reader's subset selects every blob."""
     ref = parse_reference(uri)
     client = ref.client(quiet=quiet)
-    manifest = client.get_manifest(ref.repository, ref.version)
-    config = ModelConfig()
-    if manifest.config.digest:
-        try:
-            raw = client.get_config_content(ref.repository, ref.version)
-        except errors.ErrorInfo as e:
-            if not retriable_status(e.http_status):
-                raise
-            logger.warning("modelx.yaml for %s unavailable offline; pulling everything", uri)
-            raw = b""
-        if raw:
+    with trace.span("dl.manifest", uri=uri):
+        manifest = client.get_manifest(ref.repository, ref.version)
+        config = ModelConfig()
+        if manifest.config.digest:
             try:
-                config = ModelConfig.from_yaml(raw)
-            except ValueError as e:
-                logger.warning("invalid modelx.yaml in %s (%s); pulling everything", uri, e)
+                raw = client.get_config_content(ref.repository, ref.version)
+            except errors.ErrorInfo as e:
+                if not retriable_status(e.http_status):
+                    raise
+                logger.warning("modelx.yaml for %s unavailable offline; pulling everything",
+                               uri)
+                raw = b""
+            if raw:
+                try:
+                    config = ModelConfig.from_yaml(raw)
+                except ValueError as e:
+                    logger.warning("invalid modelx.yaml in %s (%s); pulling everything", uri, e)
     return ref, client, config, filter_blobs(manifest, config.model_files)
 
 
@@ -118,7 +121,8 @@ def run_initializer(
     t0 = time.monotonic()
     ref, client, config, selected = _resolve_selected(uri, quiet)
     puller = Puller(client.remote, quiet=quiet)
-    puller.pull_blobs(ref.repository, selected, dest)
+    with trace.span("dl.pull", blobs=len(selected.blobs)):
+        puller.pull_blobs(ref.repository, selected, dest)
     pull_seconds = time.monotonic() - t0
     summary: dict = {
         "uri": uri,
@@ -221,7 +225,8 @@ def pull_model(uri: str, dest: str, cache=None, quiet: bool = True) -> dict:
         logger.warning("registry unreachable; %s materialized offline from "
                        "the pinned manifest + blob cache (%d blobs)", uri, cache_hits)
     else:
-        Puller(client.remote, quiet=quiet).pull_blobs(ref.repository, selected, dest)
+        with trace.span("dl.pull", blobs=len(selected.blobs)):
+            Puller(client.remote, quiet=quiet).pull_blobs(ref.repository, selected, dest)
     admitted = 0
     if cache is not None:
         for blob in file_blobs:

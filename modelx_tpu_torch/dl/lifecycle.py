@@ -748,8 +748,10 @@ class ModelPool:
             elif e.ref:
                 dest = self._staging_dir(name)
                 from modelx_tpu_torch.dl.initializer import pull_model
+                from modelx_tpu_torch.utils import trace
 
-                pulled = pull_model(e.ref, dest, cache=self.blob_cache, quiet=True)
+                with trace.span("lifecycle.pull", model=name, ref=e.ref):
+                    pulled = pull_model(e.ref, dest, cache=self.blob_cache, quiet=True)
                 # which rung served the bytes: registry, a read mirror, or
                 # (offline) the pinned manifest + blob cache
                 source = pulled.get("source", "registry")

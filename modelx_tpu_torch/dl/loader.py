@@ -524,4 +524,15 @@ def load_safetensors(
     if staging is not None:
         stats.staging_allocs = len(staging.bufs)
         stats.staging_reuses = staging.reuses
+    from modelx_tpu_torch.utils import trace
+
+    # the load as one closed span (its timing and counters known only now)
+    trace.tracer().record({
+        "path": "dl.load", "start_s": t0, "duration_s": stats.total_seconds,
+        "tensors": stats.tensors, "bytes_fetched": stats.bytes_fetched,
+        "bytes_to_device": stats.bytes_to_device,
+        "fetch_thread_s": round(stats.fetch_seconds, 3),
+        "overlap_s": round(stats.overlap_seconds, 3), "staging_allocs": stats.staging_allocs,
+        "gbps": round(stats.gbps, 3),
+    })
     return out, stats

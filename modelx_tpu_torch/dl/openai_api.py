@@ -481,7 +481,7 @@ def run_completion(sset, req: dict, chat: bool, timeout_s: float | None = None,
 
 
 def stream_completion(sset, req: dict, chat: bool, timeout_s: float | None = None,
-                      priority: str = "interactive", resume=None,
+                      priority: str = "interactive", resume=None, request_id: str = "",
                       timing: dict | None = None) -> Iterator[dict]:
     """SSE event bodies for stream=true (one prompt). The first ``next()``
     does all validation and primes the decode, so callers pull one event
@@ -491,8 +491,9 @@ def stream_completion(sset, req: dict, chat: bool, timeout_s: float | None = Non
     validated here (malformed 400, past the budget or EOS 422); the
     continuous engine re-prefills prompt + emitted and continues the
     original (seed, step) stream, and ``stream_source`` refuses it without
-    the engine. ``timing`` is the continuous engine's phase breakdown: it
-    rides the opt-in usage chunk when the engine filled it."""
+    the engine. ``request_id`` joins the engine ticket. ``timing`` is the
+    continuous engine's phase breakdown: it rides the opt-in usage chunk
+    when the engine filled it."""
     server = resolve_model(sset, req)
     tok = tokenizer_for(server)
     prompts = parse_prompts(req, chat, server)
@@ -543,10 +544,9 @@ def stream_completion(sset, req: dict, chat: bool, timeout_s: float | None = Non
         kw = deadline_kwargs(timeout_s, priority)
         if resume_step:
             kw["resume_step"] = resume_step
-        if timing is not None:
-            kw["timing"] = timing
         gen = sset.stream_source(server, np.asarray([ids], np.int32), n_tokens,
-                                 samp, stop_token_ids=list(eos) or None, **kw)
+                                 samp, stop_token_ids=list(eos) or None,
+                                 request_id=request_id, timing=timing, **kw)
         try:
             # prime generation before yielding anything: a decode failure
             # must surface as a real status even for chat (whose first
@@ -672,23 +672,17 @@ def models_payload(sset) -> dict:
     The model pool's set is reflected whole: every lifecycle entry appears
     with its state (a PULLING/LOADING model before it can serve, a FAILED
     one with its reason, an UNLOADED one as history), and the OpenAI
-    ``data`` rows carry a ``lifecycle_state``. Until ``/metrics`` is
-    ported, each model's row here also carries the prefix cache's stats
-    when it is on and the window batcher's device calls once it exists."""
+    ``data`` rows carry a ``lifecycle_state``. The prefix cache's stats are
+    on ``/metrics`` and ``/admin/models``, as in the JAX sidecar."""
     pool = getattr(sset, "pool", None)
     lifecycle = pool.states() if pool is not None else {}
     models: dict = {}
-    batchers = dict(sset.batchers)
     for n, s in list(sset.servers.items()):
         d = {"ready": s.ready, **s.stats}
         if s.load_error:
             d["error"] = s.load_error
         if n in lifecycle:
             d["lifecycle"] = lifecycle[n]
-        if s._prefix_cache is not None:
-            d["prefix_cache"] = s._prefix_cache.stats()
-        if n in batchers:
-            d["batches"] = batchers[n].batches
         models[n] = d
     for n, st in lifecycle.items():
         if n not in models:  # PULLING/FAILED-at-pull/UNLOADED: no server

@@ -6,8 +6,18 @@ Loads one or more checkpoints onto one device and serves:
                                 loading, failed or draining (SIGTERM), with
                                 the registry's ``control_plane`` health
     GET  /livez                 liveness (200 while the process serves)
+    GET  /metrics               per-model stats, the engine's snapshot, the
+                                prefix cache, lifecycle, pool, rates,
+                                control plane and measured device memory;
+                                JSON, or Prometheus text with
+                                ``?format=prometheus`` / ``Accept: text/plain``
     GET  /v1/models             model inventory + per-model stats and
                                 lifecycle states
+    GET  /v1/trace              span summary (``utils/trace.py``), sliced by
+                                ``?prefix=`` and ``?request_id=``
+    POST /v1/profile            {"seconds": N} -> a torch.profiler capture
+                                (CPU, and CUDA kernels on the card) written
+                                as a Chrome trace into the trace dir
     POST /v1/forward            default model      {"tokens": [[...]]}
                                 -> {"logits_argmax": [[...]]}
     POST /v1/generate           default model      + {"max_new_tokens": N}
@@ -25,6 +35,9 @@ Loads one or more checkpoints onto one device and serves:
                                 behind bearer tokens (--admin-token)
     GET  /debug/flightrec       the pool's and the continuous engines'
                                 flight recorders (admin-gated)
+    POST /admin/profile         {"duration_s": N} -> a capture into a fresh
+                                dir under the trace dir, the newest
+                                ``MAX_PROFILE_CAPTURES`` kept (admin-gated)
 
 Requests are checked as the JAX sidecar checks them (2-D non-empty token
 ids inside the vocab, ``max_new_tokens`` in [1, limit], text and tokens
@@ -34,10 +47,19 @@ before any work, a ``resume`` block refused as the JAX sidecar without the
 continuous engine refuses it) and answered with the same JSON, NDJSON or
 SSE bytes. Text goes through the model's own ``tokenizer.json``, read by
 ``dl/tokenizer.py`` (the ``tokenizers`` package is not a dependency), and
-chat through the chat template of its ``tokenizer_config.json``. What
-later slices port answers a typed 501 that names the slice:
-``/admin/profile`` and a tokenizer.json component the reader does not
-implement.
+chat through the chat template of its ``tokenizer_config.json``. A
+tokenizer.json component the reader does not implement answers a typed
+501 that names the open item bringing it. The encoder (bert) answers
+``/v1/forward`` (the argmax over its features) and refuses every generate
+as the JAX sidecar does; a forward longer than its position table answers
+400 before any device work, where the JAX sidecar serves NaN features.
+
+Every POST gets a request id (the client's ``X-ModelX-Request-Id`` when
+well formed, else a minted one), echoed with ``X-ModelX-Attempt`` on every
+answer; a JSON answer also carries its phase breakdown as
+``X-ModelX-Timing-*`` headers. The id stamps the ``serve.request`` span and
+every span beneath it, and the ``--access-log`` line written when the
+request ends. Spans time host work only; ``/v1/profile`` sees the card.
 
 Every request passes the model pool: a model that is PULLING or LOADING
 answers 503 + ``Retry-After``, DRAINING 409, FAILED 503 with the reason,
@@ -59,9 +81,10 @@ supervision. Then a stream can ``resume`` (the emitted tokens and the seed
 rejoin the row's sample stream at step k) and report its phases
 (``include_timing``); the engine's state rides on ``/healthz`` (503 while
 it restarts or once its breaker opened), ``/livez`` (503 when broken),
-``/admin/models`` and ``/debug/flightrec``. Without it, requests take the
-device one at a time, a stream one chunk at a time, and ``resume`` is
-refused (400) as the JAX sidecar refuses it.
+``/metrics``, ``/admin/models`` and ``/debug/flightrec``. Without it,
+requests take the device one at a time, a stream one chunk at a time,
+``include_timing`` reports the handler's total and token count, and
+``resume`` is refused (400) as the JAX sidecar refuses it.
 """
 
 from __future__ import annotations
@@ -86,8 +109,10 @@ from modelx_tpu_torch.dl import families as fam
 from modelx_tpu_torch.dl import manifest_cache
 from modelx_tpu_torch.dl.lifecycle import ModelPool, PoolError, _without_tracebacks
 from modelx_tpu_torch.dl.serving_errors import (
+    ATTEMPT_HEADER,
     DEADLINE_HEADER,
     PRIORITY_HEADER,
+    REQUEST_ID_HEADER,
     RESUME_EMITTED_HEADER,
     RESUME_SEED_HEADER,
     DeadlineExceededError,
@@ -96,19 +121,30 @@ from modelx_tpu_torch.dl.serving_errors import (
     ModelLoadingError,
     ResumeExhaustedError,
     ServingError,
+    client_identity,
     deadline_kwargs,
+    mint_request_id,
+    parse_attempt,
     parse_deadline_ms,
     parse_priority,
+    parse_request_id,
     parse_resume,
+    timing_headers,
 )
 from modelx_tpu_torch.dl.tokenizer import LATER_SLICE, Tokenizer, UnsupportedTokenizerError
 from modelx_tpu_torch.models.decode import ChunkedDecoder, PrefixKVCache, pad_seq_len, stop_cut
+from modelx_tpu_torch.utils import accesslog, devmem, promexp, trace, tswheel
 
 logger = logging.getLogger("modelx.serve")
 
 # /v1/generate decode budget an unauthenticated client may request; bounds
 # the KV cache a single request allocates
 DEFAULT_MAX_NEW_TOKENS_LIMIT = 1024
+# /v1/profile holds the handler thread and the profiler for this long at most
+MAX_PROFILE_SECONDS = 60
+# /admin/profile captures kept on disk; older ones are pruned before each
+# capture, so the on-demand profiler never fills the pod's disk
+MAX_PROFILE_CAPTURES = 4
 
 _UNSET = object()  # tokenizer / chat template not probed yet (absent is cached as None)
 
@@ -276,6 +312,10 @@ class ModelServer:
     def load(self) -> dict:
         """Load every *.safetensors under model_dir onto the device; the
         checkpoint headers determine the architecture."""
+        with trace.span("serve.load", model=self.name, dir=self.model_dir):
+            return self._load()
+
+    def _load(self) -> dict:
         from modelx_tpu_torch.dl.loader import (LocalFileSource, fuse_expert_tensors,
                                                 load_safetensors)
         from modelx_tpu_torch.dl.safetensors import read_header_from_file
@@ -324,9 +364,10 @@ class ModelServer:
             # merged before the warm-up forward; merging into int8 is
             # rejected (serve_main refuses the combination up front)
             tm = time.monotonic()
-            self.params = lora.merge_adapter(self.params, self.lora_dir)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            with trace.span("serve.lora", model=self.name, dir=self.lora_dir):
+                self.params = lora.merge_adapter(self.params, self.lora_dir)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
             self.stats["lora_dir"] = self.lora_dir
             self.stats["lora_merge_seconds"] = round(time.monotonic() - tm, 3)
         seconds = time.monotonic() - t0
@@ -337,13 +378,22 @@ class ModelServer:
         self.stats["load_bytes"] = total  # over the link
         self.stats["device_bytes"] = resident  # kept on the device
         self.stats["load_gbps"] = round(total / max(seconds, 1e-9) / 1e9, 3)
-        for shape in self.WARMUP_TOKEN_SHAPES:
-            self.forward_argmax(np.zeros(shape, np.int64))
-        self._note_kernel_library()
+        self._warm_up()
         self.stats["ready_seconds"] = round(time.monotonic() - t0, 3)
         self.ready = True
         self._install_kv_bundles()
         return dict(self.stats)
+
+    def _warm_up(self) -> None:
+        """One cache-free forward per warm-up shape: on the card it binds
+        (or builds) the kernel library, the ``serve.compile`` span, and
+        warms the allocator, so the first request meets them ready. The
+        JAX sidecar's ``serve.precompile`` span times its AOT compile of
+        the same shapes."""
+        for shape in self.WARMUP_TOKEN_SHAPES:
+            with trace.span("serve.precompile", model=self.name, shape=str(shape)):
+                self._argmax(np.zeros(shape, np.int64))
+        self._note_kernel_library()
 
     def _install_program_bundles(self) -> None:
         """Install kernel-library bundles pulled next to the weights
@@ -403,6 +453,10 @@ class ModelServer:
         or disk tensors go to the device, with no fetch and no safetensors
         parse, then the same warm-up forward as ``load`` (through the flash
         kernel on the card)."""
+        with trace.span("serve.load_from_tier", model=self.name, tier=promo.tier):
+            return self._load_from_tier(promo)
+
+    def _load_from_tier(self, promo) -> dict:
         from modelx_tpu_torch.dl.tiers import unflatten_params
 
         t0 = time.monotonic()
@@ -423,9 +477,7 @@ class ModelServer:
         self.stats["device_bytes"] = promo.nbytes
         self.stats["load_gbps"] = round(promo.nbytes / max(seconds, 1e-9) / 1e9, 3)
         self.stats["tier"] = promo.tier
-        for shape in self.WARMUP_TOKEN_SHAPES:
-            self.forward_argmax(np.zeros(shape, np.int64))
-        self._note_kernel_library()
+        self._warm_up()
         self.stats["ready_seconds"] = round(time.monotonic() - t0, 3)
         self.ready = True
         self._install_kv_bundles()
@@ -436,6 +488,10 @@ class ModelServer:
 
     def forward_argmax(self, tokens: np.ndarray) -> np.ndarray:
         """Argmax of the cache-free forward's logits, [B, S]."""
+        with trace.span("serve.forward", model=self.name, batch=int(tokens.shape[0])):
+            return self._argmax(tokens)
+
+    def _argmax(self, tokens: np.ndarray) -> np.ndarray:
         with self._device_lock, torch.inference_mode():
             logits = self.family.forward(self.params, self._tokens(tokens), self.cfg)
             return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
@@ -455,17 +511,22 @@ class ModelServer:
         tokens = np.asarray(tokens, np.int32)
         b, s = tokens.shape
         if self.speculative_k > 0 and b == 1 and self.family.decode_fns is not None:
-            dec = self._speculative_decoder()
-            with self._device_lock, torch.inference_mode():
-                new, stats = dec.generate(self.params, tokens[0].tolist(), max_new_tokens,
-                                          temperature=temperature, top_k=top_k, top_p=top_p,
-                                          seed=seed)
-            self.stats["tokens_generated"] += len(new)
-            self._record_spec_stats(stats)
-            return np.concatenate([tokens, np.asarray([new], np.int32)], axis=1)
-        gen = self.generate_ragged(
-            _pad_prompt(tokens), np.full((b,), s, np.int32), max_new_tokens,
-            **_row_controls(b, temperature, top_k, top_p, seed))
+            with trace.span("serve.generate_spec", model=self.name,
+                            new_tokens=max_new_tokens):
+                dec = self._speculative_decoder()
+                with self._device_lock, torch.inference_mode():
+                    new, stats = dec.generate(self.params, tokens[0].tolist(), max_new_tokens,
+                                              temperature=temperature, top_k=top_k,
+                                              top_p=top_p, seed=seed)
+                self.stats["tokens_generated"] += len(new)
+                self._record_spec_stats(stats)
+                return np.concatenate([tokens, np.asarray([new], np.int32)], axis=1)
+        with trace.span("serve.generate", model=self.name, new_tokens=max_new_tokens):
+            # the JAX sidecar's sampled path runs (and spans) its ragged
+            # decode, its greedy path the family's plain generate
+            ragged = self.generate_ragged if temperature > 0 else self._generate_ragged
+            gen = ragged(_pad_prompt(tokens), np.full((b,), s, np.int32), max_new_tokens,
+                         **_row_controls(b, temperature, top_k, top_p, seed))
         self.stats["tokens_generated"] += int(b * max_new_tokens)
         return np.concatenate([tokens, gen], axis=1)
 
@@ -475,6 +536,13 @@ class ModelServer:
         """Ragged-batch decode: right-padded rows [B, S] with per-row real
         lengths and per-row sampling vectors (None = greedy / filter off).
         Returns generated tokens only, [B, max_new_tokens]."""
+        with trace.span("serve.generate_ragged", model=self.name, rows=int(tokens.shape[0]),
+                        new_tokens=max_new_tokens):
+            return self._generate_ragged(tokens, row_lens, max_new_tokens, temperature=temperature,
+                                         top_k=top_k, top_p=top_p, seeds=seeds)
+
+    def _generate_ragged(self, tokens: np.ndarray, row_lens: np.ndarray, max_new_tokens: int,
+                         temperature=None, top_k=None, top_p=None, seeds=None) -> np.ndarray:
         if self.family.generate_ragged is None:
             raise ValueError(f"family {self.family.name} has no ragged decode")
         with self._device_lock, torch.inference_mode():
@@ -674,15 +742,16 @@ class ModelServer:
                 seed=seed, stop_token_ids=stop_token_ids)
             return
         dec = self._decoder(chunk_size)
-        pieces = dec.stream(
-            self.params, self._tokens(_pad_prompt(tokens)), np.full((b,), s, np.int32),
-            max_new_tokens, stop_token_ids=stop_token_ids,
-            **_row_controls(b, temperature, top_k, top_p, seed))
-        for piece in self._locked_pieces(pieces):
-            # account as chunks leave: a client disconnect must not erase
-            # the decode work the device already did
-            self.stats["tokens_generated"] += int(piece.size)
-            yield piece
+        with trace.span("serve.generate_stream", model=self.name, new_tokens=max_new_tokens):
+            pieces = dec.stream(
+                self.params, self._tokens(_pad_prompt(tokens)), np.full((b,), s, np.int32),
+                max_new_tokens, stop_token_ids=stop_token_ids,
+                **_row_controls(b, temperature, top_k, top_p, seed))
+            for piece in self._locked_pieces(pieces):
+                # account as chunks leave: a client disconnect must not erase
+                # the decode work the device already did
+                self.stats["tokens_generated"] += int(piece.size)
+                yield piece
 
     def _generate_stream_speculative(self, tokens: np.ndarray, max_new_tokens: int,
                                      temperature: float = 0.0, top_k: int = 0,
@@ -693,14 +762,16 @@ class ModelServer:
             self.params, tokens[0].tolist(), max_new_tokens, stats=stats,
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
         try:
-            for piece in self._locked_pieces(pieces):
-                cut = stop_cut(piece[0].tolist(), stops)
-                if cut is not None:
-                    piece = piece[:, :cut]  # emit through the stop, then end
-                self.stats["tokens_generated"] += int(piece.size)
-                yield piece
-                if cut is not None:
-                    return
+            with trace.span("serve.generate_stream_spec", model=self.name,
+                            new_tokens=max_new_tokens):
+                for piece in self._locked_pieces(pieces):
+                    cut = stop_cut(piece[0].tolist(), stops)
+                    if cut is not None:
+                        piece = piece[:, :cut]  # emit through the stop, then end
+                    self.stats["tokens_generated"] += int(piece.size)
+                    yield piece
+                    if cut is not None:
+                        return
         finally:
             # a consumer that stops early (a stop match, a client gone) closes
             # this mid-loop; the device work done still shows in the stats
@@ -949,7 +1020,8 @@ class ServerSet:
                  prefill_chunk: int = 0, prefill_budget: int = 0,
                  max_queue_depth: int = 0, request_timeout_s: float = 0.0,
                  boundary_watchdog_s: float = 0.0, flight_recorder: bool = True,
-                 flightrec_capacity: int = 0, flight_dump_dir: str = "") -> None:
+                 flightrec_capacity: int = 0, flight_dump_dir: str = "",
+                 trace_dir: str = "", device_telemetry: bool = True) -> None:
         if not servers:
             raise ValueError("no models")
         self.servers = servers
@@ -1000,6 +1072,18 @@ class ServerSet:
         # bearer tokens gating the /admin surface (empty = anonymous admin,
         # for single-tenant dev pods and tests)
         self.admin_tokens = tuple(admin_tokens)
+        # profiler captures: /v1/profile writes into trace_dir, /admin/profile
+        # into numbered dirs under trace_dir/captures (the newest
+        # MAX_PROFILE_CAPTURES kept); one capture at a time across both
+        self.trace_dir = trace_dir or os.path.join(os.getcwd(), "torch-trace")
+        self._profiling = threading.Lock()
+        self._capture_seq = 0
+        self._capture_lock = threading.Lock()
+        # measured device memory (utils/devmem) in the /metrics device family
+        self.device_telemetry = bool(device_telemetry)
+        # windowed pod rates (utils/tswheel): requests/s, 5xx/s, sheds/s
+        # over 1m/5m, marked once per completed POST in the handler
+        self.rates = tswheel.RateSet(("requests", "http_5xx", "sheds"))
         # set on SIGTERM: /healthz answers 503 "draining" so load balancers
         # stop routing here while in-flight requests finish
         self.draining = False
@@ -1027,6 +1111,57 @@ class ServerSet:
     def inflight(self) -> int:
         with self._inflight_lock:
             return self._inflight
+
+    def next_capture_dir(self) -> str:
+        """A fresh numbered capture dir under ``trace_dir/captures`` for one
+        on-demand profiler run; prunes all but the newest
+        ``MAX_PROFILE_CAPTURES - 1`` existing captures first (the new one
+        brings the total back to the cap)."""
+        import shutil
+
+        root = os.path.join(self.trace_dir, "captures")
+        with self._capture_lock:
+            self._capture_seq += 1
+            seq = self._capture_seq
+        os.makedirs(root, exist_ok=True)
+        keep = MAX_PROFILE_CAPTURES - 1
+        old = sorted((d for d in os.listdir(root)
+                      if d.startswith("cap-") and os.path.isdir(os.path.join(root, d))),
+                     key=lambda d: os.path.getmtime(os.path.join(root, d)))
+        for name in old[:max(0, len(old) - keep)]:
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+        path = os.path.join(root, "cap-%d-%d" % (int(time.time()), seq))
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    def metrics_payload(self) -> dict:
+        """The ``GET /metrics`` tree, as the JAX sidecar builds it: per model
+        its stats with the continuous engine's snapshot, the prefix cache
+        and its lifecycle gauges; pool entries without a server yet; the
+        pool, the windowed rates, the control plane and, with device
+        telemetry on, the measured device memory."""
+        payload: dict = {}
+        lifecycle = self.pool.states()
+        for n, s in list(self.servers.items()):
+            d = dict(s.stats)
+            cb = self.cbatchers.get(n)
+            if cb is not None:
+                d["continuous"] = cb.snapshot()
+            if s._prefix_cache is not None:
+                d["prefix_cache"] = s._prefix_cache.stats()
+            if n in lifecycle:
+                d["lifecycle"] = lifecycle[n]
+            payload[n] = d
+        for n, st in lifecycle.items():
+            if n not in payload:  # PULLING/UNLOADED: no server yet
+                payload[n] = {"lifecycle": st}
+        if "pool" not in payload:
+            payload["pool"] = self.pool.pool_snapshot()
+        payload["rates"] = self.rates.snapshot()
+        payload["control_plane"] = manifest_cache.health().status()
+        if self.device_telemetry:
+            payload["device"] = devmem.sample()
+        return payload
 
     def add_server(self, name: str, server: ModelServer) -> None:
         """Insert a runtime-loaded model into the routing set (the pool's
@@ -1210,7 +1345,8 @@ class ServerSet:
                     return ContinuousBatcher(
                         server, **{**self.engine_kwargs, "page_size": page_size},
                         chunk_size=self.stream_chunk_size, max_len=max_len,
-                        prefix_cache=server._prefix_cache, speculative_k=server.speculative_k)
+                        prefix_cache=server._prefix_cache, speculative_k=server.speculative_k,
+                        device_telemetry=self.device_telemetry)
 
                 try:
                     cb = build()
@@ -1284,11 +1420,12 @@ class ServerSet:
         ``stream_chunk_size``. Single-row streams join the continuous
         engine when it is on; ``timeout_s``/``priority`` (a propagated
         deadline remainder and priority class), ``resume_step`` (continue a
-        severed stream at step k), ``request_id`` and ``timing`` (the
-        phase breakdown, filled when the stream ends) reach only it. The
-        plain path has no deadline machinery (the handler's up-front expiry
-        check is its whole contract) and no per-step streams to rejoin, so
-        a resume without the engine is refused (400)."""
+        severed stream at step k), ``request_id`` (joins the engine
+        ticket) and ``timing`` (the phase breakdown, filled when the stream
+        ends) reach only it. The plain path has no deadline machinery (the
+        handler's up-front expiry check is its whole contract), no
+        per-request phases and no per-step streams to rejoin, so a resume
+        without the engine is refused (400)."""
         cb = self.continuous_for(server)
         if cb is not None and tokens.shape[0] == 1:
             return cb.stream(tokens, max_new_tokens=n, stop_token_ids=stop_token_ids,
@@ -1379,12 +1516,16 @@ def _check_generate(req: dict, headers, tokens: np.ndarray, vocab: int, server: 
     return (n, samp, stop_ids, resume), None
 
 
-def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingHTTPServer:
+def serve(servers: ModelServer | ServerSet, listen: str = ":8000", access_log: str = "",
+          access_log_max_bytes: int = 0) -> ThreadingHTTPServer:
     """Start the HTTP front on a daemon thread; returns the server (call
-    ``shutdown()`` to stop it)."""
+    ``shutdown()`` to stop it). ``access_log`` names a JSON-lines file that
+    gets one line per completed POST (rotated to ``.1`` past
+    ``access_log_max_bytes`` when that is > 0)."""
     from modelx_tpu_torch.dl import openai_api as oai
 
     sset = servers if isinstance(servers, ServerSet) else ServerSet({servers.name: servers})
+    access = accesslog.open_log(access_log, max_bytes=access_log_max_bytes)
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -1392,13 +1533,43 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
         def log_message(self, *a):
             pass
 
+        def send_response(self, code, message=None):
+            # the committed status, for the rates and the access-log line
+            # (one capture point covers _json and the streaming 200)
+            self._resp_status = code
+            super().send_response(code, message)
+
+        def _obs_headers(self) -> None:
+            """Echo the request id and attempt on every answer of a POST
+            (JSON and streamed); GETs bind none."""
+            rid = getattr(self, "_rid", "")
+            if rid:
+                self.send_header(REQUEST_ID_HEADER, rid)
+                self.send_header(ATTEMPT_HEADER, str(self._attempt))
+
         def _json(self, status: int, obj, headers: dict | None = None) -> None:
             body = json.dumps(obj).encode()
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            self._obs_headers()
+            if getattr(self, "_rid", ""):
+                # whatever phases the request reached ride as
+                # X-ModelX-Timing-* headers: a 504 still reports its queue time
+                timing = dict(self._timing)
+                timing["total_ms"] = round((time.monotonic() - self._t0) * 1e3, 3)
+                for k, v in timing_headers(timing).items():
+                    self.send_header(k, v)
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _text(self, status: int, text: str, content_type: str) -> None:
+            body = text.encode("utf-8")
+            self.send_response(status)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
 
@@ -1410,6 +1581,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             self.send_header("Content-Type", content_type)
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Transfer-Encoding", "chunked")
+            self._obs_headers()
             self.end_headers()
 
             def write_chunk(payload: bytes) -> None:
@@ -1438,14 +1610,14 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             equals the non-streamed result. A single row streams ONE token
             per line ({"tokens": [[t]]}), several rows one line per chunk.
             ``include_timing`` adds a {"timing": ...} line before the done
-            line: the engine's phase breakdown and the handler's total."""
+            line: the engine's phase breakdown (none without the engine) and
+            the handler's total."""
             kw = deadline_kwargs(timeout_s, priority)
             if resume_step:
                 kw["resume_step"] = resume_step
-            timing: dict = {}
-            if include_timing:
-                kw["timing"] = timing
-            gen = sset.stream_source(server, tokens, n, samp, stop_token_ids=stop_ids, **kw)
+            timing: dict = self._timing
+            gen = sset.stream_source(server, tokens, n, samp, stop_token_ids=stop_ids,
+                                     request_id=self._rid, timing=timing, **kw)
             try:
                 # pull the first chunk BEFORE committing a 200: a bad
                 # request must still be a 4xx
@@ -1491,6 +1663,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             ttft = t.get("ttft_ms")
             if ttft is not None and emitted > 1 and total_ms > ttft:
                 t["decode_tps"] = round((emitted - 1) / ((total_ms - ttft) / 1e3), 2)
+            self._timing.update(t)  # the access-log line sees it too
             return t
 
         def _openai(self, req: dict, chat: bool) -> None:
@@ -1499,6 +1672,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             # the lifecycle gate, in the OpenAI error shape: the same typed
             # errors the native surface maps
             name = str(req.get("model") or sset.default)
+            self._log_model = name
             try:
                 sset.pool.check_admission(name)
                 sset.pool.enter(name)  # raises 409 if a drain raced in
@@ -1530,11 +1704,10 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                         resume = parse_resume(rz.get("emitted"), rz.get("seed"))
                 if resume is not None and not bool(req.get("stream", False)):
                     raise MalformedResumeError("resume requires a streaming request")
-                timing: dict = {}
                 if bool(req.get("stream", False)):
                     events = oai.stream_completion(sset, req, chat, timeout_s=timeout_s,
                                                    priority=priority, resume=resume,
-                                                   timing=timing)
+                                                   request_id=self._rid, timing=self._timing)
                     try:
                         try:
                             # validation and decode errors must surface as a
@@ -1561,7 +1734,7 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                     finally:
                         events.close()  # a client that went away frees the stream now
                 return self._json(200, oai.run_completion(sset, req, chat, timeout_s=timeout_s,
-                                                          priority=priority, timing=timing))
+                                                          priority=priority, timing=self._timing))
             except oai.APIError as e:
                 return self._json(e.status, e.payload, headers=e.headers)
             except ValueError as e:
@@ -1592,6 +1765,10 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             return False
 
         def do_GET(self):
+            # GETs share keep-alive connections with POSTs: clear the
+            # per-request state a previous POST bound
+            self._rid = ""
+            self._resp_status = 0
             if self.path == "/healthz":
                 engine = sset.engine_health()
                 failed = sset.pool.failed()
@@ -1635,10 +1812,28 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                     "serving": sset.serving_stats(),
                     "control_plane": manifest_cache.health().status(),
                 })
+            elif self.path.split("?", 1)[0] == "/metrics":
+                payload = sset.metrics_payload()
+                # the same tree as Prometheus text on Accept: text/plain or
+                # ?format=prometheus; model names and device indices become
+                # labels, not metric-name fragments
+                if promexp.wants_prometheus(self.headers.get("Accept"),
+                                            _query_param(self.path, "format")):
+                    self._text(200, promexp.render(payload, label_levels={
+                        ("*",): "model", ("*", "devices", "*"): "device"}),
+                        promexp.CONTENT_TYPE)
+                else:
+                    self._json(200, payload)
             elif self.path == "/v1/models":
                 # one body, two contracts: the native {default, models} keys
                 # plus OpenAI's {object: "list", data: [...]}
                 self._json(200, oai.models_payload(sset))
+            elif self.path.split("?", 1)[0] == "/v1/trace":
+                # ?request_id= slices one request's timeline, ?prefix= a
+                # span path (both optional)
+                self._json(200, trace.tracer().summary(
+                    prefix=_query_param(self.path, "prefix"),
+                    request_id=_query_param(self.path, "request_id")))
             elif self.path.split("?", 1)[0] == "/debug/flightrec":
                 # the engines' and the pool's flight-recorder rings,
                 # admin-gated (events carry request ids), with
@@ -1677,14 +1872,38 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             return self._json(200 if wait else 202, snap)
 
         def do_POST(self):
-            self._t0 = time.monotonic()
             # pod-level in-flight count for the SIGTERM drain: a request
             # counts until its last byte (streams included)
             sset.request_began()
+            # the end-to-end request id: the client's when well formed,
+            # else minted here; it binds every span this thread closes, is
+            # echoed on the answer and joins the engine ticket
+            self._rid = (parse_request_id(self.headers.get(REQUEST_ID_HEADER))
+                         or mint_request_id())
+            self._attempt = parse_attempt(self.headers.get(ATTEMPT_HEADER))
+            self._timing = {}
+            self._resp_status = 0
+            self._log_model = ""
+            self._t0 = time.monotonic()
+            path = self.path.split("?", 1)[0]
             try:
-                self._do_POST()
+                with trace.request_context(self._rid), \
+                        trace.span("serve.request", http_path=path, attempt=self._attempt):
+                    self._do_POST()
             finally:
                 sset.request_ended()
+                # windowed rates: one mark per request, plus its outcome class
+                sset.rates.mark("requests")
+                if self._resp_status >= 500:
+                    sset.rates.mark("http_5xx")
+                elif self._resp_status == 429:
+                    sset.rates.mark("sheds")
+                if access is not None:
+                    access.write(
+                        request_id=self._rid, attempt=self._attempt,
+                        client=client_identity(self.headers, self.client_address),
+                        path=path, model=self._log_model, status=self._resp_status,
+                        ms=round((time.monotonic() - self._t0) * 1e3, 3), timing=self._timing)
 
         def _do_POST(self):
             length = int(self.headers.get("Content-Length", 0) or 0)
@@ -1695,11 +1914,45 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             if not isinstance(req, dict):
                 return self._json(400, {"error": "request body must be a JSON object"})
             path = self.path.split("?", 1)[0]
-            if path == "/admin/profile":
+            if self.path == "/v1/profile":
+                try:
+                    seconds = float(req.get("seconds", 3))
+                except (TypeError, ValueError):
+                    seconds = -1.0
+                if not (0 <= seconds <= MAX_PROFILE_SECONDS):
+                    return self._json(400, {
+                        "error": f"seconds must be a number in [0, {MAX_PROFILE_SECONDS}]"})
+                if not sset._profiling.acquire(blocking=False):
+                    return self._json(409, {"error": "profile already running"})
+                try:
+                    # the window records what other requests run meanwhile:
+                    # it holds no device lock
+                    with trace.torch_profile(sset.trace_dir):
+                        time.sleep(seconds)
+                finally:
+                    sset._profiling.release()
+                return self._json(200, {"trace_dir": sset.trace_dir})
+            if self.path == "/admin/profile":
+                # the same one-at-a-time lock as /v1/profile, admin-gated,
+                # into a fresh capped capture dir
                 if not self._admin_auth():
                     return
-                e = NotPortedError("/admin/profile", "observability")
-                return self._json(e.http_status, e.payload())
+                try:
+                    seconds = float(req.get("duration_s", 3))
+                except (TypeError, ValueError):
+                    seconds = -1.0
+                if not (0 < seconds <= MAX_PROFILE_SECONDS):
+                    return self._json(400, {
+                        "error": f"duration_s must be a number in (0, {MAX_PROFILE_SECONDS}]"})
+                if not sset._profiling.acquire(blocking=False):
+                    return self._json(409, {"error": "profile already running"})
+                try:
+                    capture_dir = sset.next_capture_dir()
+                    with trace.torch_profile(capture_dir):
+                        time.sleep(seconds)
+                finally:
+                    sset._profiling.release()
+                return self._json(200, {"capture_dir": capture_dir, "duration_s": seconds})
             if self.path == "/admin/models":
                 # a runtime load: pull a registry ref (or point at a local
                 # dir) and load it while traffic is live
@@ -1717,6 +1970,8 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
             if path in ("/v1/completions", "/v1/chat/completions"):
                 return self._openai(req, chat=path.endswith("chat/completions"))
             server, verb = sset.resolve(path)
+            if server is not None:
+                self._log_model = server.name
             if server is None:
                 # a name the routing set does not know may still be a pool
                 # entry: PULLING/LOADING 503 + Retry-After, FAILED 503 + the
@@ -1782,6 +2037,12 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                 # the embedding gather would raise on the card (JAX's clamps)
                 return self._json(400, {"error": f"token ids must be in [0, {vocab})"})
             n_pos = getattr(server.cfg, "n_positions", 0) or 0
+            if not n_pos and verb == "forward":
+                # bert's learned positions: the JAX sidecar answers 200 with
+                # NaN features past its table (a known gap of the reference);
+                # on the card that gather is a device-side assert, which ends
+                # the CUDA context, so the port refuses it with gpt2's 400
+                n_pos = getattr(server.cfg, "max_position_embeddings", 0) or 0
             if n_pos and tokens.shape[1] > n_pos:
                 # absolute-position families (gpt2): no wpe row past n_positions
                 return self._json(400, {"error": f"prompt length {tokens.shape[1]} exceeds "
@@ -1817,21 +2078,18 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000") -> ThreadingH
                         # per-row early stop breaks the [B, k]-aligned stream
                         return self._json(400, {
                             "error": "stop_token_ids with stream is single-row only"})
-                    include_timing = bool(req.get("include_timing", False))
-                    if include_timing and sset.continuous_for(server) is None:
-                        raise NotPortedError("include_timing without the continuous engine",
-                                             "observability")
-                    return self._stream_generate(server, tokens, n, samp, stop_ids,
-                                                 timeout_s=timeout_s, priority=priority,
-                                                 resume_step=resume_step,
-                                                 include_timing=include_timing)
+                    return self._stream_generate(
+                        server, tokens, n, samp, stop_ids, timeout_s=timeout_s,
+                        priority=priority, resume_step=resume_step,
+                        include_timing=bool(req.get("include_timing", False)))
                 engine = sset.engine_for(server, tokens.shape[0], samp["temperature"])
                 if engine is sset.continuous_for(server):
-                    # the engine frees each row's slot at its stop token and
-                    # honors the propagated deadline remainder
+                    # the engine frees each row's slot at its stop token,
+                    # honors the propagated deadline remainder and fills the
+                    # phase breakdown the timing headers carry
                     rows = engine.generate(tokens, max_new_tokens=n, stop_token_ids=stop_ids,
                                            timeout_s=timeout_s, priority=priority,
-                                           **samp).tolist()
+                                           timing=self._timing, **samp).tolist()
                 else:
                     rows = engine.generate(tokens, max_new_tokens=n, **samp).tolist()
                 if stop_ids:

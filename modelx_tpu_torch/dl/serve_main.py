@@ -13,6 +13,8 @@
     modelx-serve-torch --model m=/mnt/m --allow-admin-load --continuous-batch \
         --prefix-cache 4 --publish-programs --publish-kv --kv-fetch-through \
         --publish-outbox-dir /var/modelx/outbox
+    modelx-serve-torch --model m=/mnt/m --trace-dir /var/modelx/trace \
+        --access-log /var/modelx/access.jsonl --access-log-max-bytes 100000000
 
 The HTTP front answers 503 on /healthz while the checkpoints load, then
 serves them on the card (``--device cpu`` serves on the host instead).
@@ -24,7 +26,9 @@ the model's continuous engine (``dl/continuous.py``) and its knobs below.
 Runtime loads can publish their kernel library and hot prefix KV to the
 model version and install what other pods published (``--publish-*``,
 ``--kv-fetch-through``; ``dl/program_store.py``, ``dl/kv_store.py``),
-through a durable outbox (``--publish-outbox-dir``).
+through a durable outbox (``--publish-outbox-dir``). ``/metrics``,
+``/v1/trace`` and the profiler captures (``--trace-dir``) read the pod;
+``--access-log`` writes one JSON line per request.
 
 On SIGTERM the pod drains: ``/healthz`` answers 503 "draining", then it
 waits for its in-flight requests (up to ``--drain-grace`` seconds) or
@@ -244,6 +248,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--drain-seconds", default="5.0",
                     help="on SIGTERM, serve 503 on /healthz for this long (so load "
                          "balancers drain) before stopping")
+    ap.add_argument("--trace-dir", default="",
+                    help="torch.profiler output dir (/v1/profile; /admin/profile captures "
+                         "under its captures/; default ./torch-trace)")
+    ap.add_argument("--access-log", default="",
+                    help="append one JSON line per request (request id, hashed client "
+                         "identity, model, status, per-phase timing) to this path; "
+                         "empty = off")
+    ap.add_argument("--access-log-max-bytes", type=int, default=0,
+                    help="rotate the access log once it exceeds this many bytes "
+                         "(renamed to <path>.1, one generation kept; 0 = never)")
+    ap.add_argument("--device-telemetry", action=argparse.BooleanOptionalAction, default=True,
+                    help="sample measured device memory (torch.cuda.mem_get_info and the "
+                         "caching allocator) into /metrics and the engine snapshots")
     ap.add_argument("--drain-grace", default="0.0",
                     help="coordinated drain: on SIGTERM, stop admission and wait for "
                          "in-flight requests (streams included, to their last byte) to "
@@ -410,9 +427,11 @@ def _start(argv=None):
                      boundary_watchdog_s=args.boundary_watchdog_s,
                      flight_recorder=args.flight_recorder,
                      flightrec_capacity=args.flightrec_capacity,
-                     flight_dump_dir=args.flight_dump_dir)
+                     flight_dump_dir=args.flight_dump_dir, trace_dir=args.trace_dir,
+                     device_telemetry=args.device_telemetry)
     configure_publishes(sset, args)
-    httpd = serve(sset, listen=args.listen)  # answers 503 while loading
+    httpd = serve(sset, listen=args.listen, access_log=args.access_log,
+                  access_log_max_bytes=args.access_log_max_bytes)  # 503 while loading
     try:
         stats = sset.load_all(concurrent=args.concurrent_load)
     except BaseException:

@@ -20,6 +20,13 @@ the original seed, as the native ``resume`` field or as the
 ``X-ModelX-Resume-*`` headers. Continuing one needs the continuous engine,
 so without ``--continuous-batch`` a well-formed resume is refused exactly
 as the JAX sidecar refuses it.
+
+Every POST carries an end-to-end request id: a client's
+``X-ModelX-Request-Id`` is honored when it is well formed, else the pod
+mints one; it is echoed on the response with ``X-ModelX-Attempt``, stamps
+the request's spans and its access-log line, and joins the engine ticket.
+A JSON answer also carries its phase breakdown as ``X-ModelX-Timing-*``
+headers (``timing_headers``).
 """
 
 from __future__ import annotations
@@ -28,9 +35,84 @@ DEADLINE_HEADER = "X-ModelX-Deadline-Ms"
 PRIORITY_HEADER = "X-ModelX-Priority"
 RESUME_EMITTED_HEADER = "X-ModelX-Resume-Emitted"
 RESUME_SEED_HEADER = "X-ModelX-Resume-Seed"
+CLIENT_HEADER = "X-ModelX-Client"
+REQUEST_ID_HEADER = "X-ModelX-Request-Id"
+ATTEMPT_HEADER = "X-ModelX-Attempt"
+TIMING_HEADER_PREFIX = "X-ModelX-Timing-"
 
 PRIORITY_INTERACTIVE = "interactive"
 PRIORITY_BATCH = "batch"
+
+# the id alphabet is closed: the id rides in headers and JSON log lines, so
+# a hostile client-supplied id must not inject header or log structure
+_REQUEST_ID_CHARS = frozenset(
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789-_.:")
+_REQUEST_ID_MAX = 128
+
+
+def mint_request_id() -> str:
+    """A fresh request id: 16 hex chars of OS entropy under a fixed prefix,
+    minted by the first hop that sees the request without one."""
+    import secrets
+
+    return "req-" + secrets.token_hex(8)
+
+
+def parse_request_id(value) -> str | None:
+    """Client-supplied ``X-ModelX-Request-Id`` -> the id to honor, or None
+    when absent or unusable (the receiver mints instead). Strict: a closed
+    alphabet and a length cap, because the id is reflected verbatim into
+    response headers and access logs."""
+    if not value:
+        return None
+    rid = str(value).strip()
+    if not rid or len(rid) > _REQUEST_ID_MAX:
+        return None
+    if not all(c in _REQUEST_ID_CHARS for c in rid):
+        return None
+    return rid
+
+
+def parse_attempt(value) -> int:
+    """``X-ModelX-Attempt`` header value -> attempt ordinal (>= 1); absent
+    or malformed reads as attempt 1, the first try."""
+    try:
+        return max(1, int(str(value).strip()))
+    except (TypeError, ValueError):
+        return 1
+
+
+def client_identity(headers, client_address) -> str:
+    """The hashed client identity of a request for the access log: the API
+    token, else the explicit ``X-ModelX-Client`` header, else the source IP.
+    A token is hashed before it becomes a log key: the log must not leak a
+    bearer credential."""
+    import hashlib
+
+    auth = str(headers.get("Authorization", "") or "")
+    if auth.startswith("Bearer ") and auth[len("Bearer "):].strip():
+        digest = hashlib.sha256(auth[len("Bearer "):].strip().encode()).hexdigest()
+        return "tok:" + digest[:12]
+    explicit = str(headers.get(CLIENT_HEADER, "") or "").strip()
+    if explicit:
+        return "hdr:" + explicit[:64]
+    host = client_address[0] if client_address else ""
+    return "ip:" + (host or "unknown")
+
+
+def timing_headers(timing: dict) -> dict[str, str]:
+    """A timing breakdown dict -> ``X-ModelX-Timing-*`` response headers.
+    ``{"queue_ms": 1.25}`` becomes ``X-ModelX-Timing-Queue-Ms: 1.25``;
+    non-numeric values are skipped, so a partly filled breakdown never
+    breaks the response."""
+    out: dict[str, str] = {}
+    for key, val in (timing or {}).items():
+        if not isinstance(val, (int, float)) or isinstance(val, bool):
+            continue
+        name = TIMING_HEADER_PREFIX + "-".join(
+            p.capitalize() for p in str(key).split("_") if p)
+        out[name] = f"{val:g}" if isinstance(val, float) else str(val)
+    return out
 
 
 def parse_priority(value) -> str:

@@ -16,7 +16,11 @@ same strings for the components of the families it serves or queues:
   ``fuse_unk``, the decoder ``Sequence[Replace, ByteFallback, Fuse, Strip]``;
 - GPT-2: ``ByteLevel(use_regex=true)``;
 - ``WordLevel`` + ``Whitespace`` with no decoder (tokens joined by a
-  space).
+  space);
+- BERT: the ``BertNormalizer`` (``clean_text``, ``handle_chinese_chars``,
+  ``strip_accents``, ``lowercase``), the ``BertPreTokenizer``, the
+  ``WordPiece`` model and decoder, and ``BertProcessing`` or a
+  ``TemplateProcessing`` for ``[CLS] ... [SEP]``.
 
 Encoding runs the ``tokenizers`` pipeline step for step: added tokens that
 are not ``normalized`` are cut out of the raw text first (leftmost-longest,
@@ -34,10 +38,14 @@ reads it (Python's ``\\s`` also takes U+001C-U+001F). Python 3.12's
 ``unicodedata`` is Unicode 15.0 and the regex tables of ``tokenizers``
 0.22 are Unicode 16.0: the 5,812 code points assigned in between take
 their categories from ``UNICODE_AFTER_15_0`` (the normalizers of
-``tokenizers`` leave all of them unchanged, as ``unicodedata`` does). Any
-component type not listed above raises ``UnsupportedTokenizerError`` at
-load, naming it: nothing is ever encoded with part of the tokenizer
-ignored.
+``tokenizers`` leave all of them unchanged, as ``unicodedata`` does). The
+BERT components read older tables inside ``tokenizers`` (its control,
+punctuation and non-spacing-mark classes predate Unicode 11) and Rust's
+newer lowercase map; the code points where those differ from
+``unicodedata`` are listed in the ``BERT_*`` tables below, each probed over
+every code point against ``tokenizers`` 0.22.2. Any component type not
+listed above raises ``UnsupportedTokenizerError`` at load, naming it:
+nothing is ever encoded with part of the tokenizer ignored.
 """
 
 from __future__ import annotations
@@ -58,9 +66,10 @@ _WS = frozenset(WHITE_SPACE)
 # the pre-tokenizer GPT-2 and ByteLevel(use_regex=true) split with
 GPT2_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
 
-# the slice that brings what this reader refuses: WordPiece, Unigram and
-# the BERT normalizer and pre-tokenizer belong to the bert family
-LATER_SLICE = "other families"
+# the open roadmap item that brings what this reader still refuses (the
+# Unigram model, the Precompiled normalizer, the Digits and Punctuation
+# pre-tokenizers among them)
+LATER_SLICE = "tokenizer components"
 
 
 class UnsupportedTokenizerError(NotImplementedError):
@@ -235,6 +244,172 @@ def _compile(pattern: dict):
     raise UnsupportedTokenizerError(f"pattern {pattern!r}")
 
 
+# -- the BERT components' character classes ---------------------------------
+# (lo, hi) code-point ranges, inclusive, as tokenizers 0.22.2 classes them
+
+# what BertNormalizer's clean_text removes: NUL, U+FFFD and its control
+# class (Cc, Cf and Co of an older Unicode; tab, newline and CR excepted),
+# and the lone surrogates no Rust string can hold
+BERT_REMOVED = (
+    (0x0, 0x8), (0xB, 0xC), (0xE, 0x1F), (0x7F, 0x9F), (0xAD, 0xAD), (0x600, 0x605),
+    (0x61C, 0x61C), (0x6DD, 0x6DD), (0x70F, 0x70F), (0x180E, 0x180E), (0x200B, 0x200F),
+    (0x202A, 0x202E), (0x2060, 0x2064), (0x2066, 0x206F), (0xD800, 0xF8FF), (0xFEFF, 0xFEFF),
+    (0xFFF9, 0xFFFB), (0xFFFD, 0xFFFD), (0x110BD, 0x110BD), (0x1BCA0, 0x1BCA3),
+    (0x1D173, 0x1D17A), (0xE0001, 0xE0001), (0xE0020, 0xE007F), (0xF0000, 0xFFFFD),
+    (0x100000, 0x10FFFD),
+)
+# handle_chinese_chars: the CJK ideograph blocks that get a space each side
+BERT_CHINESE = (
+    (0x3400, 0x4DBF), (0x4E00, 0x9FFF), (0xF900, 0xFAFF), (0x20000, 0x2A6DF),
+    (0x2A700, 0x2B81F), (0x2B920, 0x2CEAF), (0x2F800, 0x2FA1F),
+)
+# BertPreTokenizer's punctuation is ASCII punctuation and category P, less
+# these (assigned P after its tables), plus U+166D and U+111C9
+BERT_NOT_PUNCT = (
+    (0x61D, 0x61D), (0x9FD, 0x9FD), (0xA76, 0xA76), (0xC77, 0xC77), (0xC84, 0xC84),
+    (0x1B4E, 0x1B4F), (0x1B7D, 0x1B7F), (0x2E43, 0x2E4F), (0x2E52, 0x2E5D), (0x10D6E, 0x10D6E),
+    (0x10EAD, 0x10EAD), (0x10F55, 0x10F59), (0x10F86, 0x10F89), (0x113D4, 0x113D5),
+    (0x113D7, 0x113D8), (0x1144B, 0x1144F), (0x1145A, 0x1145B), (0x1145D, 0x1145D),
+    (0x11660, 0x1166C), (0x116B9, 0x116B9), (0x1183B, 0x1183B), (0x11944, 0x11946),
+    (0x119E2, 0x119E2), (0x11A3F, 0x11A46), (0x11A9A, 0x11A9C), (0x11A9E, 0x11AA2),
+    (0x11B00, 0x11B09), (0x11BE1, 0x11BE1), (0x11C41, 0x11C45), (0x11C70, 0x11C71),
+    (0x11EF7, 0x11EF8), (0x11F43, 0x11F4F), (0x11FFF, 0x11FFF), (0x12FF1, 0x12FF2),
+    (0x16D6D, 0x16D6F), (0x16E97, 0x16E9A), (0x16FE2, 0x16FE2), (0x1E5FF, 0x1E5FF),
+    (0x1E95E, 0x1E95F),
+)
+BERT_EXTRA_PUNCT = ((0x166D, 0x166D), (0x111C9, 0x111C9))
+# strip_accents drops category Mn after NFD, less these (assigned Mn after
+# its tables), plus U+1734; U+11938 is left whole by its NFD
+BERT_KEPT_MARKS = (
+    (0x7FD, 0x7FD), (0x897, 0x89F), (0x8CA, 0x8E1), (0x9FE, 0x9FE), (0xAFA, 0xAFF),
+    (0xB55, 0xB55), (0xC04, 0xC04), (0xC3C, 0xC3C), (0xD00, 0xD00), (0xD3B, 0xD3C),
+    (0xD81, 0xD81), (0xEBA, 0xEBA), (0xECE, 0xECE), (0x180F, 0x180F), (0x1885, 0x1886),
+    (0x1ABF, 0x1ACE), (0x1DF6, 0x1DFB), (0xA82C, 0xA82C), (0xA8C5, 0xA8C5), (0xA8FF, 0xA8FF),
+    (0xA9BD, 0xA9BD), (0x10D24, 0x10D27), (0x10D69, 0x10D6D), (0x10EAB, 0x10EAC),
+    (0x10EFC, 0x10EFF), (0x10F46, 0x10F50), (0x10F82, 0x10F85), (0x11070, 0x11070),
+    (0x11073, 0x11074), (0x110C2, 0x110C2), (0x111C9, 0x111C9), (0x111CF, 0x111CF),
+    (0x1123E, 0x1123E), (0x11241, 0x11241), (0x1133B, 0x1133B), (0x113BB, 0x113C0),
+    (0x113CE, 0x113CE), (0x113D0, 0x113D0), (0x113D2, 0x113D2), (0x113E1, 0x113E2),
+    (0x11438, 0x1143F), (0x11442, 0x11444), (0x11446, 0x11446), (0x1145E, 0x1145E),
+    (0x1182F, 0x11837), (0x11839, 0x1183A), (0x1193B, 0x1193C), (0x1193E, 0x1193E),
+    (0x11943, 0x11943), (0x119D4, 0x119D7), (0x119DA, 0x119DB), (0x119E0, 0x119E0),
+    (0x11A01, 0x11A0A), (0x11A33, 0x11A38), (0x11A3B, 0x11A3E), (0x11A47, 0x11A47),
+    (0x11A51, 0x11A56), (0x11A59, 0x11A5B), (0x11A8A, 0x11A96), (0x11A98, 0x11A99),
+    (0x11C30, 0x11C36), (0x11C38, 0x11C3D), (0x11C3F, 0x11C3F), (0x11C92, 0x11CA7),
+    (0x11CAA, 0x11CB0), (0x11CB2, 0x11CB3), (0x11CB5, 0x11CB6), (0x11D31, 0x11D36),
+    (0x11D3A, 0x11D3A), (0x11D3C, 0x11D3D), (0x11D3F, 0x11D45), (0x11D47, 0x11D47),
+    (0x11D90, 0x11D91), (0x11D95, 0x11D95), (0x11D97, 0x11D97), (0x11EF3, 0x11EF4),
+    (0x11F00, 0x11F01), (0x11F36, 0x11F3A), (0x11F40, 0x11F40), (0x11F42, 0x11F42),
+    (0x11F5A, 0x11F5A), (0x13440, 0x13440), (0x13447, 0x13455), (0x1611E, 0x16129),
+    (0x1612D, 0x1612F), (0x16F4F, 0x16F4F), (0x16FE4, 0x16FE4), (0x1CF00, 0x1CF2D),
+    (0x1CF30, 0x1CF46), (0x1E000, 0x1E006), (0x1E008, 0x1E018), (0x1E01B, 0x1E021),
+    (0x1E023, 0x1E024), (0x1E026, 0x1E02A), (0x1E08F, 0x1E08F), (0x1E130, 0x1E136),
+    (0x1E2AE, 0x1E2AE), (0x1E2EC, 0x1E2EF), (0x1E4EC, 0x1E4EF), (0x1E5EE, 0x1E5EF),
+    (0x1E944, 0x1E94A),
+)
+# the NFD inside tokenizers predates these combining classes: it reorders
+# none of these code points (each a starter to it)
+BERT_NFD_STARTERS = (
+    (0x7FD, 0x7FD), (0x898, 0x89F), (0x8CA, 0x8D3), (0x9FE, 0x9FE), (0xC3C, 0xC3C),
+    (0xD3B, 0xD3C), (0xEBA, 0xEBA), (0x1715, 0x1715), (0x1ABF, 0x1ACE), (0x1DF6, 0x1DFA),
+    (0xA82C, 0xA82C), (0x10D24, 0x10D27), (0x10EAB, 0x10EAC), (0x10EFD, 0x10EFF),
+    (0x10F46, 0x10F50), (0x10F82, 0x10F85), (0x11070, 0x11070), (0x1133B, 0x1133B),
+    (0x1145E, 0x1145E), (0x11839, 0x1183A), (0x1193D, 0x1193E), (0x11943, 0x11943),
+    (0x119E0, 0x119E0), (0x11A34, 0x11A34), (0x11A47, 0x11A47), (0x11A99, 0x11A99),
+    (0x11D42, 0x11D42), (0x11D44, 0x11D45), (0x11D97, 0x11D97), (0x11F41, 0x11F42),
+    (0x16FF0, 0x16FF1), (0x1E08F, 0x1E08F), (0x1E130, 0x1E136), (0x1E2AE, 0x1E2AE),
+    (0x1E2EC, 0x1E2EF), (0x1E4EC, 0x1E4EF),
+)
+# lowercase pairs of Unicode 16.0 (Rust's to_lowercase) that unicodedata's
+# 15.0 lacks: (lo, hi, offset to the lowercase)
+BERT_LOWER_AFTER_15_0 = (
+    (0x1C89, 0x1C89, 1), (0xA7CB, 0xA7CB, 0x264 - 0xA7CB), (0xA7CC, 0xA7CC, 1),
+    (0xA7CE, 0xA7CE, 1), (0xA7D2, 0xA7D2, 1), (0xA7D4, 0xA7D4, 1), (0xA7DA, 0xA7DA, 1),
+    (0xA7DC, 0xA7DC, 0x19B - 0xA7DC), (0x10D50, 0x10D65, 0x20), (0x16EA0, 0x16EB8, 0x1B),
+)
+
+
+def _cp_set(*tables) -> frozenset:
+    return frozenset(cp for table in tables for a, b, *_ in table for cp in range(a, b + 1))
+
+
+@functools.cache
+def _bert_classes() -> dict:
+    """The BERT components' classes as sets and maps, built on first use."""
+    lower = {chr(cp): chr(cp + d) for a, b, d in BERT_LOWER_AFTER_15_0 for cp in range(a, b + 1)}
+    return {
+        "removed": _cp_set(BERT_REMOVED),
+        "chinese": _cp_set(BERT_CHINESE),
+        "not_punct": _cp_set(BERT_NOT_PUNCT),
+        "extra_punct": _cp_set(BERT_EXTRA_PUNCT),
+        "kept_marks": _cp_set(BERT_KEPT_MARKS),
+        "nfd_starters": _cp_set(BERT_NFD_STARTERS),
+        "lower": lower,
+    }
+
+
+_ASCII_PUNCT = frozenset("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+
+
+def bert_is_punct(ch: str) -> bool:
+    """BertPreTokenizer's punctuation test."""
+    if ch in _ASCII_PUNCT:
+        return True
+    classes, cp = _bert_classes(), ord(ch)
+    if cp in classes["extra_punct"]:
+        return True
+    return category(ch)[0] == "P" and cp not in classes["not_punct"]
+
+
+def _bert_normalizer(spec: dict):
+    """BertNormalizer: clean_text, handle_chinese_chars, strip_accents (null
+    follows lowercase) and lowercase, in that order, each per character."""
+    clean = bool(spec.get("clean_text", True))
+    chinese = bool(spec.get("handle_chinese_chars", True))
+    lowercase = bool(spec.get("lowercase", True))
+    strip = spec.get("strip_accents")
+    strip = lowercase if strip is None else bool(strip)
+    classes = _bert_classes()
+    removed, cjk, kept, lower = (classes["removed"], classes["chinese"], classes["kept_marks"],
+                                 classes["lower"])
+
+    def stripped(s: str) -> str:
+        return "".join(c for c in _tokenizers_nfd(s)
+                       if not ((category(c) == "Mn" and ord(c) not in kept) or c == "\u1734"))
+
+    def norm(s: str) -> str:
+        if clean:
+            s = "".join(" " if c in _WS else c for c in s if ord(c) not in removed)
+        if chinese:
+            s = "".join(f" {c} " if ord(c) in cjk else c for c in s)
+        if strip:
+            s = stripped(s)
+        if lowercase:
+            s = "".join(lower.get(c) or c.lower() for c in s)
+        return s
+    return norm
+
+
+def _tokenizers_nfd(s: str) -> str:
+    """NFD as the BertNormalizer's strip_accents computes it: each character
+    decomposed (U+11938 left whole), then canonical ordering, in which the
+    ``BERT_NFD_STARTERS`` code points count as starters."""
+    starters = _bert_classes()["nfd_starters"]
+    chars = [d for c in s for d in (c if c == "\U00011938" else unicodedata.normalize("NFD", c))]
+    out, run = [], []
+    for c in chars:
+        ccc = 0 if ord(c) in starters else unicodedata.combining(c)
+        if ccc:
+            run.append((ccc, len(run), c))
+            continue
+        if run:
+            out.extend(c for _, _, c in sorted(run))
+            run = []
+        out.append(c)
+    out.extend(c for _, _, c in sorted(run))
+    return "".join(out)
+
+
 # -- byte-level alphabet -----------------------------------------------------
 
 
@@ -281,6 +456,8 @@ def _normalizer(spec):
     if kind == "Replace":
         rx, content = _compile(spec["pattern"]), spec["content"]
         return lambda s: rx.sub(lambda _m: content, s)
+    if kind == "BertNormalizer":
+        return _bert_normalizer(spec)
     raise UnsupportedTokenizerError(f"normalizer {kind}")
 
 
@@ -384,7 +561,30 @@ def _pre_tokenizer(spec):
     if kind == "Whitespace":
         w = _word_class()
         return _splitter(re.compile(f"[{w}]+|[^{w}{_named_class('s')}]+"), "Removed", invert=True)
+    if kind == "BertPreTokenizer":
+        return _bert_pre_tokenize
     raise UnsupportedTokenizerError(f"pre_tokenizer {kind}")
+
+
+def _bert_pre_tokenize(pieces):
+    """BertPreTokenizer: split on whitespace (removed), then each
+    punctuation character is a piece of its own."""
+    out = []
+    for text, at_start in pieces:
+        start, word = 0, []
+        for i, ch in enumerate(text):
+            if ch in _WS or bert_is_punct(ch):
+                if word:
+                    out.append(("".join(word), at_start and start == 0))
+                    word = []
+                if ch not in _WS:
+                    out.append((ch, at_start and i == 0))
+                start = i + 1
+            else:
+                word.append(ch)
+        if word:
+            out.append(("".join(word), at_start and start == 0))
+    return out
 
 
 # -- models -----------------------------------------------------------------
@@ -403,6 +603,42 @@ class _WordLevel:
                 raise ValueError(f"WordLevel: {word!r} is not in the vocab and it has no "
                                  f"unk token")
         return [tid]
+
+
+class _WordPiece:
+    """Greedy longest-match-first subwords; a word longer than
+    ``max_input_chars_per_word`` characters, or one with a piece no vocab
+    entry covers, is the unk token alone."""
+
+    def __init__(self, spec: dict) -> None:
+        self.vocab: dict[str, int] = spec["vocab"]
+        self.unk = spec.get("unk_token", "[UNK]")
+        self.prefix = spec.get("continuing_subword_prefix", "##")
+        self.max_chars = int(spec.get("max_input_chars_per_word", 100))
+
+    def _unk(self) -> list[int]:
+        tid = self.vocab.get(self.unk)
+        if tid is None:
+            raise ValueError(f"WordPiece: the unk token {self.unk!r} is not in the vocab")
+        return [tid]
+
+    def tokenize(self, word: str) -> list[int]:
+        if len(word) > self.max_chars:
+            return self._unk()
+        out, start, n = [], 0, len(word)
+        while start < n:
+            end = n
+            while start < end:
+                sub = word[start:end] if start == 0 else self.prefix + word[start:end]
+                tid = self.vocab.get(sub)
+                if tid is not None:
+                    break
+                end -= 1
+            else:
+                return self._unk()
+            out.append(tid)
+            start = end
+        return out
 
 
 class _BPE:
@@ -518,6 +754,8 @@ def _model(spec: dict):
         return _BPE(spec)
     if kind == "WordLevel":
         return _WordLevel(spec)
+    if kind == "WordPiece":
+        return _WordPiece(spec)
     raise UnsupportedTokenizerError(f"model {kind}")
 
 
@@ -537,6 +775,8 @@ def _post_processor(spec) -> tuple[list[int], list[int]]:
         return before, after
     if kind == "ByteLevel":  # offsets only
         return [], []
+    if kind == "BertProcessing":  # [CLS] A [SEP]
+        return [int(spec["cls"][1])], [int(spec["sep"][1])]
     if kind == "TemplateProcessing":
         specials = spec.get("special_tokens") or {}
         before, after, seen = [], [], False
@@ -639,7 +879,30 @@ def _decoder(spec):
         drop_first = scheme != "never"
         return lambda tokens: [
             t.replace(rep, "" if i == 0 and drop_first else " ") for i, t in enumerate(tokens)]
+    if kind == "WordPiece":
+        prefix, cleanup = spec.get("prefix", "##"), bool(spec.get("cleanup", True))
+
+        def wordpiece(tokens):
+            out = []
+            for i, t in enumerate(tokens):
+                if i:
+                    t = t.replace(prefix, "", 1) if t.startswith(prefix) else " " + t
+                out.append(_wordpiece_cleanup(t) if cleanup else t)
+            return out
+        return wordpiece
     raise UnsupportedTokenizerError(f"decoder {kind}")
+
+
+_CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"), (" n't", "n't"),
+            (" 'm", "'m"), (" do not", " don't"), (" 's", "'s"), (" 've", "'ve"), (" 're", "'re"))
+
+
+def _wordpiece_cleanup(text: str) -> str:
+    """The WordPiece decoder's ``cleanup``: spaces before punctuation and
+    English contractions dropped, in this order."""
+    for a, b in _CLEANUP:
+        text = text.replace(a, b)
+    return text
 
 
 # -- the tokenizer ---------------------------------------------------------------

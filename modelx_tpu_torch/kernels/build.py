@@ -150,12 +150,18 @@ def load_library() -> ctypes.CDLL:
     global _lib, _info
     if _lib is not None:
         return _lib
+    from modelx_tpu_torch.utils import trace
+
     with _lock:
         if _lib is None:
-            build()
-            path = library_path()
-            lib = bind(path)
-            origin, secs = _origins.get(os.path.realpath(path), ("cached", None))
+            # the port's compile: the JAX sidecar's serve.compile span times
+            # its jit, this one the library's build (nvcc) or bind
+            with trace.span("serve.compile", library=library_name()) as rec:
+                build()
+                path = library_path()
+                lib = bind(path)
+                origin, secs = _origins.get(os.path.realpath(path), ("cached", None))
+                rec["origin"] = origin
             _info = {"origin": origin, "path": path, "nvcc_seconds": secs}
             _lib = lib
     return _lib

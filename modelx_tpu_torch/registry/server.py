@@ -58,7 +58,6 @@ DIGEST_REGEXP = r"[A-Za-z][A-Za-z0-9]*(?:[-_+.][A-Za-z][A-Za-z0-9]*)*:[0-9a-fA-F
 MAX_BYTES_READ = 1 << 20  # 1 MiB manifest cap
 # the slice that brings garbage collection, scrub, S3/GCS and auth
 LATER_SLICE = "control plane"
-PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
 @dataclasses.dataclass
@@ -90,20 +89,13 @@ class Metrics:
             self.counters[name] = self.counters.get(name, 0.0) + value
 
     def render(self) -> str:
-        """Prometheus text 0.0.4, as the JAX registry renders its flat
-        counters: ``_total`` keys are counters, the rest gauges."""
+        """Prometheus text 0.0.4 through the pod's renderer (``_total`` keys
+        are counters, the rest gauges), as the JAX registry renders it."""
+        from modelx_tpu_torch.utils import promexp
+
         with self._lock:
             counters = dict(sorted(self.counters.items()))
-        lines: list[str] = []
-        for key, value in counters.items():
-            name = "".join(c if c.isascii() and (c.isalnum() or c in "_:") else "_"
-                           for c in f"modelx_{key}")
-            help_text = f"snapshot key {key}".replace("\\", "\\\\").replace("\n", "\\n")
-            lines.append(f"# HELP {name} {help_text}")
-            lines.append(f"# TYPE {name} {'counter' if key.endswith('_total') else 'gauge'}")
-            v = float(value)
-            lines.append(f"{name} {int(v) if v == int(v) and abs(v) < 1e15 else repr(v)}")
-        return "\n".join(lines) + "\n" if lines else ""
+        return promexp.render(counters)
 
 
 class Registry:
@@ -139,8 +131,10 @@ class Registry:
         return Response(200, body=b"ok")
 
     def get_metrics(self, req: "Request") -> "Response":
+        from modelx_tpu_torch.utils import promexp
+
         return Response(200, body=self.metrics.render().encode(),
-                        content_type=PROMETHEUS_CONTENT_TYPE)
+                        content_type=promexp.CONTENT_TYPE)
 
     def get_global_index(self, req: "Request") -> "Response":
         idx = self.store.get_global_index(req.query_one("search"))

@@ -63,6 +63,7 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "POOL_VETO_LOADS", 3)
     monkeypatch.setattr(chip_smoke, "ART_BASE_LEN", 40)
     monkeypatch.setattr(chip_smoke, "ART_NEW_TOKENS", 4)
+    monkeypatch.setattr(chip_smoke, "PROFILE_FORWARD", (1, 48))
     _tiny_options(monkeypatch)
     _tiny_continuous(monkeypatch)
     stats = chip_smoke.phase_main(device="cpu", cfg=cfg)
@@ -73,6 +74,13 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     assert {"sampled_tokens_per_s_5", "stream_first_line_ms_12",
             "prefix_first_line_ms_warm"} <= set(stats)
     assert stats["overflow_sort_steps"] > 0
+    # the observability surface on the same server: /metrics counted the
+    # POSTs, the request id sliced /v1/trace, the profile wrote a trace
+    # (CPU ops only: no kernel events here), 4 captures kept, one access-log
+    # line per POST
+    assert stats["obs_profile_flash_events"] == 0 and stats["obs_trace_bytes"] > 0
+    assert len(stats["obs_profile_forward_ms"]) == 2 and stats["obs_span_us"] > 0
+    assert {"obs_profile_s", "obs_admin_profiles_s", "obs_capture_bytes"} <= set(stats)
     # and the text phase, on its own count
     assert stats["flash_launches_text"] == 0 and stats["score_max_diff"] == 0.0
     assert {"tokenizer_load_ms", "encode_tokens_per_s", "chat_s", "sse_first_content_ms",
@@ -133,14 +141,15 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
 def _tiny_families():
     """family_configs at the JAX tiny presets, each as config inference
     reads it back (mixtral at inference's rope theta)."""
-    from modelx_tpu_torch.models import gemma2, gpt2, mixtral
+    from modelx_tpu_torch.models import bert, gemma2, gpt2, mixtral
 
     return [("gemma2", gemma2.Gemma2Config.tiny(vocab_size=256)),
             ("phi3", dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=256),
                                          dtype=torch.bfloat16)),
             ("mixtral", dataclasses.replace(mixtral.MixtralConfig.tiny(vocab_size=256),
                                             rope_theta=1e6)),
-            ("gpt2", dataclasses.replace(gpt2.GPT2Config.tiny(), dtype=torch.bfloat16))]
+            ("gpt2", dataclasses.replace(gpt2.GPT2Config.tiny(), dtype=torch.bfloat16)),
+            ("bert", bert.BertConfig.tiny())]
 
 
 def test_families_phase_rehearses_on_cpu(monkeypatch):
@@ -149,7 +158,8 @@ def test_families_phase_rehearses_on_cpu(monkeypatch):
     for name, value in (("FAMILY_FORWARD_LEN", 48), ("FAMILY_PROMPT", 12), ("FAMILY_NEW", 4),
                         ("GEMMA_LONG_FORWARD", 40), ("GEMMA_LONG_PROMPT", 30),
                         ("GEMMA_LONG_NEW", 4), ("GEMMA_ENGINE_PROMPTS", (5, 12, 20, 5)),
-                        ("GEMMA_PAGE_SIZE", 16), ("CONT_MAX_LEN", 64), ("CONT_CHUNK", 2)):
+                        ("GEMMA_PAGE_SIZE", 16), ("CONT_MAX_LEN", 64), ("CONT_CHUNK", 2),
+                        ("BERT_FORWARD_SHAPES", ((1, 48), (3, 64))), ("BERT_CHECK_LEN", 16)):
         monkeypatch.setattr(chip_smoke, name, value)
     stats = chip_smoke.phase_families(device="cpu", configs=_tiny_families())
     assert stats["flash_launches_families"] == 0  # CPU tensors take the plain version
@@ -159,6 +169,37 @@ def test_families_phase_rehearses_on_cpu(monkeypatch):
                 f"fam_{name}_greedy_tps"} <= set(stats)
     assert {"fam_gemma2_long_forward_ms", "fam_gemma2_engine_tps", "fam_gemma2_tps_gather",
             "fam_gemma2_tps_in-place", "fam_phi3_int8_forward_ms"} <= set(stats)
+    # bert: forwards only, no kernel, the CPU's features against themselves
+    assert stats["fam_bert_launches"] == 0 and stats["fam_bert_feature_err"] == 0.0
+    assert {"fam_bert_forward_ms_1x48", "fam_bert_forward_ms_3x64", "fam_bert_write_s",
+            "fam_bert_bytes", "fam_bert_load_gbps"} <= set(stats)
+
+
+def test_prometheus_check_takes_the_exposition_and_rejects_a_torn_line():
+    from modelx_tpu_torch.utils import promexp
+
+    text = promexp.render({"m": {"requests": 3, "queue_ms_hist": promexp.Histogram().snapshot(),
+                                 "state": "READY"}, "device": {"devices": {"0": {"x": 1.5}}}},
+                          label_levels={("*",): "model", ("*", "devices", "*"): "device"})
+    assert chip_smoke.check_prometheus(text) == 1 + 15 + 2 + 1
+    assert chip_smoke.check_prometheus('modelx_a{model="q\\"uote"} +Inf\n') == 1
+    for bad in ("modelx_a 1 2", 'modelx_a{model="x} 1', "modelx_a", "# COMMENT x"):
+        with pytest.raises(RuntimeError, match="unparseable"):
+            chip_smoke.check_prometheus(bad)
+
+
+def test_trace_kernels_counts_kernel_events(tmp_path):
+    events = [{"cat": "kernel", "name": "void flash_fwd_bf16<128>(Params)"},
+              {"cat": "kernel", "name": "nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_TNN"},
+              {"cat": "kernel", "name": "void flash_fwd_bf16<128>(Params)"},
+              {"cat": "cpu_op", "name": "aten::mm"}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    kernels = chip_smoke.trace_kernels(str(path))
+    assert kernels == {"void flash_fwd_bf16<128>(Params)": 2,
+                       "nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_TNN": 1}
+    assert all(chip_smoke.GEMM_NAME.search(n) for n in (
+        "nvjet_hsh_128x256", "sm90_xmma_gemm_bf16bf16", "cutlass_80_tensorop_gemm"))
 
 
 def test_hf_expert_layout_is_what_the_loader_folds_back(tmp_path):

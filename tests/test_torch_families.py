@@ -22,6 +22,7 @@ from modelx_tpu.dl import families as jfam
 from modelx_tpu.dl import loader as jloader
 from modelx_tpu.dl import safetensors as jst
 from modelx_tpu.dl.sharding import MIXTRAL_RULES
+from modelx_tpu.models import bert as jbert
 from modelx_tpu.models import gemma2 as jgemma2
 from modelx_tpu.models import gpt2 as jgpt2
 from modelx_tpu.models import llama as jllama
@@ -65,13 +66,15 @@ PRESETS = [
     ("phi3", jphi3, jllama.LlamaConfig.tiny()),
     ("mixtral", jmixtral, jmixtral.MixtralConfig.tiny()),
     ("gpt2", jgpt2, jgpt2.GPT2Config.tiny()),
+    ("bert", jbert, jbert.BertConfig.bert_base()),
+    ("bert", jbert, jbert.BertConfig.tiny()),
 ]
 
 
 @pytest.mark.parametrize("family,module,jcfg", PRESETS,
                          ids=["gemma2-9b", "gemma2-2b", "gemma2-27b", "phi3-mini", "phi3-medium",
                               "mixtral-8x7b", "gpt2-125m", "gemma2-tiny", "phi3-tiny",
-                              "mixtral-tiny", "gpt2-tiny"])
+                              "mixtral-tiny", "gpt2-tiny", "bert-base", "bert-tiny"])
 def test_infer_config_matches_jax(family, module, jcfg):
     shapes = module.param_shapes(dataclasses.replace(jcfg, num_layers=2))
     jax_abs = {n: jax.ShapeDtypeStruct(s, jnp.bfloat16) for n, s in shapes.items()}
@@ -97,10 +100,12 @@ def test_phi3_mini_rides_head_dim_96():
 
 
 def test_only_bert_is_not_yet_ported():
-    assert tfam.NOT_YET_PORTED == ("bert",)
-    assert set(tfam.FAMILIES) == set(jfam.FAMILIES) - {"bert"}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfam.detect(["bert.embeddings.word_embeddings.weight"])
+    """bert, the last family left, is ported: the registry holds every
+    family of the JAX package's and the not-yet-ported list is gone."""
+    assert not hasattr(tfam, "NOT_YET_PORTED")
+    assert set(tfam.FAMILIES) == set(jfam.FAMILIES)
+    fam = tfam.detect(["bert.embeddings.word_embeddings.weight"])
+    assert fam.name == "bert" and fam.generate_ragged is None and fam.decode_fns is None
 
 
 @pytest.mark.parametrize("sidecar", [

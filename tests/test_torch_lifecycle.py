@@ -934,6 +934,15 @@ def _stream_raw(port, name, tokens):
                  {"tokens": [tokens], "max_new_tokens": 4, "stream": True})
 
 
+def _outbox_depth(pool, want: int, timeout_s: float = 30.0) -> int:
+    """The pool's outbox depth once it reaches ``want`` (or the timeout):
+    a runtime load enqueues its publish after turning READY."""
+    deadline = time.monotonic() + timeout_s
+    while pool.outbox.depth() != want and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return pool.outbox.depth()
+
+
 def test_runtime_loads_publish_install_and_fetch_through(model_dirs, registry, tmp_path,
                                                          monkeypatch, fresh_trackers):
     """A JAX pod and a port pod, each publishing into its own repo of the
@@ -964,7 +973,9 @@ def test_runtime_loads_publish_install_and_fetch_through(model_dirs, registry, t
         for side, pool in (("jax", jpool), ("port", tpool)):
             snap = pool.request_load("p", ref=f"{registry}/library/pub-{side}@v1", wait=True)
             assert snap["p"]["state"] == "READY"
-        assert tpool.outbox.depth() == 1  # the library, spooled off the load's path
+        # the library, spooled off the load's path: after READY, as the
+        # reference does, so the wait for READY can return before it lands
+        assert _outbox_depth(tpool, 1) == 1
         assert tpool.outbox_drainer.drain_once()
         blobs = tserve_manifest(registry, "library/pub-port")
         (prog,) = [b for b in blobs if b.media_type == MediaTypeModelProgram]
@@ -999,7 +1010,7 @@ def test_runtime_loads_publish_install_and_fetch_through(model_dirs, registry, t
         assert q.stats["programs"]["installed"] == 1 and q.stats["kv"]["installed"] == 1
         assert os.path.isfile(build.library_path())  # into the new build directory
         # its own publish of the same library is a registry no-op
-        assert tpool.outbox.depth() == 1 and tpool.outbox_drainer.drain_once()
+        assert _outbox_depth(tpool, 1) == 1 and tpool.outbox_drainer.drain_once()
         assert [b for b in tserve_manifest(registry, "library/pub-port")
                 if b.media_type == MediaTypeModelProgram] == [prog]
         status, _, raw = _stream_raw(pair.ports[1], "q", hot + [3])

@@ -461,13 +461,14 @@ def test_model_server_installs_before_its_warm_up(tmp_path, bundle, monkeypatch)
     _write_tiny_fp32(str(d))
     (d / ps.bundle_name()).write_bytes(bundle)
     seen = []
-    real = serve.ModelServer.forward_argmax
+    # the warm-up forward (ModelServer._warm_up) runs the unspanned _argmax
+    real = serve.ModelServer._argmax
 
     def warm_up(self, tokens):
         seen.append(os.path.exists(build.library_path()))
         return real(self, tokens)
 
-    monkeypatch.setattr(serve.ModelServer, "forward_argmax", warm_up)
+    monkeypatch.setattr(serve.ModelServer, "_argmax", warm_up)
     server = serve.ModelServer(str(d), dtype="float32", device="cpu")
     stats = server.load()
     assert seen[0] is True  # installed before the warm-up forward

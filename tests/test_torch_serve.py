@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from modelx_tpu.dl import families as jfam
 from modelx_tpu.dl import safetensors as jst
 from modelx_tpu.dl.serve import ModelServer as JaxModelServer
+from modelx_tpu.dl.serve import ServerSet as JaxServerSet
 from modelx_tpu.dl.serve import serve as jax_serve
 from modelx_tpu.dl.sharding import infer_family as jax_infer_family
 from modelx_tpu.models import llama as jl
@@ -132,8 +133,8 @@ def test_detect_refuses_later_slice_families_and_unknowns():
     assert tfam.detect(["model.layers.0.self_attn.q_proj.weight"]).name == "llama"
     assert tfam.detect(["model.layers.0.self_attn.q_proj.bias"]).name == "qwen2"
     assert tfam.detect(["model.layers.0.block_sparse_moe.gate.weight"]).name == "mixtral"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfam.detect(["embeddings.word_embeddings.weight"])
+    # bert was the last family a later slice ported: it detects now
+    assert tfam.detect(["embeddings.word_embeddings.weight"]).name == "bert"
     with pytest.raises(ValueError, match="cannot determine"):
         tfam.detect(["mystery.weight"])
     with pytest.raises(ValueError, match="cannot determine"):  # the gemma3 refusal
@@ -209,10 +210,6 @@ def _write_tiny_fp32(dirpath):
 def pods(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("tiny-fp32"))
     _write_tiny_fp32(d)
-    # both at --max-seq-len 32: the plain path serves longer requests
-    jserver = JaxModelServer(d, mesh_spec="dp=1", dtype="float32", max_seq_len=32)
-    jserver.load()
-    jhttpd = jax_serve(jserver, listen=f"127.0.0.1:{free_port()}")
     wp = str(tmp_path_factory.mktemp("tiny-wordpiece"))
     os.symlink(os.path.join(d, "model.safetensors"), os.path.join(wp, "model.safetensors"))
     with open(os.path.join(wp, "tokenizer.json"), "w") as f:
@@ -223,9 +220,16 @@ def pods(tmp_path_factory):
                              "continuing_subword_prefix": "##",
                              "max_input_chars_per_word": 100,
                              "vocab": {"[UNK]": 0, "hello": 1}}}, f)
+    # both at --max-seq-len 32: the plain path serves longer requests
+    jsset = JaxServerSet({n: JaxModelServer(m, mesh_spec="dp=1", dtype="float32",
+                                            max_seq_len=32, name=n)
+                          for n, m in (("default", d), ("wordpiece", wp))}, default="default")
+    jsset.load_all()
+    jhttpd = jax_serve(jsset, listen=f"127.0.0.1:{free_port()}")
     sset, thttpd = serve_main.start([
         "--model", f"default={d}", "--model", f"wordpiece={wp}", "--device", "cpu",
-        "--dtype", "float32", "--max-seq-len", "32", "--listen", f"127.0.0.1:{free_port()}"])
+        "--dtype", "float32", "--max-seq-len", "32", "--listen", f"127.0.0.1:{free_port()}",
+        "--trace-dir", str(tmp_path_factory.mktemp("trace"))])
     yield jhttpd.server_address[1], thttpd.server_address[1], sset
     for h in (jhttpd, thttpd):
         h.shutdown()
@@ -311,26 +315,36 @@ def test_http_json_identical_to_jax_sidecar(pods, path, body):
     assert tbody == jbody
 
 
-@pytest.mark.parametrize("path,body,slice_name", [
-    ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "include_timing": True},
-     "observability"),
-    # a tokenizer.json component the reader does not implement (WordPiece,
-    # the bert family's) refuses text on both surfaces
-    ("/v1/completions", {"model": "wordpiece", "prompt": "hello", "seed": 0}, "other families"),
-    ("/v1/wordpiece/generate", {"text": "hello"}, "other families"),
+def _timing_masked(raw: bytes):
+    """A JSON body, or NDJSON lines, with the clock readings masked: the
+    timing line's wall total and an OpenAI body's ``id`` and ``created``."""
+    def mask(obj):
+        if isinstance(obj, dict):
+            return {k: ("<masked>" if k in ("total_ms", "id", "created") else mask(v))
+                    for k, v in obj.items()}
+        return obj
+    return [mask(json.loads(line)) for line in raw.splitlines() if line.strip()]
+
+
+@pytest.mark.parametrize("path,body", [
+    # a stream's timing line without the continuous engine: the handler's
+    # total and token count
+    ("/v1/generate", {"tokens": _TOKS[:1], "stream": True, "include_timing": True}),
+    # a WordPiece tokenizer.json serves text on both surfaces
+    ("/v1/completions", {"model": "wordpiece", "prompt": "hello", "seed": 0}),
+    ("/v1/wordpiece/generate", {"text": "hello"}),
 ], ids=["include_timing", "openai", "text"])
-def test_later_slice_requests_answer_typed_501(pods, path, body, slice_name):
-    _, tport, _ = pods
-    status, raw = _call(tport, path, body)
-    assert status == 501
-    payload = json.loads(raw)
-    if isinstance(payload["error"], dict):  # the OpenAI error shape
-        payload = {"error": payload["error"]["message"], "type": payload["error"]["type"],
-                   "slice": slice_name}
-    assert payload["type"] == "not_ported" and payload["slice"] == slice_name
-    assert slice_name in payload["error"]
-    if body.get("include_timing") is None:
-        assert "model WordPiece" in payload["error"]
+def test_later_slice_requests_answer_typed_501(pods, path, body):
+    """These answered the typed 501 of a later slice; the slices are ported
+    and each answers the JAX pod's status and body (clock readings masked)."""
+    jport, tport, _ = pods
+    jstatus, jraw = _call(jport, path, body)
+    tstatus, traw = _call(tport, path, body)
+    assert tstatus == jstatus == 200
+    assert _timing_masked(traw) == _timing_masked(jraw)
+    if body.get("include_timing"):
+        timing = json.loads(traw.splitlines()[-2])["timing"]
+        assert set(timing) == {"total_ms", "tokens"} and timing["tokens"] == 16
 
 
 @pytest.mark.parametrize("headers", [
@@ -414,7 +428,7 @@ def test_prefix_cache_hit_streams_the_cold_tokens(pods):
         assert status == 200
         turn2 = turn1 + _ndjson_tokens(raw) + [9]
         status, raw = _call(port, "/v1/generate", {"tokens": [turn2], **samp})
-        stats = json.loads(_call(port, "/v1/models")[1])["models"]["default"]["prefix_cache"]
+        stats = json.loads(_call(port, "/metrics")[1])["default"]["prefix_cache"]
         assert status == 200 and stats["hits"] == 1 and stats["entries"] == 2
         # the pod without a prefix cache, streamed and not
         assert raw == _call(tport, "/v1/generate", {"tokens": [turn2], **samp})[1]
@@ -458,14 +472,16 @@ def test_health_models_and_admin(pods):
     stats = models["models"]["default"]
     assert stats["ready"] and stats["family"] == "llama" and stats["device"] == "cpu"
     assert stats["load_bytes"] > 0
-    # the admin surface answers (the model pool); /admin/profile waits for
-    # the observability slice
+    # the admin surface answers (the model pool), and /admin/profile takes a
+    # capture into a fresh dir under --trace-dir
     status, raw = _call(tport, "/admin/models")
     admin = json.loads(raw)
     assert status == 200 and admin["models"]["default"]["state"] == "READY"
     assert set(admin) == {"models", "pool", "serving", "control_plane"}
-    status, raw = _call(tport, "/admin/profile", {"duration_s": 1})
-    assert status == 501 and json.loads(raw)["slice"] == "observability"
+    status, raw = _call(tport, "/admin/profile", {"duration_s": 0.1})
+    body = json.loads(raw)
+    assert status == 200 and body["duration_s"] == 0.1
+    assert os.path.dirname(body["capture_dir"]) == os.path.join(sset.trace_dir, "captures")
     assert _call(tport, "/livez") == (200, b'{"status": "ok"}')
     assert _call(tport, "/nope")[0] == 404
     assert sset.servers["default"].cfg.dtype == torch.float32
@@ -554,7 +570,6 @@ def test_serve_main_rejects_bad_model_specs():
 def batched_pods(pods):
     """A JAX ServerSet(dynamic_batch=True) pod and the port's
     ``--dynamic-batch`` pod on the same tiny fp32 checkpoint."""
-    from modelx_tpu.dl.serve import ServerSet as JaxServerSet
 
     model_dir = pods[2].servers["default"].model_dir
     jserver = JaxModelServer(model_dir, mesh_spec="dp=1", dtype="float32")
@@ -608,8 +623,10 @@ def test_concurrent_batched_requests_identical_to_jax(batched_pods):
         got = list(pool.map(lambda r: _call(tport, *r), reqs))
     assert got == want and all(status == 200 for status, _ in got)
     assert tsset.batchers["default"].batches - batches < len(reqs)
+    # the batcher's device calls are the batcher object's (the JAX
+    # sidecar's /v1/models carries no batches key either)
     models = json.loads(_call(tport, "/v1/models")[1])["models"]["default"]
-    assert models["batches"] == tsset.batchers["default"].batches
+    assert "batches" not in models and "prefix_cache" not in models
 
 
 def test_serve_main_parses_the_option_flags():
@@ -621,6 +638,36 @@ def test_serve_main_parses_the_option_flags():
         "--quantize", "int8", "--speculative-k", "6", "--lora", "m=/a", "--lora", "n=/b"])
     assert (args.dynamic_batch, args.max_batch, args.batch_window_ms, args.quantize,
             args.speculative_k, args.loras) == (True, 8, 1.5, "int8", 6, ["m=/a", "n=/b"])
+
+
+def test_serve_main_observability_flags_default_as_jax(tmp_path):
+    """--trace-dir, --access-log, --access-log-max-bytes and
+    --device-telemetry/--no-device-telemetry take the JAX sidecar's click
+    defaults; the last drops the device family from /metrics."""
+    from modelx_tpu.dl import serve_main as jax_serve_main
+
+    jax_defaults = {p.name: p.default for p in jax_serve_main.main.params}
+    args = serve_main.build_parser().parse_args(["--model", "m=/x"])
+    for name in ("trace_dir", "access_log", "access_log_max_bytes", "device_telemetry"):
+        assert getattr(args, name) == jax_defaults[name], name
+    args = serve_main.build_parser().parse_args([
+        "--model", "m=/x", "--trace-dir", "/t", "--access-log", "/a.jsonl",
+        "--access-log-max-bytes", "9", "--no-device-telemetry"])
+    assert (args.trace_dir, args.access_log, args.access_log_max_bytes,
+            args.device_telemetry) == ("/t", "/a.jsonl", 9, False)
+    d = str(tmp_path / "m")
+    _write_tiny_fp32(d)
+    sset, httpd = serve_main.start([
+        "--model", f"m={d}", "--device", "cpu", "--dtype", "float32",
+        "--listen", f"127.0.0.1:{free_port()}", "--no-device-telemetry",
+        "--trace-dir", str(tmp_path / "tr")])
+    try:
+        metrics = json.loads(_call(httpd.server_address[1], "/metrics")[1])
+        assert "device" not in metrics and metrics["m"]["requests"] == 0
+        assert sset.trace_dir == str(tmp_path / "tr") and not sset.device_telemetry
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
 
 
 @pytest.mark.parametrize("argv", [
