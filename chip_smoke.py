@@ -77,10 +77,11 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    ``modelxdl-torch REF DEST --device-put --blob-cache-dir D`` runs twice
    in child processes with ``MODELX_DL_NO_LOCAL_REDIRECT=1``: cold, the
    bytes come over HTTP and tee into the blob cache, every tensor put on
-   the card equals dest's bytes and dest's files hash to their digests;
-   warm, the pull downloads nothing and the load reads 0 network bytes
-   from the cache. The deploy TTFT (``modelx_tpu_torch.dl.ttft``) runs in
-   fresh processes, cold and warm, its first token launching the kernel
+   the card equals dest's bytes; warm, the pull's hash-skip finds every
+   file of dest at its digest and downloads nothing, and the load reads 0
+   network bytes from the cache. The deploy TTFT
+   (``modelx_tpu_torch.dl.ttft``) runs in fresh processes, cold and warm,
+   its first token launching the kernel
    ``num_layers`` times; ``modelx-serve-torch --model m=DEST`` answers the
    main phase's ``/v1/forward`` rows with the same argmax, and
    ``/healthz`` stays 200 through a registry kill with ``control_plane``
@@ -98,7 +99,7 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    manifest gains a ``.programs-<env>.tar`` whose library hashes equal to
    the one phase 2 built; a 1,000-token base prompt and two branches off
    it make the base hot, and the manifest gains its ``.kv-<env>-<hash>.tar``,
-   whose leaves are the layout (32 layers x K, V x [1, 1008, 8, 128] bf16).
+   whose leaves are the layout (num_layers x K, V x [1, 1008, 8, 128] bf16).
    (b) Pod B, with ``MODELX_COMPILE_CACHE`` an empty directory, no nvcc in
    reach and ``--kv-fetch-through``, admin-loads the same ref: it installs
    the library (``kernel_library`` origin ``"bundle"``) and the KV bundle,
@@ -165,7 +166,7 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    row's tokens during the fill with chunked prefill and without.
 11. families: the other generative families, one seeded random bf16
    checkpoint at a time, each written, served by ``serve_main`` and
-   deleted before the next (free disk checked first; Mixtral's 12.13 GB
+   deleted before the next (free disk checked first; Phi-3-mini's 7.64 GB
    is the peak), the kernel counts from 0 again: Gemma-2-9B cut to
    ``GEMMA_LAYERS`` of its 42 layers for the time limit (head_dim 256,
    softcap 50, window 4096 on the even layers), Phi-3-mini-4k
@@ -190,6 +191,29 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    ``BERT_FEATURE_TOL``, ``/v1/generate`` answers the JAX sidecar's 400, a
    513-token forward gpt2's 400 before any device work and a forward after
    it 200, and no flash launch (bert's attention is the plain reference).
+   The objectstore path runs on phi3's checkpoint once phi3 is served
+   (its own launch count from 0; alone: ``--phases kernels,objectstore``):
+   the native IO engine builds (g++) and hashes the weights (the digest
+   before the push), and the path fails if the engine is unavailable while
+   g++ is on PATH; ``tests/fake_s3.py``'s bucket and the port's registry
+   (``modelxd-torch --s3-url --enable-redirect --auth-token``) run as child
+   processes; ``modelx-torch login`` and ``push`` upload the checkpoint
+   through presigned multipart parts, the manifest carries the digest
+   before the push, the bucket takes every byte and the registry answers
+   no blob-content route for them (its request log, /metrics), a request
+   without the token answers 401; the source is deleted and
+   ``modelxdl-torch --device-put`` pulls it back through presigned ranged
+   GETs (tensors on the device == the pulled file, the loader's native
+   reads > 0), and hashlib hashes every pulled file to its digest; a second
+   small repository takes ``modelx-torch gc --grace 0`` (its orphan goes,
+   its referenced blobs stay) and ``scrub`` (clean, then a corrupted object
+   quarantined, exit 1), the served repository ``scrub --sample 1``
+   (clean); ``serve_main`` on the pulled copy answers the pre-push
+   forward's argmax exactly with one launch a layer, and phi3's int8 check
+   reads the pulled copy. Disk: the source is deleted before the pull, so
+   the path writes one more copy of the checkpoint (7.64 GB), which sits
+   beside the next family's (at most 6.33 GB); the bucket holds it in host
+   memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -345,13 +369,30 @@ def phase_build() -> dict:
     the library: per instantiation, the warpgroup MMAs (HGMMA), warp MMAs
     (HMMA), TMA tile loads (UTMALDG) and cp.async copies (LDGSTS). Fails
     when a bf16 instantiation runs no HGMMA (its tensor-core path)."""
+    import threading
+
+    from modelx_tpu_torch import native
     from modelx_tpu_torch.kernels import build
     from modelx_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 
+    # the native IO engine (host C++, g++) builds beside nvcc, so the first
+    # load does not wait for it
+    native_s = {}
+
+    def build_native():
+        t = time.monotonic()
+        native.build(force=True)
+        native_s["s"] = time.monotonic() - t
+
+    host = threading.Thread(target=build_native)
+    host.start()
     t0 = time.monotonic()
     built = build.build()
     secs = time.monotonic() - t0
-    log(f"build: flash_attention {'compiled by nvcc' if built else 'cached'} in {secs:.3f} s")
+    host.join()
+    log(f"build: flash_attention {'compiled by nvcc' if built else 'cached'} in {secs:.3f} s; "
+        f"the native IO engine by g++ in {native_s['s']:.3f} s beside it "
+        f"({'available' if native.available() else 'unavailable'})")
     notes = ("registers", "spill", "Compiling entry", "Performance Loss", "setmaxnreg", "rror",
              "arning")
     for line in build.build_log.splitlines():
@@ -518,11 +559,13 @@ def phase_kernels() -> list[dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    known = ("kernels", "main") + LATER_PHASES + ("families",)
+    known = ("kernels", "main") + LATER_PHASES + ("families", "objectstore")
     ap.add_argument("--phases", default=",".join(known),
                     help="comma list of phases after device+build: kernels, main (phases "
                          "4-6), deploy (7), artifacts (8), pool (9), continuous (10), "
-                         "families (11); any of deploy..continuous runs main and deploy too")
+                         "families (11; with the objectstore path on phi3), objectstore (phi3 "
+                         "of phase 11 alone, with the path); any of deploy..continuous runs "
+                         "main and deploy too")
     args = ap.parse_args(argv)
     phases = {p.strip() for p in args.phases.split(",") if p.strip()}
     if not phases <= set(known):
@@ -557,7 +600,13 @@ def main(argv=None) -> int:
     main_stats = (timed("main", lambda: phase_main(
         later=later, build_s=build_info["build_s"] if build_info["built"] else None))
         if phases & {"main", *LATER_PHASES} else {})
-    fam_stats = timed("families", phase_families) if "families" in phases else {}
+    if "families" in phases:
+        fam_stats = timed("families", phase_families)
+    elif "objectstore" in phases:
+        fam_stats = timed("families", lambda: phase_families(
+            configs=[c for c in family_configs() if c[0] == "phi3"]))
+    else:
+        fam_stats = {}
 
     # each path's own count: every one starts at 0 just before its run
     by_path = {path: stats[key] for stats, path, key in (
@@ -567,7 +616,8 @@ def main(argv=None) -> int:
         (main_stats, "artifacts", "flash_launches_artifacts"),
         (main_stats, "pool", "flash_launches_pool"),
         (main_stats, "continuous", "flash_launches_continuous"),
-        (fam_stats, "families", "flash_launches_families")) if key in stats}
+        (fam_stats, "families", "flash_launches_families"),
+        (fam_stats, "objectstore", "flash_launches_objectstore")) if key in stats}
     head = next((r for r in kernel_rows if r["case"] == "llama3-8b prefill"), None)
     record = {
         "name": "flash_attention",
@@ -665,7 +715,8 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
     import tempfile
 
     on_card = device == "cuda"
-    # full width AND full depth: the whole run takes about a minute of the limit
+    t_main = time.monotonic()
+    # full width AND full depth
     cfg = cfg or llama.LlamaConfig.llama3_8b()
     nbytes = 2 * sum(math.prod(s) for s in llama.param_shapes(cfg).values())
     ckpt = _checkpoint_dir(nbytes)
@@ -816,6 +867,8 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
         httpd.shutdown()
         httpd.server_close()
         httpd = None
+        stats["main_4_6_s"] = time.monotonic() - t_main
+        log(f"wall: phases 4-6 (main, text, options) took {stats['main_4_6_s']:.1f} s")
         if not later:
             return stats
         # phase 7, the registry deploy, with the earlier servers freed: its
@@ -840,13 +893,18 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
         def pool_then_continuous(dest, root):
             out = {}
             if "pool" in later:
+                t0 = time.monotonic()
                 out.update(phase_pool(cfg, dest, forwards, device, root))
+                out["pool_phase_s"] = time.monotonic() - t0
                 log(f"pool: flash_attention launches on the pool path: "
-                    f"{out['flash_launches_pool']}")
+                    f"{out['flash_launches_pool']}; the phase took {out['pool_phase_s']:.1f} s")
             if "continuous" in later:
+                t0 = time.monotonic()
                 out.update(phase_continuous(cfg, dest, device, root))
+                out["cont_phase_s"] = time.monotonic() - t0
                 log(f"continuous: flash_attention launches on the continuous path: "
-                    f"{out['flash_launches_continuous']} (warm-ups and /v1/forward only)")
+                    f"{out['flash_launches_continuous']} (warm-ups and /v1/forward only); the "
+                    f"phase took {out['cont_phase_s']:.1f} s")
             return out
 
         stats.update(phase_deploy(
@@ -2386,6 +2444,7 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
     stats: dict = {"deploy_bytes": nbytes}
     reg_dir, dest, cache = (os.path.join(root, d) for d in ("registry", "dest", "blob-cache"))
     registry = httpd = served = None
+    t_deploy = time.monotonic()
     try:
         _deploy_disk(root, nbytes)
         t0 = time.monotonic()
@@ -2413,12 +2472,6 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
             path = os.path.join(dest, blob.name)
             if os.path.exists(path) != want:
                 raise RuntimeError(f"deploy: modelFiles selection wrong for {blob.name}")
-        digest, secs = _sha256_pass(os.path.join(dest, "model.safetensors"))
-        if digest != weights[0].digest or _sha256_pass(
-                os.path.join(dest, "tokenizer.json"))[0] != next(
-                b.digest for b in manifest.blobs if b.name == "tokenizer.json"):
-            raise RuntimeError("deploy: a pulled file does not hash to its descriptor's digest")
-        stats["sha256_s_dest_verify"] = secs
         load = cold["load"]
         if (load["transports"] != {"model.safetensors": "registry"}
                 or load["network_bytes"] != load["bytes"] or cold["blob_cache"]["admitted"] != 1):
@@ -2437,12 +2490,19 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
             f"({cold['blob_cache']['admit_verify_seconds']:.1f} s), {load['transfer_gbps']:.3f} "
             f"GB/s for the transfer alone ({load['transfer_seconds']} s, "
             f"{load['network_bytes']} network bytes); blob cache {cold['blob_cache']}; "
-            f"{check['tensors']} tensors on the device == dest's bytes ({check['seconds']} s); "
-            f"dest's files hash to their digests (sha256 {secs:.1f} s)")
+            f"{check['tensors']} tensors on the device == dest's bytes ({check['seconds']} s)")
 
-        # warm: the same command again
+        # warm: the same command again. Its hash-skip re-hashes every file
+        # of dest (Digest.from_file) and downloads any whose digest is not
+        # its descriptor's: none downloaded and all up to date is the check
+        # that dest's files hash to their digests
         warm = _run_child("warm modelxdl-torch", dl_argv)
         wload = warm["load"]
+        if warm["pull"]["up_to_date"] != cold["pull"]["downloaded"]:
+            raise RuntimeError(f"deploy: a pulled file does not hash to its descriptor's digest: "
+                               f"the warm pull found {warm['pull']} after the cold pull's "
+                               f"{cold['pull']}")
+        stats["sha256_s_dest_verify"] = warm["pull_seconds"]
         if (warm["pull"]["downloaded"] or wload["network_bytes"]
                 or warm["blob_cache"]["hits"] != len(weights)
                 or warm["tensor_check"]["mismatched"]
@@ -2453,7 +2513,8 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
                      deploy_warm_total_s=warm["total_seconds"],
                      sha256_s_warm_hit=warm["blob_cache"]["hit_verify_seconds"])
         log(f"deploy: warm modelxdl-torch --device-put: pull {warm['pull_seconds']} s "
-            f"({warm['pull']}: the hash-skip re-hashed dest), registry->{device} "
+            f"({warm['pull']}: the hash-skip re-hashed dest, every file its digest), "
+            f"registry->{device} "
             f"{wload['bytes'] / 1e9:.3f} GB in {wload['seconds']} s = {wload['gbps']:.3f} GB/s from "
             f"the blob cache with its re-verify sha256 "
             f"({warm['blob_cache']['hit_verify_seconds']:.1f} s), {wload['transfer_gbps']:.3f} "
@@ -2524,6 +2585,9 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
         if on_card:
             stats["deploy_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         manifest_cache.configure_default("")
+        stats["deploy_phase_s"] = time.monotonic() - t_deploy
+        log(f"deploy: the phase took {stats['deploy_phase_s']:.1f} s (the later phases "
+            f"follow on its data)")
         if then is not None or artifacts is not None:
             httpd.shutdown()
             httpd.server_close()
@@ -3431,7 +3495,9 @@ def _pool_veto(ckpt: str, device: str, root: str, tokens, want: list, nbytes: in
 # sampled (odd clients), CONT_NEW_TOKENS each; CONT_LATE joins mid-decode,
 # once client 0 has streamed CONT_LATE_AFTER tokens
 CONT_PROMPTS = (128, 512, 1000, 128, 512, 1000, 128, 512)
-CONT_NEW_TOKENS = 64
+# 64 until the objectstore path joined the smoke's time limit; the
+# engine's speculation keeps SPEC_NEW_TOKENS
+CONT_NEW_TOKENS = 32
 CONT_LATE, CONT_LATE_AFTER = 7, 8
 CONT_SLOTS, CONT_MAX_LEN, CONT_CHUNK = 8, 2048, 8
 # the in-process paged engines: 32 slots over a 32,768-token pool of 16-token pages
@@ -3945,7 +4011,13 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
         log(f"continuous: gather == dense byte for byte at {PAGED_SLOTS} slots; in-place against "
             f"gather: {inplace}; dense against the plain path: {dense_v}")
 
-        # chunked prefill: a FILL_CLIENT fill while decode rows stream
+        # chunked prefill: a FILL_CLIENT fill while decode rows stream. The
+        # rows take twice the requests' tokens, so they outlast the fill's
+        # admission (the fourth chunk after theirs starts) and its pieces
+        row_new = 2 * n_new
+        row_want = {i: no_flash("the plain decode", lambda i=i: server.generate(
+            np.asarray([reqs[i][0]], np.int32), max_new_tokens=row_new,
+            **reqs[i][1]))[0, len(reqs[i][0]):].tolist() for i in FILL_DECODE_CLIENTS}
         for chunk in (PREFILL_CHUNK, 0):
             # one chunk per dispatch: the decode rows' boundaries keep their
             # cadence until the fill arrives (a deep dispatch would have
@@ -3967,7 +4039,7 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
                 t0 = time.monotonic()
                 toks, times = [], []
                 for piece in cb.stream(np.asarray([prompt], np.int32),
-                                       max_new_tokens=n_new, **samp):
+                                       max_new_tokens=row_new, **samp):
                     toks.extend(piece[0].tolist())
                     times.append(time.monotonic())
                 dec[i] = (toks, times)
@@ -3991,8 +4063,8 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
                                 f"continuous: the {len(prompt)}-token fill", samp)
             gaps = []
             for i, (toks, times) in dec.items():
-                check_near_ties(server, reqs[i][0], toks, want[i], f"continuous: decode row {i}",
-                                reqs[i][1])
+                check_near_ties(server, reqs[i][0], toks, row_want[i],
+                                f"continuous: decode row {i}", reqs[i][1])
                 gaps += [b - a for a, b in zip(times, times[1:]) if b > t_fill]
             key = f"cont_fill_gap_ms_{'chunked' if chunk else 'monolithic'}"
             stats[key] = max(gaps) * 1e3 if gaps else None
@@ -4012,17 +4084,17 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
         # models/speculative.py's decoder on the same params
         from modelx_tpu_torch.models.speculative import SpeculativeDecoder
 
-        prompt = spec_prompt(cfg)
+        prompt, spec_new = spec_prompt(cfg), SPEC_NEW_TOKENS
         plain = no_flash("the plain decode", lambda: server.generate(
-            np.asarray([prompt], np.int32), max_new_tokens=n_new))[0, len(prompt):].tolist()
+            np.asarray([prompt], np.int32), max_new_tokens=spec_new))[0, len(prompt):].tolist()
         with torch.inference_mode():
             dec_toks, dec = no_flash("the speculative decoder", lambda: SpeculativeDecoder(
                 *server.family.decode_fns(server.params, server.cfg), k=SPEC_K).generate(
-                    server.params, prompt, n_new))
+                    server.params, prompt, spec_new))
         cb = _engine(server, max_slots=CONT_SLOTS, speculative_k=SPEC_K)
         engines.append(cb)
         got = no_flash("the speculating engine", lambda: cb.generate(
-            np.asarray([prompt], np.int32), max_new_tokens=n_new))[0, len(prompt):].tolist()
+            np.asarray([prompt], np.int32), max_new_tokens=spec_new))[0, len(prompt):].tolist()
         v = check_near_ties(server, prompt, got, plain, "continuous: speculation")
         snap = cb.snapshot()
         steps, proposed, accepted = (snap.get(k, 0) for k in
@@ -4039,7 +4111,7 @@ def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
                                f"{CONT_SPEC_MIN_RATE} of them)")
         stats["cont_spec_accept_rate"] = accepted / proposed
         log(f"continuous: speculative_k {SPEC_K} on a lone greedy row, a {SPEC_PERIOD}-token "
-            f"period x {SPEC_REPEATS} prompt + {n_new}: {steps} verify steps, {accepted}/"
+            f"period x {SPEC_REPEATS} prompt + {spec_new}: {steps} verify steps, {accepted}/"
             f"{proposed} accepted (the decoder: {dec['accepted']}/{dec['proposed']}, tokens "
             f"{'equal' if got == dec_toks else 'differ'}); against plain greedy: {v}")
         _release(cb)
@@ -4076,11 +4148,12 @@ GEMMA_LONG_PROMPT, GEMMA_LONG_NEW = 4500, 16
 GEMMA_ENGINE_PROMPTS = (128, 512, 1000, 128)
 GEMMA_ENGINE_SLOTS, GEMMA_PAGE_SIZE = 4, 64
 # Mixtral-8x7B's depth cut: all 32 layers take 93.4 GB in bf16, more than
-# the card's 80; every layer is of one kind, so 4 keep the pattern
-MIXTRAL_LAYERS = 4
-# Gemma-2-9B's depth cut, for the smoke's time limit: 14 of its 42 layers
+# the card's 80; every layer is of one kind, so 2 keep the pattern (4 until
+# the objectstore path joined the smoke's time limit)
+MIXTRAL_LAYERS = 2
+# Gemma-2-9B's depth cut, for the smoke's time limit: 10 of its 42 layers
 # keep the alternation of windowed (even) and global (odd) layers
-GEMMA_LAYERS = 14
+GEMMA_LAYERS = 10
 
 
 def family_configs() -> list:
@@ -4192,11 +4265,15 @@ def _layer0_attention_vs_plain(server, tokens, what: str) -> str:
     return f"layer 0's attention within the bf16 tolerance of the plain version ({err:.3e})"
 
 
-def phase_families(device: str = "cuda", configs: list | None = None) -> dict:
+def phase_families(device: str = "cuda", configs: list | None = None,
+                   objectstore: bool = True) -> dict:
     """The other generative families (module docstring, phase 11): one
     seeded random checkpoint at a time (``family_configs``), written with
     the port's writer, served by ``serve_main``, and deleted before the
-    next. Its flash launches are counted from 0."""
+    next. Its flash launches are counted from 0, each family's in turn.
+    With ``objectstore``, phi3's checkpoint then takes the objectstore path
+    (``phase_objectstore``, its launches counted from 0 apart), and phi3's
+    int8 check reads the pulled copy."""
     import gc
     import importlib
     import shutil
@@ -4208,8 +4285,8 @@ def phase_families(device: str = "cuda", configs: list | None = None) -> dict:
     from modelx_tpu_torch.dl import serve_main
     from modelx_tpu_torch.ops import attention as attn
 
-    on_card = device == "cuda"
     stats: dict = {}
+    on_card = device == "cuda"
     attn.flash_attention.launches = 0  # the families path's own count
     child_flash = 0
     for seed, (name, cfg) in enumerate(configs or family_configs()):
@@ -4315,11 +4392,26 @@ def phase_families(device: str = "cuda", configs: list | None = None) -> dict:
                 f"{stats[f'fam_{name}_greedy_tps']:.1f} tokens/s; the stream == the whole "
                 f"answer; a seeded sampled request repeats")
 
+            if name == "phi3" and objectstore:
+                # the path takes the checkpoint (it deletes it before its
+                # pull) with this server freed; phi3's int8 check then reads
+                # the pulled copy
+                httpd.shutdown()
+                httpd.server_close()
+                httpd = None
+                _free(*servers)
+                servers = []
+                so_far = attn.flash_attention.launches - launches0
+                stats.update(phase_objectstore(ckpt, device, tokens, got, per_forward))
+                ckpt = ckpt + "-pulled"  # the finally deletes it
+                # phi3's count goes on from where it stood before the path
+                launches0 = attn.flash_attention.launches - so_far
             extra = {"gemma2": _gemma2_extra, "phi3": _phi3_extra,
                      "gpt2": _gpt2_extra}.get(name)
+            child = 0
             if extra is not None:
-                stats_x, child, httpd = extra(sset, httpd, server, module, cfg, ckpt, device,
-                                             per_forward, rng)
+                stats_x, child, httpd = extra(sset, httpd, server, module, cfg, ckpt,
+                                             device, per_forward, rng)
                 stats.update(stats_x)
                 child_flash += child
             stats[f"fam_{name}_launches"] = attn.flash_attention.launches - launches0
@@ -4330,8 +4422,11 @@ def phase_families(device: str = "cuda", configs: list | None = None) -> dict:
                 httpd.shutdown()
                 httpd.server_close()
             _free(*servers)
-            shutil.rmtree(ckpt, ignore_errors=True)
-    stats["flash_launches_families"] = attn.flash_attention.launches + child_flash
+            if ckpt:
+                shutil.rmtree(ckpt, ignore_errors=True)
+    # each family's count from its own start; the objectstore path's apart
+    stats["flash_launches_families"] = child_flash + sum(
+        v for k, v in stats.items() if k.startswith("fam_") and k.endswith("_launches"))
     return stats
 
 
@@ -4581,9 +4676,10 @@ def _phi3_extra(sset, httpd, server, module, cfg, ckpt, device, per_forward, rng
     from modelx_tpu_torch.dl import serve_main
     from modelx_tpu_torch.ops import attention as attn
 
-    httpd.shutdown()
-    httpd.server_close()
-    _free(server)
+    if httpd is not None:
+        httpd.shutdown()
+        httpd.server_close()
+        _free(server)
     port = _free_port()
     sset, httpd = serve_main.start([
         "--model", f"phi3={ckpt}", "--listen", f"127.0.0.1:{port}", "--device", device,
@@ -4622,6 +4718,481 @@ def _gpt2_extra(sset, httpd, server, module, cfg, ckpt, device, per_forward, rng
     log(f"families: gpt2: prompts past n_positions {n} answer 400 on /v1/forward and "
         f"/v1/generate, the JAX sidecar's bodies")
     return {}, 0, httpd
+
+
+# -- the objectstore path (inside phase 11, on Phi-3-mini) -----------------------------
+
+OBJ_REPO = "library/phi3-mini"
+OBJ_GC_REPO = "library/gc-scratch"
+OBJ_TOKEN = "smoke-registry-token"  # the registry's accepted bearer token
+OBJ_ALIAS = "smoke"
+# the served repository's scrub re-hashes this many of its blobs (drawn by
+# the registry from seed 0); the small one's scrubs re-hash everything
+OBJ_SCRUB_SAMPLE = 1
+OBJ_YAML = """description: Phi-3-mini-4k-shaped random weights (chip smoke)
+framework: pytorch
+task: text-generation
+serving:
+  model_family: phi3
+  dtype: bfloat16
+"""
+# tests/fake_s3.py's FakeS3 in a child process, unchanged; a subclass of its
+# handler appends one JSON line per request to a log (method, object key,
+# query keys, Range, body bytes), which the smoke reads to count part PUTs,
+# ranged GETs and the bytes the bucket took. It takes a part as the fake's
+# PUT does but keeps the part's MD5 (its ETag), so the MD5 is taken once a
+# part and a ListParts answers the fake's ETags without hashing every part
+# again (7.6 GB of MD5 at the multipart completion)
+FAKE_S3_CHILD = r"""
+import hashlib, json, os, signal, sys, threading
+from urllib.parse import parse_qs, unquote, urlparse
+# by path: a host's site-packages may hold another top-level ``tests``
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+from fake_s3 import FakeS3, make_handler
+
+log = open(sys.argv[1], "a", buffering=1)
+s3 = FakeS3()
+base = make_handler(s3.bucket)
+lock = threading.Lock()
+md5 = {}
+
+
+class Logged(base):
+    def _note(self):
+        u = urlparse(self.path)
+        rec = {"m": self.command, "key": unquote(u.path).lstrip("/").split("/", 1)[-1],
+               "q": sorted(k for k in parse_qs(u.query, keep_blank_values=True)
+                           if not k.startswith("X-Amz-")),
+               "range": self.headers.get("Range", ""),
+               "bytes": int(self.headers.get("Content-Length", 0) or 0),
+               "presigned": "X-Amz-Signature" in u.query}
+        with lock:
+            log.write(json.dumps(rec) + "\n")
+
+    def do_GET(self):
+        self._note()
+        base.do_GET(self)
+
+    def do_HEAD(self):
+        self._note()
+        base.do_GET(self)
+
+    def do_PUT(self):
+        self._note()
+        q = self._q()
+        if "partNumber" not in q or "uploadId" not in q:
+            return base.do_PUT(self)
+        # a part, as the fake's own PUT takes it, with its one MD5 kept
+        if not self._check_presign():
+            return self._send(403, b"<Error><Code>AccessDenied</Code></Error>")
+        data = self.rfile.read(int(self.headers.get("Content-Length", 0) or 0))
+        upload = s3.bucket.uploads.get(q["uploadId"])
+        if upload is None or upload["key"] != self._key():
+            return self._send(404, b"<Error><Code>NoSuchUpload</Code></Error>")
+        n, etag = int(q["partNumber"]), hashlib.md5(data).hexdigest()
+        with lock:
+            md5[(q["uploadId"], n)] = etag
+        with s3.bucket.lock:
+            upload["parts"][n] = data
+        self._send(200, b"", headers={"ETag": f'"{etag}"'})
+
+    def _list_parts(self, key, upload_id):
+        upload = s3.bucket.uploads.get(upload_id)
+        if upload is None:
+            return base._list_parts(self, key, upload_id)
+        with s3.bucket.lock:
+            parts = dict(upload["parts"])
+        etags = {}
+        for n, data in parts.items():
+            with lock:
+                etags[n] = md5.get((upload_id, n))
+            if etags[n] is None:  # a part whose PUT answered just now
+                etags[n] = hashlib.md5(data).hexdigest()
+        parts = {n: len(data) for n, data in parts.items()}
+        body = "<ListPartsResult>" + "".join(
+            f'<Part><PartNumber>{n}</PartNumber><ETag>"{etags[n]}"</ETag>'
+            f"<Size>{parts[n]}</Size></Part>" for n in sorted(parts)) + "</ListPartsResult>"
+        self._send(200, body.encode())
+
+    def do_POST(self):
+        self._note()
+        base.do_POST(self)
+
+    def do_DELETE(self):
+        self._note()
+        base.do_DELETE(self)
+
+
+s3.httpd.RequestHandlerClass = Logged
+print(s3.start(), flush=True)
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: stop.set())
+while not stop.wait(0.2):
+    pass
+s3.stop()
+"""
+
+
+def _obj_env(home: str) -> dict:
+    env = _child_env()
+    env["HOME"] = home  # the CLI's repo aliases (~/.modelx/repos.json) stay in the run's dir
+    return env
+
+
+def _obj_cli(what: str, argv: list, home: str, ok=(0,), timeout: float = 900.0):
+    """``modelx-torch ARGV`` as a child process from the checkout: (exit
+    code, stdout, seconds); an exit code outside ``ok`` fails the path."""
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "modelx_tpu_torch.cli", *argv], cwd=REPO,
+                          env=_obj_env(home), capture_output=True, text=True, timeout=timeout)
+    secs = time.monotonic() - t0
+    if proc.returncode not in ok:
+        raise RuntimeError(f"objectstore: {what}: modelx-torch {' '.join(argv)} exited "
+                           f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.returncode, proc.stdout, secs
+
+
+def _obj_start(what: str, argv: list, log_path: str, home: str):
+    """A long-running child (output to ``log_path``)."""
+    log_f = open(log_path, "w")
+    proc = subprocess.Popen(argv, cwd=REPO, env=_obj_env(home), stdout=log_f,
+                            stderr=subprocess.STDOUT)
+    log_f.close()
+    return proc
+
+
+def _obj_stop(proc) -> None:
+    if proc is not None and proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def _obj_request(base: str, path: str, token: str = "") -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    headers = {"Authorization": f"Bearer {token}"} if token else {}
+    req = urllib.request.Request(base + path, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _obj_counter(base: str, name: str) -> float:
+    """One counter of the registry's /metrics (Prometheus text)."""
+    status, body = _obj_request(base, "/metrics", OBJ_TOKEN)
+    if status != 200:
+        raise RuntimeError(f"objectstore: /metrics answered {status}")
+    for line in body.decode().splitlines():
+        key, _, value = line.rpartition(" ")
+        if key == f"modelx_{name}":
+            return float(value)
+    return 0.0
+
+
+def _obj_requests(log_path: str, key: str) -> list:
+    with open(log_path) as f:
+        return [r for r in map(json.loads, f) if r["key"] == key]
+
+
+def phase_objectstore(ckpt: str, device: str, tokens: list, want_argmax: list,
+                      per_forward: int) -> dict:
+    """Load separation on Phi-3-mini (module docstring, phase 11), run on
+    phi3's checkpoint once the families phase has served it: the native
+    engine hashes the weights (the digest before the push); the port's
+    registry (``modelxd-torch --s3-url --enable-redirect --auth-token``)
+    runs over tests/fake_s3.py's bucket, each in a child process, and a
+    request without the token answers 401; ``modelx-torch login`` and
+    ``push`` move the checkpoint into the bucket through presigned uploads
+    (multipart above 64 MiB), none of its bytes through the registry, and
+    the manifest carries the digest taken before the push. The source is
+    deleted and ``modelxdl-torch --device-put`` pulls it back through
+    presigned ranged GETs onto the device (tensors == the pulled file,
+    native reads counted); hashlib hashes every pulled file to its
+    descriptor's digest. A small second repository takes ``modelx-torch
+    gc`` (an orphan goes, referenced blobs stay) and a full ``scrub`` (a
+    corrupted object reported and quarantined); the served repository
+    takes a sampled scrub. ``serve_main`` on the pulled copy answers the
+    pre-push forward's argmax exactly with ``per_forward`` launches. Its
+    flash launches are counted from 0. The pulled copy is left at
+    ``ckpt + "-pulled"`` for the caller, and deleted on a failure."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from modelx_tpu_torch import native
+    from modelx_tpu_torch.client.client import Client
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.ops import attention as attn
+    from modelx_tpu_torch.registry.fs_s3 import S3Client, S3Options
+    from modelx_tpu_torch.registry.store_s3 import MULTIPART_THRESHOLD, plan_parts
+    from modelx_tpu_torch.types import Descriptor, Digest
+
+    stats: dict = {}
+    attn.flash_attention.launches = 0  # the objectstore path's own count
+    t_path = time.monotonic()
+    root = tempfile.mkdtemp(prefix="modelx-objectstore-")
+    home = os.path.join(root, "home")
+    os.makedirs(home, exist_ok=True)
+    weights = os.path.join(ckpt, "model.safetensors")
+    nbytes = os.path.getsize(weights)
+    pulled = ckpt + "-pulled"
+    s3_proc = reg_proc = None
+    ok = False
+    try:
+        # (1) the native engine (built at phase 2, or here when the path
+        # runs alone), and the one that hashes
+        t0 = time.monotonic()
+        built = native.build()
+        stats["obj_native_build_s"] = time.monotonic() - t0
+        if not native.available():
+            if shutil.which("g++"):
+                raise RuntimeError("objectstore: the native engine is unavailable while g++ is "
+                                   "on PATH (no hidden fallback)")
+            log("objectstore: no g++ in reach: the native engine degrades to the Python paths")
+
+        # (2) the bucket and the registry start while the weights hash
+        s3_log, reg_log = os.path.join(root, "s3.jsonl"), os.path.join(root, "registry.log")
+        s3_proc = _obj_start("fake S3", [sys.executable, "-u", "-c", FAKE_S3_CHILD, s3_log],
+                             os.path.join(root, "s3.out"), home)
+        t0 = time.monotonic()
+        native_digest = str(Digest.from_file(weights))
+        stats["obj_hash_native_gbps"] = nbytes / max(time.monotonic() - t0, 1e-9) / 1e9
+        log(f"objectstore: native engine {'ready' if built else 'absent'} in "
+            f"{stats['obj_native_build_s']:.1f} s; Digest.from_file hashed {nbytes / 1e9:.3f} GB "
+            f"at {stats['obj_hash_native_gbps']:.2f} GB/s (the digest before the push)")
+        deadline = time.monotonic() + 60
+        s3_url = ""
+        while not s3_url and time.monotonic() < deadline:
+            if s3_proc.poll() is not None:
+                raise RuntimeError(f"objectstore: the fake S3 exited {s3_proc.returncode}: "
+                                   f"{open(os.path.join(root, 's3.out')).read()[-2000:]}")
+            with open(os.path.join(root, "s3.out")) as f:
+                s3_url = f.readline().strip()
+            time.sleep(0.1)
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        reg_proc = _obj_start("registry", [
+            sys.executable, "-m", "modelx_tpu_torch.registry.server_main", "--listen",
+            f"127.0.0.1:{port}", "--s3-url", s3_url, "--s3-access-key", "smoke-ak",
+            "--s3-secret-key", "smoke-sk", "--s3-bucket", "models", "--enable-redirect",
+            "--auth-token", OBJ_TOKEN], reg_log, home)
+        while time.monotonic() < deadline + 60:
+            if reg_proc.poll() is not None:
+                raise RuntimeError(f"objectstore: the registry exited {reg_proc.returncode}: "
+                                   f"{open(reg_log).read()[-3000:]}")
+            try:
+                if _obj_request(base, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        else:
+            raise RuntimeError("objectstore: the registry did not answer /healthz")
+        no_token, with_token = _obj_request(base, "/")[0], _obj_request(base, "/", OBJ_TOKEN)[0]
+        if (no_token, with_token) != (401, 200):
+            raise RuntimeError(f"objectstore: GET / answered {no_token} without the token and "
+                               f"{with_token} with it, want 401 and 200")
+
+        # (3) push with the CLI
+        with open(os.path.join(ckpt, "modelx.yaml"), "w") as f:
+            f.write(OBJ_YAML)
+        _obj_cli("login", ["login", base, "--token", OBJ_TOKEN, "--name", OBJ_ALIAS], home)
+        ref = f"{OBJ_ALIAS}/{OBJ_REPO}@v1"
+        _, out, push_s = _obj_cli("push", ["push", ref, ckpt], home)
+        stats["obj_push_s"] = push_s
+        stats["obj_push_gbps"] = nbytes / push_s / 1e9
+        parts = plan_parts(nbytes) if nbytes > MULTIPART_THRESHOLD else [(0, nbytes)]
+        stats["obj_parts"] = len(parts)
+        stats["obj_presign_issued"] = _obj_counter(base, "presign_issued_total")
+        manifest = Client(base, "Bearer " + OBJ_TOKEN).get_manifest(OBJ_REPO, "v1")
+        pushed = next(d.digest for d in manifest.blobs if d.name == "model.safetensors")
+        if pushed != native_digest:
+            raise RuntimeError(f"objectstore: the manifest carries {pushed} for the weights, the "
+                               f"digest before the push was {native_digest}")
+        key = f"registry/{OBJ_REPO}/blobs/sha256/{native_digest.split(':')[1]}"
+        reqs = _obj_requests(s3_log, key)
+        part_puts = [r for r in reqs if r["m"] == "PUT" and r["presigned"]
+                     and "partNumber" in r["q"]]
+        single_puts = [r for r in reqs if r["m"] == "PUT" and r["presigned"]
+                       and "partNumber" not in r["q"]]
+        got_parts = len(part_puts) if len(parts) > 1 else len(single_puts)
+        put_bytes = sum(r["bytes"] for r in part_puts + single_puts)
+        if got_parts != len(parts) or put_bytes != nbytes:
+            raise RuntimeError(f"objectstore: the bucket took {got_parts} presigned PUTs of "
+                               f"{put_bytes} bytes for the weights, want {len(parts)} of {nbytes}")
+        s3c = S3Client(S3Options(url=s3_url, access_key="smoke-ak", secret_key="smoke-sk",
+                                 bucket="models"))
+        sizes = {o.name: o.size for o in s3c.list_objects("registry/")[0]}
+        if sizes.get(key) != nbytes:
+            raise RuntimeError(f"objectstore: the bucket holds {sizes.get(key)} bytes at {key}, "
+                               f"want {nbytes}")
+        blob_routes = [ln for ln in open(reg_log) if f"/blobs/{native_digest}" in ln
+                       and "/locations/" not in ln and (" GET " in ln or " PUT " in ln)]
+        if blob_routes:
+            raise RuntimeError(f"objectstore: the registry answered blob-content routes for the "
+                               f"weights: {blob_routes[:3]}")
+        log(f"objectstore: modelx-torch push of {nbytes / 1e9:.3f} GB in {push_s:.1f} s "
+            f"({stats['obj_push_gbps']:.2f} GB/s, client to bucket): {len(parts)} presigned "
+            f"part{'s' if len(parts) > 1 else ''}, {int(stats['obj_presign_issued'])} locations "
+            f"issued; the manifest carries the digest before the push; the bucket took every "
+            f"byte, the registry served none of them; no token 401, token 200")
+
+        # (4) pull onto the device, the source deleted first
+        shutil.rmtree(ckpt, ignore_errors=True)
+        t0 = time.monotonic()
+        summary = _run_child("modelxdl-torch", [
+            sys.executable, "-c", DL_CHILD, f"{base}/{OBJ_REPO}@v1?token={OBJ_TOKEN}", pulled,
+            "--device-put", "--device", device], timeout=900)
+        stats["obj_pull_s"] = time.monotonic() - t0
+        load = summary["load"]
+        stats["obj_pull_gbps"] = nbytes / max(summary["pull_seconds"], 1e-9) / 1e9
+        stats["obj_load_gbps"] = load["gbps"]
+        stats["obj_native_reads"] = load["native_reads"]
+        tc = summary["tensor_check"]
+        if tc["mismatched"] or tc["not_in_dest"] or not tc["tensors"]:
+            raise RuntimeError(f"objectstore: tensors on the device differ from the pulled file: "
+                               f"{tc}")
+        if native.available() and not load["native_reads"]:
+            raise RuntimeError("objectstore: the load's native read count stayed 0 on an http "
+                               "source (no hidden fallback)")
+        ranged = [r for r in _obj_requests(s3_log, key) if r["m"] == "GET" and r["range"]]
+        stats["obj_ranged_gets"] = len(ranged)
+        log(f"objectstore: modelxdl-torch --device-put: pull {summary['pull_seconds']} s "
+            f"({stats['obj_pull_gbps']:.2f} GB/s bucket to disk), load {load['seconds']} s "
+            f"({load['gbps']} GB/s bucket to {device}, transports {load['transports']}), "
+            f"{len(ranged)} presigned ranged GETs of the weights, {load['native_reads']} of the "
+            f"loader's reads through the native engine; {tc['tensors']} tensors == the pulled "
+            f"file")
+        # hashlib, the engine's cross-check: every pulled file hashes to its
+        # descriptor's digest, the weights to the native digest before the push
+        for desc in manifest.all_descriptors():
+            path = os.path.join(pulled, desc.name)
+            if not os.path.isfile(path):
+                continue
+            t0 = time.monotonic()
+            h = hashlib.sha256()
+            with open(path, "rb") as f:
+                while chunk := f.read(4 << 20):
+                    h.update(chunk)
+            if "sha256:" + h.hexdigest() != desc.digest:
+                raise RuntimeError(f"objectstore: pulled {desc.name} does not hash to its "
+                                   f"descriptor's digest")
+            if desc.name == "model.safetensors":
+                stats["obj_hash_hashlib_gbps"] = nbytes / max(time.monotonic() - t0, 1e-9) / 1e9
+        log(f"objectstore: hashlib hashed the pulled weights at "
+            f"{stats['obj_hash_hashlib_gbps']:.2f} GB/s to the native digest before the push; "
+            f"every pulled file == its descriptor's digest")
+
+        # (5) gc and scrub: a small second repository takes both in full;
+        # the served one a sampled scrub
+        small = os.path.join(root, "small")
+        os.makedirs(small, exist_ok=True)
+        with open(os.path.join(small, "modelx.yaml"), "w") as f:
+            f.write("description: gc and scrub scratch\n")
+        rng = np.random.RandomState(5)
+        with open(os.path.join(small, "weights.bin"), "wb") as f:
+            f.write(rng.bytes(1 << 20))
+        gc_ref = f"{OBJ_ALIAS}/{OBJ_GC_REPO}@v1"
+        _obj_cli("push small", ["push", gc_ref, small], home)
+        orphan = rng.bytes(4096)
+        orphan_digest = str(Digest.from_bytes(orphan))
+        Client(base, "Bearer " + OBJ_TOKEN).remote.upload_blob_content(
+            OBJ_GC_REPO, Descriptor(name="orphan", digest=orphan_digest, size=len(orphan)),
+            orphan)
+        _, out, _ = _obj_cli("gc", ["gc", f"{OBJ_ALIAS}/{OBJ_GC_REPO}", "--grace", "0"], home)
+        gc_out = json.loads(out.strip().splitlines()[-1])
+        remote = Client(base, "Bearer " + OBJ_TOKEN).remote
+        kept = [d.digest for d in remote.get_manifest(OBJ_GC_REPO, "v1").all_descriptors()]
+        if (gc_out["deleted_digests"] != [orphan_digest]
+                or remote.head_blob(OBJ_GC_REPO, orphan_digest)
+                or not all(remote.head_blob(OBJ_GC_REPO, d) for d in kept)):
+            raise RuntimeError(f"objectstore: gc deleted {gc_out['deleted_digests']}, want only "
+                               f"the orphan {orphan_digest}, every referenced blob kept")
+        _, out, _ = _obj_cli("scrub", ["scrub", f"{OBJ_ALIAS}/{OBJ_GC_REPO}"], home)
+        small_clean = json.loads(out.strip().splitlines()[-1])
+        if not small_clean["clean"] or small_clean["checked"] != len(kept):
+            raise RuntimeError(f"objectstore: scrub of {OBJ_GC_REPO} before the damage: "
+                               f"{small_clean}")
+        t0 = time.monotonic()
+        _, out, _ = _obj_cli("scrub", ["scrub", f"{OBJ_ALIAS}/{OBJ_REPO}", "--sample",
+                                       str(OBJ_SCRUB_SAMPLE)], home)
+        stats["obj_scrub_s"] = time.monotonic() - t0
+        clean = json.loads(out.strip().splitlines()[-1])
+        if not clean["clean"] or clean["checked"] != OBJ_SCRUB_SAMPLE:
+            raise RuntimeError(f"objectstore: sampled scrub of the served repository: {clean}")
+        victim = next(d.digest for d in remote.get_manifest(OBJ_GC_REPO, "v1").blobs
+                      if d.name == "weights.bin")
+        s3c.put_object(f"registry/{OBJ_GC_REPO}/blobs/sha256/{victim.split(':')[1]}",
+                       b"corrupted in the bucket")
+        rc, out, _ = _obj_cli("scrub corrupt", ["scrub", f"{OBJ_ALIAS}/{OBJ_GC_REPO}"], home,
+                              ok=(1,))
+        dirty = json.loads(out.strip().splitlines()[-1])
+        if dirty["quarantined"] != [victim] or dirty["clean"]:
+            raise RuntimeError(f"objectstore: scrub after corrupting {victim}: {dirty}")
+        log(f"objectstore: gc --grace 0 removed the orphan and kept the {len(kept)} referenced "
+            f"blobs; scrub of {OBJ_GC_REPO} clean ({small_clean['checked']} blobs re-hashed), "
+            f"then a corrupted object of it quarantined, exit {rc}; scrub --sample "
+            f"{OBJ_SCRUB_SAMPLE} of {OBJ_REPO} clean ({clean['bytes_hashed'] / 1e9:.3f} GB "
+            f"re-hashed in {stats['obj_scrub_s']:.1f} s)")
+        _obj_stop(reg_proc)
+        _obj_stop(s3_proc)
+        reg_proc = s3_proc = None
+
+        # (6) serve what was pulled: the same bytes and kernel as the
+        # pre-push forward, so the same argmax exactly
+        port2 = _free_port()
+        sset, httpd = serve_main.start([
+            "--model", f"phi3={pulled}", "--listen", f"127.0.0.1:{port2}", "--device", device,
+            "--dtype", "bfloat16"])
+        server = sset.servers["phi3"]
+        try:
+            before = attn.flash_attention.launches
+            t0 = time.monotonic()
+            status, body = _http(port2, "/v1/forward", {"tokens": tokens})
+            stats["obj_forward_ms"] = (time.monotonic() - t0) * 1e3
+            launched = attn.flash_attention.launches - before
+            if status != 200 or np.asarray(body["logits_argmax"]).shape != (1, len(tokens[0])):
+                raise RuntimeError(f"objectstore: /v1/forward on the pulled copy answered "
+                                   f"{status} {str(body)[:300]}")
+            if launched != per_forward:
+                raise RuntimeError(f"objectstore: the forward launched the kernel {launched} "
+                                   f"times, want {per_forward}")
+            if body["logits_argmax"] != want_argmax:
+                bad = sum(a != b for a, b in zip(body["logits_argmax"][0], want_argmax[0]))
+                raise RuntimeError(f"objectstore: the pulled copy's argmax differs from the "
+                                   f"pre-push forward's at {bad} positions (same bytes, same "
+                                   f"kernel)")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            _free(server)
+        stats["flash_launches_objectstore"] = attn.flash_attention.launches
+        stats["obj_disk_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                                      for d, _, fs in os.walk(pulled) for f in fs)
+        stats["obj_path_s"] = time.monotonic() - t_path
+        log(f"objectstore: serve_main on the pulled copy: /v1/forward [1,{len(tokens[0])}] "
+            f"{stats['obj_forward_ms']:.1f} ms, {launched} launches, equal to the pre-push "
+            f"forward's argmax")
+        log(f"objectstore: the path took {stats['obj_path_s']:.1f} s and wrote "
+            f"{stats['obj_disk_bytes'] / 1e9:.3f} GB to disk (the pulled copy; the source went "
+            f"first); flash_attention launches {stats['flash_launches_objectstore']}")
+        ok = True
+        return stats
+    finally:
+        _obj_stop(reg_proc)
+        _obj_stop(s3_proc)
+        shutil.rmtree(root, ignore_errors=True)
+        if not ok:
+            shutil.rmtree(pulled, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
-"""Client facade (counterpart of ``modelx_tpu/client/client.py``, pull side)."""
+"""Client facade (counterpart of ``modelx_tpu/client/client.py``)."""
 
 from __future__ import annotations
 
 from modelx_tpu_torch import errors
 from modelx_tpu_torch.client.pull import Puller
+from modelx_tpu_torch.client.push import Pusher
 from modelx_tpu_torch.client.remote import RegistryClient, set_insecure
-from modelx_tpu_torch.types import Manifest
+from modelx_tpu_torch.types import Index, Manifest
 from modelx_tpu_torch.utils.retry import retriable_status
 
 
@@ -20,11 +21,25 @@ class Client:
         self.remote = RegistryClient(registry, authorization, insecure=insecure)
         self.quiet = quiet
 
+    def ping(self) -> Index:
+        """A GET of the global index: the registry answers and takes the
+        credentials."""
+        return self.remote.get_global_index()
+
+    def push(self, repository: str, version: str, directory: str) -> None:
+        Pusher(self.remote, quiet=self.quiet).push(repository, version, directory)
+
     def pull(self, repository: str, version: str, directory: str) -> Manifest:
         return Puller(self.remote, quiet=self.quiet).pull(repository, version, directory)
 
     def get_manifest(self, repository: str, version: str = "") -> Manifest:
         return self.remote.get_manifest(repository, version)
+
+    def get_index(self, repository: str, search: str = "") -> Index:
+        return self.remote.get_index(repository, search)
+
+    def get_global_index(self, search: str = "") -> Index:
+        return self.remote.get_global_index(search)
 
     def get_config_content(self, repository: str, version: str = "") -> bytes:
         """The config blob (modelx.yaml) of a version. It rides in the

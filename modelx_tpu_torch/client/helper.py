@@ -1,7 +1,8 @@
 """Archive + digest helpers (counterpart of ``modelx_tpu/client/helper.py``):
 deterministic tar.gz (cleared attributes, so a directory's digest is stable
 across hosts and times, and equal to the JAX package's), the digest
-computed while writing, and extraction that preserves file modes.
+computed while writing, extraction that preserves file modes, and the
+descriptor of a file or of bytes.
 """
 
 from __future__ import annotations
@@ -93,3 +94,33 @@ def untgz(src: str | BinaryIO, dest_dir: str) -> None:
     finally:
         if close:
             f.close()
+
+
+def descriptor_for_file(path: str, name: str, media_type: str) -> Descriptor:
+    """The descriptor of a regular file: its digest (the native engine's
+    GIL-free sha256 when built), size, mode bits and mtime."""
+    st = os.stat(path)
+    return Descriptor(
+        name=name,
+        media_type=media_type,
+        digest=str(Digest.from_file(path)),
+        size=st.st_size,
+        mode=st.st_mode & 0o777,
+        modified=_rfc3339(st.st_mtime),
+    )
+
+
+def _rfc3339(ts: float) -> str:
+    import datetime
+
+    return (
+        datetime.datetime.fromtimestamp(ts, tz=datetime.timezone.utc)
+        .isoformat(timespec="seconds")
+        .replace("+00:00", "Z")
+    )
+
+
+def descriptor_for_bytes(data: bytes, name: str, media_type: str) -> Descriptor:
+    return Descriptor(
+        name=name, media_type=media_type, digest=str(Digest.from_bytes(data)), size=len(data)
+    )

@@ -3,8 +3,8 @@
 defaults, read with the port's own YAML reader (``utils/miniyaml.py``),
 since the card's host has no pyyaml. A file outside the reader's subset
 raises ``ValueError``, which the initializer answers by pulling every blob,
-as it answers an invalid file. Configs are written with the JAX package's
-``ModelConfig.to_yaml`` (``modelx init``) or by hand.
+as it answers an invalid file. ``to_yaml`` writes what the JAX package's
+``yaml.safe_dump`` writes, for the values ``modelx-torch init`` scaffolds.
 """
 
 from __future__ import annotations
@@ -41,6 +41,24 @@ class ModelConfig:
     model_files: list[str] = dataclasses.field(default_factory=list)
     config: Any = None
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+
+    def to_yaml(self) -> str:
+        d: dict[str, Any] = {
+            "description": self.description,
+            "framework": self.framework,
+            "task": self.task,
+            "tags": self.tags,
+            "resources": self.resources,
+            "maintainers": self.maintainers,
+            "modelFiles": self.model_files,
+            "config": self.config,
+        }
+        if self.annotations:
+            d["annotations"] = self.annotations
+        sv = dataclasses.asdict(self.serving)
+        if any(v for v in sv.values()):
+            d["serving"] = {k: v for k, v in sv.items() if v}
+        return miniyaml.dumps(d)
 
     @classmethod
     def from_yaml(cls, text: str | bytes) -> "ModelConfig":

@@ -1,8 +1,9 @@
-"""The bounded worker pool of the pull engine (counterpart of
+"""The bounded worker pool of the pull and push engines (counterpart of
 ``modelx_tpu/client/progress.py``): at most ``concurrency`` transfers in
 flight, and the first failure cancels the jobs not yet started and
 re-raises. The JAX package draws rich progress bars around the same pool;
-the card's host has no rich, so the port draws none.
+the card's host has no rich, so the port's bar (``NullBar``) takes the
+same calls and draws nothing.
 """
 
 from __future__ import annotations
@@ -29,3 +30,24 @@ def run_jobs(jobs: Iterable[Callable[[], None]],
         for f in futures:
             if not f.cancelled() and f.exception() is not None:
                 raise f.exception()
+
+
+class NullBar:
+    """A transfer's progress callbacks, drawn nowhere: callable with a byte
+    count like a plain progress function, plus the fragment calls that
+    multipart transfers make per part."""
+
+    def __call__(self, n: int) -> None:
+        pass
+
+    def update(self, n: int) -> None:
+        pass
+
+    def set_fragments(self, n: int) -> None:
+        pass
+
+    def fragment(self, i: int, state: str) -> None:
+        pass
+
+    def done(self, note: str = "") -> None:
+        pass

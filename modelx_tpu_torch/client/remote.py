@@ -5,11 +5,11 @@
 carrying size/name/media-type/annotations, retries with backoff and
 ``Retry-After``, read mirrors walked in a sticky rotation, hedged ranged
 blob GETs, and stale-while-revalidate manifests through the pinned
-manifest cache. The write half (manifest PUT and HEAD, blob PUT through
-the server) serves the derived-artifact publishes (``dl/program_store.py``,
-``dl/kv_store.py``); pushes of whole model directories come with the CLI.
+manifest cache. The write half (manifest PUT, blob PUT through
+the server) serves the pusher (``client/push.py``) and the derived-artifact
+publishes; ``garbage_collect`` and ``scrub`` serve the CLI.
 
-Connections are kept alive and reused per endpoint (``_ConnectionPool``),
+Connections are kept alive and reused per endpoint (``ConnectionPool``),
 as a ``requests.Session`` pools them: a pull of many blobs, or many ranged
 GETs, costs one TCP handshake per concurrent stream, not one per request.
 """
@@ -19,13 +19,14 @@ from __future__ import annotations
 import http.client
 import io
 import logging
+import os
 import ssl
 import threading
 import urllib.parse
 from typing import Any, BinaryIO, Iterator
 
 from modelx_tpu_torch import errors
-from modelx_tpu_torch.types import BlobLocation, Descriptor, Manifest
+from modelx_tpu_torch.types import BlobLocation, Descriptor, Index, Manifest
 from modelx_tpu_torch.utils.retry import (
     EndpointRotation, RetryPolicy, hedged_call, retriable_status,
 )
@@ -72,12 +73,13 @@ def default_mirrors() -> list[str]:
 
 
 # transport failures that mean a kept-alive connection went stale under us
-_STALE = (http.client.RemoteDisconnected, http.client.CannotSendRequest,
+STALE_ERRORS = (http.client.RemoteDisconnected, http.client.CannotSendRequest,
           http.client.BadStatusLine, ConnectionResetError, BrokenPipeError)
 
 
-class _ConnectionPool:
-    """Idle keep-alive connections to one ``scheme://host:port``."""
+class ConnectionPool:
+    """Idle keep-alive connections to one ``scheme://host:port`` (the
+    registry client's, and the registry's own S3 client's)."""
 
     MAX_IDLE = 16
 
@@ -123,11 +125,11 @@ class _ConnectionPool:
 
 class Response:
     """One HTTP response: ``status``, ``headers``, and the body, read whole
-    (``content``, ``json``) or streamed (``iter_content``).
+    (``content``, ``json``) or streamed (``iter_content``, ``read``).
     The connection goes back to its pool once the body is read to its end;
     ``close`` before that drops it."""
 
-    def __init__(self, resp: http.client.HTTPResponse, conn, pool: _ConnectionPool) -> None:
+    def __init__(self, resp: http.client.HTTPResponse, conn, pool: ConnectionPool) -> None:
         self.status = resp.status
         self.headers = resp.headers
         self._resp = resp
@@ -160,6 +162,13 @@ class Response:
 
         return json.loads(self.content)
 
+    def read(self, n: int = -1) -> bytes:
+        """The next ``n`` bytes of the body (the rest when ``n`` < 0)."""
+        data = self._resp.read() if n is None or n < 0 else self._resp.read(n)
+        if self._resp.isclosed():
+            self._release()
+        return data
+
     def iter_content(self, chunk_size: int = 1024 * 1024) -> Iterator[bytes]:
         try:
             while True:
@@ -177,6 +186,73 @@ class Response:
         conn, self._conn = self._conn, None
         if conn is not None:
             conn.close()
+
+
+def body_size(data) -> int:
+    """Bytes of a request body: a bytes-like object's length, or a
+    reader's from its position to its end."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return memoryview(data).nbytes
+    pos = data.tell()
+    end = data.seek(0, os.SEEK_END)
+    data.seek(pos)
+    return end - pos
+
+
+def send_request(pool: ConnectionPool, method: str, url: str, headers: dict[str, str],
+                 data=None, chunk_size: int = 4 * 1024 * 1024) -> Response:
+    """One request on a connection of ``pool``: ``Host`` as the URL spells
+    it (what a signature covers), the caller's headers, an exact
+    ``Content-Length`` and the body, bytes or a reader streamed in pieces
+    (a caller's ``content-length`` sizes a reader; else it runs to its
+    end). No ``Accept-Encoding`` is added. A reused connection found stale
+    is redialed once when the body can be sent again (none, bytes, or a
+    seekable reader). Transport failures raise OSError or
+    ``http.client.HTTPException``. The presigned transfers
+    (``client/extension.py``) and the registry's S3 client
+    (``registry/fs_s3.py``) send through it."""
+    u = urllib.parse.urlsplit(url)
+    target = (u.path or "/") + (f"?{u.query}" if u.query else "")
+    given = next((v for k, v in headers.items() if k.lower() == "content-length"), None)
+    size = 0 if data is None else int(given) if given is not None else body_size(data)
+    seekable = getattr(data, "seekable", lambda: False)()
+    start = data.tell() if seekable else 0
+    replayable = data is None or seekable or isinstance(data, (bytes, bytearray, memoryview))
+    for attempt in range(2):
+        conn, reused = pool.get()
+        try:
+            conn.putrequest(method, target, skip_host=True, skip_accept_encoding=True)
+            conn.putheader("Host", u.netloc)
+            for k, v in headers.items():
+                if k.lower() != "content-length":
+                    conn.putheader(k, v)
+            if data is not None or method in ("PUT", "POST"):
+                conn.putheader("Content-Length", str(size))
+            conn.endheaders()
+            if isinstance(data, (bytes, bytearray, memoryview)):
+                conn.send(data)
+            else:
+                remaining = size if data is not None else 0
+                while remaining > 0:
+                    piece = data.read(min(chunk_size, remaining))
+                    if not piece:
+                        raise OSError(f"body ended {remaining} bytes short of its "
+                                      f"Content-Length")
+                    conn.send(piece)
+                    remaining -= len(piece)
+            resp = conn.getresponse()
+        except STALE_ERRORS:
+            conn.close()
+            if reused and replayable and attempt == 0:
+                if seekable:
+                    data.seek(start)
+                continue
+            raise
+        except BaseException:
+            conn.close()
+            raise
+        return Response(resp, conn, pool)
+    raise AssertionError("unreachable")
 
 
 class RegistryClient:
@@ -210,7 +286,7 @@ class RegistryClient:
             if m and m.rstrip("/") != self.registry
         ]
         self._rotation = EndpointRotation(len(self.endpoints))
-        self._pools: dict[str, _ConnectionPool] = {}
+        self._pools: dict[str, ConnectionPool] = {}
         self._pools_lock = threading.Lock()
         # where the last successful fetch came from, for ladder reporting:
         # "registry" | "mirror" | "cache" (stale-while-revalidate serve)
@@ -227,12 +303,12 @@ class RegistryClient:
             h.update(extra)
         return h
 
-    def _pool(self, base: str) -> _ConnectionPool:
+    def _pool(self, base: str) -> ConnectionPool:
         with self._pools_lock:
             pool = self._pools.get(base)
             if pool is None:
                 insecure = self._insecure if self._insecure is not None else _INSECURE
-                pool = self._pools[base] = _ConnectionPool(base, self.timeout, insecure)
+                pool = self._pools[base] = ConnectionPool(base, self.timeout, insecure)
             return pool
 
     def close(self) -> None:
@@ -289,7 +365,7 @@ class RegistryClient:
             try:
                 conn.request(method, target, body=data, headers=hdrs)
                 raw = conn.getresponse()
-            except _STALE as e:
+            except STALE_ERRORS as e:
                 conn.close()
                 if reused and replayable and attempt == 0:
                     continue
@@ -386,6 +462,16 @@ class RegistryClient:
         self._health().note_failure()
         assert last_err is not None
         raise last_err
+
+    # -- index ----------------------------------------------------------------
+
+    def get_global_index(self, search: str = "") -> Index:
+        params = {"search": search} if search else None
+        return Index.from_json(self._request("GET", "/", params=params).json())
+
+    def get_index(self, repository: str, search: str = "") -> Index:
+        params = {"search": search} if search else None
+        return Index.from_json(self._request("GET", f"/{repository}/index", params=params).json())
 
     # -- manifests -------------------------------------------------------------
 
@@ -525,6 +611,24 @@ class RegistryClient:
                 return None
             raise
         return BlobLocation.from_json(r.json())
+
+    # -- registry maintenance ---------------------------------------------------
+
+    def garbage_collect(self, repository: str, grace_s: float | None = None) -> dict:
+        """Server-side mark-sweep of the repository's unreferenced blobs;
+        ``grace_s`` None = the server's configured window."""
+        params = {"grace": str(grace_s)} if grace_s is not None else None
+        return self._request("POST", f"/{repository}/garbage-collect", params=params).json()
+
+    def scrub(self, repository: str, sample: int = 0, seed: int = 0) -> dict:
+        """Server-side integrity scrub: re-hash stored blobs (all, or a
+        seeded sample), quarantine corruption, report dangling references."""
+        params: dict[str, str] = {}
+        if sample:
+            params["sample"] = str(sample)
+        if seed:
+            params["seed"] = str(seed)
+        return self._request("POST", f"/{repository}/scrub", params=params or None).json()
 
 
 def _sized_iter(f: BinaryIO, size: int, chunk: int = 1024 * 1024) -> Iterator[bytes]:

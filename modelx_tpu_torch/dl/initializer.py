@@ -289,12 +289,13 @@ def load_to_device(client, repository: str, manifest: Manifest, device,
     "transports", "arrays"}: ``seconds`` includes the blob cache's sha256
     passes (the re-verify of a hit, the verify of an admit) and
     ``transfer_seconds`` only the loads; ``network_bytes`` is what came
-    over HTTP, ``transports`` the ladder rung each blob took."""
+    over HTTP, ``transports`` the ladder rung each blob took, and
+    ``native_reads`` how many reads the native engine served."""
     from modelx_tpu_torch.dl.loader import load_safetensors
 
     device = torch.device(device)
     out: dict = {"device": str(device), "tensors": 0, "bytes": 0, "gbps": 0.0}
-    total_bytes = network_bytes = 0
+    total_bytes = network_bytes = native_reads = 0
     transfer_s = 0.0
     transports: dict[str, str] = {}
     arrays: dict = {}
@@ -312,6 +313,7 @@ def load_to_device(client, repository: str, manifest: Manifest, device,
         arrays.update(loaded)
         out["tensors"] += stats.tensors
         total_bytes += stats.bytes_to_device
+        native_reads += stats.native_reads
         if source.transport in ("url", "registry"):
             network_bytes += stats.bytes_fetched
     if device.type == "cuda":
@@ -325,6 +327,7 @@ def load_to_device(client, repository: str, manifest: Manifest, device,
     out["transfer_gbps"] = round(total_bytes / max(transfer_s, 1e-9) / 1e9, 6)
     out["network_bytes"] = network_bytes
     out["transports"] = transports
+    out["native_reads"] = native_reads
     out["arrays"] = arrays
     return out
 

@@ -8,7 +8,9 @@ annotation when the caller has it, else from the header (two small ranged
 reads). Every tensor's bytes are cut into chunks of at most
 ``STAGING_CHUNK``; a pool of fetch threads reads the chunks in parallel
 (ranged preads of a local file, or ranged GETs on one kept-alive
-connection per thread), each straight into a pinned host staging buffer
+connection per thread, both through the native IO engine with the GIL
+released when it is built; ``LoadStats.native_reads`` counts them), each
+straight into a pinned host staging buffer
 (``readinto``, no intermediate ``bytes``), and copies it to the card with a
 ``non_blocking`` copy on a side stream; a buffer is reused once the event
 of its last copy has fired, so fetches overlap the copies. A governor gates
@@ -162,18 +164,45 @@ def _view(buf, length: int) -> memoryview:
     return memoryview(buf).cast("B")[:length]
 
 
-class LocalFileSource:
-    """Positional reads from one local file."""
+class _NativeCounter:
+    """Reads that went through the native engine (``native_reads``), the
+    proof the GIL-free path ran and not its Python fallback."""
+
+    def __init__(self) -> None:
+        self.native_reads = 0
+        self._count_lock = threading.Lock()
+
+    def _count_native(self) -> None:
+        with self._count_lock:
+            self.native_reads += 1
+
+
+def _native_engine():
+    """The native IO engine module when it is built and loadable, else None."""
+    from modelx_tpu_torch import native
+
+    return native if native.available() else None
+
+
+class LocalFileSource(_NativeCounter):
+    """Positional reads from one local file: the native engine's GIL-free
+    ``pread_fd`` when it is available, ``os.preadv`` otherwise."""
 
     def __init__(self, path: str) -> None:
+        super().__init__()
         self.path = path
         self._fd = os.open(path, os.O_RDONLY)
+        self._native = _native_engine()
 
     def read_range(self, offset: int, length: int, out=None):
         """Read ``length`` bytes at ``offset`` into ``out`` (a writable
         buffer of at least ``length`` bytes), or into a new uint8 array."""
         buf = np.empty(length, np.uint8) if out is None else out
         view = _view(buf, length)
+        if self._native is not None and length > 0:
+            self._native.pread_fd(self._fd, offset, length, view)
+            self._count_native()
+            return buf
         n = 0
         while n < length:
             got = os.preadv(self._fd, [view[n:]], offset + n)
@@ -188,14 +217,17 @@ class LocalFileSource:
         os.close(self._fd)
 
 
-class HTTPSource:
+class HTTPSource(_NativeCounter):
     """Ranged GETs against a URL (the registry's blob endpoint or a
-    presigned URL), on raw ``http.client`` with one kept-alive connection
-    per thread; each response body lands in the caller's buffer with
-    ``readinto``. A colocated client does better with the registry's
+    presigned URL) with one kept-alive connection per thread, each body
+    landing in the caller's buffer: on ``http`` URLs through the native
+    engine's raw-socket GET with the GIL released, else (``https``, no
+    engine, or a transport fault on the native path) on ``http.client``
+    with ``readinto``. A colocated client does better with the registry's
     ``file`` location (``LocalFileSource``)."""
 
     def __init__(self, url: str, headers: dict[str, str] | None = None) -> None:
+        super().__init__()
         self.url = url
         self.headers = headers or {}
         u = urllib.parse.urlsplit(url)
@@ -206,6 +238,11 @@ class HTTPSource:
         self._local = threading.local()
         self._conns: list[http.client.HTTPConnection] = []
         self._lock = threading.Lock()
+        # native engine: raw-socket ranged GETs, the GIL released for the
+        # whole transfer (http only; TLS stays on the python path)
+        self._use_native = u.scheme == "http"
+        self._native_headers = "".join(f"{k}: {v}\r\n" for k, v in self.headers.items())
+        self._natives: list = []
 
     def _conn(self) -> http.client.HTTPConnection:
         conn = getattr(self._local, "conn", None)
@@ -235,7 +272,52 @@ class HTTPSource:
             conn.request(method, self._path, headers=headers)
             return conn.getresponse()
 
+    def _native_conn(self):
+        """Thread-local native keep-alive connection (None once disabled)."""
+        conn = getattr(self._local, "native", None)
+        if conn is None:
+            engine = _native_engine()
+            if engine is None:
+                self._use_native = False
+                return None
+            conn = engine.NativeHTTPConnection(self._host, self._port)
+            self._local.native = conn
+            with self._lock:
+                self._natives.append(conn)
+        return conn
+
+    def _native_read(self, offset: int, length: int, out):
+        """The native ranged GET, or None when this source drops to the
+        Python path (no engine, a transport fault, a server ignoring
+        Range); an error status raises. The engine redials a connection
+        the server closed and drains error bodies of any size itself."""
+        try:
+            conn = self._native_conn()
+        except OSError:
+            conn = None
+            self._use_native = False
+        if conn is None:
+            return None
+        buf = np.empty(length, np.uint8) if out is None else out
+        try:
+            status = conn.get_range(self._path, offset, length, _view(buf, length),
+                                    self._native_headers)
+        except OSError:
+            # transport or protocol trouble: the python path for this source
+            self._local.native = None
+            conn.close()
+            self._use_native = False
+            return None
+        if status not in (200, 206):
+            raise OSError(f"ranged read failed: HTTP {status}")
+        self._count_native()
+        return buf
+
     def read_range(self, offset: int, length: int, out=None):
+        if self._use_native and length > 0:
+            buf = self._native_read(offset, length, out)
+            if buf is not None:
+                return buf
         h = dict(self.headers)
         h["Range"] = f"bytes={offset}-{offset + length - 1}"
         resp = self._request("GET", h)
@@ -263,7 +345,8 @@ class HTTPSource:
     def close(self) -> None:
         with self._lock:
             conns, self._conns = self._conns, []
-        for conn in conns:
+            natives, self._natives = self._natives, []
+        for conn in conns + natives:
             conn.close()
 
 
@@ -285,6 +368,8 @@ class LoadStats:
     # pinned staging buffers allocated, and acquires served by a reused one
     staging_allocs: int = 0
     staging_reuses: int = 0
+    # reads served by the native engine (GIL-free pread / ranged GET)
+    native_reads: int = 0
 
     @property
     def gbps(self) -> float:
@@ -409,6 +494,8 @@ def load_safetensors(
     t0 = time.monotonic()
     device = torch.device(device)
     stats = LoadStats()
+    counter = getattr(source, "source", source)
+    native0 = getattr(counter, "native_reads", 0)
     if tensors is None or data_offset is None:
         tensors, data_offset = read_index(source)
     tensors = fuse_expert_tensors(tensors)
@@ -517,6 +604,7 @@ def load_safetensors(
     stats.bytes_resident = sum(t.nbytes for t in out.values())
     stats.total_seconds = time.monotonic() - t0
     stats.fetch_width = governor.width
+    stats.native_reads = getattr(counter, "native_reads", 0) - native0
     stats.fetch_backoffs = governor.backoffs
     stats.fetch_growths = governor.growths
     stats.device_put_seconds = clock.busy["put"]

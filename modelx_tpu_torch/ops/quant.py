@@ -10,9 +10,13 @@ memory.
 The rule gives the JAX package's bytes: the scale is ``amax / 127 +
 (amax == 0)`` in fp32, the codes are ``rint(w * (1 / scale))`` (the fp32
 reciprocal, not a divide; ``rint`` rounds half to even) clipped to ±127.
-The numpy functions below are the host rule, copied from the JAX package;
-``quantize_tensor`` is the same rule in torch ops, which the loader runs on
-the device right after a weight's bytes land there.
+The numpy functions below are the host rule, copied from the JAX package,
+and run through the native engine's fused GIL-free pass
+(``native.quantize_rows``) when it is built, as the JAX package's do;
+``quantize_tensor`` is the same rule in torch ops. The port's int8 load
+quantizes on the device (``dl/loader.py`` calls ``quantize_tensor`` right
+after a weight's bytes land there), so the host rule serves tests and
+serve-time callers, not the load.
 """
 
 from __future__ import annotations
@@ -61,23 +65,52 @@ class QTensor:
         return QTensor(q=self.q.to(device), scale=self.scale.to(device))
 
 
-def channel_scales(w: np.ndarray) -> np.ndarray:
+def _native_quant(w, scales=None, want_q: bool = True):
+    """The native fused pass (``modelx_io.cc mx_quantize_rows``) when the
+    engine and the dtype allow, else None. One GIL-free pass replaces
+    several numpy passes; bfloat16 comes as a CPU ``torch.bfloat16``
+    tensor."""
+    from modelx_tpu_torch import native
+
+    return native.quantize_rows(w, scales=scales, want_q=want_q)
+
+
+def _f32(w) -> np.ndarray:
+    """``w`` as an fp32 numpy array (a torch tensor by way of the CPU)."""
+    if isinstance(w, torch.Tensor):
+        return w.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(w, np.float32)
+
+
+def channel_scales(w) -> np.ndarray:
     """Per-output-channel symmetric scale (f32 [out]) for an [out, in] weight."""
-    w32 = np.asarray(w, np.float32)
+    got = _native_quant(w, want_q=False)
+    if got is not None:
+        return got[1]
+    w32 = _f32(w)
     amax = np.max(np.abs(w32), axis=1)
     return (amax / 127.0 + (amax == 0)).astype(np.float32)  # no /0 for zero rows
 
 
-def quantize_rows(w: np.ndarray, scale: np.ndarray) -> np.ndarray:
+def quantize_rows(w, scale: np.ndarray) -> np.ndarray:
     """int8 rows of an [out_rows, in] slice given those rows' scales;
-    multiplies by the f32 reciprocal (not a divide)."""
-    w32 = np.asarray(w, np.float32)
+    multiplies by the f32 reciprocal (not a divide), bit-identical to the
+    native pass."""
+    got = _native_quant(w, scales=scale)
+    if got is not None:
+        return got[0]
+    w32 = _f32(w)
     inv = (np.float32(1.0) / np.asarray(scale, np.float32))[:, None]
     return np.clip(np.rint(w32 * inv), -127, 127).astype(np.int8)
 
 
-def quantize_fused(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """(q int8, scales f32) of a whole [out, in] weight."""
+def quantize_fused(w) -> tuple[np.ndarray, np.ndarray]:
+    """(q int8, scales f32) of a whole [out, in] weight: the native path
+    reads the source once; the same bytes as channel_scales +
+    quantize_rows."""
+    got = _native_quant(w)
+    if got is not None:
+        return got
     scale = channel_scales(w)
     return quantize_rows(w, scale), scale
 

@@ -1,6 +1,6 @@
 """Registry HTTP server: router, handlers, filters (counterpart of
-``modelx_tpu/registry/server.py``, the local-FS store). Route table
-(identical paths and bodies):
+``modelx_tpu/registry/server.py``). Route table (identical paths and
+bodies):
 
     GET     /healthz
     GET     /metrics                                     prometheus text
@@ -15,15 +15,20 @@
     GET     /{repository}/blobs/{digest}                 (supports Range)
     PUT     /{repository}/blobs/{digest}
     GET     /{repository}/blobs/{digest}/locations/{purpose}
-    POST    /{repository}/garbage-collect                typed 501 (later slice)
-    POST    /{repository}/scrub                          typed 501 (later slice)
+    POST    /{repository}/garbage-collect                mark-sweep (?grace=)
+    POST    /{repository}/scrub                          integrity scrub (?sample=&seed=)
 
-Blob PUT bodies stream through sha256 and a mismatch is refused with a
-typed 400 before the blob is visible; a manifest PUT verifies every
-referenced blob; blob GET/HEAD carry ``Docker-Content-Digest``/``ETag``
-and honor ``If-None-Match`` with 304; blob GETs go out with ``sendfile``;
-boot rebuilds the indexes from storage. S3/GCS stores, auth and garbage
-collection come with the control-plane slice.
+The store is the local FS one, or S3 (``s3_url``) or GCS (``gcs_url``);
+with ``enable_redirect`` the object stores hand out presigned upload and
+download locations, so blob bytes flow between client and bucket and never
+through this process (load separation). Blob PUT bodies stream through
+sha256 and a mismatch is refused with a typed 400 before the blob is
+visible; a manifest PUT verifies every referenced blob; blob GET/HEAD
+carry ``Docker-Content-Digest``/``ETag`` and honor ``If-None-Match`` with
+304; blob GETs go out with ``sendfile``; boot rebuilds the indexes from
+storage. Every route but ``/healthz`` passes the auth filter when static
+bearer tokens or an OIDC issuer are configured; a GC cron sweeps every
+repository when ``gc_interval_s`` is set.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import io
 import json
 import logging
 import re
+import socket
 import ssl
 import threading
 import time
@@ -42,6 +48,7 @@ from typing import BinaryIO, Callable
 from urllib.parse import parse_qs, unquote, urlparse
 
 from modelx_tpu_torch import errors
+from modelx_tpu_torch.registry import gc as gcmod
 from modelx_tpu_torch.registry import scrub as scrubmod
 from modelx_tpu_torch.registry.fs import LocalFSProvider
 from modelx_tpu_torch.registry.store import BlobContent, RegistryStore
@@ -56,8 +63,6 @@ REFERENCE_REGEXP = r"[a-zA-Z0-9_][a-zA-Z0-9._-]{0,127}"
 DIGEST_REGEXP = r"[A-Za-z][A-Za-z0-9]*(?:[-_+.][A-Za-z][A-Za-z0-9]*)*:[0-9a-fA-F]{32,}"
 
 MAX_BYTES_READ = 1 << 20  # 1 MiB manifest cap
-# the slice that brings garbage collection, scrub, S3/GCS and auth
-LATER_SLICE = "control plane"
 
 
 @dataclasses.dataclass
@@ -66,14 +71,38 @@ class Options:
     data_dir: str = "data/registry"
     tls_cert: str = ""
     tls_key: str = ""
+    # S3 backend (a non-empty s3_url selects the S3 store)
+    s3_url: str = ""
+    s3_access_key: str = ""
+    s3_secret_key: str = ""
+    s3_bucket: str = "registry"
+    s3_region: str = "us-east-1"
+    s3_presign_expire_s: int = 3600
+    # GCS backend (a non-empty gcs_url selects the GCS store; HMAC keys)
+    gcs_url: str = ""
+    gcs_access_key: str = ""
+    gcs_secret_key: str = ""
+    gcs_bucket: str = "registry"
+    gcs_region: str = "auto"
+    # object stores: hand out presigned locations (load separation)
+    enable_redirect: bool = False
     # FS store: advertise blobs' local paths as ``file`` download locations so
     # colocated clients (shared volume / same host) read them directly instead
     # of streaming through this process. Clients that can't see the path fall
     # back to the direct GET, so this is safe to leave on.
     local_redirect: bool = True
+    # auth: static bearer token(s) and/or an OIDC issuer; both empty =
+    # anonymous
+    auth_tokens: tuple[str, ...] = ()
+    oidc_issuer: str = ""
+    # periodic mark-sweep over all repositories; 0 disables. Blobs younger
+    # than gc_grace_s survive a sweep so in-flight pushes aren't corrupted.
+    gc_interval_s: float = 0.0
+    gc_grace_s: float = 600.0
     # startup reconciliation: rebuild repo + global indexes from storage
     # before taking traffic (crash recovery for a manifest persisted
-    # without its index refresh)
+    # without its index refresh); index-only, the scrub route does the
+    # deep audits
     reconcile_on_start: bool = True
 
 
@@ -105,6 +134,11 @@ class Registry:
         self.store = store
         self.opts = opts or Options()
         self.metrics = Metrics()
+        self.oidc_verifier = None
+        if self.opts.oidc_issuer:
+            from modelx_tpu_torch.registry.auth import OIDCVerifier
+
+            self.oidc_verifier = OIDCVerifier(self.opts.oidc_issuer)
         # method, compiled path regex, handler(req, **groups)
         name, ref, dig = NAME_REGEXP, REFERENCE_REGEXP, DIGEST_REGEXP
         self.routes: list[tuple[str, re.Pattern, Callable]] = [
@@ -255,12 +289,29 @@ class Registry:
         return Response.json(200, location.to_json())
 
     def garbage_collect(self, req: "Request", name: str) -> "Response":
-        raise errors.ErrorInfo(501, errors.ErrCodeUnsupported, "the operation is unsupported",
-                               f"garbage collection comes with the {LATER_SLICE} slice")
+        # the configured grace window by default, so a manual trigger can't
+        # sweep the blobs of an in-flight push; ?grace=0 sweeps now
+        try:
+            grace = float(req.query_one("grace", str(self.opts.gc_grace_s)))
+        except ValueError:
+            raise errors.ErrorInfo(400, errors.ErrCodeUnknown, "bad grace value")
+        result = gcmod.gc_blobs(self.store, name, grace_s=grace)
+        self.metrics.inc("gc_blobs_deleted_total", result.deleted)
+        return Response.json(200, result.to_json())
 
     def scrub(self, req: "Request", name: str) -> "Response":
-        raise errors.ErrorInfo(501, errors.ErrCodeUnsupported, "the operation is unsupported",
-                               f"scrub comes with the {LATER_SLICE} slice")
+        """Re-hash the repository's blobs (all of them, or ``?sample=N``
+        drawn from ``?seed=S``), quarantine corruption, report dangling
+        references, rebuild the indexes."""
+        try:
+            sample = int(req.query_one("sample", "0") or 0)
+            seed = int(req.query_one("seed", "0") or 0)
+        except ValueError:
+            raise errors.ErrorInfo(400, errors.ErrCodeUnknown, "bad sample/seed value") from None
+        result = scrubmod.scrub_repository(self.store, name, sample=sample, seed=seed)
+        self.metrics.inc("scrub_total")
+        self.metrics.inc("scrub_quarantined_total", len(result.quarantined))
+        return Response.json(200, result.to_json())
 
     # -- dispatch -------------------------------------------------------------
 
@@ -378,6 +429,7 @@ class Request:
     headers: dict[str, str]
     rfile: BinaryIO
     content_length: int = 0
+    username: str = ""  # set by the auth filter
 
     consumed: int = 0
 
@@ -454,7 +506,7 @@ class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     registry: Registry  # set on subclass
 
-    # -- logging -> dispatch -----------------------------------------------------
+    # -- filters: logging -> auth -> dispatch ----------------------------------
 
     def _serve(self) -> None:
         start = time.monotonic()
@@ -469,6 +521,7 @@ class _Handler(BaseHTTPRequestHandler):
         )
         status = 500
         try:
+            self._auth(req)
             resp = self.registry.dispatch(req)
             status = resp.status
             self._write(resp, head_only=req.method == "HEAD" or resp.head_only)
@@ -492,6 +545,30 @@ class _Handler(BaseHTTPRequestHandler):
             # method, path, status, cost
             cost_ms = (time.monotonic() - start) * 1000
             logger.info("%s %s %d %.1fms", self.command, self.path, status, cost_ms)
+
+    def _auth(self, req: Request) -> None:
+        """Bearer-token / OIDC auth; the token is also taken from the
+        ``?token=`` / ``?access_token=`` query. Sets ``req.username``."""
+        opts = self.registry.opts
+        if not opts.auth_tokens and not opts.oidc_issuer:
+            return
+        if req.path == "/healthz":
+            return
+        presented = ""
+        authz = req.headers.get("Authorization", "")
+        if authz.startswith("Bearer "):
+            presented = authz[len("Bearer "):]
+        if not presented:
+            presented = req.query_one("token") or req.query_one("access_token")
+        if presented in opts.auth_tokens:
+            req.username = "token"
+            return
+        verifier = self.registry.oidc_verifier
+        if verifier is not None and presented:
+            claims = verifier.verify(presented)  # raises unauthorized
+            req.username = verifier.username(claims)
+            return
+        raise errors.unauthorized("invalid or missing bearer token")
 
     def _write(self, resp: Response, head_only: bool = False) -> None:
         self.send_response(resp.status)
@@ -573,7 +650,7 @@ class RegistryServer:
             # a crash between manifest persist and index refresh leaves the
             # indexes stale: rebuild them from storage before taking traffic
             try:
-                scrubmod.reconcile(store)
+                scrubmod.reconcile(store, rehash=False)
             except Exception:
                 logger.exception("startup reconciliation failed; serving anyway")
         handler = type("BoundHandler", (_Handler,), {"registry": self.registry})
@@ -585,6 +662,21 @@ class RegistryServer:
             ctx.load_cert_chain(opts.tls_cert, opts.tls_key)
             self.httpd.socket = ctx.wrap_socket(self.httpd.socket, server_side=True)
         self._thread: threading.Thread | None = None
+        self._gc_stop = threading.Event()
+        if opts.gc_interval_s > 0:
+            threading.Thread(target=self._gc_loop, daemon=True).start()
+
+    def _gc_loop(self) -> None:
+        """The GC cron: a mark-sweep of every repository each interval."""
+        while not self._gc_stop.wait(self.opts.gc_interval_s):
+            try:
+                results = gcmod.gc_blobs_all(self.registry.store, grace_s=self.opts.gc_grace_s)
+                deleted = sum(r.deleted for r in results)
+                if deleted:
+                    self.registry.metrics.inc("gc_blobs_deleted_total", deleted)
+                    logger.info("gc cron: deleted %d unreferenced blobs", deleted)
+            except Exception:
+                logger.exception("gc cron failed")
 
     @property
     def address(self) -> str:
@@ -599,7 +691,17 @@ class RegistryServer:
         self._thread.start()
         return self.address
 
+    def serve_forever(self) -> None:
+        logger.info("registry listening on %s", self.opts.listen)
+        try:
+            self.httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self.shutdown()
+
     def shutdown(self) -> None:
+        self._gc_stop.set()
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread:
@@ -607,6 +709,24 @@ class RegistryServer:
 
 
 def new_store(opts: Options) -> RegistryStore:
-    """The local FS store under ``opts.data_dir``."""
+    """The S3 store when ``s3_url`` is set, the GCS store when
+    ``gcs_url`` is, else the local FS store under ``opts.data_dir``."""
+    if opts.s3_url and opts.gcs_url:
+        # silently picking one would strand the other's bucket empty
+        raise ValueError("--s3-url and --gcs-url are mutually exclusive")
+    if opts.s3_url:
+        from modelx_tpu_torch.registry.store_s3 import S3RegistryStore
+
+        return S3RegistryStore(opts)
+    if opts.gcs_url:
+        from modelx_tpu_torch.registry.store_gcs import GCSRegistryStore
+
+        return GCSRegistryStore(opts)
     return FSRegistryStore(LocalFSProvider(opts.data_dir), local_redirect=opts.local_redirect)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 

@@ -6,6 +6,7 @@
     {repo}/manifests/{reference}        manifest JSON
     {repo}/blobs/{algorithm}/{hex}      blob bytes (content-addressed)
     {repo}/uploads/{algorithm}/{hex}    in-flight upload markers
+    {repo}/quarantine/{algorithm}/{hex} corrupt blobs a scrub moved aside
 """
 
 from __future__ import annotations
@@ -61,7 +62,11 @@ class RegistryStore(Protocol):
 
     def put_blob(self, repository: str, digest: str, content: BlobContent) -> None: ...
 
+    def list_blobs(self, repository: str) -> list[str]: ...
+
     def exists_blob(self, repository: str, digest: str) -> bool: ...
+
+    def delete_blob(self, repository: str, digest: str) -> None: ...
 
     def get_blob_meta(self, repository: str, digest: str) -> BlobMeta: ...
 
@@ -89,3 +94,11 @@ def upload_marker_path(repository: str, digest: str) -> str:
     treats marked digests as active pushes regardless of blob mtime."""
     algo, _, hexpart = digest.partition(":")
     return posixpath.join(repository, "uploads", algo, hexpart)
+
+
+def quarantine_path(repository: str, digest: str) -> str:
+    """Where the scrubber parks corrupt blob bytes: outside ``blobs/``, so
+    the digest 404s (and becomes re-pushable) while the evidence stays
+    inspectable."""
+    algo, _, hexpart = digest.partition(":")
+    return posixpath.join(repository, "quarantine", algo, hexpart)

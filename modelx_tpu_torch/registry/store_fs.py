@@ -2,8 +2,9 @@
 ``modelx_tpu/registry/store_fs.py``): index rebuilds serialized per
 repository, a single-writer global index, index annotations from the newest
 manifest, a manifest PUT that verifies every referenced blob (the commit
-point), in-flight upload markers, and the ``file`` download location for
-colocated clients.
+point), in-flight upload markers, the blob listing and deletion that
+garbage collection sweeps with, the quarantine a scrub moves corrupt blobs
+into, and the ``file`` download location for colocated clients.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from modelx_tpu_torch.registry.store import (
     blob_digest_path,
     index_path,
     manifest_path,
+    quarantine_path,
     upload_marker_path,
 )
 from modelx_tpu_torch.types import (
@@ -44,6 +46,10 @@ _INDEX_REBUILD_CONCURRENCY = 16
 
 
 class FSRegistryStore:
+    # Upload markers older than this are presumed abandoned pushes: GC may
+    # reclaim their blobs and active_uploads() deletes the marker.
+    UPLOAD_MARKER_TTL_S = 24 * 3600.0
+
     def __init__(
         self,
         fs: FSProvider,
@@ -301,8 +307,24 @@ class FSRegistryStore:
             content.content_type,
         )
 
+    def list_blobs(self, repository: str) -> list[str]:
+        """All blob digests stored under a repository."""
+        out: list[str] = []
+        base = posixpath.join(repository, "blobs")
+        for algo_meta in self.fs.list(base, recursive=False):
+            algo = algo_meta.name
+            for blob_meta in self.fs.list(posixpath.join(base, algo), recursive=False):
+                out.append(f"{algo}:{blob_meta.name}")
+        return out
+
     def exists_blob(self, repository: str, digest: str) -> bool:
         return self.fs.exists(blob_digest_path(repository, digest))
+
+    def delete_blob(self, repository: str, digest: str) -> None:
+        try:
+            self.fs.remove(blob_digest_path(repository, digest))
+        except FSNotFound:
+            pass  # idempotent delete
 
     # -- in-flight upload markers (crash-safe GC) ------------------------------
 
@@ -328,6 +350,42 @@ class FSRegistryStore:
             self.fs.remove(upload_marker_path(repository, digest))
         except (FSNotFound, OSError):
             pass  # idempotent; S3-style stores 204 on missing anyway
+
+    def active_uploads(self, repository: str, ttl_s: float | None = None) -> set[str]:
+        """Digests with a live upload marker. Markers older than the TTL
+        are abandoned pushes: dropped from the result and deleted. A
+        marker whose mtime the backend can't report is treated as live:
+        an unknown age must never read as ancient."""
+        ttl = self.UPLOAD_MARKER_TTL_S if ttl_s is None else ttl_s
+        now = time.time()
+        out: set[str] = set()
+        base = posixpath.join(repository, "uploads")
+        for meta in self.fs.list(base, recursive=True):
+            digest = meta.name.replace("/", ":", 1)
+            mtime = meta.last_modified or 0.0
+            if mtime > 0 and now - mtime > ttl:
+                self.clear_upload(repository, digest)
+                continue
+            out.add(digest)
+        return out
+
+    # -- corruption quarantine -------------------------------------------------
+
+    def quarantine_blob(self, repository: str, digest: str) -> None:
+        """Move a corrupt blob out of ``blobs/`` into ``quarantine/``: the
+        content address 404s (instead of serving bad bytes) and becomes
+        re-pushable, while the evidence stays inspectable on the store."""
+        src = blob_digest_path(repository, digest)
+        dst = quarantine_path(repository, digest)
+        try:
+            content = self.fs.get(src)
+        except FSNotFound:
+            raise errors.blob_unknown(digest) from None
+        try:
+            self.fs.put(dst, content.reader, content.size, content.content_type)
+        finally:
+            content.reader.close()
+        self.fs.remove(src)
 
     def get_blob_meta(self, repository: str, digest: str) -> BlobMeta:
         try:

@@ -39,6 +39,7 @@ MediaTypeModelKVCache = "application/vnd.modelx.kvcache.v1"
 
 # --- annotation keys (see module docstring) ---------------------------------
 
+AnnotationShardMesh = "modelx.shard.mesh"
 AnnotationShardSpec = "modelx.shard.spec"
 AnnotationTensorIndex = "modelx.tensor.index"
 # program-bundle environment stamp (dl/program_store.py): lets a puller pick
@@ -61,6 +62,7 @@ AnnotationKVPrefix = "modelx.kv.prefix"
 
 # --- blob location purposes -------------------------------------------------
 
+BlobLocationPurposeUpload = "upload"
 BlobLocationPurposeDownload = "download"
 
 
@@ -104,6 +106,16 @@ class Digest(str):
 
     @classmethod
     def from_file(cls, path: str, chunk_size: int = 4 * 1024 * 1024) -> "Digest":
+        try:
+            # GIL-free native hashing, so concurrent blob pushes and pulls
+            # don't serialize on the interpreter (native/modelx_io.cc)
+            from modelx_tpu_torch import native
+
+            hexdigest = native.sha256_file(path)
+            if hexdigest is not None:
+                return cls("sha256:" + hexdigest)
+        except OSError:
+            pass  # unreadable: let the python path raise its own error
         with open(path, "rb") as f:
             return cls.from_reader(f, chunk_size)
 

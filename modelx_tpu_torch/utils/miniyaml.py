@@ -576,3 +576,89 @@ def loads(text: str | bytes):
         raise ValueError(f"modelx.yaml: character U+{ord(bad.group()):04X} is outside the "
                          "subset (non-printable, or a Unicode line break)")
     return _Parser(text).document()
+
+
+# -- writing -------------------------------------------------------------------
+
+# a string pyyaml writes plain when the resolver would read it back as a
+# string: no indicator first, no ": " or " #", no edge spaces
+_PLAIN_CHARS = re.compile(r"[A-Za-z0-9_./@=,+()%$^~<;'\"\\ -]*\Z")
+_FIRST_INDICATORS = set("-?:,[]{}#&*!|>'\"%@`")
+_WIDTH = 80  # pyyaml folds longer lines of spaced text; the subset refuses them
+
+
+def _dump_scalar(value) -> str:
+    if value is None:
+        return "null"
+    if value is True or value is False:
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (math.inf, -math.inf):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(value, dict) and not value:
+        return "{}"
+    if isinstance(value, list) and not value:
+        return "[]"
+    if not isinstance(value, str):
+        raise ValueError(f"cannot write {type(value).__name__} values")
+    if "\n" in value or _NON_PRINTABLE.search(value) or not value.isascii():
+        raise ValueError(f"{value!r} is outside the written subset (line breaks, non-ASCII)")
+    if " " in value and len(value) > _WIDTH // 2:
+        raise ValueError(f"{value!r} is outside the written subset (a long spaced string)")
+    try:
+        plain = isinstance(_resolve(value), str)
+    except ValueError:
+        plain = False  # a timestamp or another type the reader refuses
+    first = value[:1]
+    if (not plain or not value or not _PLAIN_CHARS.match(value)
+            or value != value.strip() or ": " in value or " #" in value
+            or value.endswith(":")
+            or (first in _FIRST_INDICATORS and not (first == "-" and value[1:2] not in ("", " ")))):
+        return "'" + value.replace("'", "''") + "'"
+    return value
+
+
+def _block(value) -> bool:
+    return isinstance(value, (dict, list)) and bool(value)
+
+
+def _dump_lines(obj, indent: int) -> list[str]:
+    pad = " " * indent
+    out: list[str] = []
+    if isinstance(obj, dict):
+        for key, value in obj.items():
+            key = _dump_scalar(key)
+            if _block(value):
+                out.append(f"{pad}{key}:")
+                # a sequence under a key sits at the key's indentation
+                out += _dump_lines(value, indent if isinstance(value, list) else indent + 2)
+            else:
+                out.append(f"{pad}{key}: {_dump_scalar(value)}")
+        return out
+    for item in obj:
+        if _block(item):
+            sub = _dump_lines(item, indent + 2)
+            out.append(f"{pad}- {sub[0][indent + 2:]}")
+            out += sub[1:]
+        else:
+            out.append(f"{pad}- {_dump_scalar(item)}")
+    return out
+
+
+def dumps(obj) -> str:
+    """A mapping or sequence of strings, numbers, booleans and nulls as
+    block YAML, byte for byte as ``yaml.safe_dump(obj, sort_keys=False)``
+    writes it, for the subset this module writes: ASCII strings without
+    line breaks, short enough that pyyaml does not fold them. Anything
+    else raises ``ValueError``."""
+    if not _block(obj):
+        raise ValueError("the document must be a non-empty mapping or sequence")
+    return "\n".join(_dump_lines(obj, 0)) + "\n"

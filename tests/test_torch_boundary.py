@@ -1,6 +1,7 @@
 """The port stands alone: no jax, ml_dtypes, tokenizers or modelx_tpu
 imports, none of the packages the card's host lacks (requests, click,
-yaml, rich), and an explicit device with no silent CPU fallback."""
+yaml, rich, cryptography, boto3, google), and an explicit device with no
+silent CPU fallback."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ from modelx_tpu_torch.device import parse_dtype, resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "tokenizers", "modelx_tpu",
-             "requests", "click", "yaml", "rich")
+             "requests", "click", "yaml", "rich", "cryptography", "boto3", "google")
 
 
 def _port_files():
@@ -52,7 +53,12 @@ def test_port_imports_no_jax_or_reference_package():
                 "dl/manifest_cache.py", "dl/initializer.py", "dl/dl_main.py", "dl/ttft.py",
                 "registry/server.py", "registry/store_fs.py", "registry/server_main.py",
                 "dl/lifecycle.py", "dl/tiers.py", "utils/devmem.py", "utils/flightrec.py",
-                "dl/continuous.py", "ops/paged_attention.py", "utils/promexp.py"):
+                "dl/continuous.py", "ops/paged_attention.py", "utils/promexp.py",
+                "native/__init__.py", "cli.py", "version.py", "utils/units.py",
+                "registry/sigv4.py", "registry/fs_s3.py", "registry/store_s3.py",
+                "registry/fs_gcs.py", "registry/store_gcs.py", "registry/auth.py",
+                "registry/gc.py", "registry/scrub.py", "client/extension_s3.py",
+                "client/extension_gcs.py", "client/push.py"):
         assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:
@@ -73,9 +79,16 @@ def _console_script_modules():
 
 def test_serving_entry_leaves_jax_unimported():
     scripts = _console_script_modules()
-    assert scripts == ["modelx_tpu_torch.dl.dl_main", "modelx_tpu_torch.dl.serve_main"]
+    assert scripts == ["modelx_tpu_torch.cli", "modelx_tpu_torch.dl.dl_main",
+                       "modelx_tpu_torch.dl.serve_main",
+                       "modelx_tpu_torch.registry.server_main"]
     code = (
-        f"import sys; import {', '.join(scripts)}; "
+        # namespace packages a site-packages .pth file registers at start-up
+        # (``google``, ``google.cloud`` from some installs) hold no code;
+        # any other forbidden module in sys.modules fails the test
+        "import sys; ns = {m for m, mod in list(sys.modules.items()) "
+        "if getattr(mod, '__file__', None) is None and hasattr(mod, '__path__')}; "
+        f"import {', '.join(scripts)}; "
         "import modelx_tpu_torch.dl.serve_main, modelx_tpu_torch.dl.loader, "
         "modelx_tpu_torch.dl.weights, modelx_tpu_torch.models.llama, "
         "modelx_tpu_torch.dl.openai_api, modelx_tpu_torch.dl.tokenizer, "
@@ -87,8 +100,11 @@ def test_serving_entry_leaves_jax_unimported():
         "modelx_tpu_torch.registry.server_main, modelx_tpu_torch.dl.lifecycle, "
         "modelx_tpu_torch.dl.tiers, modelx_tpu_torch.utils.devmem, "
         "modelx_tpu_torch.utils.flightrec, modelx_tpu_torch.dl.continuous, "
-        "modelx_tpu_torch.ops.paged_attention, modelx_tpu_torch.utils.promexp; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "modelx_tpu_torch.ops.paged_attention, modelx_tpu_torch.utils.promexp, "
+        "modelx_tpu_torch.native, modelx_tpu_torch.registry.store_s3, "
+        "modelx_tpu_torch.registry.store_gcs, modelx_tpu_torch.registry.auth, "
+        "modelx_tpu_torch.registry.gc, modelx_tpu_torch.client.push; "
+        "bad = [m for m in sys.modules if m not in ns and m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -173,6 +173,13 @@ def test_families_phase_rehearses_on_cpu(monkeypatch):
     assert stats["fam_bert_launches"] == 0 and stats["fam_bert_feature_err"] == 0.0
     assert {"fam_bert_forward_ms_1x48", "fam_bert_forward_ms_3x64", "fam_bert_write_s",
             "fam_bert_bytes", "fam_bert_load_gbps"} <= set(stats)
+    # the objectstore path on the tiny phi3: pushed through the fake bucket
+    # by the CLI, pulled back by modelxdl-torch with native reads, served
+    assert stats["flash_launches_objectstore"] == 0
+    assert stats["obj_parts"] == 1 and stats["obj_presign_issued"] >= 2
+    assert stats["obj_native_reads"] > 0 and stats["obj_ranged_gets"] > 0
+    assert {"obj_push_gbps", "obj_pull_gbps", "obj_hash_native_gbps", "obj_hash_hashlib_gbps",
+            "obj_forward_ms", "obj_scrub_s", "obj_path_s"} <= set(stats)
 
 
 def test_prometheus_check_takes_the_exposition_and_rejects_a_torn_line():
@@ -466,3 +473,40 @@ def test_near_tie_check_reads_the_requests_own_noise(tiny_server):
     with pytest.raises(RuntimeError, match="replay differs"):  # the wrong seed's noise
         chip_smoke.check_near_ties(tiny_server, prompt, other, lone, "x",
                                    {"temperature": 0.8, "seed": 22})
+
+
+def test_objectstore_bucket_child_logs_and_lists_parts(tmp_path):
+    """The objectstore path's bucket child (tests/fake_s3.py behind a
+    logging handler): every request lands in its log, and ListParts gives
+    the fake's own ETags (each part's MD5) from the MD5s kept at PUT."""
+    import hashlib
+    import time
+
+    import requests
+
+    from modelx_tpu_torch.registry.fs_s3 import S3Client, S3Options
+
+    log_path = tmp_path / "s3.jsonl"
+    proc = subprocess.Popen([sys.executable, "-u", "-c", chip_smoke.FAKE_S3_CHILD, str(log_path)],
+                            cwd=REPO, stdout=subprocess.PIPE, text=True)
+    try:
+        url = proc.stdout.readline().strip()
+        client = S3Client(S3Options(url=url, access_key="a", secret_key="s", bucket="b"))
+        upload_id = client.create_multipart_upload("k")
+        parts = [b"x" * 1000, b"y" * 10, b"z" * 77]
+        for i, data in enumerate(parts, start=1):
+            put = client.presign("PUT", "k", query={"partNumber": str(i), "uploadId": upload_id})
+            assert requests.put(put, data=data).status_code == 200
+        time.sleep(0.2)
+        assert client.list_parts("k", upload_id) == [
+            (i, hashlib.md5(d).hexdigest(), len(d)) for i, d in enumerate(parts, start=1)]
+        client.complete_multipart_upload("k", upload_id, [
+            (n, e) for n, e, _ in client.list_parts("k", upload_id)])
+        assert client.get_object("k").content == b"".join(parts)
+        recs = [json.loads(line) for line in open(log_path)]
+        puts = [r for r in recs if r["m"] == "PUT" and r["key"] == "k"]
+        assert [r["bytes"] for r in puts] == [1000, 10, 77]
+        assert all(r["presigned"] and "partNumber" in r["q"] for r in puts)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
