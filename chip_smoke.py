@@ -112,6 +112,28 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    times, pod B's ready seconds against phase 2's nvcc seconds, the outbox
    depth while publishes land, and the first streamed token on the
    installed prefix against a prompt of the same length with none.
+   (d) The router path: ``modelx_tpu_torch.router.router_main`` as a child
+   process in front of pods A and B (no torch in its address space; its
+   seconds to ``/healthz`` 200 and to both pods READY in ``/metrics``). A
+   routed ``/v1/forward`` [1, 2048] equals the same body sent straight to
+   the pod the router's ``routes`` name, byte for byte, and that pod's
+   launches rise by one a layer (read through the child's SIGUSR1 line);
+   the median of 5 routed and 5 direct forwards gives the hop's cost. Two
+   greedy branches of a fresh 1,000-token base land on one pod
+   (``sticky_hits`` rises) and equal its direct answers; a seeded NDJSON
+   stream and an SSE ``/v1/completions`` equal the serving pod's direct
+   answers (the SSE ``id``/``created`` the pod mints per request masked).
+   A greedy 96-token stream through the router: after 8 tokens the phase
+   SIGTERMs the pod feeding it, and the router hands the stream to the
+   other pod (``drain_handoffs_total`` 1, ``streams_continued_total`` 1,
+   ``severed_streams_total`` 0): 96 tokens and one done line, the head what
+   the first pod relayed, the tail the second pod's direct answer to the
+   same ``X-ModelX-Resume-*`` headers (``resume_step`` from its access
+   log), the whole the uninterrupted answer or first different at a top-2
+   margin within ``MARGIN_TOL`` (the plain path's logits, in process).
+   With one pod left a forward still answers 200; after the second SIGTERM
+   the typed 503 with ``Retry-After``. Its launches are counted apart
+   (``launches_by_path.router``).
 9. pool: the model pool (``dl/lifecycle.py``, ``dl/tiers.py``) on the
    pulled dest, once the deploy phase has freed its server, registry and
    blob cache; the kernel counts from 0 again. ``serve_main`` boots ``a``
@@ -614,6 +636,7 @@ def main(argv=None) -> int:
         (main_stats, "options", "flash_launches_options"),
         (main_stats, "deploy", "flash_launches_deploy"),
         (main_stats, "artifacts", "flash_launches_artifacts"),
+        (main_stats, "router", "flash_launches_router"),
         (main_stats, "pool", "flash_launches_pool"),
         (main_stats, "continuous", "flash_launches_continuous"),
         (fam_stats, "families", "flash_launches_families"),
@@ -887,7 +910,8 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
             out["art_phase_s"] = time.monotonic() - t0
             log(f"artifacts: flash_attention launches on the artifacts path: "
                 f"{out['flash_launches_artifacts']} (pods A and B: the admin load's warm-up "
-                f"and one /v1/forward each); the phase took {out['art_phase_s']:.1f} s")
+                f"and one /v1/forward each), on the router path: "
+                f"{out['flash_launches_router']}; the phase took {out['art_phase_s']:.1f} s")
             return out
 
         def pool_then_continuous(dest, root):
@@ -2622,6 +2646,10 @@ ART_NEW_TOKENS = 16
 ART_SAMPLED = {"temperature": 0.8, "seed": 13}
 # how long a publish, a sweep (every 5 s) or a fetch-through may take to land
 ART_DEADLINE_S = 120.0
+# extra environment for the two pods (empty on the card; the CPU rehearsal
+# paces its tiny model's engine through MODELX_FAULT_PLAN, so a stream is
+# still running when the router sees its pod drain)
+ART_POD_ENV: dict = {}
 
 
 def _artifacts_disk(base: str, nbytes: int) -> None:
@@ -2652,7 +2680,7 @@ def _art_pod(what: str, root: str, boot: str, device: str, env: dict, flags: lis
     proc, log_path = _serve_child(
         boot, device, port, root, name="boot", what=f"artifacts: pod {what}",
         extra=("--allow-admin-load", "--staging-dir", os.path.join(root, f"staging-{what}"),
-               *flags), env=env)
+               *flags), env={**ART_POD_ENV, **env})
     return proc, port, log_path
 
 
@@ -2853,7 +2881,8 @@ def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest:
         # (a) pod A loads and publishes
         pod_a, port_a, log_a = _art_pod("a", root, boot, device, env_a, [
             "--publish-kv", "--kv-publish-threshold", "2", "--publish-programs",
-            "--publish-outbox-dir", outbox, "--blob-cache-dir", cache])
+            "--publish-outbox-dir", outbox, "--blob-cache-dir", cache,
+            "--access-log", os.path.join(root, "access-a.jsonl")])
         t0 = time.monotonic()
         status, body = _http(port_a, "/admin/models", {"name": MODEL, "ref": ref, "wait": True})
         load_a = time.monotonic() - t0
@@ -2906,7 +2935,8 @@ def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest:
         os.makedirs(build_b)
         pod_b, port_b, log_b = _art_pod("b", root, boot, device, {
             "MODELX_COMPILE_CACHE": build_b, **_no_toolkit_env(root)}, [
-            "--kv-fetch-through", "--blob-cache-dir", cache])
+            "--kv-fetch-through", "--blob-cache-dir", cache,
+            "--access-log", os.path.join(root, "access-b.jsonl")])
         t0 = time.monotonic()
         status, body = _http(port_b, "/admin/models", {"name": MODEL, "ref": ref, "wait": True})
         load_b = time.monotonic() - t0
@@ -2987,15 +3017,19 @@ def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest:
             f"request hit it and answered pod A's tokens ({CARD})")
         log(f"artifacts: pod A's outbox depth (seconds into each wait, depth): {depth}")
 
-        launches_a = _stop_serve_child(pod_a, log_a, "artifacts: pod A")
-        pod_a = None
-        launches_b = _stop_serve_child(pod_b, log_b, "artifacts: pod B")
-        pod_b = None
         # each pod: the admin load's warm-up and one /v1/forward [1, 2048]
+        launches_a = _pod_launches_now(pod_a, log_a, "artifacts: pod A")
+        launches_b = _pod_launches_now(pod_b, log_b, "artifacts: pod B")
         if launches_a != 2 * per_forward or launches_b != 2 * per_forward:
             raise RuntimeError(f"artifacts: flash launches A {launches_a}, B {launches_b}, want "
                                f"{2 * per_forward} each")
         stats["flash_launches_artifacts"] = launches_a + launches_b
+
+        # (d) the fleet router in front of both pods; it stops them itself
+        pods = {port_a: (pod_a, log_a, launches_a, "access-a.jsonl"),
+                port_b: (pod_b, log_b, launches_b, "access-b.jsonl")}
+        stats.update(phase_router(cfg, pods, tokens, draw, cached, root, device, per_forward))
+        pod_a = pod_b = None
         return stats
     finally:
         for pod in (pod_a, pod_b):
@@ -3008,6 +3042,412 @@ def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest:
         for d in ("staging-a", "staging-b"):
             shutil.rmtree(os.path.join(root, d), ignore_errors=True)
         os.replace(cached, weights)  # dest whole again for the phases after
+
+
+# -- phase 8 (d): the fleet router in front of the artifacts pods ---------------------
+
+ROUTER_POLL_S = 0.25
+ROUTER_FORWARDS = 5
+ROUTER_BRANCH_TOKENS = 32
+ROUTER_STREAM_TOKENS = 96
+ROUTER_HANDOFF_AFTER = 8
+ROUTER_SAMPLED = {"temperature": 0.8, "seed": 23}
+ROUTER_TEXT = "The router relays the stream of the pod that serves it, chunk for chunk"
+
+
+def _pod_launches_now(proc, log_path: str, what: str) -> int:
+    """A ``_serve_child``'s flash launches so far: it prints the count on
+    SIGUSR1 (``SERVE_CHILD``)."""
+    import signal
+
+    def counts():
+        with open(log_path) as f:
+            return re.findall(r"^FLASH_LAUNCHES_NOW (\d+)$", f.read(), re.M)
+
+    seen = len(counts())
+    proc.send_signal(signal.SIGUSR1)
+    deadline = time.monotonic() + 60
+    while len(counts()) <= seen:
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise RuntimeError(f"{what}: no launch count on SIGUSR1 (exit {proc.poll()})")
+        time.sleep(0.05)
+    return int(counts()[-1])
+
+
+def _router_metrics(rport: int) -> dict:
+    status, _, raw = _http_raw(rport, "/metrics")
+    if status != 200:
+        raise RuntimeError(f"router: /metrics answered {status}")
+    return json.loads(raw)
+
+
+def _routed(rport: int, before: dict) -> str:
+    """The one pod URL whose ``routes`` count rose since ``before``."""
+    after = _router_metrics(rport)["router"]["routes"]
+    rose = [u for u in after if after[u] > before.get(u, 0)]
+    if len(rose) != 1:
+        raise RuntimeError(f"router: routes {before} -> {after}: want one pod to rise")
+    return rose[0]
+
+
+def _sse_masked(raw: bytes) -> list:
+    """SSE events with the per-request ``id`` and ``created`` masked."""
+    out = []
+    for chunk in raw.decode().split("\n\n")[:-1]:
+        data = chunk[len("data: "):]
+        if data == "[DONE]":
+            out.append(data)
+            continue
+        ev = json.loads(data)
+        out.append({k: (None if k in ("id", "created") else v) for k, v in ev.items()})
+    return out
+
+
+def _stream_via(port: int, path: str, body: dict, headers: dict, on_token=None):
+    """A native NDJSON stream read line by line: (raw bytes, token ids, each
+    token's arrival in seconds since the request, the done line seen, the
+    request's start on the wall clock)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0, t0_wall = time.monotonic(), time.time()
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json", **headers})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise RuntimeError(f"router: a stream answered {resp.status} {resp.read()[:300]}")
+        raw, toks, times, done = b"", [], [], False
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            raw += line
+            obj = json.loads(line)
+            if "error" in obj:
+                raise RuntimeError(f"router: the stream carried {obj}")
+            if obj == {"done": True}:
+                done = True
+                continue
+            toks.extend(obj["tokens"][0])
+            times.append(time.monotonic() - t0)
+            if on_token is not None:
+                on_token(len(toks))
+        return raw, toks, times, done, t0_wall
+    finally:
+        conn.close()
+
+
+def _continuation(access_log: str, request_id: str) -> dict:
+    """The access-log record of the continuation the pod served for
+    ``request_id``: its engine timing carries the ``resume_step``."""
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        if os.path.exists(access_log):
+            with open(access_log) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    if (rec.get("request_id") == request_id
+                            and (rec.get("timing") or {}).get("resume_step")):
+                        return rec
+        time.sleep(0.1)
+    raise RuntimeError(f"router: no continuation of {request_id} in {access_log}")
+
+
+def _tie_gaps(cfg, cached: str, root: str, device: str, prefix: list,
+              candidates: tuple) -> tuple[float, dict]:
+    """(top-2 margin, each candidate's distance below the maximum) of the
+    plain path's logits for the token after ``prefix``: the checkpoint (the
+    blob cache's entry) loaded in process, cache-free, with reference
+    attention (a pod's /v1/forward answers the argmax only)."""
+    import torch
+
+    from modelx_tpu_torch.dl.serve import ModelServer
+    from modelx_tpu_torch.models import llama
+
+    tie_dir = os.path.join(root, "router-tie")
+    os.makedirs(tie_dir, exist_ok=True)
+    link = os.path.join(tie_dir, "model.safetensors")
+    if not os.path.exists(link):
+        os.symlink(cached, link)
+    server = ModelServer(tie_dir, dtype="bfloat16", device=device, name=MODEL,
+                         max_seq_len=len(prefix) + 16)
+    try:
+        _uncounted(server.load)
+        with torch.inference_mode():
+            tok = torch.tensor([prefix], dtype=torch.int64, device=server.device)
+            logits = llama.forward(server.params, tok, server.cfg,
+                                   attention_impl="reference")[0][0, -1].float()
+        top = logits.topk(2).values
+        return (float(top[0] - top[1]),
+                {t: float(top[0] - logits[t]) for t in candidates})
+    finally:
+        _free(server)
+
+
+def check_handoff(got: list, whole: list, k: int, tail: list, tail_done: bool,
+                  gaps_at) -> str:
+    """The handed-off stream ``got`` (continued at step ``k``) against the
+    uninterrupted ``whole``: its tail must be ``tail``, the second pod's
+    direct answer to the same resume block, and the whole must equal
+    ``whole`` or first differ at a step ``j0`` where ``gaps_at(j0)`` gives
+    a near tie: (the top-2 margin of the plain logits on the common prefix,
+    each of the two tokens' distance below their maximum), all within
+    ``MARGIN_TOL`` (the main phase's rule, which lets the kernel and the
+    plain path disagree where the top-2 margin is within it). Returns which
+    held; raises otherwise."""
+    if not 0 < k < len(whole) or got[k:] != tail or not tail_done:
+        raise RuntimeError(f"router: the stream's tail after step {k} differs from the "
+                           f"second pod's direct answer to the same resume headers")
+    if got == whole:
+        return "equal to the uninterrupted stream"
+    if len(got) != len(whole):
+        raise RuntimeError(f"router: {len(got)} tokens, the uninterrupted stream {len(whole)}")
+    j0 = next(i for i, (a, b) in enumerate(zip(got, whole)) if a != b)
+    margin, gaps = gaps_at(j0)
+    if margin > MARGIN_TOL or max(gaps.values()) > MARGIN_TOL:
+        raise RuntimeError(f"router: the handed-off stream first differs at step {j0} "
+                           f"({got[j0]} vs {whole[j0]}): top-2 margin {margin:.4f}, the two "
+                           f"tokens {gaps} below the maximum (tolerance {MARGIN_TOL})")
+    return (f"first different from the uninterrupted stream at step {j0} ({got[j0]} vs "
+            f"{whole[j0]}), a near tie: top-2 margin {margin:.4f}, the two tokens "
+            + ", ".join(f"{g:.4f}" for g in gaps.values())
+            + f" below the maximum on their prefix (tolerance {MARGIN_TOL})")
+
+
+def phase_router(cfg, pods: dict, tokens, draw, cached: str, root: str, device: str,
+                 per_forward: int) -> dict:
+    """Phase 8 (d), module docstring: ``pods`` maps each artifacts pod's
+    port to (process, log, its launches before this path, access log).
+    Stops both pods (SIGTERM, as the phase always did) and the router."""
+    import signal
+    import threading
+
+    t_path = time.monotonic()
+    stats: dict = {}
+    urls = {f"http://127.0.0.1:{p}": p for p in pods}
+    rport = _free_port()
+    rlog = os.path.join(root, "router.log")
+    log_f = open(rlog, "w")
+    t0 = time.monotonic()
+    router = subprocess.Popen(
+        [sys.executable, "-m", "modelx_tpu_torch.router.router_main",
+         *[a for u in urls for a in ("--pod", u)], "--listen", f"127.0.0.1:{rport}",
+         "--default-model", MODEL, "--poll-interval", str(ROUTER_POLL_S)],
+        cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT)
+    log_f.close()
+    stopped: dict = {}  # port -> the pod's total launches at its exit
+
+    def stop_pod(port):
+        proc, plog, _, _ = pods[port]
+        stopped[port] = _stop_serve_child(proc, plog, f"router: pod {port}")
+
+    try:
+        healthz_s = None
+        deadline = time.monotonic() + 120
+        while True:
+            if router.poll() is not None:
+                raise RuntimeError(f"router: the router exited {router.returncode}: "
+                                   f"{open(rlog).read()[-3000:]}")
+            try:
+                if healthz_s is None and _http_raw(rport, "/healthz")[0] == 200:
+                    healthz_s = time.monotonic() - t0
+                if healthz_s is not None:
+                    table = _router_metrics(rport)["pods"]["pods"]
+                    if all(table.get(u, {}).get("healthy") and
+                           table[u]["models"].get(MODEL) == "READY" for u in urls):
+                        break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"router: the router did not reach both pods in 120 s: "
+                                   f"{open(rlog).read()[-3000:]}")
+            time.sleep(0.05)
+        ready_s = time.monotonic() - t0
+        with open(f"/proc/{router.pid}/maps") as f:
+            torch_mapped = sorted({ln.split()[-1] for ln in f if "libtorch" in ln
+                                   or "libc10" in ln})
+        if torch_mapped:
+            raise RuntimeError(f"router: the router process mapped torch: {torch_mapped}")
+        stats.update(router_healthz_s=healthz_s, router_ready_s=ready_s)
+        log(f"router: the router child answered /healthz 200 {healthz_s:.2f} s after spawn and "
+            f"saw both pods READY at {ready_s:.2f} s; its address space maps no torch library")
+
+        # the routed forward against the same body sent straight to its pod
+        path = f"/v1/{MODEL}/forward"
+        body = {"tokens": tokens.tolist()}
+        routes = _router_metrics(rport)["router"]["routes"]
+        counts = {p: _pod_launches_now(pods[p][0], pods[p][1], "router") for p in pods}
+        status, _, via = _post(rport, path, body)
+        url = _routed(rport, routes)
+        fport = urls[url]
+        rose = _pod_launches_now(pods[fport][0], pods[fport][1], "router") - counts[fport]
+        status_d, _, direct = _post(fport, path, body)
+        if status != 200 or status_d != 200 or via != direct:
+            raise RuntimeError(f"router: the routed forward ({status}) differs from {url}'s "
+                               f"direct answer ({status_d})")
+        if rose != per_forward:
+            raise RuntimeError(f"router: {url}'s launches rose {rose}, want {per_forward}")
+        fwd_bytes = direct
+        forwards = {fport: 2}
+        hop = {"via": [], "direct": []}
+        for _ in range(ROUTER_FORWARDS):
+            for kind, port in (("via", rport), ("direct", fport)):
+                t = time.monotonic()
+                st_, _, out = _post(port, path, body)
+                hop[kind].append((time.monotonic() - t) * 1e3)
+                if st_ != 200 or out != direct:
+                    raise RuntimeError(f"router: a repeated {kind} forward answered {st_} "
+                                       f"and other bytes")
+            forwards[fport] += 2
+        med = {k: statistics.median(v) for k, v in hop.items()}
+        stats.update(router_forward_ms=med["via"], direct_forward_ms=med["direct"],
+                     router_hop_ms=med["via"] - med["direct"])
+        log(f"router: /v1/forward {list(tokens.shape)} through the router == {url}'s direct "
+            f"bytes; that pod's launches +{rose}; median of {ROUTER_FORWARDS}: routed "
+            f"{med['via']:.2f} ms, direct {med['direct']:.2f} ms, the hop "
+            f"{med['via'] - med['direct']:.2f} ms ({CARD})")
+
+        # stickiness: two greedy branches of a fresh base land on one pod
+        base = draw(ART_BASE_LEN)
+        hits0 = _router_metrics(rport)["router"]["sticky_hits"]
+        landed = []
+        for extra in (draw(2), draw(2)):
+            gen = {"tokens": [base + extra], "max_new_tokens": ROUTER_BRANCH_TOKENS}
+            routes = _router_metrics(rport)["router"]["routes"]
+            st_, _, via = _post(rport, f"/v1/{MODEL}/generate", gen)
+            landed.append(_routed(rport, routes))
+            st_d, _, direct = _post(urls[landed[-1]], f"/v1/{MODEL}/generate", gen)
+            if st_ != 200 or via != direct:
+                raise RuntimeError(f"router: a routed branch ({st_}) differs from "
+                                   f"{landed[-1]}'s direct answer ({st_d})")
+        hits = _router_metrics(rport)["router"]["sticky_hits"] - hits0
+        if landed[0] != landed[1] or hits < 1:
+            raise RuntimeError(f"router: two branches of one base landed on {landed} "
+                               f"(sticky hits +{hits})")
+        sticky_url = landed[0]
+        log(f"router: two greedy {ROUTER_BRANCH_TOKENS}-token branches of a fresh "
+            f"{ART_BASE_LEN}-token base both landed on {sticky_url} (sticky_hits +{hits}) and "
+            f"equal its direct answers byte for byte")
+
+        # streams relayed unchanged: seeded NDJSON and SSE completions
+        for what, spath, sbody in (
+                ("NDJSON", f"/v1/{MODEL}/generate",
+                 {"tokens": [draw(64)], "max_new_tokens": ART_NEW_TOKENS, "stream": True,
+                  **ROUTER_SAMPLED}),
+                ("SSE", "/v1/completions",
+                 {"model": MODEL, "prompt": ROUTER_TEXT, "max_tokens": ART_NEW_TOKENS,
+                  "stream": True, **ROUTER_SAMPLED})):
+            routes = _router_metrics(rport)["router"]["routes"]
+            st_, hdrs, via = _post(rport, spath, sbody)
+            served = _routed(rport, routes)
+            st_d, _, direct = _post(urls[served], spath, sbody)
+            same = (_sse_masked(via) == _sse_masked(direct) if what == "SSE"
+                    else via == direct)
+            if st_ != 200 or st_d != 200 or not same or len(via) < 40:
+                raise RuntimeError(f"router: the {what} stream through the router ({st_}, "
+                                   f"{len(via)} bytes) differs from {served}'s ({st_d})")
+        log(f"router: a seeded NDJSON stream and an SSE /v1/completions stream equal the "
+            f"serving pod's direct streams (SSE with id and created masked)")
+
+        # the drain hand-off: SIGTERM the pod feeding a stream after 8 tokens
+        prompt = base + draw(2)
+        gen = {"tokens": [prompt], "max_new_tokens": ROUTER_STREAM_TOKENS, "stream": True}
+        xport = urls[sticky_url]
+        yport = next(p for p in pods if p != xport)
+        _, whole, whole_times, _, _ = _stream_via(xport, f"/v1/{MODEL}/generate", gen, {})
+        if len(whole) != ROUTER_STREAM_TOKENS:
+            raise RuntimeError(f"router: the uninterrupted stream had {len(whole)} tokens")
+        before = _router_metrics(rport)["router"]
+        killer = threading.Thread(target=stop_pod, args=(xport,))
+
+        def on_token(n):
+            if n == ROUTER_HANDOFF_AFTER and not killer.is_alive() and xport not in stopped:
+                killer.start()
+
+        rid = "chip-smoke-handoff"
+        raw, got, times, done, t0_wall = _stream_via(rport, f"/v1/{MODEL}/generate", gen,
+                                                     {"X-ModelX-Request-Id": rid}, on_token)
+        killer.join(timeout=180)
+        if xport not in stopped:
+            raise RuntimeError("router: the drained pod did not exit")
+        after = _router_metrics(rport)["router"]
+        moved = {k: after[k] - before[k] for k in ("drain_handoffs_total",
+                                                   "streams_continued_total",
+                                                   "severed_streams_total")}
+        if (moved != {"drain_handoffs_total": 1, "streams_continued_total": 1,
+                      "severed_streams_total": 0} or not done
+                or len(got) != ROUTER_STREAM_TOKENS):
+            raise RuntimeError(f"router: the hand-off counted {moved}; {len(got)} tokens, done "
+                               f"line {done}")
+        cont = _continuation(os.path.join(root, pods[yport][3]), rid)
+        k = int(cont["timing"]["resume_step"])
+        headers = {"X-ModelX-Resume-Emitted": ",".join(str(t) for t in got[:k]),
+                   "X-ModelX-Resume-Seed": "0"}
+        _, tail, tail_times, tail_done, _ = _stream_via(yport, f"/v1/{MODEL}/generate", gen,
+                                                        headers)
+        held = check_handoff(got, whole, k, tail, tail_done, lambda j0: _uncounted(
+            lambda: _tie_gaps(cfg, cached, root, device, prompt + got[:j0],
+                              (got[j0], whole[j0]))))
+        gap_ms = (times[k] - times[k - 1]) * 1e3
+        timing = {key: cont["timing"].get(key) for key in ("queue_ms", "prefill_ms", "ttft_ms")}
+        # the gap split on the wall clock: until the continuation reached the
+        # second pod (its access log's stamp less its duration), then its TTFT
+        reached_ms = (cont["ts"] - cont["ms"] / 1e3 - (t0_wall + times[k - 1])) * 1e3
+        # the first pod's own cadence: its uninterrupted stream's longest gap
+        cadence_ms = max(b - a for a, b in zip(whole_times, whole_times[1:])) * 1e3
+        stats.update(router_handoff_step=k, router_handoff_gap_ms=gap_ms,
+                     router_handoff_held=held, router_continuation_timing=timing,
+                     router_continuation_reached_ms=reached_ms,
+                     router_first_pod_max_gap_ms=cadence_ms,
+                     router_resume_direct_first_ms=tail_times[0] * 1e3)
+        log(f"router: SIGTERM of the pod feeding a {ROUTER_STREAM_TOKENS}-token stream after "
+            f"{ROUTER_HANDOFF_AFTER} tokens: the router handed it off at token {k} "
+            f"(drain_handoffs +1, streams_continued +1, severed +0); the client got "
+            f"{len(got)} tokens and one done line; the tail == the second pod's direct answer "
+            f"to the same resume headers; {held}; the drained pod exited 0; {gap_ms:.1f} ms "
+            f"from the first pod's last token to the second pod's first: the continuation "
+            f"reached the second pod {reached_ms:.1f} ms after that token (the first pod's "
+            f"uninterrupted stream had {cadence_ms:.1f} ms at most between two tokens), then "
+            f"{timing} there (its access log); the same resume sent straight: first token "
+            f"{tail_times[0] * 1e3:.1f} ms ({CARD})")
+
+        # the fleet shrinks: one pod left, then none
+        st_, _, out = _post(rport, path, body)
+        if st_ != 200 or out != fwd_bytes:
+            raise RuntimeError(f"router: a forward with one pod left answered {st_} and "
+                               f"other bytes")
+        forwards[yport] = forwards.get(yport, 0) + 1
+        stop_pod(yport)
+        st_, hdrs, out = _post(rport, path, body)
+        if st_ != 503 or not hdrs.get("Retry-After") or b"no ready pod serves" not in out:
+            raise RuntimeError(f"router: with no pod left the router answered {st_} "
+                               f"{dict(hdrs)} {out[:200]}")
+        log(f"router: with one pod gone a forward answered 200 from {yport}; with none, the "
+            f"typed 503 with Retry-After {hdrs['Retry-After']}: {json.loads(out)['error']}")
+
+        router.send_signal(signal.SIGTERM)
+        if router.wait(timeout=60) != 0:
+            raise RuntimeError(f"router: the router exited {router.returncode}")
+        with open(rlog) as f:
+            text = f.read()
+        if "Traceback" in text:
+            raise RuntimeError(f"router: the router logged an exception: {text[-3000:]}")
+        launches = {p: stopped[p] - pods[p][2] for p in pods}
+        want = {p: per_forward * forwards.get(p, 0) for p in pods}
+        if launches != want:
+            raise RuntimeError(f"router: flash launches on the router path {launches}, want "
+                               f"{want} (one a layer for each forward the path sent)")
+        stats["flash_launches_router"] = sum(launches.values())
+        stats["router_path_s"] = time.monotonic() - t_path
+        log(f"router: flash_attention launches on the router path: "
+            f"{stats['flash_launches_router']}; wall: the router path took "
+            f"{stats['router_path_s']:.1f} s")
+        return stats
+    finally:
+        if router.poll() is None:
+            router.kill()
+            router.wait(timeout=60)
 
 
 # -- phase 9: the model pool ----------------------------------------------------------
@@ -3064,10 +3504,13 @@ def _pool_resources(base: str, nbytes: int, on_card: bool) -> None:
 
 
 def _wait_pool_state(sset, name: str, want: str, timeout: float = 600.0) -> dict:
+    """The entry's snapshot once it reads ``want``; READY also waits for the
+    load thread to add the server (a status read can see the server ready
+    and report READY first, ROADMAP §C.5)."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         st = sset.pool.states().get(name, {})
-        if st.get("state") == want:
+        if st.get("state") == want and (want != "READY" or name in sset.servers):
             return st
         if st.get("state") == "FAILED":
             raise RuntimeError(f"pool: {name} FAILED: {st.get('error')}")
@@ -3514,9 +3957,12 @@ QUEUE_DEPTH, QUEUE_BURST = 2, 12
 CONT_SPEC_MIN_RATE = 0.5
 # the serve_main child prints its kernel count when SIGTERM ends it
 SERVE_CHILD = r"""
-import sys
+import signal, sys
 from modelx_tpu_torch.dl import serve_main
 from modelx_tpu_torch.ops import attention as attn
+# the count so far, on demand: a path that shares the pod reads it apart
+signal.signal(signal.SIGUSR1, lambda *_: print("FLASH_LAUNCHES_NOW",
+                                               attn.flash_attention.launches, flush=True))
 rc = serve_main.main(sys.argv[1:])
 print("FLASH_LAUNCHES", attn.flash_attention.launches, flush=True)
 sys.exit(rc)

@@ -169,10 +169,14 @@ class Response:
             self._release()
         return data
 
-    def iter_content(self, chunk_size: int = 1024 * 1024) -> Iterator[bytes]:
+    def iter_content(self, chunk_size: int | None = 1024 * 1024) -> Iterator[bytes]:
+        """The body in pieces of ``chunk_size`` bytes, or with ``None`` in
+        pieces as they arrive (a stream's chunks, each as soon as the
+        server sends it)."""
         try:
             while True:
-                chunk = self._resp.read(chunk_size)
+                chunk = (self._resp.read1(64 * 1024) if chunk_size is None
+                         else self._resp.read(chunk_size))
                 if not chunk:
                     break
                 yield chunk
@@ -200,17 +204,20 @@ def body_size(data) -> int:
 
 
 def send_request(pool: ConnectionPool, method: str, url: str, headers: dict[str, str],
-                 data=None, chunk_size: int = 4 * 1024 * 1024) -> Response:
+                 data=None, chunk_size: int = 4 * 1024 * 1024,
+                 read_timeout: float | None = None) -> Response:
     """One request on a connection of ``pool``: ``Host`` as the URL spells
     it (what a signature covers), the caller's headers, an exact
     ``Content-Length`` and the body, bytes or a reader streamed in pieces
     (a caller's ``content-length`` sizes a reader; else it runs to its
     end). No ``Accept-Encoding`` is added. A reused connection found stale
     is redialed once when the body can be sent again (none, bytes, or a
-    seekable reader). Transport failures raise OSError or
-    ``http.client.HTTPException``. The presigned transfers
-    (``client/extension.py``) and the registry's S3 client
-    (``registry/fs_s3.py``) send through it."""
+    seekable reader). ``read_timeout`` replaces the pool's read timeout
+    for this request, on a reused connection too. Transport failures
+    raise OSError or ``http.client.HTTPException``. The presigned
+    transfers (``client/extension.py``), the registry's S3 client
+    (``registry/fs_s3.py``) and the fleet router (``router/http.py``)
+    send through it."""
     u = urllib.parse.urlsplit(url)
     target = (u.path or "/") + (f"?{u.query}" if u.query else "")
     given = next((v for k, v in headers.items() if k.lower() == "content-length"), None)
@@ -220,6 +227,8 @@ def send_request(pool: ConnectionPool, method: str, url: str, headers: dict[str,
     replayable = data is None or seekable or isinstance(data, (bytes, bytearray, memoryview))
     for attempt in range(2):
         conn, reused = pool.get()
+        if read_timeout is not None:
+            conn.sock.settimeout(read_timeout)
         try:
             conn.putrequest(method, target, skip_host=True, skip_accept_encoding=True)
             conn.putheader("Host", u.netloc)

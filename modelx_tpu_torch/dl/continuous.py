@@ -102,6 +102,7 @@ from modelx_tpu_torch.models.decode import SEQ_BUCKET, pad_seq_len, stop_cut
 from modelx_tpu_torch.ops import prng
 from modelx_tpu_torch.ops import sampling as sampling_ops
 from modelx_tpu_torch.ops.paged_attention import page_coords, ragged_blocks
+from modelx_tpu_torch.testing import faults as _faults
 from modelx_tpu_torch.utils import devmem, flightrec, promexp, trace, tswheel
 
 logger = logging.getLogger("modelx.serve")
@@ -442,6 +443,11 @@ class ContinuousBatcher:
                       "decode_rows": 0, "decode_pad_rows": 0}
         self.hist_queue_ms = promexp.Histogram()
         self.hist_ttft_ms = promexp.Histogram()
+        # env-gated chaos drills (default off): MODELX_FAULT_PLAN schedules
+        # deterministic dispatch faults against the running engine
+        env_plan = _faults.from_env()
+        if env_plan is not None and env_plan.has("engine.dispatch"):
+            self._chunk = _faults.wrap_dispatch(self._chunk, env_plan)
         if self.prefill_chunk > 0:
             self.stats["prefill_chunk"] = self.prefill_chunk
             self.stats["fill_waits"] = 0

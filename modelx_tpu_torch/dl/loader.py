@@ -496,15 +496,25 @@ def load_safetensors(
     stats = LoadStats()
     counter = getattr(source, "source", source)
     native0 = getattr(counter, "native_reads", 0)
+    # env-gated chaos drills (default off): MODELX_FAULT_PLAN with a
+    # "loader.read" schedule wraps the source, so the retry and the
+    # governor can be rehearsed against a real deployment on demand
+    from modelx_tpu_torch.testing import faults as _faults
+
+    env_plan = _faults.from_env()
+    if env_plan is not None and env_plan.has("loader.read"):
+        source = _faults.FaultyByteSource(source, env_plan)
     if tensors is None or data_offset is None:
         tensors, data_offset = read_index(source)
     tensors = fuse_expert_tensors(tensors)
     if concurrency <= 0:
-        concurrency = auto_fetch_concurrency(source)
+        concurrency = auto_fetch_concurrency(counter)
     # local page-cache reads under ~32 MB/s a thread mean the threads are
     # fighting the scheduler: halve. Remote reads may double the width
     # while each thread holds 24 MB/s; local ones regrow only to the start.
-    is_local = isinstance(getattr(source, "source", source), LocalFileSource)
+    # the policy reads the source under a fault wrapper: injected faults
+    # must not flip the governor to the remote profile
+    is_local = isinstance(counter, LocalFileSource)
     governor = _FetchGovernor(
         concurrency, floor_bps=32e6 if is_local else 0.0,
         max_width=concurrency if is_local else 2 * concurrency,

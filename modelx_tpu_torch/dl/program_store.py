@@ -45,8 +45,13 @@ defends against skew, not against a malicious registry. An existing
 library is never overwritten, and installs are atomic (temp file, then
 rename).
 
-``export_surface`` and ``plan_from_manifest`` serve only the CLI's ``modelx
-programs push``; they come with the CLI in the control-plane slice.
+``plan_from_manifest`` and ``export_surface`` serve the CLI's
+``modelx-torch programs push``: the first reads a version's family and
+head_dim from its manifest (the tensor-index annotations, ranged header
+reads where a blob has none, and the config.json blob), the second builds
+the library those head_dims need, or finds it in the build directory.
+Where there is no nvcc and no cached library, it raises
+``ProgramExportError``: a push never publishes an empty bundle.
 """
 
 from __future__ import annotations
@@ -517,3 +522,93 @@ def publish_for_server(ref: str, server, cache_dir: str) -> Descriptor | None:
     if data is None:
         return None
     return publish_bundle(ref, data)
+
+
+# --- the CLI's export ------------------------------------------------------------
+
+
+class ProgramExportError(ValueError):
+    """``programs push`` cannot produce the kernel library: nvcc is not in
+    reach and the build directory holds no cached library."""
+
+
+def plan_from_manifest(client, repository: str, manifest: Manifest,
+                       quantize: str | None = None, cache=None):
+    """(family, cfg, head_dims, mesh) for a model known only by its
+    manifest: the safetensors headers (the tensor-index annotations, ranged
+    reads as the fallback) and the config.json sidecar determine the
+    family and the head_dim its cache-free forwards hand the kernel, so
+    ``programs push`` needs no weight byte. ``head_dims`` is empty for a
+    family that launches no kernel (gpt2, bert). ``quantize`` changes no
+    program: int8 linears leave attention's shapes as they are."""
+    import struct
+
+    from modelx_tpu_torch.dl import families as fam
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl.initializer import _blob_source
+    from modelx_tpu_torch.dl.loader import fuse_expert_tensors
+    from modelx_tpu_torch.types import AnnotationTensorIndex
+
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantize mode {quantize!r}")
+    infos: dict = {}
+    sidecar = None
+    for blob in manifest.blobs:
+        if blob.name == "config.json":
+            try:
+                raw = json.loads(b"".join(client.remote.get_blob_content(repository,
+                                                                         blob.digest)))
+            except ValueError:
+                raw = None
+            sidecar = raw if isinstance(raw, dict) else None
+        if not blob.name.endswith(".safetensors"):
+            continue
+        if AnnotationTensorIndex in blob.annotations:
+            parsed, _off = st.parse_index_annotation(blob.annotations[AnnotationTensorIndex])
+        else:
+            source = _blob_source(client, repository, blob, cache=cache)
+            try:
+                (hlen,) = struct.unpack("<Q", bytes(source.read_range(0, 8)))
+                parsed = st.parse_header(bytes(source.read_range(8, hlen)))
+            finally:
+                if hasattr(source, "close"):
+                    source.close()
+        infos.update(parsed)
+    if not infos:
+        raise ValueError(f"{repository}: manifest has no safetensors blobs")
+    family = fam.detect(list(infos))
+    cfg = family.infer_config(fam.abstract_params(fuse_expert_tensors(infos)))
+    if sidecar is not None:
+        cfg = fam.apply_sidecar_config(cfg, sidecar, family.name)
+    head_dim = getattr(cfg, "head_dim", None)
+    return family, cfg, ([int(head_dim)] if head_dim else []), MESH
+
+
+def export_surface(family, cfg, head_dims, mesh, cache_dir: str) -> list[str]:
+    """The library file names (in bundle order) that serve ``head_dims``,
+    present in ``cache_dir`` on return: one library holds every head_dim
+    the kernel takes, so it is found there or built there with nvcc. An
+    empty ``head_dims`` (the family runs no kernel) returns []. Raises
+    ``ProgramExportError`` when nvcc is not in reach and ``cache_dir``
+    holds no library; ``ValueError`` for a head_dim the kernel lacks."""
+    from modelx_tpu_torch.kernels import build
+    from modelx_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
+
+    if not head_dims:
+        return []
+    bad = sorted(set(head_dims) - set(KERNEL_HEAD_DIMS))
+    if bad:
+        raise ValueError(f"{family.name}: head_dim {bad} is not one the flash kernel takes "
+                         f"({KERNEL_HEAD_DIMS})")
+    name = build.library_name()
+    path = os.path.join(cache_dir, name)
+    if not os.path.isfile(path):
+        try:
+            build.nvcc_path()
+        except RuntimeError as e:
+            raise ProgramExportError(
+                f"cannot build {name}: {e}, and {cache_dir} holds no cached library "
+                f"(set MODELX_COMPILE_CACHE or --cache-dir to a directory that has it)"
+            ) from None
+        build.compile_library(build.SOURCE, path)
+    return [name]

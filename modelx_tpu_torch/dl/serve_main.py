@@ -2,6 +2,7 @@
 ``modelx_tpu/dl/serve_main.py``).
 
     modelx-serve-torch --model m=/mnt/model
+    modelx-serve-torch --model-dir /mnt/models   # served as "default"
     modelx-serve-torch --model a=/mnt/a --model b=/mnt/b --listen :8000
     modelx-serve-torch --model m=/mnt/m --dynamic-batch --quantize int8
     modelx-serve-torch --model m=/mnt/m --speculative-k 8 --lora m=/mnt/adapter
@@ -54,7 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="modelx-serve-torch",
         description="Serve safetensors checkpoints with the PyTorch/CUDA port.",
     )
-    ap.add_argument("--model", dest="models", action="append", required=True,
+    ap.add_argument("--model-dir", default="",
+                    help="volume with *.safetensors (from modelxdl-torch), served as the "
+                         "model named 'default'")
+    ap.add_argument("--model", dest="models", action="append", default=[],
                     metavar="NAME=DIR",
                     help="model name and a directory of *.safetensors; repeatable "
                          "(the first is the default model)")
@@ -371,7 +375,10 @@ def _start(argv=None):
     args = ap.parse_args(argv)
     _parse_numbers(ap, args)
     configure_registry(args)
-    models = _parse_models(args.models)
+    if not args.model_dir and not args.models:
+        ap.error("need --model-dir or at least one --model name=dir")
+    models = _parse_models(([f"default={args.model_dir}"] if args.model_dir else [])
+                           + args.models)
     lora_dirs = _parse_loras(ap, args.loras, models, args.quantize)
     servers = {
         name: ModelServer(path, dtype=args.dtype, device=args.device,

@@ -275,6 +275,44 @@ class ModelFailedError(ServingError):
         self.reason = reason
 
 
+class NoReadyPodError(ServingError):
+    """The fleet router found no READY pod for the model: every candidate
+    is loading, draining, quarantined, or shed the request. 503 +
+    ``Retry-After``: pods poll back to health, so the client backs off and
+    retries, as a single pod's ``ModelLoadingError`` asks."""
+
+    http_status = 503
+
+    def __init__(self, model: str, detail: str = "",
+                 retry_after: float = 2.0) -> None:
+        super().__init__(
+            f"no ready pod serves model {model!r}"
+            + (f" ({detail})" if detail else "") + "; retry later"
+        )
+        self.model = model
+        self.retry_after = max(1, int(retry_after))
+
+    def headers(self) -> dict[str, str]:
+        return {"Retry-After": str(self.retry_after)}
+
+
+class UpstreamSeveredError(ServingError):
+    """A pod died while the router was relaying its stream and the
+    continuation was exhausted: the status cannot change with bytes on the
+    wire, so the router writes this typed payload as the stream's last
+    event (502 in the payload), never a silently truncated 200."""
+
+    http_status = 502
+
+    def __init__(self, pod: str, detail: str = "") -> None:
+        super().__init__(
+            f"upstream pod {pod} died mid-stream"
+            + (f": {detail}" if detail else "")
+            + "; response is incomplete — retry the request"
+        )
+        self.pod = pod
+
+
 class MalformedResumeError(ServingError):
     """A resume block the pod cannot honor as stated (400): the caller must
     not silently restart a stream the client already holds k tokens of."""
@@ -336,3 +374,12 @@ def parse_resume(emitted_value, seed_value):
             raise MalformedResumeError(f"resume emitted token {t} is negative")
         emitted.append(t)
     return emitted, seed
+
+
+def resume_headers(emitted, seed) -> dict[str, str]:
+    """The resume block as headers: what the fleet router stamps on a
+    continuation attempt (the original body is re-sent verbatim)."""
+    return {
+        RESUME_EMITTED_HEADER: ",".join(str(int(t)) for t in emitted),
+        RESUME_SEED_HEADER: str(int(seed)),
+    }

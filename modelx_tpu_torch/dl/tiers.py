@@ -34,7 +34,8 @@ Concurrency: one small lock covers the maps and byte accounting; the
 device->host copy, the spool write and read, the sidecar copy and
 directory removal run outside it, guarded by per-entry busy marks. A
 demotion that crashes mid-copy (fault point ``tiers.demote`` of a
-``fault_plan``: any object with ``maybe_fail(op)``) unregisters its
+``fault_plan``: any object with ``maybe_fail(op)``; by default
+``MODELX_FAULT_PLAN``'s) unregisters its
 half-built entry and deletes its partial spool: the model is either fully
 tiered or fully freed, never half.
 """
@@ -260,6 +261,10 @@ class TierStore:
         )
         self.mesh_key = mesh_key
         self.recorder = recorder      # utils/flightrec.FlightRecorder or None
+        if fault_plan is None:
+            from modelx_tpu_torch.testing import faults
+
+            fault_plan = faults.from_env()
         self.fault_plan = fault_plan  # anything with maybe_fail(op), or None
         self._lock = threading.Lock()
         self._entries: dict[str, _Entry] = {}

@@ -55,9 +55,14 @@ class FSRegistryStore:
         fs: FSProvider,
         refresh_on_init: bool = True,
         local_redirect: bool = False,
+        fault_plan=None,
     ) -> None:
         self.fs = fs
         self.local_redirect = local_redirect
+        # testing/faults.FaultPlan (drills only): fires
+        # ``store.manifest_persisted`` between manifest persist and index
+        # refresh, so stale-index crash recovery is deterministic
+        self.fault_plan = fault_plan
         self._index_locks: dict[str, threading.Lock] = {}
         self._index_locks_guard = threading.Lock()
         self._global_lock = threading.Lock()
@@ -246,6 +251,10 @@ class FSRegistryStore:
             len(data),
             content_type or MediaTypeModelManifestJson,
         )
+        # crash point for the drills: the manifest is durable but markers
+        # and indexes are stale; startup reconciliation must recover
+        if self.fault_plan is not None:
+            self.fault_plan.maybe_fail("store.manifest_persisted")
         self.refresh_index(repository)
         # markers clear ONLY after the index refresh: GC snapshots markers
         # before it reads the index, so marker-gone implies index-visible

@@ -1,7 +1,8 @@
 """The port stands alone: no jax, ml_dtypes, tokenizers or modelx_tpu
 imports, none of the packages the card's host lacks (requests, click,
-yaml, rich, cryptography, boto3, google), and an explicit device with no
-silent CPU fallback."""
+yaml, rich, cryptography, boto3, google, orbax), and an explicit device
+with no silent CPU fallback. The fleet router imports no torch at all: it
+runs on boxes with no accelerator."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ from modelx_tpu_torch.device import parse_dtype, resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "tokenizers", "modelx_tpu",
-             "requests", "click", "yaml", "rich", "cryptography", "boto3", "google")
+             "requests", "click", "yaml", "rich", "cryptography", "boto3", "google", "orbax")
 
 
 def _port_files():
@@ -58,7 +59,11 @@ def test_port_imports_no_jax_or_reference_package():
                 "registry/sigv4.py", "registry/fs_s3.py", "registry/store_s3.py",
                 "registry/fs_gcs.py", "registry/store_gcs.py", "registry/auth.py",
                 "registry/gc.py", "registry/scrub.py", "client/extension_s3.py",
-                "client/extension_gcs.py", "client/push.py"):
+                "client/extension_gcs.py", "client/push.py", "client/ops.py",
+                "client/convert.py", "dl/podspec.py", "testing/faults.py",
+                "router/__init__.py", "router/http.py", "router/policy.py",
+                "router/registry.py", "router/admission.py", "router/rebalance.py",
+                "router/server.py", "router/router_main.py"):
         assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:
@@ -81,7 +86,8 @@ def test_serving_entry_leaves_jax_unimported():
     scripts = _console_script_modules()
     assert scripts == ["modelx_tpu_torch.cli", "modelx_tpu_torch.dl.dl_main",
                        "modelx_tpu_torch.dl.serve_main",
-                       "modelx_tpu_torch.registry.server_main"]
+                       "modelx_tpu_torch.registry.server_main",
+                       "modelx_tpu_torch.router.router_main"]
     code = (
         # namespace packages a site-packages .pth file registers at start-up
         # (``google``, ``google.cloud`` from some installs) hold no code;
@@ -103,7 +109,10 @@ def test_serving_entry_leaves_jax_unimported():
         "modelx_tpu_torch.ops.paged_attention, modelx_tpu_torch.utils.promexp, "
         "modelx_tpu_torch.native, modelx_tpu_torch.registry.store_s3, "
         "modelx_tpu_torch.registry.store_gcs, modelx_tpu_torch.registry.auth, "
-        "modelx_tpu_torch.registry.gc, modelx_tpu_torch.client.push; "
+        "modelx_tpu_torch.registry.gc, modelx_tpu_torch.client.push, "
+        "modelx_tpu_torch.client.ops, modelx_tpu_torch.client.convert, "
+        "modelx_tpu_torch.dl.podspec, modelx_tpu_torch.testing.faults, "
+        "modelx_tpu_torch.dl.program_store; "
         "bad = [m for m in sys.modules if m not in ns and m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -132,3 +141,25 @@ def test_parse_dtype():
     for bad in ("float16", torch.int8):
         with pytest.raises(ValueError, match="unsupported dtype"):
             parse_dtype(bad)
+
+
+def test_the_router_imports_no_torch():
+    """``modelx_tpu_torch.router`` and ``modelx-route-torch --help`` run
+    with no torch (and no numpy) in ``sys.modules``."""
+    code = (
+        "import sys, contextlib, io\n"
+        "import modelx_tpu_torch.router\n"
+        "from modelx_tpu_torch.router import router_main\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    try:\n"
+        "        router_main.main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "assert '--pod' in out.getvalue() and 'modelx-route-torch' in out.getvalue()\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy'))\n"
+        "print(heavy); sys.exit(1 if heavy else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

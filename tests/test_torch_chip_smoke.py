@@ -53,7 +53,7 @@ def test_attention_bound_counts_visible_pairs():
     assert by == "bytes"
 
 
-def test_main_phase_rehearses_on_cpu(monkeypatch):
+def test_main_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=1024), rope_theta=500000.0)
     monkeypatch.setattr(chip_smoke, "FORWARD_SHAPES", ((1, 48), (2, 16)))
     monkeypatch.setattr(chip_smoke, "GENERATE_PROMPTS", (5, 12))
@@ -63,6 +63,15 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "POOL_VETO_LOADS", 3)
     monkeypatch.setattr(chip_smoke, "ART_BASE_LEN", 40)
     monkeypatch.setattr(chip_smoke, "ART_NEW_TOKENS", 4)
+    # a tiny model streams fast: each engine chunk of the artifacts pods
+    # waits 40 ms (an injected latency), so the router's poll sees the
+    # drain while the hand-off stream still runs
+    plan = tmp_path / "pace.json"
+    plan.write_text(json.dumps({"seed": 0, "rules": [
+        {"op": "engine.dispatch", "latency_at": list(range(5000)), "latency_s": 0.04}]}))
+    monkeypatch.setattr(chip_smoke, "ART_POD_ENV", {"MODELX_FAULT_PLAN": f"@{plan}"})
+    monkeypatch.setattr(chip_smoke, "ROUTER_STREAM_TOKENS", 64)
+    monkeypatch.setattr(chip_smoke, "ROUTER_POLL_S", 0.05)
     monkeypatch.setattr(chip_smoke, "PROFILE_FORWARD", (1, 48))
     _tiny_options(monkeypatch)
     _tiny_continuous(monkeypatch)
@@ -108,6 +117,13 @@ def test_main_phase_rehearses_on_cpu(monkeypatch):
             "art_kv_publish_s", "art_load_b_s", "art_ready_b_s", "art_program_install_ms",
             "art_kv_install_ms", "art_ttft_installed_ms", "art_ttft_cold_ms",
             "art_fetch_install_ms", "art_outbox_depth", "art_phase_s"} <= set(stats)
+    # and the fleet router in front of the two pods, on its own count: the
+    # routed bytes equal the direct ones, the drain hand-off was continued
+    assert stats["flash_launches_router"] == 0
+    assert 0 < stats["router_handoff_step"] < chip_smoke.ROUTER_STREAM_TOKENS
+    assert {"router_healthz_s", "router_ready_s", "router_forward_ms", "direct_forward_ms",
+            "router_hop_ms", "router_handoff_gap_ms", "router_handoff_held",
+            "router_path_s"} <= set(stats)
     # and the model pool, on its own count: admin loads while serving, the
     # eviction into the host tier, promotion from host and from disk, the
     # drain of one model and of a SIGTERM'd child pod, and the veto loads
@@ -510,3 +526,28 @@ def test_objectstore_bucket_child_logs_and_lists_parts(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def test_the_handoff_check_takes_only_a_near_tie():
+    """The router path's verdict: a spliced stream equal to the
+    uninterrupted one holds; one that differs holds only where the top-2
+    margin on the common prefix and both tokens' distance below the
+    maximum are within MARGIN_TOL; a byte of the tail that is not the
+    second pod's fails."""
+    whole = [5, 6, 7, 8, 9, 10]
+    got = [5, 6, 7, 8, 11, 12]
+    tol = chip_smoke.MARGIN_TOL
+    assert chip_smoke.check_handoff(whole, whole, 2, whole[2:], True, None).startswith("equal")
+    held = chip_smoke.check_handoff(got, whole, 3, got[3:], True,
+                                    lambda j: (tol / 4, {11: 0.0, 9: tol / 2}))
+    assert "step 4 (11 vs 9)" in held and "near tie" in held
+    for gaps_at in (lambda j: (tol * 2, {11: 0.0, 9: tol * 2}),  # a clear margin
+                    lambda j: (tol / 4, {11: 0.0, 9: tol * 3}),  # 9 is far below
+                    lambda j: (tol / 4, {11: tol * 3, 9: 0.0})):
+        with pytest.raises(RuntimeError, match="first differs at step 4"):
+            chip_smoke.check_handoff(got, whole, 3, got[3:], True, gaps_at)
+    for k, tail, done in ((3, [8, 11, 13], True), (3, got[3:], False), (0, got, True),
+                          (6, [], True)):
+        with pytest.raises(RuntimeError, match="tail after step"):
+            chip_smoke.check_handoff(got, whole, k, tail, done,
+                                     lambda j: (0.0, {11: 0.0, 9: 0.0}))

@@ -1,11 +1,16 @@
 """The port's ``modelx-torch`` CLI (modelx_tpu_torch/cli.py, argparse)
 against the JAX package's click CLI (``CliRunner``), on the CPU: each
 ported command (init, login, list in its three modes, info, push, pull,
-repo add/list/remove, gc, scrub, and their failures) gives the same output
-and exit code, the JAX CLI against one registry and the port's against a
-twin that took the same commands; ``serve``, ``serve-model`` and ``dl``
-hand their arguments over to the port's entry points, and ``serve`` takes
-``modelx serve``'s flags with their defaults.
+copy, diff, verify, repo add/list/remove, gc, scrub, convert torch,
+programs and kv list/push/prune, completion and the hidden ``__complete``,
+and their failures) gives the same output and exit code, the JAX CLI
+against one registry and the port's against a twin that took the same
+commands; ``serve``, ``serve-model``, ``route`` and ``dl`` hand their
+arguments over to the port's entry points, and ``serve`` and ``route``
+take the JAX commands' flags with their defaults. Where the two differ by
+design, the test says how: ``convert orbax`` is refused here, ``programs
+push`` bundles the kernel's library (the JAX CLI lists and prunes it the
+same), a click usage error's wording is click's.
 
 Normalized before comparing: the registry's address, the program name in
 messages (``modelx-torch`` for ``modelx``), the JAX CLI's rich progress
@@ -70,7 +75,10 @@ class Twins:
         cwd = os.getcwd()
         os.chdir(self.jcwd)
         try:
-            res = CliRunner().invoke(jax_cli, argv, env={"HOME": str(self.jhome)})
+            # wide enough that rich's table truncates no cell (the port's
+            # table never truncates)
+            res = CliRunner().invoke(jax_cli, argv, env={"HOME": str(self.jhome),
+                                                         "COLUMNS": "250"})
         finally:
             os.chdir(cwd)
         return res.exit_code, self._norm(res.output, self.jbase)
@@ -292,3 +300,226 @@ def test_dl_pulls_through_the_cli(twins):
     summary = json.loads(out.strip().splitlines()[-1])
     assert summary["blobs"] == 3 and summary["pull"]["downloaded"] == 4  # + modelx.yaml
     assert (twins.tcwd / "dest" / "tok" / "vocab.txt").read_text() == "a\nb\n"
+
+
+# -- copy, diff, verify, convert, programs, kv, completion, route --------------------
+
+
+def _norm_completion(text: str) -> str:
+    return text.replace("_MODELX_TORCH_COMPLETE", "_MODELX_COMPLETE")
+
+
+@pytest.mark.parametrize("argv", [
+    ["copy", "@REG/library/demo@v1", "@REG/library/copy@v1"],
+    ["copy", "--quiet", "@REG/library/demo@v1", "@REG/library/copy"],
+    ["copy", "@REG/library/demo", "@REG/library/copy@v1"],
+    ["copy", "@REG", "@REG/library/copy@v1"],
+    ["copy", "@REG/library/nope@v1", "@REG/library/copy@v1"],
+    ["diff", "@REG/library/demo@v1", "@REG/library/demo@v2"],
+    ["diff", "@REG/library/demo@v1", "@REG/library/demo"],
+    ["diff", "@REG/library/demo@v1", "@REG"],
+    ["verify", "@REG/library/demo"],
+    ["verify", "--quiet", "@REG/library/demo@v1"],
+    ["verify", "--remote", "@REG/library/demo"],
+    ["verify", "--remote", "@REG/library/demo@v1"],
+    ["verify", "@REG"],
+])
+def test_copy_diff_verify_output_equal(twins, argv):
+    _push_both(twins)
+    for cwd in (twins.jcwd, twins.tcwd):
+        (cwd / "m" / "notes.txt").write_text("notes, second edition\n")
+    twins.both("push", "@REG/library/demo@v2", "m")
+    j, t = twins.both(*argv)
+    assert t == j
+    if argv[0] == "copy" and t[0] == 0:  # the second copy moves nothing
+        j, t = twins.both(*argv)
+        assert t == j and json.loads(t[1].splitlines()[-1])["bytes"] == 0
+
+
+def test_verify_of_a_corrupt_blob_exits_1(twins):
+    _push_both(twins)
+    for srv in (twins.jsrv, twins.tsrv):
+        store = srv.registry.store
+        digest = next(b.digest for b in store.get_manifest("library/demo", "v1").blobs
+                      if b.name == "weights.bin")
+        store.fs.put(f"library/demo/blobs/sha256/{digest.split(':')[1]}", io.BytesIO(b"bad"), 3)
+    for argv in (["verify", "@REG/library/demo"], ["verify", "--remote", "@REG/library/demo"]):
+        j, t = twins.both(*argv)
+        assert t == j and t[0] == 1, argv
+
+
+def test_convert_torch_output_equal_and_orbax_refused(twins):
+    import torch
+
+    for cwd in (twins.jcwd, twins.tcwd):
+        torch.save({"state_dict": {"module.w": torch.ones(2, 3, dtype=torch.bfloat16),
+                                   "module.b": torch.arange(4)}, "epoch": 2},
+                   str(cwd / "ckpt.pt"))
+    for argv in (["convert", "torch", "ckpt.pt", "out", "--rename", "module.="],
+                 ["convert", "torch", "ckpt.pt", "out2", "--rename", "bad"],
+                 ["convert", "torch", "missing.pt", "out3"]):
+        j, t = twins.both(*argv)
+        assert t[0] == j[0], argv
+        if t[0] == 0:
+            assert t == j
+        else:  # torch.load's own message names the missing file the same way
+            assert t[1].startswith("error: ") and j[1].startswith("error: ")
+    assert (twins.tcwd / "out" / "model.safetensors").read_bytes() == \
+        (twins.jcwd / "out" / "model.safetensors").read_bytes()
+    rc, out = twins.port("convert", "orbax", "ckpt", "out4")
+    assert rc == 1 and out.startswith("error: cannot convert ckpt:")
+    assert "`modelx convert orbax SRC DST_DIR`" in out and not (twins.tcwd / "out4").exists()
+
+
+def _kv_bundle():
+    from modelx_tpu_torch.dl import kv_store
+    from tests.test_torch_kv_store import IDS, fake_entry
+
+    return kv_store.build_bundle(IDS, fake_entry(), model_key="m1")
+
+
+def test_kv_commands_output_equal(twins):
+    _push_both(twins)
+    data = _kv_bundle()
+    for cwd in (twins.jcwd, twins.tcwd):
+        (cwd / "b.tar").write_bytes(data)
+        (cwd / "junk.tar").write_bytes(b"not a tar")
+    for argv in (["kv", "list", "@REG/library/demo"], ["kv", "push", "@REG/library/demo", "b.tar"],
+                 ["kv", "push", "@REG/library/demo@v1", "junk.tar"],
+                 ["kv", "push", "@REG/library/demo@v1", "missing.tar"],
+                 ["kv", "push", "@REG/library/demo@v1", "b.tar"],
+                 ["kv", "push", "@REG/library/demo@v1", "b.tar"],
+                 ["kv", "list", "@REG/library/demo@v1"], ["kv", "list", "@REG/library/demo"],
+                 ["kv", "prune", "@REG/library/demo@v1"], ["kv", "prune", "@REG/library/demo"],
+                 ["kv", "list", "@REG"]):
+        j, t = twins.both(*argv)
+        if argv[-1] == "junk.tar":
+            # the JAX CLI ends on the tar reader's traceback; the port says
+            # what it meant to
+            assert (t[0], j[0], t[1]) == (1, 1, "error: junk.tar is not a kv bundle "
+                                                "(bad tar/meta)\n")
+            continue
+        if argv[-1] == "missing.tar":
+            # click checks the path exists before the command runs (a usage
+            # error, 2); the port's open fails in the command (1)
+            assert (t[0], j[0]) == (1, 2) and "missing.tar" in t[1] and "missing.tar" in j[1]
+            continue
+        assert t == j, argv
+
+
+def test_programs_commands(twins, monkeypatch, tmp_path):
+    """The refusals and the listing equal the JAX CLI's; a push bundles the
+    kernel's library (a stand-in file under its name here: no nvcc on the
+    CPU), and the JAX CLI lists and prunes the port's bundle the same way."""
+    from modelx_tpu_torch.kernels import build
+
+    _push_both(twins)
+    for argv in (["programs", "list", "@REG/library/demo"],
+                 ["programs", "push", "@REG/library/demo"],
+                 ["programs", "push", "@REG/library/demo@v1"],
+                 ["programs", "push", "@REG/library/demo@v1", "--quantize", "int4"],
+                 ["programs", "prune", "@REG/library/demo"],
+                 ["programs", "list", "@REG"]):
+        j, t = twins.both(*argv)
+        if "int4" in argv:  # a usage error: both exit 2 (the wording is each parser's)
+            assert t[0] == j[0] == 2 and "int4" in t[1] and "int4" in j[1]
+            continue
+        assert t == j, argv
+    # a one-layer llama at head_dim 64 (one the kernel takes); a build dir
+    # with no library and no nvcc: the typed refusal
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as tst
+    from modelx_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=64, hidden_size=640, intermediate_size=64, num_layers=1,
+                            num_heads=10, num_kv_heads=2, head_dim=64, dtype=torch.float32)
+    (twins.tcwd / "llama").mkdir()
+    tst.write_safetensors(str(twins.tcwd / "llama" / "model.safetensors"),
+                          llama.init_params(cfg, torch.Generator().manual_seed(0)))
+    (twins.tcwd / "llama" / "modelx.yaml").write_text("description: tiny\n")
+    assert twins.port("push", "@REG/library/tiny@v1", "llama")[0] == 0
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-toolkit"))
+    monkeypatch.setenv("PATH", "/usr/bin:/bin")
+    empty = tmp_path / "empty-cache"
+    empty.mkdir()
+    rc, out = twins.port("programs", "push", "@REG/library/tiny@v1", "--cache-dir", str(empty))
+    assert rc == 1 and "nvcc not found" in out and "holds no cached library" in out
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    (cache / build.library_name()).write_bytes(b"a stand-in kernel library")
+    rc, out = twins.port("programs", "push", "@REG/library/tiny@v1", "--cache-dir", str(cache),
+                         "--quantize", "int8")
+    assert rc == 0, out
+    pushed = json.loads(out)
+    assert (pushed["programs"], pushed["family"]) == (1, "llama")
+    assert sorted(pushed) == ["digest", "family", "name", "programs", "size"]
+    # the JAX CLI reads the port's registry: the same listing before and
+    # after the port's prune
+    for argv in (["programs", "list", "@REG/library/tiny@v1"],
+                 ["programs", "prune", "@REG/library/tiny"],
+                 ["programs", "list", "@REG/library/tiny"]):
+        t = twins.port(*argv)
+        if argv[1] == "prune":
+            assert t == (0, '{"removed": 1, "versions": 1}\n')
+            continue
+        assert t == twins.jax(*[a.replace("@REG", twins.tbase) for a in argv]), argv
+        assert (pushed["name"] in t[1]) == ("@v1" in argv[2])
+
+
+@pytest.mark.parametrize("shell", ["bash", "zsh", "fish", "powershell", "tcsh"])
+def test_completion_output_equal(twins, shell):
+    j, t = twins.both("completion", shell)
+    assert (t[0], _norm_completion(t[1])) == (j[0], j[1]) if shell != "tcsh" else \
+        t[0] == j[0] == 2
+
+
+def test_completion_scripts_call_the_backend(monkeypatch, capsys):
+    for shell in ("bash", "zsh", "fish"):
+        monkeypatch.setenv("_MODELX_TORCH_COMPLETE", f"{shell}_source")
+        assert cli.main([]) == 0
+        script = capsys.readouterr().out
+        assert "modelx-torch __complete --" in script, shell
+
+
+@pytest.mark.parametrize("words", [[""], ["c"], ["-"], ["push", ""], ["push", "r"],
+                                   ["push", "reg/"], ["push", "reg/library/"],
+                                   ["pull", "reg/library/demo@"], ["copy", "reg/library/demo@v1", "reg/l"],
+                                   ["diff", "a", "reg/library/d"], ["push", "reg/library/demo", ""],
+                                   ["verify", "-"], ["serve", ""], ["nope", "reg/"],
+                                   ["--debug", "list", "reg/"]])
+def test_hidden_complete_candidates_equal(twins, words):
+    _push_both(twins)
+    twins.both("repo", "add", "reg", "@REG")
+    j, t = twins.both("__complete", "--", *words)
+    assert t == j
+
+
+def test_route_hands_over(twins, monkeypatch):
+    from modelx_tpu_torch.router import router_main
+
+    calls = []
+    monkeypatch.setattr(router_main, "main",
+                        lambda argv, prog: calls.append((argv, prog)) or 0)
+    assert cli.main(["route", "--pod", "http://p:1", "--listen", ":9"]) == 0
+    assert calls == [(["--pod", "http://p:1", "--listen", ":9"], "modelx-torch route")]
+
+
+def test_route_takes_the_jax_route_flags():
+    """``modelx-route-torch`` has every flag of ``modelx-route`` with its
+    default (click's option names and defaults against argparse's)."""
+    from modelx_tpu.router.router_main import main as jroute
+    from modelx_tpu_torch.router import router_main
+
+    ap = router_main.build_parser()
+    ours = {a.option_strings[0]: a.default for a in ap._actions if a.option_strings
+            and a.option_strings[0] != "-h"}
+    theirs = {p.opts[0]: (None if p.multiple else p.default) for p in jroute.params}
+    assert ours == theirs
+    args = ap.parse_args(["--pod", "http://a:1", "--pod", "http://b:2", "--allow-rebalance",
+                          "--breaker-threshold", "3", "--retry-budget", "0.2"])
+    router = router_main.build_router(args)
+    snap = router.snapshot()
+    assert [p for p in snap["pods"]["pods"]] == ["http://a:1", "http://b:2"]
+    assert snap["breakers"]["threshold"] == 3 and snap["retry_budget"]["ratio"] == 0.2
+    assert snap["rebalance"]["enabled"] is True
