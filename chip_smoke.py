@@ -5,17 +5,26 @@
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases kernels,main,deploy,artifacts
     python3 chip_smoke.py --phases kernels,families
+    python3 chip_smoke.py --phases kernels,train
 
 Phases, in order, each failing the run (exit code != 0) on any error:
 
 1. device: the card's name and power limit;
-2. build: every CUDA kernel of the serving path, compiled from ``csrc/``,
+2. build: every CUDA kernel of the serving and training paths, compiled
+   from ``csrc/`` (one nvcc per source, all started together),
    with nvcc's register report and a SASS census (tensor-core and TMA
    instructions per kernel instantiation, from ``cuobjdump``);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it, with stated tolerances and times
    (kernel back to back and as a lone call, plain version, PyTorch's
-   library call as a yardstick, bound, achieved TFLOP/s);
+   library call as a yardstick, bound, achieved TFLOP/s); then the
+   backward kernel at the training path's shapes (``BWD_CASES``): dq, dk,
+   dv against ``attention_backward_reference`` (``BWD_TOL``), the training
+   forward's o against ``attention_reference`` (``TOL``) and its row
+   log-sum-exp against ``attention_lse_reference`` (``LSE_TOL``), timed
+   back to back and lone, with the port's forward + backward, the plain
+   version, the library's forward + backward (SDPA, or ``flex_attention``
+   with a softcap or a window) and the bound;
 4. main: a full-width Llama-3-8B-shaped checkpoint (random weights from a
    seed) written with the port's safetensors writer, served by
    ``modelx_tpu_torch.dl.serve_main --prefix-cache 4`` on the card,
@@ -68,8 +77,12 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    merged weights equal a manual merge bit for bit, ``/v1/forward`` runs the
    kernel. One model at a time is loaded beside the main one, and the main
    one is freed before the LoRA server loads.
-7. deploy: the registry deploy path on the same checkpoint, the earlier
-   servers freed, the kernel counts from 0 again. The checkpoint, its
+7. deploy: the registry deploy path, the earlier servers freed, the
+   kernel counts from 0 again, on a second checkpoint that phases 7-9
+   share: Llama-3-8B's widths at ``LATER_LAYERS`` (8) of its 32 layers
+   (5.59 GB; for the run's time limit), its seeded weights written with
+   the same text files, and the argmax of its served ``/v1/forward`` on
+   the main phase's token rows taken before the phase. The checkpoint, its
    tokenizer.json and a modelx.yaml (``modelFiles`` naming the two) go
    into a local FS registry through the port's store API (the safetensors
    blob with the tensor-index annotation), the source checkpoint is
@@ -83,10 +96,10 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    (``modelx_tpu_torch.dl.ttft``) runs in fresh processes, cold and warm,
    its first token launching the kernel
    ``num_layers`` times; ``modelx-serve-torch --model m=DEST`` answers the
-   main phase's ``/v1/forward`` rows with the same argmax, and
+   main phase's ``/v1/forward`` rows with the source's argmax, and
    ``/healthz`` stays 200 through a registry kill with ``control_plane``
    no longer ok. Disk: the registry, dest and the blob cache each hold the
-   checkpoint (16.06 GB) once; the phase checks for 3x that first.
+   checkpoint once; the phase checks for 3x that first.
 8. artifacts: the derived-artifact stores (``dl/program_store.py``,
    ``dl/kv_store.py``, ``dl/outbox.py``) on the deploy phase's registry
    (restarted over its data) and warm blob cache, dest's weights moved aside
@@ -103,7 +116,7 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    (b) Pod B, with ``MODELX_COMPILE_CACHE`` an empty directory, no nvcc in
    reach and ``--kv-fetch-through``, admin-loads the same ref: it installs
    the library (``kernel_library`` origin ``"bundle"``) and the KV bundle,
-   its ``/v1/forward`` [1, 2048] equals the main phase's argmax, and a third
+   its ``/v1/forward`` [1, 2048] equals the source's argmax, and a third
    branch, greedy and seeded sampled, whole and streamed, answers pod A's
    bytes from the installed prefix (``hits_installed``, the engine's
    installed admissions). (c) Pod A makes a second base hot; pod B's miss
@@ -157,8 +170,9 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    shed-and-retry path; no load may end FAILED while a model could have
    been shed. Disk: the disk tier's spool beside dest (1.25x the
    checkpoint, checked first with MemAvailable).
-10. continuous: the continuous engine (``dl/continuous.py``) on the same
-   dest, the kernel counts from 0 again. Eight clients (prompts 128, 512
+10. continuous: the continuous engine (``dl/continuous.py``) on the main
+   phase's checkpoint (all 32 layers), run right after phase 6 and before
+   phase 7, the kernel counts from 0 again. Eight clients (prompts 128, 512
    and 1000 tokens + 64, odd ones seeded sampled, the last joining
    mid-decode) stream from a ``serve_main --continuous-batch --max-slots 8
    --prefix-cache 4`` child, then send the same requests whole: every
@@ -188,13 +202,14 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    row's tokens during the fill with chunked prefill and without.
 11. families: the other generative families, one seeded random bf16
    checkpoint at a time, each written, served by ``serve_main`` and
-   deleted before the next (free disk checked first; Phi-3-mini's 7.64 GB
+   deleted before the next (free disk checked first; Mixtral's 6.33 GB
    is the peak), the kernel counts from 0 again: Gemma-2-9B cut to
    ``GEMMA_LAYERS`` of its 42 layers for the time limit (head_dim 256,
-   softcap 50, window 4096 on the even layers), Phi-3-mini-4k
-   (32 layers, head_dim 96), Mixtral-8x7B cut to ``MIXTRAL_LAYERS`` of its
-   32 layers (all 32 take 93.4 GB), written in HF's per-expert layout so
-   the loader folds the experts, and GPT-2 125M. For each: the inferred
+   softcap 50, window 4096 on the even layers), Phi-3-mini-4k cut to
+   ``PHI3_LAYERS`` of its 32 (head_dim 96), Mixtral-8x7B cut to
+   ``MIXTRAL_LAYERS`` of its 32 layers (all 32 take 93.4 GB), written in
+   HF's per-expert layout so the loader folds the experts, and GPT-2 125M.
+   For each: the inferred
    config equals the written one, ``/v1/forward`` [1, 2048] (gpt2: [1,
    1024]) launches the kernel once a layer (gpt2: never) and its argmax
    equals the plain attention's or each differing position is within
@@ -233,9 +248,25 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    (clean); ``serve_main`` on the pulled copy answers the pre-push
    forward's argmax exactly with one launch a layer, and phi3's int8 check
    reads the pulled copy. Disk: the source is deleted before the pull, so
-   the path writes one more copy of the checkpoint (7.64 GB), which sits
-   beside the next family's (at most 6.33 GB); the bucket holds it in host
-   memory.
+   the path writes one more copy of the checkpoint (2.21 GB at
+   ``PHI3_LAYERS``), which sits beside the next family's (at most 6.33 GB);
+   the bucket holds it in host memory.
+12. train (alone: ``--phases kernels,train``; its launches counted from 0):
+   (a) Llama-3-8B's widths at ``TRAIN_LAYERS`` (2) of 32 layers, bf16,
+   written with the port's writer (2.97 GB), trained by
+   ``modelx-train-torch --batch 1 --seq 2048 --steps 8`` in a child on a
+   repeated batch: the loss is finite and falls, and the child launched
+   the forward and the backward kernel once per layer per step; (b) in
+   process, one step's gradients through the kernels against the plain
+   attention's: every parameter has one, each within ``TRAIN_GRAD_TOL``
+   relative L2, and the loss within ``TRAIN_LOSS_TOL`` relative; (c) ``--config tiny`` (head_dim 32) through the entry
+   point: 4 steps with ``--checkpoint-dir``, a resume of 2 (steps reads 6)
+   pushed to a ``modelxd-torch`` child over a temporary FS store, one more
+   step pushed again (the blobs uploaded == the files that changed), and
+   the unchanged checkpoint pushed again in process (none uploaded). The
+   phase prints its
+   wall, the bytes of the files it made (deleted at its end) and its peak
+   device memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -352,9 +383,14 @@ SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
 
 def kernel_label(mangled: str) -> str:
     """``flash_fwd_bf16<128>`` for the mangled name of that instantiation
-    (the name itself when it is not one of ours)."""
-    m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E", mangled)
-    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+    (``flash_fwd_simt<bf16,32>`` with its element type, ``<128,lse>`` for
+    the training forward's), or the name itself when it is not one of ours."""
+    m = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_[a-z0-9_]+?)I(f|13__nv_bfloat16)?Li(\d+)E"
+                  r"(Lb1E)?", mangled)
+    if not m:
+        return mangled
+    elem = {"f": "float,", "13__nv_bfloat16": "bf16,"}.get(m.group(2) or "", "")
+    return f"{m.group(1)}<{elem}{m.group(3)}{',lse' if m.group(4) else ''}>"
 
 
 def sass_census(sass: str) -> dict[str, dict[str, int]]:
@@ -390,12 +426,13 @@ def phase_build() -> dict:
     """Build the kernels, print nvcc's register report and a SASS census of
     the library: per instantiation, the warpgroup MMAs (HGMMA), warp MMAs
     (HMMA), TMA tile loads (UTMALDG) and cp.async copies (LDGSTS). Fails
-    when a bf16 instantiation runs no HGMMA (its tensor-core path)."""
+    when a bf16 forward instantiation on the tensor cores runs no HGMMA, or
+    a bf16 backward kernel no HMMA."""
     import threading
 
     from modelx_tpu_torch import native
     from modelx_tpu_torch.kernels import build
-    from modelx_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
+    from modelx_tpu_torch.ops.attention import BACKWARD_HEAD_DIMS, KERNEL_HEAD_DIMS
 
     # the native IO engine (host C++, g++) builds beside nvcc, so the first
     # load does not wait for it
@@ -412,7 +449,8 @@ def phase_build() -> dict:
     built = build.build()
     secs = time.monotonic() - t0
     host.join()
-    log(f"build: flash_attention {'compiled by nvcc' if built else 'cached'} in {secs:.3f} s; "
+    log(f"build: flash_attention (forward and backward, one nvcc per source) "
+        f"{'compiled by nvcc' if built else 'cached'} in {secs:.3f} s; "
         f"the native IO engine by g++ in {native_s['s']:.3f} s beside it "
         f"({'available' if native.available() else 'unavailable'})")
     notes = ("registers", "spill", "Compiling entry", "Performance Loss", "setmaxnreg", "rror",
@@ -427,10 +465,15 @@ def phase_build() -> dict:
     census = sass_census(sass)
     for name, counts in sorted(census.items()):
         log(f"sass census: {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
-    no_hgmma = [f"flash_fwd_bf16<{d}>" for d in KERNEL_HEAD_DIMS
-                if census.get(f"flash_fwd_bf16<{d}>", {}).get("HGMMA", 0) == 0]
+    # in bf16, head_dim 32 runs on the CUDA cores and the rest on the tensor cores
+    no_hgmma = [f"flash_fwd_bf16<{d}>" for d in KERNEL_HEAD_DIMS if d != 32
+                and census.get(f"flash_fwd_bf16<{d}>", {}).get("HGMMA", 0) == 0]
     if no_hgmma:
         raise RuntimeError(f"no HGMMA (tensor-core) instruction in {no_hgmma}")
+    no_hmma = [f"flash_bwd_{part}_mma<{d}>" for part in ("dkdv", "dq") for d in BACKWARD_HEAD_DIMS
+               if census.get(f"flash_bwd_{part}_mma<{d}>", {}).get("HMMA", 0) == 0]
+    if no_hmma:
+        raise RuntimeError(f"no HMMA (tensor-core) instruction in {no_hmma}")
     return {"build_s": secs, "built": built, "sass": census}
 
 
@@ -448,6 +491,8 @@ ATTN_CASES = [
     ("phi3-mini prefill", 1, 32, 32, 2048, 96, True, None, 0.0, 0, "bfloat16"),
     ("fp32 head_dim 96 ragged S=333", 1, 8, 8, 333, 96, True, None, 0.0, 0, "float32"),
     ("gemma2-9b window", 1, 16, 8, 6144, 256, True, 256 ** -0.5, 50.0, 4096, "bfloat16"),
+    ("tiny head_dim 32", 2, 4, 2, 256, 32, True, None, 0.0, 0, "bfloat16"),
+    ("fp32 head_dim 32 ragged S=333", 1, 4, 2, 333, 32, True, None, 0.0, 0, "float32"),
 ]
 
 
@@ -490,10 +535,8 @@ def library_attention(q, k, v, ref, causal, scale, cap, window):
     """PyTorch's own call for the same function, as a yardstick only (the
     port never calls it): ``scaled_dot_product_attention`` (kv heads
     repeated outside the timed call), or, with a softcap or a window,
-    ``flex_attention`` compiled with a tanh ``score_mod`` and a
-    causal-window block mask. Returns (the call, its max abs error against
+    ``flex_attention_call``. Returns (the call, its max abs error against
     ``ref``), or (None, None) when this torch has no such call."""
-    import torch
     import torch.nn.functional as F
 
     if cap == 0.0 and window == 0:
@@ -503,27 +546,42 @@ def library_attention(q, k, v, ref, causal, scale, cap, window):
         def call():
             return F.scaled_dot_product_attention(q, kr, vr, is_causal=causal, scale=scale)
     else:
-        try:
-            from torch.nn.attention.flex_attention import create_block_mask, flex_attention
-        except ImportError:
-            log(f"library: torch {torch.__version__} has no flex_attention")
+        attend = flex_attention_call(causal, scale, cap, window, q.shape[2], k.shape[2])
+        if attend is None:
             return None, None
 
-        def score_mod(score, b, h, qi, ki):
-            return cap * torch.tanh(score / cap) if cap > 0.0 else score
-
-        def mask_mod(b, h, qi, ki):
-            seen = ki <= qi if causal else ki >= 0
-            return seen & (qi - ki < window) if window > 0 else seen
-
-        mask = create_block_mask(mask_mod, None, None, q.shape[2], k.shape[2], device="cuda")
-        flex = torch.compile(flex_attention)
-
         def call():
-            return flex(q, k, v, score_mod=score_mod, block_mask=mask, scale=scale,
-                        enable_gqa=True)
+            return attend(q, k, v)
     err = float((call().float() - ref).abs().max())
     return call, err
+
+
+def flex_attention_call(causal, scale, cap, window, sq, sk):
+    """``flex_attention`` compiled with a tanh ``score_mod`` and a
+    causal-window block mask, as a function of (q, k, v) (kv heads may be
+    fewer), or None when this torch has no flex_attention."""
+    import torch
+
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    except ImportError:
+        log(f"library: torch {torch.__version__} has no flex_attention")
+        return None
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap) if cap > 0.0 else score
+
+    def mask_mod(b, h, qi, ki):
+        seen = ki <= qi if causal else ki >= 0
+        return seen & (qi - ki < window) if window > 0 else seen
+
+    mask = create_block_mask(mask_mod, None, None, sq, sk, device="cuda")
+    flex = torch.compile(flex_attention)
+
+    def attend(q, k, v):
+        return flex(q, k, v, score_mod=score_mod, block_mask=mask, scale=scale,
+                    enable_gqa=True)
+    return attend
 
 
 def phase_kernels() -> list[dict]:
@@ -576,18 +634,176 @@ def phase_kernels() -> list[dict]:
     return results
 
 
+# (label, B, H, Hkv, S, D, causal, scale, softcap, window, dtype): the
+# backward kernel at the training path's shapes and options
+BWD_CASES = [
+    ("llama3-8b training", 1, 32, 8, 2048, 128, True, None, 0.0, 0, "bfloat16"),
+    ("head_dim 64 gqa", 2, 16, 4, 512, 64, True, None, 0.0, 0, "bfloat16"),
+    ("softcap+window d128", 1, 16, 8, 1024, 128, True, 128 ** -0.5, 50.0, 256, "bfloat16"),
+    ("fp32 ragged S=333", 1, 8, 2, 333, 128, True, None, 0.0, 0, "float32"),
+    ("tiny head_dim 32", 2, 4, 2, 256, 32, True, None, 0.0, 0, "bfloat16"),
+]
+# gradients in the working dtype vs the plain version in fp32 on the same
+# q, k, v, do and the forward kernel's o and lse, per tensor:
+# |err| <= ATOL * max|ref| + RTOL * |ref|. bf16: dq, dk, dv are rounded to
+# bf16 (half an ulp is 2^-9 relative) after fp32 sums; fp32: summation
+# order only (in dS = P (dP - D) the two terms nearly cancel, so the floor
+# is against the tensor's largest entry).
+BWD_TOL = {"bfloat16": (2e-3, 8e-3), "float32": (1e-5, 2e-5)}
+# the training forward's o is held to attention_reference under ``TOL``;
+# the forward's row log-sum-exp against the plain fp32 one, absolute (log
+# units: 1e-4 is a 1e-4 relative error in every P of the row)
+LSE_TOL = 1e-4
+
+
+def backward_flops(b, h, s, d, causal, window) -> int:
+    """10*D per visible (query, key) pair per head: the five products
+    S = QK^T, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q."""
+    return 10 * d * visible_pairs(s, causal, window) * b * h
+
+
+def backward_bound(b, h, hkv, s, d, causal, window, dtype) -> tuple[float, str]:
+    """Least time in ms of the backward: max(bytes / HBM rate, FLOPs / peak
+    rate). Bytes: q, o, do read and dq written at H heads, k, v read and
+    dk, dv written at Hkv heads, the fp32 lse read once."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * b * s * d * (4 * h + 4 * hkv) + 4 * b * h * s
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = backward_flops(b, h, s, d, causal, window) / PEAK_FLOPS[dtype] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bwd_case_tensors(i: int):
+    """q, k, v, do of ``BWD_CASES[i]`` on the card, drawn from seed 2000 + i."""
+    import torch
+
+    _label, b, h, hkv, s, d, _causal, _scale, _cap, _window, dt = BWD_CASES[i]
+    gen = torch.Generator(device="cuda").manual_seed(2000 + i)
+    return tuple(torch.randn(b, n, s, d, generator=gen, device="cuda").to(getattr(torch, dt))
+                 for n in (h, hkv, hkv, h))
+
+
+def library_forward_backward(q, k, v, do, causal, scale, cap, window):
+    """PyTorch's forward and backward of the same function on the same
+    inputs, through autograd, as a yardstick only (the port never calls
+    it): SDPA (kv heads repeated outside the timed call), or, with a
+    softcap or a window, ``flex_attention_call``. None when this torch has
+    no such call."""
+    import torch
+    import torch.nn.functional as F
+
+    if cap == 0.0 and window == 0:
+        rep = q.shape[1] // k.shape[1]
+        inputs = (q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1))
+
+        def attend(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale)
+    else:
+        inputs = (q, k, v)
+        attend = flex_attention_call(causal, scale, cap, window, q.shape[2], k.shape[2])
+        if attend is None:
+            return None
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+
+    def call():
+        return torch.autograd.grad(attend(*leaves), leaves, do)
+    return call
+
+
+def phase_backward() -> list[dict]:
+    """The backward kernel against ``attention_backward_reference`` at each
+    of ``BWD_CASES`` (and the training forward's o against
+    ``attention_reference``, its lse against ``attention_lse_reference``),
+    with its times: back to back and lone, the plain version's, the port's
+    forward + backward through autograd, the library's forward + backward
+    (SDPA, or ``flex_attention`` with a softcap or a window), and the
+    bound."""
+    import torch
+
+    from modelx_tpu_torch.ops import attention as attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, failures = [], []
+    for i, (label, b, h, hkv, s, d, causal, scale, cap, window, dt) in enumerate(BWD_CASES):
+        q, k, v, do = bwd_case_tensors(i)
+        kw = dict(causal=causal, scale=scale, logit_softcap=cap, window=window)
+        out, lse = attn._flash_cuda(q, k, v, causal, scale, cap, window, with_lse=True)
+        dq, dk, dv = attn.flash_attention_backward(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        ref_o = attn.attention_reference(q.float(), k.float(), v.float(), **kw)
+        o_diff = (out.float() - ref_o).abs()
+        o_err = float(o_diff.max())
+        o_atol, o_rtol = TOL[dt]
+        o_ok = bool(torch.isfinite(out).all()) and bool(
+            (o_diff <= o_atol + o_rtol * ref_o.abs()).all())
+        del ref_o, o_diff
+        ref_lse = attn.attention_lse_reference(q.float(), k.float(), v.float(), **kw)
+        lse_err = float((lse - ref_lse).abs().max())
+        want = attn.attention_backward_reference(q.float(), k.float(), v.float(), out.float(),
+                                                 do.float(), lse, **kw)
+        atol, rtol = BWD_TOL[dt]
+        errs, ok = {}, o_ok and lse_err <= LSE_TOL
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            diff = (got.float() - ref).abs()
+            errs[name] = float(diff.max())
+            ok = ok and bool(torch.isfinite(got).all()) and bool(
+                (diff <= atol * ref.abs().max() + rtol * ref.abs()).all())
+        del want, ref_lse
+        ms = time_ms(lambda: attn.flash_attention_backward(q, k, v, out, do, lse, **kw),
+                     iters=10, reps=3)
+        call_ms = time_call_ms(
+            lambda: attn.flash_attention_backward(q, k, v, out, do, lse, **kw), iters=10)
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            attn.flash_attention(*leaves, **kw), leaves, do), iters=10, reps=3)
+        plain_ms = time_ms(lambda: attn.attention_backward_reference(
+            q, k, v, out, do, lse, **kw), iters=3, reps=3)
+        library_call = library_forward_backward(q, k, v, do, causal, scale, cap, window)
+        library_ms = time_ms(library_call, iters=10, reps=3) if library_call else None
+        bound_ms, bound_by = backward_bound(b, h, hkv, s, d, causal, window, dt)
+        row = {
+            "case": label, "shape": [b, h, s, d], "kv_heads": hkv, "dtype": dt,
+            "causal": causal, "softcap": cap, "window": window,
+            "max_abs_err": max(errs.values()), "errs": errs, "o_max_abs_err": o_err,
+            "lse_max_abs_err": lse_err,
+            "tol": f"{atol}*max|ref| + {rtol}*|ref|; o {o_atol} + {o_rtol}*|ref|; lse {LSE_TOL}",
+            "ok": ok,
+            "ms": ms, "call_ms": call_ms, "fwd_bwd_ms": fwd_bwd_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": backward_flops(b, h, s, d, causal, window) / (ms * 1e-3) / 1e12,
+        }
+        rows.append(row)
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        lib_name = "SDPA" if cap == 0.0 and window == 0 else "flex_attention"
+        log(f"kernel flash_attention_backward [{label}] q{[b, h, s, d]} kv_heads {hkv} {dt}: "
+            f"dq/dk/dv max_abs_err {errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e}, "
+            f"o {o_err:.3e}, lse {lse_err:.3e} (tol {row['tol']}) {'ok' if ok else 'FAIL'}; "
+            f"backward {ms:.4f} ms ({call_ms:.4f} ms a lone call), forward+backward "
+            f"{fwd_bwd_ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} forward+backward {lib}, "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}), {bound_ms / ms * 100:.2f}% of bound, "
+            f"{row['tflops']:.2f} TFLOP/s")
+        if not ok:
+            failures.append(label)
+        del q, k, v, do, out, lse, dq, dk, dv, leaves, library_call
+    if failures:
+        raise RuntimeError(f"flash_attention_backward disagrees with its plain version: "
+                           f"{failures}")
+    return rows
+
+
 # -- main --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    known = ("kernels", "main") + LATER_PHASES + ("families", "objectstore")
+    known = ("kernels", "main") + LATER_PHASES + ("families", "objectstore", "train")
     ap.add_argument("--phases", default=",".join(known),
-                    help="comma list of phases after device+build: kernels, main (phases "
-                         "4-6), deploy (7), artifacts (8), pool (9), continuous (10), "
-                         "families (11; with the objectstore path on phi3), objectstore (phi3 "
-                         "of phase 11 alone, with the path); any of deploy..continuous runs "
-                         "main and deploy too")
+                    help="comma list of phases after device+build: kernels (the forward's "
+                         "and the backward's cases), main (phases 4-6), deploy (7), artifacts "
+                         "(8), pool (9), continuous (10), families (11; with the objectstore "
+                         "path on phi3), objectstore (phi3 of phase 11 alone, with the path), "
+                         "train (12); continuous runs main too, any of deploy..pool main "
+                         "and deploy")
     args = ap.parse_args(argv)
     phases = {p.strip() for p in args.phases.split(",") if p.strip()}
     if not phases <= set(known):
@@ -618,6 +834,7 @@ def main(argv=None) -> int:
         return out
 
     kernel_rows = timed("kernels", phase_kernels) if "kernels" in phases else []
+    bwd_rows = timed("backward", phase_backward) if "kernels" in phases else []
     later = tuple(p for p in LATER_PHASES if p in phases)
     main_stats = (timed("main", lambda: phase_main(
         later=later, build_s=build_info["build_s"] if build_info["built"] else None))
@@ -629,6 +846,7 @@ def main(argv=None) -> int:
             configs=[c for c in family_configs() if c[0] == "phi3"]))
     else:
         fam_stats = {}
+    train_stats = timed("train", phase_train) if "train" in phases else {}
 
     # each path's own count: every one starts at 0 just before its run
     by_path = {path: stats[key] for stats, path, key in (
@@ -640,7 +858,10 @@ def main(argv=None) -> int:
         (main_stats, "pool", "flash_launches_pool"),
         (main_stats, "continuous", "flash_launches_continuous"),
         (fam_stats, "families", "flash_launches_families"),
-        (fam_stats, "objectstore", "flash_launches_objectstore")) if key in stats}
+        (fam_stats, "objectstore", "flash_launches_objectstore"),
+        (train_stats, "train", "train_fwd_launches")) if key in stats}
+    bwd_by_path = ({"train": train_stats["train_bwd_launches"]}
+                   if "train_bwd_launches" in train_stats else {})
     head = next((r for r in kernel_rows if r["case"] == "llama3-8b prefill"), None)
     record = {
         "name": "flash_attention",
@@ -665,8 +886,31 @@ def main(argv=None) -> int:
         "sass": build_info["sass"],
         "cases": kernel_rows,
     }
+    bhead = next((r for r in bwd_rows if r["case"] == "llama3-8b training"), None)
+    bwd_record = {
+        "name": "flash_attention_backward",
+        "route": "cuda",
+        "source": "modelx_tpu_torch/csrc/flash_attention_bwd.cu",
+        # the TPU kernel whose gradient it is (JAX differentiates the Pallas call)
+        "replaces": "modelx_tpu/ops/attention.py:149",
+        "launches": sum(bwd_by_path.values()) if bwd_by_path else None,
+        "launches_by_path": bwd_by_path,
+        "max_abs_err": max((r["max_abs_err"] for r in bwd_rows), default=None),
+        "ms": bhead and bhead["ms"],
+        "call_ms": bhead and bhead["call_ms"],
+        "fwd_bwd_ms": bhead and bhead["fwd_bwd_ms"],
+        "plain_ms": bhead and bhead["plain_ms"],
+        "bound_ms": bhead and bhead["bound_ms"],
+        "bound_by": bhead and bhead["bound_by"],
+        # SDPA's forward + backward, a yardstick the port never calls (each
+        # case's row holds its own: flex_attention's with a softcap or window)
+        "library_ms": bhead and bhead["library_ms"],
+        "tflops": bhead and bhead["tflops"],
+        "at": "q [1,32,2048,128] bf16, 8 kv heads, causal",
+        "cases": bwd_rows,
+    }
     log(device["card"])  # again at the end: a long run's output is read from its tail
-    log(json.dumps({"kernels": [record]}))
+    log(json.dumps({"kernels": [record, bwd_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"], "count": torch.cuda.device_count()}}))
     return 0
@@ -715,14 +959,71 @@ def _checkpoint_dir(nbytes: int) -> str:
 
 
 LATER_PHASES = ("deploy", "artifacts", "pool", "continuous")
+# the depth of the checkpoint deploy, artifacts and pool run on (Llama-3-8B's
+# widths), for the run's time limit: their seconds follow its bytes. Phases
+# 4-6 and the continuous engine keep all 32 layers: the exact sampled
+# prefix-hit == cold check holds there (it failed at 24), and at 8 layers the
+# random weights' speculation accept rate fell under CONT_SPEC_MIN_RATE.
+LATER_LAYERS = 8
+
+
+def later_checkpoint(cfg, device: str, forwards: dict) -> tuple:
+    """(cfg, checkpoint dir, forwards) for phases 7-9: ``cfg`` cut to
+    ``LATER_LAYERS`` layers, its seeded random weights written with the
+    text files, and the argmax that serving it gives each of the main
+    phase's ``/v1/forward`` token rows (``forwards`` maps shape to (tokens,
+    argmax))."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.models import llama
+
+    cut = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, LATER_LAYERS))
+    nbytes = 2 * sum(math.prod(s) for s in llama.param_shapes(cut).values())
+    ckpt = _checkpoint_dir(nbytes)
+    t0 = time.monotonic()
+    try:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cut, gen, dtype=torch.bfloat16)
+        st.write_safetensors(os.path.join(ckpt, "model.safetensors"), params)
+        del params
+        write_text_files(ckpt, cut.vocab_size - len(LLAMA3_SPECIALS))
+        port = _free_port()
+        sset, httpd = serve_main.start([
+            "--model", f"{MODEL}={ckpt}", "--listen", f"127.0.0.1:{port}",
+            "--device", device, "--dtype", "bfloat16"])
+        out = {}
+        try:
+            for shape, (tokens, _) in forwards.items():
+                status, body = _http(port, "/v1/forward", {"tokens": tokens.tolist()})
+                if status != 200:
+                    raise RuntimeError(f"later checkpoint: /v1/forward {shape} answered "
+                                       f"{status} {body}")
+                out[shape] = (tokens, torch.tensor(body["logits_argmax"]))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            _free(*sset.servers.values())
+    except BaseException:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        raise
+    log(f"later phases: wrote a {cut.num_layers}-layer checkpoint at the same widths "
+        f"({nbytes / 1e9:.3f} GB) and served its /v1/forward rows in "
+        f"{time.monotonic() - t0:.1f} s")
+    return cut, ckpt, out
 
 
 def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
                build_s: float | None = None) -> dict:
-    """Drive the serving path (phases 4-6), then those of ``later`` on its
-    checkpoint: deploy runs whenever any of them does, since the artifacts
-    phase runs on its registry and the pool and continuous phases on its
-    dest. ``build_s`` is phase 2's nvcc seconds (None: the library was
+    """Drive the serving path (phases 4-6), then those of ``later``: the
+    continuous engine on the same checkpoint, then the rest on a shallower
+    one (``later_checkpoint``), where deploy runs whenever any of them
+    does, since the artifacts phase runs on its registry and the pool phase
+    on its dest. ``build_s`` is phase 2's nvcc seconds (None: the library was
     cached). ``device="cpu"`` with a small ``cfg`` is a rehearsal of the
     control flow (the CPU tests run it): there the kernel wrapper runs its
     plain version and launches nothing."""
@@ -892,16 +1193,29 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
         httpd = None
         stats["main_4_6_s"] = time.monotonic() - t_main
         log(f"wall: phases 4-6 (main, text, options) took {stats['main_4_6_s']:.1f} s")
-        if not later:
+        if "continuous" in later:
+            # phase 10, the continuous engine, on this full-depth checkpoint
+            # (its child's log in obs_dir): its own count from 0
+            t0 = time.monotonic()
+            stats.update(phase_continuous(cfg, ckpt, device, obs_dir))
+            stats["cont_phase_s"] = time.monotonic() - t0
+            log(f"continuous: flash_attention launches on the continuous path: "
+                f"{stats['flash_launches_continuous']} (warm-ups and /v1/forward only); the "
+                f"phase took {stats['cont_phase_s']:.1f} s")
+        if not set(later) - {"continuous"}:
             return stats
+        # phases 7-9 on a second checkpoint: the same widths, LATER_LAYERS deep
+        shutil.rmtree(ckpt, ignore_errors=True)
+        cfg, ckpt, forwards = later_checkpoint(cfg, device, forwards)
+        per_forward = cfg.num_layers if on_card else 0
+        stats["later_layers"] = cfg.num_layers
         # phase 7, the registry deploy, with the earlier servers freed: its
         # own count (the served dest's from 0, plus its TTFT children's)
         attn.flash_attention.launches = 0
         # phase 8, the derived-artifact stores, on the deploy's registry data
         # and warm blob cache (its count: its two pods'); then phase 9, the
         # model pool, on the pulled dest once the registry and blob cache are
-        # gone, then phase 10, the continuous engine, on the same dest: each
-        # its own count
+        # gone: each its own count
 
         def artifacts(reg_dir, cache, dest, root, digest):
             t0 = time.monotonic()
@@ -914,27 +1228,18 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
                 f"{out['flash_launches_router']}; the phase took {out['art_phase_s']:.1f} s")
             return out
 
-        def pool_then_continuous(dest, root):
-            out = {}
-            if "pool" in later:
-                t0 = time.monotonic()
-                out.update(phase_pool(cfg, dest, forwards, device, root))
-                out["pool_phase_s"] = time.monotonic() - t0
-                log(f"pool: flash_attention launches on the pool path: "
-                    f"{out['flash_launches_pool']}; the phase took {out['pool_phase_s']:.1f} s")
-            if "continuous" in later:
-                t0 = time.monotonic()
-                out.update(phase_continuous(cfg, dest, device, root))
-                out["cont_phase_s"] = time.monotonic() - t0
-                log(f"continuous: flash_attention launches on the continuous path: "
-                    f"{out['flash_launches_continuous']} (warm-ups and /v1/forward only); the "
-                    f"phase took {out['cont_phase_s']:.1f} s")
+        def pool(dest, root):
+            t0 = time.monotonic()
+            out = phase_pool(cfg, dest, forwards, device, root)
+            out["pool_phase_s"] = time.monotonic() - t0
+            log(f"pool: flash_attention launches on the pool path: "
+                f"{out['flash_launches_pool']}; the phase took {out['pool_phase_s']:.1f} s")
             return out
 
         stats.update(phase_deploy(
             cfg, ckpt, forwards, device, per_forward,
             artifacts=artifacts if "artifacts" in later else None,
-            then=pool_then_continuous if {"pool", "continuous"} & set(later) else None))
+            then=pool if "pool" in later else None))
         log(f"deploy: flash_attention launches on the deploy path: "
             f"{stats['flash_launches_deploy']} ({stats['flash_launches_deploy_serve']} serving "
             f"dest, {per_forward} in each TTFT process)")
@@ -2448,7 +2753,7 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
                  artifacts=None, then=None) -> dict:
     """The registry deploy path (module docstring, phase 7). ``ckpt`` is
     deleted once the registry holds it; ``forwards`` maps each main-phase
-    /v1/forward shape to (tokens, argmax). With the deploy's server freed,
+    /v1/forward shape to (tokens, ``ckpt``'s argmax). With the deploy's server freed,
     ``artifacts(reg_dir, cache, dest, root, digest)`` runs on the registry's
     data and the warm blob cache; ``then(dest, root)`` runs last, with the
     registry and blob cache gone and the pulled checkpoint still in
@@ -2581,9 +2886,9 @@ def phase_deploy(cfg, ckpt: str, forwards: dict, device: str, per_forward: int,
             rose = attn.flash_attention.launches - before
             if status != 200 or body["logits_argmax"] != want.tolist() or rose != per_forward:
                 raise RuntimeError(f"deploy: /v1/forward {shape} on dest answered {status}, "
-                                   f"launches {rose}, argmax equal to the main phase's: "
+                                   f"launches {rose}, argmax equal to the source's: "
                                    f"{status == 200 and body['logits_argmax'] == want.tolist()}")
-            log(f"deploy: /v1/forward {list(shape)} on dest == the main phase's argmax; "
+            log(f"deploy: /v1/forward {list(shape)} on dest == the source's argmax; "
                 f"flash_attention launches +{rose}")
         status, body = _http(port, "/v1/forward", {"tokens": [[1, 2, 3, 4]]})
         if status != 200 or body["logits_argmax"][0][-1] != ttfts["cold"]["first_token"]:
@@ -2928,7 +3233,7 @@ def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest:
         want = _answers(port_a, branches[0][2])
         tokens, argmax = forwards[FORWARD_SHAPES[0]]
         if _argmax(port_a, MODEL, tokens) != argmax.tolist():
-            raise RuntimeError("artifacts: pod A's /v1/forward differs from the main phase's")
+            raise RuntimeError("artifacts: pod A's /v1/forward differs from the source's")
 
         # (b) pod B: an empty build dir, no toolkit; installs at its load
         build_b = os.path.join(root, "build-b")
@@ -2953,7 +3258,7 @@ def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest:
             if hashlib.sha256(f.read()).hexdigest() != library_sha:
                 raise RuntimeError("artifacts: pod B's installed library is not pod A's")
         if _argmax(port_b, MODEL, tokens) != argmax.tolist():
-            raise RuntimeError("artifacts: pod B's /v1/forward differs from the main phase's")
+            raise RuntimeError("artifacts: pod B's /v1/forward differs from the source's")
         stats.update(art_load_b_s=load_b, art_ready_b_s=ms["ready_seconds"],
                      art_program_install_ms=programs["ms"], art_kv_install_ms=kv["ms"],
                      art_nvcc_s=build_s)
@@ -2962,7 +3267,7 @@ def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest:
             f"{(lib or {}).get('origin', 'no card')} (installed in {programs['ms']} ms; phase 2's "
             f"nvcc build: {'cached' if build_s is None else f'{build_s:.3f} s'}); "
             f"{kv['installed']} KV bundle installed in {kv['ms']} ms; /v1/forward "
-            f"{list(tokens.shape)} == the main phase's argmax ({CARD})")
+            f"{list(tokens.shape)} == the source's argmax ({CARD})")
 
         _art_generate(port_b, [1, 2, 3], False)  # the engine starts outside the timing
         got = _answers(port_b, branches[0][2])
@@ -3457,7 +3762,8 @@ def phase_router(cfg, pods: dict, tokens, draw, cached: str, root: str, device: 
 POOL_STREAM_PROMPT = 128
 POOL_STREAM_TOKENS = 48
 # the measured veto: admin loads of the checkpoint, one after another, until
-# one is refused; six 16.06 GB loads exceed the card's 80 GB
+# one is refused; at least this many models (the boot one included), and on
+# the card as many as overfill its memory
 POOL_VETO_LOADS = 6
 
 
@@ -3559,7 +3865,7 @@ def phase_pool(cfg, ckpt: str, forwards: dict, device: str, root: str) -> dict:
     host and from disk, the drain of one model and of the pod, and the
     measured veto. ``ckpt`` holds the checkpoint (every name loads it, so
     all share one tier content key); ``forwards`` maps each main-phase
-    /v1/forward shape to (tokens, argmax)."""
+    /v1/forward shape to (tokens, ``ckpt``'s argmax)."""
     import torch
 
     from modelx_tpu_torch.dl import serve_main
@@ -3592,7 +3898,7 @@ def phase_pool(cfg, ckpt: str, forwards: dict, device: str, root: str) -> dict:
             f" s at {a.stats['load_gbps']} GB/s); budget 2.5x, host and disk tiers 1.25x the "
             f"checkpoint's {nbytes} bytes")
         if _argmax(port, "a", tokens) != want:
-            raise RuntimeError("pool: a's argmax differs from the main phase's")
+            raise RuntimeError("pool: a's argmax differs from the source's")
         lone = []
         for _ in range(3):
             t0 = time.monotonic()
@@ -3886,8 +4192,14 @@ def _pool_veto(ckpt: str, device: str, root: str, tokens, want: list, nbytes: in
     pool = sset.pool
     rows = []
     outcome = "none"
+    # on the card, loads enough to fill it whatever the checkpoint's size
+    loads = POOL_VETO_LOADS
+    if on_card:
+        import torch
+
+        loads = max(loads, torch.cuda.get_device_properties(0).total_memory // nbytes + 2)
     try:
-        for i in range(1, POOL_VETO_LOADS):
+        for i in range(1, loads):
             dm = devmem.sample(max_age_s=0)
             reserved = pool.reserved_bytes()
             status, _, body = _http_full(port, "POST", "/admin/models",
@@ -3921,7 +4233,7 @@ def _pool_veto(ckpt: str, device: str, root: str, tokens, want: list, nbytes: in
         if _argmax(port, loaded[-1], tokens) != want:
             raise RuntimeError(f"pool: (h) {loaded[-1]} answers a different argmax")
         if on_card and outcome == "none":
-            raise RuntimeError(f"pool: (h) {POOL_VETO_LOADS} loads of {nbytes / 1e9:.1f} GB "
+            raise RuntimeError(f"pool: (h) {loads} loads of {nbytes / 1e9:.1f} GB "
                                f"were all admitted")
         log(f"pool: (h) outcome {outcome}, {len(loaded)} models loaded")
         return {"pool_veto_outcome": outcome, "pool_veto_loaded": len(loaded),
@@ -4150,8 +4462,8 @@ def _step_cost(cb, rows: int, length: int, on_card: bool, reps: int = 5) -> dict
 
 
 def phase_continuous(cfg, ckpt: str, device: str, root: str) -> dict:
-    """The continuous engine (module docstring, phase 10), on the pulled
-    dest: the plain reference and the window batcher in-process, a
+    """The continuous engine (module docstring, phase 10), on ``ckpt``
+    (``root`` takes its child's log): the plain reference and the window batcher in-process, a
     ``--continuous-batch`` serve_main child over HTTP (mixed traffic,
     resume, 504, a forward while rows decode), the 429 of a bounded
     backlog, then in-process engines one at a time: dense and paged gather
@@ -4597,14 +4909,21 @@ GEMMA_ENGINE_SLOTS, GEMMA_PAGE_SIZE = 4, 64
 # the card's 80; every layer is of one kind, so 2 keep the pattern (4 until
 # the objectstore path joined the smoke's time limit)
 MIXTRAL_LAYERS = 2
-# Gemma-2-9B's depth cut, for the smoke's time limit: 10 of its 42 layers
-# keep the alternation of windowed (even) and global (odd) layers
-GEMMA_LAYERS = 10
+# Gemma-2-9B's depth cut, for the smoke's time limit: 6 of its 42 layers
+# keep the alternation of windowed (even) and global (odd) layers (10 until
+# the train phase joined the smoke, 14 before the objectstore path)
+GEMMA_LAYERS = 6
+# Phi-3-mini-4k's depth cut, for the smoke's time limit: 8 of its 32 layers
+# (32 until the train phase joined the smoke). The objectstore path pushes,
+# pulls and hashes its checkpoint, so its seconds follow the bytes: 2.2 GB
+# here, 7.64 GB at full depth
+PHI3_LAYERS = 8
 
 
 def family_configs() -> list:
     """(family, config) of each checkpoint the phase writes, in order:
-    Gemma-2-9B at ``GEMMA_LAYERS`` layers, Phi-3-mini-4k (head_dim 96),
+    Gemma-2-9B at ``GEMMA_LAYERS`` layers, Phi-3-mini-4k at ``PHI3_LAYERS``
+    (head_dim 96),
     Mixtral-8x7B at ``MIXTRAL_LAYERS`` layers, GPT-2 125M, every one bf16;
     then BERT-base in fp32, as HF ships it."""
     import dataclasses
@@ -4614,8 +4933,8 @@ def family_configs() -> list:
     from modelx_tpu_torch.models import bert, gemma2, gpt2, llama, mixtral
 
     phi3_mini = llama.LlamaConfig(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
-                                  num_layers=32, num_heads=32, num_kv_heads=32, head_dim=96,
-                                  rope_theta=10000.0, rms_eps=1e-5)
+                                  num_layers=PHI3_LAYERS, num_heads=32, num_kv_heads=32,
+                                  head_dim=96, rope_theta=10000.0, rms_eps=1e-5)
     return [
         ("gemma2", dataclasses.replace(gemma2.Gemma2Config.gemma2_9b(),
                                        num_layers=GEMMA_LAYERS)),
@@ -5640,6 +5959,346 @@ def phase_objectstore(ckpt: str, device: str, tokens: list, want_argmax: list,
         if not ok:
             shutil.rmtree(pulled, ignore_errors=True)
 
+
+
+# -- phase 12: training on one card ------------------------------------------------
+
+# Llama-3-8B's widths at 2 of its 32 layers: at full depth the params, grads
+# and two bf16 moments alone are 4 x 16.06 GB = 64.2 GB, and the activations
+# and fp32 logits pass the card's 80 GB
+TRAIN_LAYERS = 2
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4  # modelx-train's default
+# each parameter's gradient, flash path (the kernels) against the plain path
+# (attention_reference under autograd), bf16 end to end: relative L2 gap
+# ||g_flash - g_plain|| / ||g_plain||. The two attentions round P and O to
+# bf16 at other places (~2^-8 relative); a cut graph leaves a grad None and
+# a wrong dS, softcap factor or GQA sum moves a tensor's gradient by O(1)
+TRAIN_GRAD_TOL = 0.05
+# the same step's loss, flash path against plain path, relative: a mean of
+# fp32 log-softmax NLLs over the batch's tokens, whose logits differ only by
+# the two attentions' bf16 rounding (~2^-8 relative per entry, averaged down)
+TRAIN_LOSS_TOL = 1e-3
+# the tiny entry-point runs (c): LlamaConfig.tiny (head_dim 32), bf16
+TINY_BATCH = 2
+TINY_SEQ = 128
+TINY_STEPS = (4, 2, 1)  # train, resume and push v1, one more step and push v2
+
+TRAIN_CHILD = r"""
+import sys
+import torch
+from modelx_tpu_torch.models import train_main
+from modelx_tpu_torch.ops import attention as attn
+rc = train_main.main(sys.argv[1:])
+peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+print("TRAIN_LAUNCHES", attn.flash_attention.launches, attn.flash_attention_backward.launches,
+      peak, flush=True)
+sys.exit(rc)
+"""
+_STEP_LOSS = re.compile(r"step (\d+)\s+loss ([-+0-9.einfa]+)")
+
+
+def check_train_launches(what: str, fwd: int, bwd: int, want: int) -> None:
+    """Both kernels launched ``want`` times (one per layer per step), or fail."""
+    if fwd != want:
+        raise RuntimeError(f"train: {what}: flash_attention launched {fwd} times, want {want}")
+    if bwd != want:
+        raise RuntimeError(f"train: {what}: flash_attention_backward launched {bwd} times, "
+                           f"want {want}")
+
+
+def check_train_loss(flash: float, plain: float, tol: float) -> float:
+    """The flash path's loss within ``tol`` relative of the plain path's,
+    or fail; returns the gap."""
+    gap = abs(flash - plain) / abs(plain)
+    if not gap <= tol:
+        raise RuntimeError(f"train: the loss through the kernels {flash} is {gap:.3e} relative "
+                           f"from the plain attention's {plain} (tol {tol})")
+    return gap
+
+
+def check_grads(flash: dict, plain: dict, tol: float) -> tuple[float, str]:
+    """Every parameter has a gradient on both paths, each within ``tol``
+    relative L2 of the plain path's; returns the worst gap and its name."""
+    missing = sorted(n for n in plain if flash.get(n) is None or plain[n] is None)
+    if missing:
+        raise RuntimeError(f"train: no gradient reached {missing[:4]} "
+                           f"({len(missing)} of {len(plain)} params): a cut graph")
+    worst, worst_name = 0.0, ""
+    for name, want in plain.items():
+        ref = want.float()
+        gap = float((flash[name].float() - ref).norm() / ref.norm().clamp_min(1e-30))
+        if not math.isfinite(gap) or gap > worst:
+            worst, worst_name = gap, name
+    if not worst <= tol:
+        raise RuntimeError(f"train: {worst_name}'s gradient is {worst:.4f} (relative L2) from "
+                           f"the plain path's, past {tol}")
+    return worst, worst_name
+
+
+def _train_child(what: str, args: list, timeout: float = 900.0) -> dict:
+    """``modelx-train-torch`` with ``args`` as a child from the checkout;
+    its summary, per-step losses, kernel launches and peak device memory."""
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", TRAIN_CHILD, *args], cwd=REPO,
+                          env=_child_env(), capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train: {what}: modelx-train-torch exited {proc.returncode}\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    lines = proc.stdout.strip().splitlines()
+    _, fwd, bwd, peak = lines[-1].split()
+    out = {"summary": json.loads(lines[-2]), "fwd": int(fwd), "bwd": int(bwd),
+           "peak_gb": int(peak) / 1e9, "seconds": time.monotonic() - t0,
+           "losses": [float(m.group(2)) for m in _STEP_LOSS.finditer(proc.stderr)]}
+    log(f"train: {what}: {out['summary']} in {out['seconds']:.1f} s (process); losses "
+        f"{[round(x, 4) for x in out['losses']]}; launches forward {out['fwd']}, backward "
+        f"{out['bwd']}; peak {out['peak_gb']:.3f} GB")
+    return out
+
+
+def _train_in_process(what: str, args: list) -> dict:
+    """``modelx-train-torch``'s ``run`` with ``args`` in this process (a
+    child's start costs ~10 s on the card's machine): the summary its last
+    line prints, the per-step losses of its log, the kernel launches
+    counted from 0 and the peak device memory, as ``_train_child`` reads
+    them off a child."""
+    import logging
+
+    import torch
+
+    from modelx_tpu_torch.models import train_main
+    from modelx_tpu_torch.ops import attention as attn
+
+    messages: list[str] = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler, logger = Collect(level=logging.INFO), logging.getLogger("modelx.train")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    on_card = torch.cuda.is_available()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    attn.flash_attention.launches = attn.flash_attention_backward.launches = 0
+    t0 = time.monotonic()
+    try:
+        summary = train_main.run(args)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    out = {"summary": summary, "fwd": attn.flash_attention.launches,
+           "bwd": attn.flash_attention_backward.launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0,
+           "seconds": time.monotonic() - t0,
+           "losses": [float(m.group(2)) for m in _STEP_LOSS.finditer("\n".join(messages))]}
+    log(f"train: {what}: {out['summary']} in {out['seconds']:.1f} s (in process); losses "
+        f"{[round(x, 4) for x in out['losses']]}; launches forward {out['fwd']}, backward "
+        f"{out['bwd']}; peak {out['peak_gb']:.3f} GB")
+    return out
+
+
+def _blob_puts(base: str) -> float:
+    port = int(base.rsplit(":", 1)[1])
+    _, _, raw = _http_raw(port, "/metrics?format=prometheus")
+    for line in raw.decode().splitlines():
+        if line.startswith("modelx_blob_put_total "):
+            return float(line.split()[1])
+    return 0.0
+
+
+def _digests(directory: str) -> dict:
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def phase_train(device: str = "cuda", cfg=None, tiny_cfg=None) -> dict:
+    """Training on one card (module docstring, phase 12): (a) Llama-3-8B's
+    widths at ``TRAIN_LAYERS`` layers through ``modelx-train-torch`` on a
+    repeated batch (the loss falls; both kernels once per layer per step);
+    (b) in process, one step's gradients through the kernels against the
+    plain attention's (none None, each within ``TRAIN_GRAD_TOL``; the loss
+    within ``TRAIN_LOSS_TOL``); (c) the
+    entry point at ``--config tiny`` (head_dim 32): train, resume, push to
+    a ``modelxd-torch`` and push again after one more step (only changed
+    shards upload), then push the unchanged checkpoint in process (nothing
+    uploads).
+    Its launches are counted from 0 (in the children, and in process)."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.dl import families as fam
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl.loader import LocalFileSource, load_safetensors
+    from modelx_tpu_torch.models import llama
+    from modelx_tpu_torch.models import train as train_mod
+    from modelx_tpu_torch.ops import attention as attn
+
+    on_card = device == "cuda"
+    cfg = cfg or dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=TRAIN_LAYERS)
+    tiny_cfg = tiny_cfg or llama.LlamaConfig.tiny()
+    dev_args = [] if on_card else ["--device", "cpu"]
+    t_phase = time.monotonic()
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    nbytes = 2 * sum(math.prod(x) for x in llama.param_shapes(cfg).values())
+    root = _checkpoint_dir(nbytes)
+    stats: dict = {"train_fwd_launches": 0, "train_bwd_launches": 0}
+    reg = None
+    try:
+        # (a) the full-width cut through the entry point
+        model_dir = os.path.join(root, "model")
+        os.makedirs(model_dir)
+        t0 = time.monotonic()
+        params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(14),
+                                   dtype=torch.bfloat16)
+        st.write_safetensors(os.path.join(model_dir, "model.safetensors"), params)
+        del params
+        stats["train_write_s"] = time.monotonic() - t0
+        data = os.path.join(root, "tokens.npy")
+        np.save(data, np.random.RandomState(14).randint(
+            0, cfg.vocab_size, TRAIN_SEQ + 1).astype(np.int32))  # one window: every step's batch
+        log(f"train: wrote {nbytes / 1e9:.3f} GB ({cfg}) in {stats['train_write_s']:.1f} s")
+        run = _train_child(f"{cfg.num_layers} layers at Llama-3-8B's widths", [
+            "--model-dir", model_dir, "--data", data, "--batch", "1", "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1", *dev_args])
+        losses = run["losses"]
+        if run["summary"]["steps"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+            raise RuntimeError(f"train: want {TRAIN_STEPS} steps and losses, got "
+                               f"{run['summary']} and {losses}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"train: the loss did not fall on a repeated batch: {losses}")
+        per_step = cfg.num_layers if on_card else 0
+        check_train_launches("the full-width run", run["fwd"], run["bwd"], per_step * TRAIN_STEPS)
+        stats.update({"train_losses": losses, "train_tokens_per_s": run["summary"]["tokens_per_s"],
+                      "train_child_s": run["seconds"], "train_child_peak_gb": run["peak_gb"]})
+        stats["train_fwd_launches"] += run["fwd"]
+        stats["train_bwd_launches"] += run["bwd"]
+
+        # (b) one step's gradients: the kernels against the plain attention
+        infos, off = st.read_header_from_file(os.path.join(model_dir, "model.safetensors"))
+        inferred = fam.infer_llama_config(fam.abstract_params(infos))
+        src = LocalFileSource(os.path.join(model_dir, "model.safetensors"))
+        try:
+            params, _ = load_safetensors(src, device, tensors=infos, data_offset=off)
+        finally:
+            src.close()
+        window = torch.from_numpy(np.load(data)).to(device)[None]
+        batch = {"tokens": window[:, :-1], "targets": window[:, 1:]}
+
+        def forward(impl):
+            return lambda p, t: llama.forward(p, t, inferred, attention_impl=impl)[0]
+
+        attn.flash_attention.launches = attn.flash_attention_backward.launches = 0
+        t0 = time.monotonic()
+        loss_k, grads_k = train_mod.loss_and_grads(params, batch, forward("auto"))
+        if on_card:
+            torch.cuda.synchronize()
+        stats["train_grad_s"] = time.monotonic() - t0
+        fwd, bwd = attn.flash_attention.launches, attn.flash_attention_backward.launches
+        check_train_launches("the gradient check", fwd, bwd, per_step)
+        stats["train_fwd_launches"] += fwd
+        stats["train_bwd_launches"] += bwd
+        loss_p, grads_p = train_mod.loss_and_grads(params, batch, forward("reference"))
+        worst, name = check_grads(grads_k, grads_p, TRAIN_GRAD_TOL)
+        loss_gap = check_train_loss(float(loss_k), float(loss_p), TRAIN_LOSS_TOL)
+        stats.update({"train_grad_gap": worst, "train_grad_gap_param": name,
+                      "train_loss_kernel": float(loss_k), "train_loss_plain": float(loss_p),
+                      "train_loss_gap": loss_gap})
+        log(f"train: gradients of {len(grads_p)} params, kernels vs plain attention: every "
+            f"one present, worst relative L2 gap {worst:.5f} ({name}; tol {TRAIN_GRAD_TOL}); "
+            f"loss {float(loss_k):.5f} vs {float(loss_p):.5f} ({loss_gap:.2e} relative; tol "
+            f"{TRAIN_LOSS_TOL}); the kernel path's forward and "
+            f"backward {stats['train_grad_s']:.2f} s")
+        del params, grads_k, grads_p, batch, window
+        gc.collect()
+        if on_card:
+            stats["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.empty_cache()
+
+        # (c) the tiny config through the entry point: resume and push
+        reg, base = _start_registry(os.path.join(root, "registry"),
+                                    os.path.join(root, "registry.log"))
+        ck = os.path.join(root, "tiny-ck")
+        tiny_data = os.path.join(root, "tiny.npy")
+        np.save(tiny_data, np.random.RandomState(15).randint(
+            1, tiny_cfg.vocab_size, 8 * TINY_BATCH * (TINY_SEQ + 1)).astype(np.int32))
+        common = ["--config", "tiny", "--data", tiny_data, "--batch", str(TINY_BATCH),
+                  "--seq", str(TINY_SEQ), "--checkpoint-dir", ck, "--log-every", "1", *dev_args]
+        tiny_per_step = tiny_cfg.num_layers if on_card else 0
+        first, resumed, more = TINY_STEPS
+        # in process: the entry point's run, as its main calls it
+        runs = [_train_in_process("tiny, fresh", [*common, "--steps", str(first)])]
+        runs.append(_train_in_process("tiny, resumed and pushed", [
+            *common, "--steps", str(resumed), "--push", f"{base}/library/tiny-train@v1"]))
+        if runs[1]["summary"]["steps"] != first + resumed:
+            raise RuntimeError(f"train: the resumed run reads {runs[1]['summary']['steps']} "
+                               f"steps, want {first + resumed}")
+        puts_v1 = _blob_puts(base)
+        before = _digests(ck)
+        runs.append(_train_in_process("tiny, one more step and pushed", [
+            *common, "--steps", str(more), "--push", f"{base}/library/tiny-train@v2"]))
+        changed = sum(1 for n, h in _digests(ck).items() if before.get(n) != h)
+        puts_v2 = _blob_puts(base)
+        # the unchanged checkpoint again, through the checkpointer the entry
+        # point pushes with
+        from modelx_tpu_torch.dl.checkpoint import Checkpointer
+
+        Checkpointer(ck).push(f"{base}/library/tiny-train@v3")
+        puts_v3 = _blob_puts(base)
+        if runs[2]["summary"]["steps"] != first + resumed + more:
+            raise RuntimeError(f"train: the third run reads {runs[2]['summary']['steps']} steps")
+        if puts_v2 - puts_v1 != changed or puts_v3 != puts_v2:
+            raise RuntimeError(f"train: pushes uploaded {puts_v1} blobs, then {puts_v2 - puts_v1} "
+                               f"with {changed} files changed, then {puts_v3 - puts_v2} with "
+                               f"none changed")
+        for r, steps in zip(runs, TINY_STEPS):
+            check_train_launches("the tiny entry-point run", r["fwd"], r["bwd"],
+                                 tiny_per_step * steps)
+            stats["train_fwd_launches"] += r["fwd"]
+            stats["train_bwd_launches"] += r["bwd"]
+        stats.update({"train_tiny_steps": runs[2]["summary"]["steps"],
+                      "train_push_blobs": [puts_v1, puts_v2 - puts_v1, puts_v3 - puts_v2],
+                      "train_push_changed": changed})
+        log(f"train: tiny entry point: {first} steps, resumed to {first + resumed}, pushed "
+            f"{puts_v1:.0f} blobs; one more step changed {changed} of {len(before)} files and "
+            f"uploaded {puts_v2 - puts_v1:.0f}; the unchanged checkpoint uploaded "
+            f"{puts_v3 - puts_v2:.0f}")
+        stats["train_bytes_written"] = _tree_bytes(root)
+    finally:
+        if reg is not None:
+            reg.terminate()
+            try:
+                reg.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                reg.kill()
+                reg.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    stats["train_phase_s"] = time.monotonic() - t_phase
+    log(f"train: the phase took {stats['train_phase_s']:.1f} s, wrote "
+        f"{stats['train_bytes_written'] / 1e9:.3f} GB of files (deleted), peak "
+        f"torch.cuda.max_memory_allocated {stats.get('train_peak_gb', 0.0):.3f} GB in process, "
+        f"{stats['train_child_peak_gb']:.3f} GB in the full-width child; launches forward "
+        f"{stats['train_fwd_launches']}, backward {stats['train_bwd_launches']}")
+    return stats
 
 if __name__ == "__main__":
     sys.exit(main())

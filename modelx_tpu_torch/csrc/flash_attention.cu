@@ -61,7 +61,18 @@
 //
 // fp32 keeps the CUDA-core kernel below (fp32 FMA): TF32 tensor cores keep
 // about 3 decimal digits and would break fp32's 2e-5 tolerance. fp32 is what
-// the tests use; the served model is bf16.
+// the tests use; the served model is bf16. bf16 at D = 32 (the tiny test
+// config's head) also runs there: a 64-byte row is half of the tensor-core
+// path's 128-byte swizzle row.
+//
+// The training forward (mx_flash_attention_lse) also writes each row's
+// log-sum-exp, fp32 in natural-log units, which the backward
+// (flash_attention_bwd.cu) reads to rebuild P without a second softmax.
+// mx_flash_attention passes a null pointer, and the kernels skip the store.
+// The tensor-core kernel's store is a template flag: its training
+// instantiations are compiled in flash_attention_lse.cu, which includes
+// this file with MX_FLASH_LSE defined, so that nvcc builds them beside the
+// serving ones (one nvcc per source, all at once).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -72,6 +83,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "simt.cuh"
 
 namespace {
 
@@ -89,16 +101,16 @@ constexpr int LDP = BK + 4;    // padded row stride of the P tile
 constexpr float NEG_INF = -1e30f;
 
 // Stage rows [row0, row0 + nrows) of a contiguous [S, D] slab into shared
-// memory times `mul`, row stride `ld`; rows at or past `valid` are 0.
-template <int D>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int row0, int nrows,
+// memory as fp32 times `mul`, row stride `ld`; rows at or past `valid` are 0.
+template <typename T, int D>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int row0, int nrows,
                                       int valid, float* dst, int ld, float mul) {
   constexpr int PER_ROW = D / 4;
   for (int idx = threadIdx.x; idx < nrows * PER_ROW; idx += NT) {
     const int r = idx / PER_ROW;
     const int c = (idx % PER_ROW) * 4;
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < valid) f = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
+    if (row0 + r < valid) f = mx::load4(src + (size_t)(row0 + r) * D + c);
     *reinterpret_cast<float4*>(dst + r * ld + c) =
         make_float4(f.x * mul, f.y * mul, f.z * mul, f.w * mul);
   }
@@ -113,11 +125,14 @@ constexpr size_t smem_bytes_f32() {
 // shared memory as fp32; each of 256 threads owns 2 query rows x 4 keys of
 // the score tile and 2 rows x D/8 output columns, so the softmax state and
 // acc live in registers; a row's 8 threads reduce with three xor shuffles.
-template <int D>
+// T is float (every head dim) or bf16 (head_dim 32 only: its 64-byte rows
+// are half a 128-byte swizzle row of the tensor-core path below). With a
+// non-null `lse`, each row's log-sum-exp (natural log) goes there too.
+template <typename T, int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H, int Hkv, int Sq,
-              int Sk, float scale, float softcap, int causal, int window) {
+flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+               float scale, float softcap, int causal, int window) {
   constexpr int LDQ = D + 4, LDK = D + 4, LDV = D;
   constexpr int OC = D / 32;  // float4 output column groups per thread
   extern __shared__ float4 smem4[];
@@ -131,15 +146,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / Hkv);
   const int q0 = qt * BQ;
-  const float* qp = q + (size_t)bh * Sq * D;
-  const float* kp = k + ((size_t)b * Hkv + kvh) * Sk * D;
-  const float* vp = v + ((size_t)b * Hkv + kvh) * Sk * D;
+  const T* qp = q + (size_t)bh * Sq * D;
+  const T* kp = k + ((size_t)b * Hkv + kvh) * Sk * D;
+  const T* vp = v + ((size_t)b * Hkv + kvh) * Sk * D;
 
   const int tid = threadIdx.x;
   const int rg = tid >> 3;  // row group: rows rg, rg + RG
   const int cg = tid & 7;   // column group: keys cg + 8j, out cols 4cg + 32jj
 
-  stage<D>(qp, q0, BQ, Sq, sQ, LDQ, scale);
+  stage<T, D>(qp, q0, BQ, Sq, sQ, LDQ, scale);
 
   int nk = (Sk + BK - 1) / BK;
   int lo = 0;
@@ -168,8 +183,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int kb = lo; kb < nk; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();  // the previous tile's PV product is done with sV/sP
-    stage<D>(kp, k0, BK, Sk, sK, LDK, 1.f);
-    stage<D>(vp, k0, BK, Sk, sV, LDV, 1.f);
+    stage<T, D>(kp, k0, BK, Sk, sK, LDK, 1.f);
+    stage<T, D>(vp, k0, BK, Sk, sV, LDV, 1.f);
     __syncthreads();
 
     float s[RM][CN];
@@ -276,11 +291,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + rg + RG * i;
     if (r >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* op = o + ((size_t)bh * Sq + r) * D;
+    T* op = o + ((size_t)bh * Sq + r) * D;
 #pragma unroll
     for (int jj = 0; jj < OC; ++jj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) op[4 * cg + 32 * jj + e] = acc[i][4 * jj + e] / denom;
+      for (int e = 0; e < 4; ++e) mx::store1(op + 4 * cg + 32 * jj + e, acc[i][4 * jj + e] / denom);
+    // a row that sees no key keeps NEG_INF, the plain version's value there
+    if (lse != nullptr && cg == 0)
+      lse[(size_t)bh * Sq + r] = l[i] > 0.f ? m[i] + logf(l[i]) : NEG_INF;
   }
 }
 
@@ -291,6 +309,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int WG_THREADS = 384;  // warpgroup 0: producer; 1 and 2: consumers
 constexpr int WG_BQ = 128;       // query rows per block, 64 per consumer warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Tile {
@@ -396,12 +415,12 @@ __device__ __forceinline__ TileCoords tile_coords(int t, int BH, int Sq, int Sk,
 // in rounds of gridDim.x (see walk), so the producer loads the next tile's
 // q and first kv tiles while the consumers finish the last product and the
 // stores of this one.
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int BH,
-               int H, int Hkv, int Sq, int Sk, float scale, float softcap, int causal,
-               int window) {
+               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+               float* __restrict__ lse, int BH, int H, int Hkv, int Sq, int Sk, float scale,
+               float softcap, int causal, int window) {
   using T = Tile<D>;
   constexpr int BKT = T::BK;
   constexpr int DP = T::DP;
@@ -735,6 +754,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+      // the training forward's row log-sum-exp (LSE, a compile-time switch:
+      // the serving instantiation has no such code): m is in log2 units of
+      // the scaled (softcapped) logits; one thread of the quad writes it
+      if (LSE && (lane & 3) == 0) {
+        float* lp = lse + (size_t)c.bh * Sq;
+        if (qpos0 < Sq) lp[qpos0] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : NEG_INF;
+        if (qpos1 < Sq) lp[qpos1] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : NEG_INF;
+      }
       __nv_bfloat16* op = o + (size_t)c.bh * Sq * D + kcol;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
@@ -792,9 +819,9 @@ bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int D, int S
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int Hkv, int Sq, int Sk, float scale, float softcap, int causal,
+template <int D, bool LSE>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int H, int Hkv, int Sq, int Sk, float scale, float softcap, int causal,
                         int window, cudaStream_t stream) {
   using T = Tile<D>;
   EncodeTiledFn enc = encode_tiled();
@@ -811,8 +838,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (sms[dev] == 0) {
-    err = cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               T::SMEM);
+    err = cudaFuncSetAttribute(flash_fwd_bf16<D, LSE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return err;
     int n = 0;
     err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
@@ -822,36 +849,108 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   const long long ntotal = (long long)B * H * ((Sq + WG_BQ - 1) / WG_BQ);
   if (ntotal > 0x7fffffff) return cudaErrorInvalidValue;
   const int grid = (int)(ntotal < sms[dev] ? ntotal : sms[dev]);
-  flash_fwd_bf16<D><<<grid, WG_THREADS, T::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B * H, H, Hkv, Sq, Sk, scale, softcap, causal,
-      window);
+  flash_fwd_bf16<D, LSE><<<grid, WG_THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B * H, H, Hkv, Sq, Sk, scale, softcap,
+      causal, window);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
-                       int Hkv, int Sq, int Sk, float scale, float softcap, int causal,
-                       int window, cudaStream_t stream) {
+}  // namespace
+
+// bf16 on the tensor cores with the log-sum-exp store (LSE = true), for
+// D = 64, 96, 128, 256: defined in flash_attention_lse.cu's translation unit.
+cudaError_t mx_launch_bf16_lse(int D, const void* q, const void* k, const void* v, void* o,
+                               float* lse, int B, int H, int Hkv, int Sq, int Sk, float scale,
+                               float softcap, int causal, int window, cudaStream_t stream);
+
+#ifdef MX_FLASH_LSE
+
+cudaError_t mx_launch_bf16_lse(int D, const void* q, const void* k, const void* v, void* o,
+                               float* lse, int B, int H, int Hkv, int Sq, int Sk, float scale,
+                               float softcap, int causal, int window, cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch_bf16<64, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                                   window, stream);
+    case 96:
+      return launch_bf16<96, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                                   window, stream);
+    case 128:
+      return launch_bf16<128, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                                    window, stream);
+    case 256:
+      return launch_bf16<256, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                                    window, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+#else  // the serving instantiations, the CUDA-core kernel and the C entries
+
+namespace {
+
+template <typename E, int D>
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int H, int Hkv, int Sq, int Sk, float scale, float softcap, int causal,
+                        int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes_f32<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_simt<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_f32<D><<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Hkv, Sq, Sk, scale, softcap, causal, window);
+  flash_fwd_simt<E, D><<<grid, NT, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<E*>(o), lse, H, Hkv, Sq, Sk, scale, softcap, causal, window);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Hkv, int Sq, int Sk, float scale, float softcap, int causal, int window,
-                   cudaStream_t stream) {
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int H, int Hkv, int Sq, int Sk, float scale, float softcap, int causal,
+                   int window, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, stream);
-  if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, stream);
+    return launch_simt<float, D>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                                 window, stream);
+  if (dtype == 1) {
+    if constexpr (D == 32)  // the CUDA cores: see flash_fwd_simt
+      return launch_simt<__nv_bfloat16, 32>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap,
+                                            causal, window, stream);
+    else if (lse != nullptr)
+      return mx_launch_bf16_lse(D, q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                                window, stream);
+    else
+      return launch_bf16<D, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                                   window, stream);
+  }
   return cudaErrorInvalidValue;
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
+             int H, int Hkv, int Sq, int Sk, int D, float scale, float softcap, int causal,
+             int window, void* stream) {
+  cudaGetLastError();  // clear a stale error so the return is this launch's
+  if (Hkv < 1 || H % Hkv != 0 || B < 1 || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return (int)launch<32>(dtype, q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                             window, s);
+    case 64:
+      return (int)launch<64>(dtype, q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                             window, s);
+    case 96:
+      return (int)launch<96>(dtype, q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                             window, s);
+    case 128:
+      return (int)launch<128>(dtype, q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                              window, s);
+    case 256:
+      return (int)launch<256>(dtype, q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, softcap, causal,
+                              window, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -863,19 +962,20 @@ extern "C" int mx_flash_attention(const void* q, const void* k, const void* v, v
                                   int dtype, int B, int H, int Hkv, int Sq, int Sk, int D,
                                   float scale, float softcap, int causal, int window,
                                   void* stream) {
-  cudaGetLastError();  // clear a stale error so the return is this launch's
-  if (Hkv < 1 || H % Hkv != 0 || B < 1 || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return (int)launch<64>(dtype, q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, s);
-    case 96:
-      return (int)launch<96>(dtype, q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, s);
-    case 128:
-      return (int)launch<128>(dtype, q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, s);
-    case 256:
-      return (int)launch<256>(dtype, q, k, v, o, B, H, Hkv, Sq, Sk, scale, softcap, causal, window, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, o, nullptr, dtype, B, H, Hkv, Sq, Sk, D, scale, softcap, causal,
+                  window, stream);
 }
+
+// The training forward: mx_flash_attention, and each row's log-sum-exp of
+// its scaled (softcapped, masked) logits, natural log, into the fp32
+// [B, H, Sq] tensor `lse` (the backward's P = exp(s - lse)).
+extern "C" int mx_flash_attention_lse(const void* q, const void* k, const void* v, void* o,
+                                      float* lse, int dtype, int B, int H, int Hkv, int Sq,
+                                      int Sk, int D, float scale, float softcap, int causal,
+                                      int window, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(q, k, v, o, lse, dtype, B, H, Hkv, Sq, Sk, D, scale, softcap, causal, window,
+                  stream);
+}
+
+#endif  // MX_FLASH_LSE

@@ -610,5 +610,5 @@ def export_surface(family, cfg, head_dims, mesh, cache_dir: str) -> list[str]:
                 f"cannot build {name}: {e}, and {cache_dir} holds no cached library "
                 f"(set MODELX_COMPILE_CACHE or --cache-dir to a directory that has it)"
             ) from None
-        build.compile_library(build.SOURCE, path)
+        build.compile_library(build.CSRC, path)
     return [name]

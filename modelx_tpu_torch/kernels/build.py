@@ -1,7 +1,9 @@
-"""Build the flash-attention CUDA source with nvcc and bind it with ctypes.
+"""Build the flash-attention CUDA sources with nvcc and bind them with ctypes.
 
-``csrc/flash_attention.cu`` (with the headers beside it) is compiled on
-first use, for ``sm_90a``, into a shared library with a plain C interface,
+Every ``.cu`` under ``csrc/`` (the forward ``flash_attention.cu`` and the
+backward ``flash_attention_bwd.cu``, with the headers beside them) is
+compiled on first use, for ``sm_90a``, one nvcc per source, all started
+together, and linked into one shared library with a plain C interface,
 named by a hash of every file under ``csrc/`` and the flags: a changed
 source or header rebuilds, an unchanged tree loads the cached library.
 
@@ -32,22 +34,27 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCE = os.path.join(CSRC, "flash_attention.cu")
 # the default build directory; $MODELX_COMPILE_CACHE overrides it
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH = "sm_90a"
 # The source reaches cuTensorMapEncodeTiled through cudaGetDriverEntryPoint,
 # so nothing links against libcuda; its headers are found beside it.
-NVCC_FLAGS = (
-    f"-gencode=arch=compute_{ARCH[3:]},code={ARCH}", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_GENCODE = f"-gencode=arch=compute_{ARCH[3:]},code={ARCH}"
+# one object per source (-c), then one link (-shared)
+NVCC_FLAGS = (_GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (_GENCODE, "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, o, dtype, B, H, Hkv, Sq, Sk, D, scale, softcap, causal, window,
 # stream. Every pointer and the stream are c_void_p, so ctypes never cuts
-# them to 32 bits; the function returns its cudaGetLastError() (0 = ok).
+# them to 32 bits; each function returns its cudaGetLastError() (0 = ok).
 ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P]
+# the training forward: ARGTYPES with the fp32 lse pointer after o
+LSE_ARGTYPES = [_P] * 5 + [_I] * 7 + [_F, _F, _I, _I, _P]
+# the backward: q, k, v, o, do, lse, delta, dq, dk, dv, then as ARGTYPES
+BWD_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P]
+SYMBOLS = {"mx_flash_attention": ARGTYPES, "mx_flash_attention_lse": LSE_ARGTYPES,
+           "mx_flash_attention_bwd": BWD_ARGTYPES}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -76,7 +83,7 @@ def nvcc_path() -> str:
 
 def source_digest() -> str:
     """sha256 over every file under csrc/ (relative name and bytes) and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for root, _dirs, files in sorted(os.walk(CSRC)):
         for name in sorted(files):
             path = os.path.join(root, name)
@@ -111,17 +118,41 @@ def note_installed(path: str) -> None:
     _origins[os.path.realpath(path)] = ("bundle", None)
 
 
-def compile_library(source: str, out: str) -> str:
-    """nvcc ``source`` (with the headers beside it) into the shared library
-    ``out``; returns nvcc's output and raises with it when nvcc fails."""
+def compile_library(source_dir: str, out: str) -> str:
+    """nvcc every ``.cu`` of ``source_dir`` (one nvcc each, all at once,
+    with the headers beside them) and link them into the shared library
+    ``out``. Returns nvcc's output and raises with it when nvcc fails."""
+    sources = [os.path.join(source_dir, n) for n in sorted(os.listdir(source_dir))
+               if n.endswith(".cu")]
+    if not sources:
+        raise RuntimeError(f"kernel build failed: no .cu source under {source_dir}")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, source],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: nvcc exited {proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return proc.stdout
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    nvcc = nvcc_path()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    try:
+        logs = [(src, proc.communicate()[0], proc.returncode) for src, proc in zip(sources, procs)]
+        text = "".join(f"== {os.path.basename(src)}\n{log}" for src, log, _ in logs)
+        failed = [f"{os.path.basename(src)} ({rc})" for src, _, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError(f"kernel build failed: nvcc exited nonzero for {failed}\n{text}")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"kernel link failed: nvcc exited {link.returncode}\n{link.stdout}")
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in objs:
+            if os.path.exists(path):
+                os.unlink(path)
+    return text + link.stdout
 
 
 def build() -> bool:
@@ -132,16 +163,23 @@ def build() -> bool:
     if os.path.exists(out):
         return False
     t0 = time.monotonic()
-    build_log = compile_library(SOURCE, out)
+    build_log = compile_library(CSRC, out)
     _origins[os.path.realpath(out)] = ("nvcc", time.monotonic() - t0)
     return True
 
 
 def bind(path: str) -> ctypes.CDLL:
-    """Load a built library and declare ``mx_flash_attention``'s C interface."""
+    """Load a built library and declare the C interface of each of
+    ``SYMBOLS`` it exports (a baseline built from an older source may have
+    the forward only; calling a missing one raises AttributeError)."""
     lib = ctypes.CDLL(path)
-    lib.mx_flash_attention.argtypes = ARGTYPES
-    lib.mx_flash_attention.restype = ctypes.c_int
+    if not hasattr(lib, "mx_flash_attention"):
+        raise RuntimeError(f"{path} exports no mx_flash_attention")
+    for name, argtypes in SYMBOLS.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

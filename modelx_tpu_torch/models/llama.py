@@ -52,6 +52,13 @@ class LlamaConfig:
         return cls()
 
     @classmethod
+    def llama3_70b(cls) -> "LlamaConfig":
+        return cls(
+            hidden_size=8192, intermediate_size=28672, num_layers=80,
+            num_heads=64, num_kv_heads=8,
+        )
+
+    @classmethod
     def tiny(cls, vocab_size: int = 512) -> "LlamaConfig":
         """Test/dry-run config: real structure, toy sizes."""
         return cls(

@@ -15,8 +15,8 @@ weights before the fp32 sum, which is cast once at the end. Each expert
 adds its rows in one call, with no row twice, so the sum is deterministic
 (experts in order).
 
-Not a Pallas kernel in the JAX package (XLA einsums), so plain torch here;
-the load-balancing loss is training's and comes with the training slice.
+Not a Pallas kernel in the JAX package (XLA einsums), so plain torch here,
+as is training's load-balancing loss.
 """
 
 from __future__ import annotations
@@ -86,3 +86,14 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w1: torch.Tensor, w2: torch.T
         ye = _linear(h, w2[ei])
         out.index_add_(0, idx, combine[idx, ei, None].float() * ye.float())
     return out.to(x.dtype).reshape(b, s, d)
+
+
+def load_balancing_loss(router_logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss: E * sum_e f_e * p_e,
+    where f_e = fraction of tokens routed to expert e, p_e = mean router
+    probability; fp32. router_logits/mask: [..., E] (counterpart of
+    ``modelx_tpu/ops/moe.py:104``)."""
+    e = router_logits.shape[-1]
+    probs = torch.softmax(router_logits.float(), dim=-1).reshape(-1, e)
+    frac = mask.reshape(-1, e).float()
+    return e * torch.sum(frac.mean(0) * probs.mean(0))

@@ -2,12 +2,14 @@
 """The port's flash kernel against other builds of it, timed in one call.
 
     python3 scripts/torch_flash_ab.py --baseline NAME=DIR [--baseline NAME=DIR ...] [--out FILE]
+        [--cases LABEL,LABEL]
 
 Each DIR holds a ``flash_attention.cu`` (with any headers it includes) that
 exports ``mx_flash_attention`` with the port's C interface
 (``kernels/build.py``'s ``ARGTYPES``): an earlier commit's
 ``modelx_tpu_torch/csrc/`` unpacked with ``git archive``, or a copy of it
-with one change. Each is built with the port's nvcc flags beside the port's
+with one change. Every ``.cu`` in DIR is compiled into the baseline's
+library, with the port's nvcc flags, beside the port's
 own library. Then, at each of ``chip_smoke.ATTN_CASES`` on the smoke's
 inputs, every library is checked against the fp32 plain version and timed
 in turns (the port, each baseline, each baseline again in reverse, the
@@ -47,6 +49,9 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", type=parse_baseline, action="append", required=True,
                     metavar="NAME=DIR", help="a kernel source directory to time against")
     ap.add_argument("--out", default="", help="also write the JSON result here")
+    ap.add_argument("--cases", default="",
+                    help="comma list of chip_smoke.ATTN_CASES labels to time (default: all; "
+                         "a baseline older than a case's head_dim cannot run it)")
     args = ap.parse_args(argv)
     names = [n for n, _ in args.baseline]
     if len(set(names)) != len(names):
@@ -67,7 +72,7 @@ def main(argv=None) -> int:
     for name, path in args.baseline:
         t0 = time.monotonic()
         so = os.path.join(build.BUILD_DIR, "baselines", f"{name}.so")
-        build.compile_library(os.path.join(path, "flash_attention.cu"), so)
+        build.compile_library(path, so)
         build_s[name] = time.monotonic() - t0
         libs[name] = build.bind(so)
         print(f"built baseline {name} from {path} in {build_s[name]:.1f} s", flush=True)
@@ -75,8 +80,14 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version is full fp32
     rows = []
+    wanted = {c.strip() for c in args.cases.split(",") if c.strip()}
+    unknown = wanted - {c[0] for c in chip_smoke.ATTN_CASES}
+    if unknown:
+        ap.error(f"unknown cases {sorted(unknown)}")
     for i, (label, b, h, hkv, s, d, causal, scale, cap, window, dt) in enumerate(
             chip_smoke.ATTN_CASES):
+        if wanted and label not in wanted:
+            continue
         q, k, v = chip_smoke.case_tensors(i)
         kw = dict(causal=causal, scale=scale, logit_softcap=cap, window=window)
         ref = attn.attention_reference(q.float(), k.float(), v.float(), **kw)

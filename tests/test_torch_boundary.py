@@ -1,6 +1,6 @@
 """The port stands alone: no jax, ml_dtypes, tokenizers or modelx_tpu
 imports, none of the packages the card's host lacks (requests, click,
-yaml, rich, cryptography, boto3, google, orbax), and an explicit device
+yaml, rich, cryptography, boto3, google, orbax, optax), and an explicit device
 with no silent CPU fallback. The fleet router imports no torch at all: it
 runs on boxes with no accelerator."""
 
@@ -16,7 +16,8 @@ from modelx_tpu_torch.device import parse_dtype, resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "tokenizers", "modelx_tpu",
-             "requests", "click", "yaml", "rich", "cryptography", "boto3", "google", "orbax")
+             "requests", "click", "yaml", "rich", "cryptography", "boto3", "google", "orbax",
+             "optax")
 
 
 def _port_files():
@@ -63,7 +64,8 @@ def test_port_imports_no_jax_or_reference_package():
                 "client/convert.py", "dl/podspec.py", "testing/faults.py",
                 "router/__init__.py", "router/http.py", "router/policy.py",
                 "router/registry.py", "router/admission.py", "router/rebalance.py",
-                "router/server.py", "router/router_main.py"):
+                "router/server.py", "router/router_main.py", "models/train.py",
+                "models/train_main.py", "dl/checkpoint.py", "ops/moe.py", "ops/attention.py"):
         assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:
@@ -86,6 +88,7 @@ def test_serving_entry_leaves_jax_unimported():
     scripts = _console_script_modules()
     assert scripts == ["modelx_tpu_torch.cli", "modelx_tpu_torch.dl.dl_main",
                        "modelx_tpu_torch.dl.serve_main",
+                       "modelx_tpu_torch.models.train_main",
                        "modelx_tpu_torch.registry.server_main",
                        "modelx_tpu_torch.router.router_main"]
     code = (
@@ -112,7 +115,8 @@ def test_serving_entry_leaves_jax_unimported():
         "modelx_tpu_torch.registry.gc, modelx_tpu_torch.client.push, "
         "modelx_tpu_torch.client.ops, modelx_tpu_torch.client.convert, "
         "modelx_tpu_torch.dl.podspec, modelx_tpu_torch.testing.faults, "
-        "modelx_tpu_torch.dl.program_store; "
+        "modelx_tpu_torch.dl.program_store, modelx_tpu_torch.models.train, "
+        "modelx_tpu_torch.dl.checkpoint, modelx_tpu_torch.ops.moe; "
         "bad = [m for m in sys.modules if m not in ns and m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )

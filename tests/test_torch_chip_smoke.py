@@ -61,6 +61,8 @@ def test_main_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "POOL_STREAM_PROMPT", 7)
     monkeypatch.setattr(chip_smoke, "POOL_STREAM_TOKENS", 400)  # in flight at the DELETE
     monkeypatch.setattr(chip_smoke, "POOL_VETO_LOADS", 3)
+    # phases 7-10 on the shallower second checkpoint, as on the card
+    monkeypatch.setattr(chip_smoke, "LATER_LAYERS", 1)
     monkeypatch.setattr(chip_smoke, "ART_BASE_LEN", 40)
     monkeypatch.setattr(chip_smoke, "ART_NEW_TOKENS", 4)
     # a tiny model streams fast: each engine chunk of the artifacts pods
@@ -100,6 +102,7 @@ def test_main_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     assert stats["batch_device_calls"] < stats["batch_requests"] == 7
     assert stats["spec_steps"] > 0 and stats["int8_device_gb"] > 0
     assert stats["int8_linear_max_abs_err"] >= 0 and stats["lora_merge_s"] >= 0
+    assert stats["later_layers"] == 1 < cfg.num_layers
     # and the registry deploy, on its own count: cold and warm modelxdl-torch,
     # cold and warm TTFT in child processes, the pulled dest served
     assert stats["flash_launches_deploy"] == 0
@@ -166,6 +169,17 @@ def _tiny_families():
                                             rope_theta=1e6)),
             ("gpt2", dataclasses.replace(gpt2.GPT2Config.tiny(), dtype=torch.bfloat16)),
             ("bert", bert.BertConfig.tiny())]
+
+
+def test_family_configs_take_the_depth_cuts():
+    """The full-width presets the card runs, at the depths the time limit
+    allows (the CPU rehearsal passes its own tiny configs)."""
+    cfgs = dict(chip_smoke.family_configs())
+    assert list(cfgs) == ["gemma2", "phi3", "mixtral", "gpt2", "bert"]
+    assert cfgs["gemma2"].num_layers == chip_smoke.GEMMA_LAYERS
+    assert cfgs["phi3"].num_layers == chip_smoke.PHI3_LAYERS and cfgs["phi3"].head_dim == 96
+    assert cfgs["mixtral"].num_layers == chip_smoke.MIXTRAL_LAYERS
+    assert cfgs["gpt2"].num_layers == 12 and cfgs["bert"].num_layers == 12
 
 
 def test_families_phase_rehearses_on_cpu(monkeypatch):
@@ -293,6 +307,22 @@ def test_sass_census_counts_per_instantiation():
         "flash_fwd_bf16<128>": {"HGMMA": 3, "HMMA": 0, "UTMALDG": 1, "LDGSTS": 0},
         "flash_fwd_f32<64>": {"HGMMA": 0, "HMMA": 1, "UTMALDG": 0, "LDGSTS": 1},
     }
+
+
+def test_kernel_label_names_typed_and_training_instantiations():
+    assert chip_smoke.kernel_label(
+        "_ZN12_GLOBAL__N_114flash_fwd_bf16ILi128ELb1EEEvv") == "flash_fwd_bf16<128,lse>"
+    assert chip_smoke.kernel_label(
+        "_ZN12_GLOBAL__N_114flash_fwd_bf16ILi128ELb0EEEvv") == "flash_fwd_bf16<128>"
+    assert chip_smoke.kernel_label(
+        "_ZN55_GLOBAL__N__b15ab8b7_22_flash_attention_bwd_cu_4dbe314f18flash_bwd_dkdv_mmaILi96E"
+        "EEvPK13__nv_bfloat16") == "flash_bwd_dkdv_mma<96>"
+    assert chip_smoke.kernel_label(
+        "_ZN12_GLOBAL__N_114flash_fwd_simtI13__nv_bfloat16Li32EEEvPKT_") == "flash_fwd_simt<bf16,32>"
+    # the training forward's own translation unit (flash_attention_lse.cu)
+    assert chip_smoke.kernel_label(
+        "_ZN55_GLOBAL__N__0a1b2c3d_22_flash_attention_lse_cu_5e6f7a8b14flash_fwd_bf16ILi96ELb1E"
+        "EEvv") == "flash_fwd_bf16<96,lse>"
 
 
 def test_kernel_label_leaves_foreign_names_alone():
@@ -551,3 +581,79 @@ def test_the_handoff_check_takes_only_a_near_tie():
         with pytest.raises(RuntimeError, match="tail after step"):
             chip_smoke.check_handoff(got, whole, k, tail, done,
                                      lambda j: (0.0, {11: 0.0, 9: 0.0}))
+
+
+def _tiny_train(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", 32)
+    monkeypatch.setattr(chip_smoke, "TINY_SEQ", 16)
+    return llama.LlamaConfig.tiny(vocab_size=256)
+
+
+def test_train_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 12 at the tiny preset (bf16, as on the card): the child trains
+    on a repeated batch and the loss falls, the in-process gradient check
+    finds every grad, the tiny entry point resumes to 7 steps and its
+    pushes upload the 4 changed files, then none."""
+    stats = chip_smoke.phase_train(device="cpu", cfg=_tiny_train(monkeypatch))
+    assert stats["train_fwd_launches"] == stats["train_bwd_launches"] == 0  # the plain versions
+    losses = stats["train_losses"]
+    assert len(losses) == chip_smoke.TRAIN_STEPS and losses[-1] < losses[0]
+    assert stats["train_grad_gap"] == 0.0  # on the CPU both paths are the reference
+    assert stats["train_loss_gap"] == 0.0
+    assert stats["train_tiny_steps"] == 7 and stats["train_push_changed"] == 4
+    assert stats["train_push_blobs"] == [4, 4, 0]  # 3 shards + checkpoint.json
+    assert stats["train_bytes_written"] > 0 and stats["train_phase_s"] > 0
+
+
+def test_train_phase_fails_when_a_grad_is_none(monkeypatch):
+    """A kernel output with no grad_fn leaves the q/k/v projections out of
+    the graph: the gradient check names them."""
+    from modelx_tpu_torch.models import llama as port_llama
+
+    real = port_llama.forward
+
+    def detached(params, tokens, cfg, attention_impl="auto", **kw):
+        if attention_impl == "auto":
+            params = {n: (t.detach() if n.endswith(("q_proj.weight", "k_proj.weight",
+                                                    "v_proj.weight")) else t)
+                      for n, t in params.items()}
+        return real(params, tokens, cfg, attention_impl=attention_impl, **kw)
+
+    monkeypatch.setattr(port_llama, "forward", detached)
+    monkeypatch.setattr(chip_smoke, "TINY_STEPS", (1, 1, 1))
+    with pytest.raises(RuntimeError, match=r"no gradient reached .*q_proj"):
+        chip_smoke.phase_train(device="cpu", cfg=_tiny_train(monkeypatch))
+
+
+def test_train_launch_check_fails_when_the_backward_is_not_launched():
+    chip_smoke.check_train_launches("ok", 16, 16, 16)
+    with pytest.raises(RuntimeError, match="flash_attention_backward launched 0 times, want 16"):
+        chip_smoke.check_train_launches("the full-width run", 16, 0, 16)
+    with pytest.raises(RuntimeError, match="flash_attention launched 0 times, want 16"):
+        chip_smoke.check_train_launches("the full-width run", 0, 16, 16)
+
+
+def test_grad_check_holds_the_tolerance():
+    plain = {"a": torch.ones(4), "b": torch.ones(3)}
+    assert chip_smoke.check_grads({"a": torch.ones(4), "b": torch.ones(3)}, plain, 0.05)[0] == 0
+    with pytest.raises(RuntimeError, match="relative L2"):
+        chip_smoke.check_grads({"a": torch.ones(4), "b": torch.ones(3) * 1.2}, plain, 0.05)
+    with pytest.raises(RuntimeError, match="no gradient reached"):
+        chip_smoke.check_grads({"a": torch.ones(4), "b": None}, plain, 0.05)
+
+
+def test_train_loss_check_holds_the_tolerance():
+    assert chip_smoke.check_train_loss(12.0, 12.0, 1e-3) == 0.0
+    assert chip_smoke.check_train_loss(12.006, 12.0, 1e-3) == pytest.approx(5e-4)
+    for flash in (12.1, float("nan")):
+        with pytest.raises(RuntimeError, match="loss through the kernels"):
+            chip_smoke.check_train_loss(flash, 12.0, 1e-3)
+
+
+def test_backward_bound_counts_five_products():
+    # the training shape: 10*D per visible pair, ~86 GFLOP at 989 TFLOP/s
+    ms, by = chip_smoke.backward_bound(1, 32, 8, 2048, 128, True, 0, "bfloat16")
+    assert by == "operations"
+    assert ms == pytest.approx(10 * 128 * 2048 * 2049 / 2 * 32 / 989e9)
+    assert ms == pytest.approx(2.5 * chip_smoke.attention_bound(
+        1, 32, 8, 2048, 128, True, 0, "bfloat16")[0])

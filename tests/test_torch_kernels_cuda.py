@@ -9,7 +9,10 @@ without the repo's conftest:
 Tolerance: the kernel in its working dtype against the plain version in
 fp32, |err| <= atol + rtol*|ref| with (2e-5, 2e-5) for fp32 (summation
 order) and (2e-3, 8e-3) for bf16 (the output's rounding to bf16, two
-half-ulps), as chip_smoke.py states them.
+half-ulps), as chip_smoke.py states them. The backward kernel's gradients:
+|err| <= atol*max|ref| + rtol*|ref| with (1e-5, 2e-5) for fp32 and
+(2e-3, 8e-3) for bf16, each tensor against its own maximum (chip_smoke.py's
+``BWD_TOL``); the forward's row log-sum-exp within 1e-4 (``LSE_TOL``).
 """
 
 import pytest
@@ -39,7 +42,7 @@ def _tol(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2), (8, 1)])  # GQA ratios 1, 4, 8
-@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda_device, d, dtype, h, hkv):
     seed = d if hkv == 2 else d + hkv  # (8, 2) keeps the inputs it had before GQA 1 and 8
@@ -91,7 +94,7 @@ def test_kernel_ragged_and_unequal_lengths(cuda_device, dtype, b, h, hkv, sq, sk
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
-    q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 4, 16, 16, 32, seed=0)
+    q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 4, 16, 16, 48, seed=0)
     with pytest.raises(ValueError, match="head_dim"):
         tattn.flash_attention(q, k, v)
     q, k, v = _qkv(cuda_device, torch.float16, 1, 4, 4, 16, 16, 64, seed=0)
@@ -134,3 +137,71 @@ def test_a_bundled_library_installs_and_launches(cuda_device, tmp_path, monkeypa
     atol, rtol = _tol(torch.bfloat16)
     ref = tattn.attention_reference(q.float(), k.float(), v.float())
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+
+
+BWD_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (2e-3, 8e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2), (8, 1)])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain_version(cuda_device, d, dtype, h, hkv):
+    """The backward kernel, reached through autograd (FlashAttentionFunction),
+    against attention_backward_reference on the same q, k, v, do and the
+    forward kernel's o and lse; that o (the training instantiation's) against
+    attention_reference, its lse against attention_lse_reference."""
+    q, k, v = _qkv(cuda_device, dtype, 2, h, hkv, 200, 200, d, seed=d + 7 * hkv)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(d),
+                     device=cuda_device).to(dtype)
+    atol, rtol = BWD_TOL[dtype]
+    for kw in ({}, {"causal": False}, {"scale": d ** -0.5, "logit_softcap": 50.0, "window": 48},
+               {"window": 150}):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = (tattn.flash_attention.launches, tattn.flash_attention_backward.launches)
+        out = tattn.flash_attention(*leaves, **kw)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert (tattn.flash_attention.launches, tattn.flash_attention_backward.launches) == (
+            before[0] + 1, before[1] + 1)
+        causal = kw.get("causal", True)
+        o_atol, o_rtol = _tol(dtype)
+        ref_o = tattn.attention_reference(q.float(), k.float(), v.float(), **kw)
+        torch.testing.assert_close(out.detach().float(), ref_o, atol=o_atol, rtol=o_rtol)
+        _, lse = tattn._flash_cuda(q, k, v, causal, kw.get("scale"),
+                                   kw.get("logit_softcap", 0.0), kw.get("window", 0),
+                                   with_lse=True)
+        ref_lse = tattn.attention_lse_reference(q.float(), k.float(), v.float(), **kw)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        want = tattn.attention_backward_reference(q.float(), k.float(), v.float(),
+                                                  out.detach().float(), do.float(), lse, **kw)
+        for leaf, ref in zip(leaves, want):
+            assert leaf.grad.dtype == dtype and leaf.grad.shape == leaf.shape
+            err = (leaf.grad.float() - ref).abs()
+            assert bool((err <= atol * ref.abs().max() + rtol * ref.abs()).all()), \
+                float(err.max())
+
+
+@pytest.mark.cuda
+def test_backward_refuses_head_dim_256(cuda_device):
+    """Under autograd a head_dim the backward kernel does not take raises
+    before the forward runs."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 4, 4, 16, 16, 256, seed=0)
+    q.requires_grad_(True)
+    before = tattn.flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.flash_attention(q, k, v)
+    assert tattn.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_backward_is_once_differentiable(cuda_device):
+    """The backward kernel's grads carry no graph of their own: a second
+    order gradient raises instead of coming out wrong."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 4, 4, 16, 16, 64, seed=0)
+    q.requires_grad_(True)
+    out = tattn.flash_attention(q, k, v)
+    do = torch.ones_like(out, requires_grad=True)
+    (dq,) = torch.autograd.grad(out, q, do, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()

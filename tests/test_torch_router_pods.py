@@ -18,7 +18,13 @@ from modelx_tpu.router import rebalance as jreb
 from modelx_tpu.router import registry as jreg
 from modelx_tpu_torch.router import rebalance as treb
 from modelx_tpu_torch.router import registry as treg
-from tests.test_torch_lifecycle import Pair, model_dirs, registry  # noqa: F401  (fixtures)
+from tests.test_torch_lifecycle import (Pair, fresh_trackers, model_dirs,  # noqa: F401  (fixtures)
+                                        registry)
+
+# both packages' process-wide control-plane trackers start from zero: a
+# registry failure noted by an earlier test in the same process would
+# otherwise read as one pod's "degraded" control plane
+pytestmark = pytest.mark.usefixtures("fresh_trackers")
 
 BASE = [[5, 9, 2, 7, 1, 3, 8, 4, 6, 2, 9, 5, 1, 7, 3, 8, 2]]
 
