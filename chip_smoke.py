@@ -13,7 +13,10 @@ Phases, in order, each failing the run (exit code != 0) on any error:
 2. build: every CUDA kernel of the serving and training paths, compiled
    from ``csrc/`` (one nvcc per source, all started together),
    with nvcc's register report and a SASS census (tensor-core and TMA
-   instructions per kernel instantiation, from ``cuobjdump``);
+   instructions per kernel instantiation, from ``cuobjdump``), which fails
+   unless each bf16 instantiation runs on the tensor cores it was written
+   for (``check_census``: wgmma and TMA in the backward at head_dim
+   64-128, mma.sync only at 32);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it, with stated tolerances and times
    (kernel back to back and as a lone call, plain version, PyTorch's
@@ -23,8 +26,11 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    forward's o against ``attention_reference`` (``TOL``) and its row
    log-sum-exp against ``attention_lse_reference`` (``LSE_TOL``), timed
    back to back and lone, with the port's forward + backward, the plain
-   version, the library's forward + backward (SDPA, or ``flex_attention``
-   with a softcap or a window) and the bound;
+   version, the library's forward + backward and its backward alone (SDPA,
+   or ``flex_attention`` with a softcap or a window) and the bound; at the
+   training shape one ``torch.profiler`` capture splits the backward's
+   device time by launch (pre-pass, main kernel, post-pass), printed with
+   ptxas' registers and spills for each;
 4. main: a full-width Llama-3-8B-shaped checkpoint (random weights from a
    seed) written with the port's safetensors writer, served by
    ``modelx_tpu_torch.dl.serve_main --prefix-cache 4`` on the card,
@@ -384,11 +390,14 @@ SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
 def kernel_label(mangled: str) -> str:
     """``flash_fwd_bf16<128>`` for the mangled name of that instantiation
     (``flash_fwd_simt<bf16,32>`` with its element type, ``<128,lse>`` for
-    the training forward's), or the name itself when it is not one of ours."""
-    m = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_[a-z0-9_]+?)I(f|13__nv_bfloat16)?Li(\d+)E"
-                  r"(Lb1E)?", mangled)
+    the training forward's, ``flash_bwd_finish`` for a kernel that is no
+    template), or the name itself when it is not one of ours."""
+    m = re.search(r"(?<=\d)(flash_(?:fwd|bwd)_[a-z0-9_]+?)(?:I(f|13__nv_bfloat16)?Li(\d+)E"
+                  r"(Lb1E)?|E)", mangled)
     if not m:
         return mangled
+    if m.group(3) is None:
+        return m.group(1)
     elem = {"f": "float,", "13__nv_bfloat16": "bf16,"}.get(m.group(2) or "", "")
     return f"{m.group(1)}<{elem}{m.group(3)}{',lse' if m.group(4) else ''}>"
 
@@ -426,13 +435,12 @@ def phase_build() -> dict:
     """Build the kernels, print nvcc's register report and a SASS census of
     the library: per instantiation, the warpgroup MMAs (HGMMA), warp MMAs
     (HMMA), TMA tile loads (UTMALDG) and cp.async copies (LDGSTS). Fails
-    when a bf16 forward instantiation on the tensor cores runs no HGMMA, or
-    a bf16 backward kernel no HMMA."""
+    where ``check_census`` finds a bf16 instantiation off the tensor cores
+    it was written for."""
     import threading
 
     from modelx_tpu_torch import native
     from modelx_tpu_torch.kernels import build
-    from modelx_tpu_torch.ops.attention import BACKWARD_HEAD_DIMS, KERNEL_HEAD_DIMS
 
     # the native IO engine (host C++, g++) builds beside nvcc, so the first
     # load does not wait for it
@@ -458,23 +466,62 @@ def phase_build() -> dict:
     for line in build.build_log.splitlines():
         if any(w in line for w in notes):
             log(f"  nvcc: {line.strip()}")
+    ptxas = ptxas_report(build.build_log)
     sass = dump_sass(build.nvcc_path(), build.library_path())
     if sass is None:
         log("sass census: not available (no cuobjdump beside nvcc)")
-        return {"build_s": secs, "built": built, "sass": None}
+        return {"build_s": secs, "built": built, "sass": None, "ptxas": ptxas}
     census = sass_census(sass)
     for name, counts in sorted(census.items()):
         log(f"sass census: {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
-    # in bf16, head_dim 32 runs on the CUDA cores and the rest on the tensor cores
-    no_hgmma = [f"flash_fwd_bf16<{d}>" for d in KERNEL_HEAD_DIMS if d != 32
-                and census.get(f"flash_fwd_bf16<{d}>", {}).get("HGMMA", 0) == 0]
-    if no_hgmma:
-        raise RuntimeError(f"no HGMMA (tensor-core) instruction in {no_hgmma}")
-    no_hmma = [f"flash_bwd_{part}_mma<{d}>" for part in ("dkdv", "dq") for d in BACKWARD_HEAD_DIMS
-               if census.get(f"flash_bwd_{part}_mma<{d}>", {}).get("HMMA", 0) == 0]
-    if no_hmma:
-        raise RuntimeError(f"no HMMA (tensor-core) instruction in {no_hmma}")
-    return {"build_s": secs, "built": built, "sass": census}
+    check_census(census)
+    return {"build_s": secs, "built": built, "sass": census, "ptxas": ptxas}
+
+
+def check_census(census: dict[str, dict[str, int]]) -> None:
+    """Fail unless every bf16 instantiation runs on the tensor cores it was
+    written for: the forward's (``flash_fwd_bf16<D>``, D != 32) HGMMA; the
+    backward's wgmma kernel at D 64/96/128 (``flash_bwd_wgmma<D>``) HGMMA
+    and UTMALDG and no HMMA; and HMMA only in the backward's head_dim 32
+    pair (``flash_bwd_{dkdv,dq}_mma<32>``), the one mma.sync instantiation
+    that stays."""
+    from modelx_tpu_torch.ops.attention import BACKWARD_WGMMA_HEAD_DIMS, KERNEL_HEAD_DIMS
+
+    want = [(f"flash_fwd_bf16<{d}>", "HGMMA") for d in KERNEL_HEAD_DIMS if d != 32]
+    want += [(f"flash_bwd_wgmma<{d}>", op) for d in BACKWARD_WGMMA_HEAD_DIMS
+             for op in ("HGMMA", "UTMALDG")]
+    want += [(f"flash_bwd_{part}_mma<32>", "HMMA") for part in ("dkdv", "dq")]
+    missing = [f"{name} {op}" for name, op in want if census.get(name, {}).get(op, 0) == 0]
+    if missing:
+        raise RuntimeError(f"no tensor-core or TMA instruction where one belongs: {missing}")
+    stray = sorted(name for name, counts in census.items() if name.startswith("flash_bwd_")
+                   and counts.get("HMMA", 0) and not name.endswith("_mma<32>"))
+    stray += sorted(name for name in census
+                    if re.fullmatch(r"flash_bwd_(dkdv|dq)_mma<\d+>", name)
+                    and not name.endswith("<32>"))
+    if stray:
+        raise RuntimeError(f"mma.sync (HMMA) in a backward instantiation past head_dim 32: {stray}")
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes per kernel instantiation (``kernel_label``)
+    from nvcc's ``-Xptxas -v`` output."""
+    report: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            cur = report.setdefault(kernel_label(entry.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            cur["spill_stores"], cur["spill_loads"] = int(spill.group(1)), int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            cur["registers"] = int(regs.group(1))
+    return report
 
 
 # -- phase 3: kernels against their plain versions ---------------------------------
@@ -576,6 +623,9 @@ def flex_attention_call(causal, scale, cap, window, sq, sk):
         return seen & (qi - ki < window) if window > 0 else seen
 
     mask = create_block_mask(mask_mod, None, None, sq, sk, device="cuda")
+    # the backward-alone yardstick runs the compiled backward again on one
+    # graph (retain_graph), which a backward with donated buffers refuses
+    torch._functorch.config.donated_buffer = False
     flex = torch.compile(flex_attention)
 
     def attend(q, k, v):
@@ -683,13 +733,11 @@ def bwd_case_tensors(i: int):
                  for n in (h, hkv, hkv, h))
 
 
-def library_forward_backward(q, k, v, do, causal, scale, cap, window):
-    """PyTorch's forward and backward of the same function on the same
-    inputs, through autograd, as a yardstick only (the port never calls
-    it): SDPA (kv heads repeated outside the timed call), or, with a
-    softcap or a window, ``flex_attention_call``. None when this torch has
-    no such call."""
-    import torch
+def library_attend(q, k, v, causal, scale, cap, window):
+    """PyTorch's call for the same function as a function of leaves that
+    require grad: (attend, leaves), kv heads repeated outside it for SDPA,
+    or, with a softcap or a window, ``flex_attention_call``'s; None when
+    this torch has no such call. A yardstick only: the port never calls it."""
     import torch.nn.functional as F
 
     if cap == 0.0 and window == 0:
@@ -703,21 +751,88 @@ def library_forward_backward(q, k, v, do, causal, scale, cap, window):
         attend = flex_attention_call(causal, scale, cap, window, q.shape[2], k.shape[2])
         if attend is None:
             return None
-    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    return attend, [x.detach().clone().requires_grad_(True) for x in inputs]
+
+
+def library_forward_backward(q, k, v, do, causal, scale, cap, window):
+    """The library's forward and backward on the same inputs through
+    autograd (``library_attend``), or None."""
+    import torch
+
+    lib = library_attend(q, k, v, causal, scale, cap, window)
+    if lib is None:
+        return None
+    attend, leaves = lib
 
     def call():
         return torch.autograd.grad(attend(*leaves), leaves, do)
     return call
 
 
-def phase_backward() -> list[dict]:
+def library_backward(q, k, v, do, causal, scale, cap, window):
+    """The library's backward alone: one forward through autograd, then
+    ``torch.autograd.grad(out, leaves, do, retain_graph=True)`` per call
+    (``library_attend``), or None."""
+    import torch
+
+    lib = library_attend(q, k, v, causal, scale, cap, window)
+    if lib is None:
+        return None
+    attend, leaves = lib
+    out = attend(*leaves)
+
+    def call():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    return call
+
+
+# back-to-back backward calls in the profiler capture of the training shape
+BWD_PROFILE_CALLS = 5
+
+
+def launch_split(fn, calls: int = BWD_PROFILE_CALLS) -> dict[str, dict]:
+    """Device time of each kernel ``fn`` launches, from one ``torch.profiler``
+    capture of ``calls`` back-to-back calls after a warm-up: per kernel
+    (``flash_bwd_wgmma<128>``, or the profiler's name cut to 60 characters),
+    its launches and ms a launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # without it CUPTI stays subscribed after the window and every later
+    # launch of the run pays for it
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict[str, dict] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"flash_(?:fwd|bwd)_\w+(<[^>(]*>)?", e.name)
+        r = split.setdefault(m.group(0) if m else e.name[:60], {"launches": 0, "total_ms": 0.0})
+        r["launches"] += 1
+        r["total_ms"] += e.time_range.elapsed_us() / 1e3
+    for r in split.values():
+        r["ms"] = r["total_ms"] / r["launches"]
+    if not split:
+        raise RuntimeError("the profiler saw no kernel of the backward on the card")
+    return split
+
+
+def phase_backward(ptxas: dict | None = None) -> list[dict]:
     """The backward kernel against ``attention_backward_reference`` at each
     of ``BWD_CASES`` (and the training forward's o against
     ``attention_reference``, its lse against ``attention_lse_reference``),
     with its times: back to back and lone, the plain version's, the port's
     forward + backward through autograd, the library's forward + backward
-    (SDPA, or ``flex_attention`` with a softcap or a window), and the
-    bound."""
+    and its backward alone (SDPA, or ``flex_attention`` with a softcap or a
+    window), and the bound. At the training shape, ``launch_split``: each
+    launch's device time by kernel, with ptxas' registers and spills for
+    it from ``ptxas`` (``ptxas_report`` of the build)."""
     import torch
 
     from modelx_tpu_torch.ops import attention as attn
@@ -760,7 +875,19 @@ def phase_backward() -> list[dict]:
             q, k, v, out, do, lse, **kw), iters=3, reps=3)
         library_call = library_forward_backward(q, k, v, do, causal, scale, cap, window)
         library_ms = time_ms(library_call, iters=10, reps=3) if library_call else None
+        library_bwd = library_backward(q, k, v, do, causal, scale, cap, window)
+        library_bwd_ms = time_ms(library_bwd, iters=10, reps=3) if library_bwd else None
         bound_ms, bound_by = backward_bound(b, h, hkv, s, d, causal, window, dt)
+        split = None
+        if label == "llama3-8b training":
+            split = launch_split(lambda: attn.flash_attention_backward(q, k, v, out, do, lse, **kw))
+            for name, r in split.items():
+                regs = (ptxas or {}).get(name, {})
+                log(f"  launch split [{label}]: {name}: {r['launches']} launches, "
+                    f"{r['ms']:.4f} ms a launch; ptxas: {regs.get('registers', 'n/a')} registers, "
+                    f"{regs.get('spill_stores', 'n/a')} bytes spill stores, "
+                    f"{regs.get('spill_loads', 'n/a')} bytes spill loads")
+                r.update(regs)
         row = {
             "case": label, "shape": [b, h, s, d], "kv_heads": hkv, "dtype": dt,
             "causal": causal, "softcap": cap, "window": window,
@@ -769,22 +896,26 @@ def phase_backward() -> list[dict]:
             "tol": f"{atol}*max|ref| + {rtol}*|ref|; o {o_atol} + {o_rtol}*|ref|; lse {LSE_TOL}",
             "ok": ok,
             "ms": ms, "call_ms": call_ms, "fwd_bwd_ms": fwd_bwd_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_bwd_ms": library_bwd_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "tflops": backward_flops(b, h, s, d, causal, window) / (ms * 1e-3) / 1e12,
+            "launch_split": split,
         }
         rows.append(row)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        lib_bwd = "n/a" if library_bwd_ms is None else f"{library_bwd_ms:.4f} ms"
         lib_name = "SDPA" if cap == 0.0 and window == 0 else "flex_attention"
         log(f"kernel flash_attention_backward [{label}] q{[b, h, s, d]} kv_heads {hkv} {dt}: "
             f"dq/dk/dv max_abs_err {errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e}, "
             f"o {o_err:.3e}, lse {lse_err:.3e} (tol {row['tol']}) {'ok' if ok else 'FAIL'}; "
             f"backward {ms:.4f} ms ({call_ms:.4f} ms a lone call), forward+backward "
             f"{fwd_bwd_ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} forward+backward {lib}, "
+            f"{lib_name} backward alone {lib_bwd}, "
             f"bound {bound_ms * 1e3:.2f} us ({bound_by}), {bound_ms / ms * 100:.2f}% of bound, "
             f"{row['tflops']:.2f} TFLOP/s")
         if not ok:
             failures.append(label)
-        del q, k, v, do, out, lse, dq, dk, dv, leaves, library_call
+        del q, k, v, do, out, lse, dq, dk, dv, leaves, library_call, library_bwd
     if failures:
         raise RuntimeError(f"flash_attention_backward disagrees with its plain version: "
                            f"{failures}")
@@ -834,7 +965,8 @@ def main(argv=None) -> int:
         return out
 
     kernel_rows = timed("kernels", phase_kernels) if "kernels" in phases else []
-    bwd_rows = timed("backward", phase_backward) if "kernels" in phases else []
+    bwd_rows = (timed("backward", lambda: phase_backward(build_info["ptxas"]))
+                if "kernels" in phases else [])
     later = tuple(p for p in LATER_PHASES if p in phases)
     main_stats = (timed("main", lambda: phase_main(
         later=later, build_s=build_info["build_s"] if build_info["built"] else None))
@@ -902,11 +1034,16 @@ def main(argv=None) -> int:
         "plain_ms": bhead and bhead["plain_ms"],
         "bound_ms": bhead and bhead["bound_ms"],
         "bound_by": bhead and bhead["bound_by"],
-        # SDPA's forward + backward, a yardstick the port never calls (each
-        # case's row holds its own: flex_attention's with a softcap or window)
-        "library_ms": bhead and bhead["library_ms"],
+        # SDPA's backward alone (and its forward + backward), a yardstick the
+        # port never calls (each case's row holds its own: flex_attention's
+        # with a softcap or window)
+        "library_ms": bhead and bhead["library_bwd_ms"],
+        "library_fwd_bwd_ms": bhead and bhead["library_ms"],
         "tflops": bhead and bhead["tflops"],
         "at": "q [1,32,2048,128] bf16, 8 kv heads, causal",
+        "launch_split": bhead and bhead["launch_split"],
+        "build_s": build_info["build_s"],
+        "backward_phase_s": walls.get("backward"),
         "cases": bwd_rows,
     }
     log(device["card"])  # again at the end: a long run's output is read from its tail

@@ -781,54 +781,17 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 // host side
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled is a driver-API function; reach it through the
-// runtime's entry-point query so the library does not link against libcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A contiguous bf16 [BH, S, D] tensor as a 3-D map (D, S, BH), boxes of
-// 64 columns x `rows` rows x 1 head, 128-byte swizzle, zeros outside (past
-// S, and past D when D is not a multiple of 64: D = 96's second box).
-bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int D, int S, int BH,
-              int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool LSE>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                         int H, int Hkv, int Sq, int Sk, float scale, float softcap, int causal,
                         int window, cudaStream_t stream) {
   using T = Tile<D>;
-  EncodeTiledFn enc = encode_tiled();
+  mx::EncodeTiledFn enc = mx::encode_tiled();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, D, Sq, B * H, 64) || !make_map(enc, &tk, k, D, Sk, B * Hkv, T::BK) ||
-      !make_map(enc, &tv, v, D, Sk, B * Hkv, T::BK))
+  if (!mx::make_map(enc, &tq, q, D, Sq, B * H, 64) ||
+      !mx::make_map(enc, &tk, k, D, Sk, B * Hkv, T::BK) ||
+      !mx::make_map(enc, &tv, v, D, Sk, B * Hkv, T::BK))
     return cudaErrorInvalidValue;
   // once per device: allow the shared memory, and read the SM count (the
   // persistent grid is one block per SM, or fewer when there are fewer tiles)

@@ -16,38 +16,646 @@
 //
 // What bounds it on this card: at the training shape q [1, 32, 2048, 128]
 // bf16 with 8 kv heads, causal, the five products do 10 D FLOPs per visible
-// pair and head, ~86 GFLOP, ~87 us at the dense bf16 tensor-core rate; the
-// bytes (q, k, v, o, do, lse read once, dq, dk, dv written once) are
-// ~84 MB, ~25 us at 3.35 TB/s: operations bound it.
+// pair and head, 85.9 GFLOP, 0.0869 ms at the dense bf16 tensor-core rate
+// (989 TFLOP/s); the bytes (q, k, v, o, do, lse read once, dq, dk, dv
+// written once) are ~84 MB, ~25 us at 3.35 TB/s: operations bound it.
 //
-// Design: simple and deterministic; no atomics, a fixed summation order.
-// Three launches:
-// - flash_bwd_delta: D_i, one warp per row;
-// - dK/dV: one block per (b * Hkv, 64-key tile). k and v stay in shared
-//   memory; the block walks every query head of the group and every 64-row
-//   q tile that sees the keys (the causal mask and the window skip the
-//   rest), recomputes S and dP, and accumulates dV and dK for its keys in
-//   registers;
-// - dQ: one block per (b * H, 64-row q tile). q and do stay in shared
-//   memory; the block walks the kv tiles its rows see, recomputes S and
-//   dP, and accumulates dQ in registers.
-// S and dP are computed in both kernels: 7 products of the minimal 5, the
-// price of no atomics. bf16 runs every product on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulators, 4 warps a block: flash_bwd_*_mma
-// below); fp32 runs on the CUDA cores in fp32 (flash_bwd_dkdv, flash_bwd_dq:
-// 256 threads, each owning 2 rows x 8 keys of a score tile and 2 rows x
-// D / 8 columns of an accumulator, the forward's CUDA-core layout), as the
-// forward keeps fp32 off TF32. Head dims 32, 64, 96, 128 (256 is on no
+// bf16 at D = 64, 96, 128 (the training path) runs on the tensor cores,
+// three launches on the stream:
+// - flash_bwd_prep: D_i = rowsum(dO o O) and lse * log2(e) for every q row,
+//   into the fp32 workspace at a row stride padded to 64, and zeros in the
+//   fp32 dQ accumulator [B, H, Sq, D] (and, under GQA, the dK and dV ones,
+//   [B, Hkv, Sk, D] each);
+// - flash_bwd_wgmma, compiled once per head dim in
+//   flash_attention_bwd_d{64,96,128}.cu (one nvcc each, all at once). What
+//   it does about what held the mma.sync version (one dK/dV kernel per kv
+//   tile, one dQ kernel per q tile) back:
+//   1. grid: one tile per (batch, query head, 128-key block), 512 tiles at
+//      the training shape against that version's 256 blocks, each of which
+//      walked its GQA group serially (4 to 128 tile steps a block);
+//      persistent, one block per SM walking the tiles heaviest first (key
+//      block 0 sees every causal q tile) and sweeping left to right then
+//      right to left, as the forward does;
+//   2. every product on wgmma (m64nNk16, fp32 accumulators), with both
+//      operands in shared memory: no ldmatrix re-reads by 4-warp blocks;
+//   3. loads by TMA: a producer warpgroup (setmaxnreg gives its registers
+//      to the consumers, 24 / 240; one thread issues every load) loads K
+//      and V of the tile once (3-D maps (D, S, B*heads), 128-byte swizzle,
+//      zeros past S and past D) and streams the 64-row Q and dO tiles of the
+//      q tiles that see the keys (the causal ceiling and the window's edge
+//      skip the rest) through a 2-stage ring with full/empty mbarriers, each
+//      with its 64 lse and D_i values (bulk copies); no thread stages a
+//      tile, and step j + 1's loads run under step j;
+//   4. five products a step, not seven (S and dP are not computed again for
+//      dQ): two consumer warpgroups own 64 keys each; S^T = K Q^T and dP^T =
+//      V dO^T (K-major operands), so P^T and dS^T land with keys as rows; P
+//      is formed while the tensor cores run dP^T (the mask is paid only on
+//      diagonal, window-edge and ragged tiles); dV += P^T dO is issued
+//      before dS is formed and runs under it; then dK += dS^T Q and, for
+//      each warpgroup's 64 of dQ's columns over all 128 keys (D = 64: all
+//      columns over its own keys), dQ = dS K (dS^T and K MN-major, through
+//      the transpose bits). dK and dV stay in registers across the q tiles.
+//      A warp of the producer warpgroup reduce-adds each step's dQ, staged
+//      by the consumers in shared memory, into the fp32 accumulator with
+//      TMA (cp.reduce.async.bulk.tensor), so no consumer waits on an atomic
+//      (per-element red.global.add cost ~0.06 ms at the training shape on
+//      an H100 SXM at 700 W).
+//      dK, dV are stored in bf16 when H == Hkv and under GQA added into the
+//      fp32 accumulators (a float2 atomicAdd each) once a tile;
+//   5. no spills at D = 64; at D = 96 and 128 ptxas spills a few bytes
+//      (8 stores, 48 loads) where the consumers hold dK, dV, S^T, dP^T
+//      and dQ (224 fp32 registers) under their 240;
+//   . precision: P and dS enter their products as two bf16 terms, hi + lo
+//     (~16 bits; the forward's split_bf16x2), both from shared memory. One
+//     bf16 term (2^-9 relative) missed BWD_TOL on rows and keys with few
+//     visible partners, where large terms cancel: dQ at [2, 8, 200, 128]
+//     GQA 4 (as the mma.sync version did, bit for bit), dK and dV at
+//     Sq = 7 and 63. The lo terms make 8 products of the 5: 1.6x the
+//     tensor work, 0.209 -> 0.294 ms for this kernel at the training shape
+//     (H100 SXM, 700 W);
+//   . D = 96 runs as the D = 128 tile (TMA zero-fills columns 96-127): the
+//     zero columns cost 1/3 more tensor work in dV, dK and warpgroup 1's
+//     dQ columns (S and dP take only the 6 k16 steps with real columns);
+//   . shared memory at D = 128: K, V 64 KB, the ring 64 KB, dS^T and P^T
+//     hi + lo 64 KB, the dQ tile 32 KB: 226 KB of the 227;
+// - flash_bwd_finish: dq = scale * dQ_acc (and under GQA dk = scale *
+//   dK_acc, dv = dV_acc) in bf16.
+// Determinism: the accumulators are summed by atomics (the TMA reduce, the
+// vector reductions) in the order the blocks arrive, so their fp32 sums
+// differ from run to run in the last bits; two runs agree within bf16
+// rounding, not bit for bit. The fp32 and head_dim 32 kernels are
+// deterministic.
+//
+// bf16 at D = 32 (the tiny test config, launch-bound) keeps the earlier
+// mma.sync pair, instantiated for 32 only: a D_i kernel, one dK/dV block
+// per (b * Hkv, 64-key tile), one dQ block per (b * H, 64-row q tile), S
+// and dP computed in both (7 products), no atomics. fp32 runs on the CUDA
+// cores in fp32 (flash_bwd_dkdv, flash_bwd_dq: 256 threads, each owning 2
+// rows x 8 keys of a score tile and 2 rows x D / 8 columns of an
+// accumulator, the forward's CUDA-core layout), as the forward keeps fp32
+// off TF32; deterministic. Head dims 32, 64, 96, 128 (256 is on no
 // training path and is refused).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "simt.cuh"
+
+namespace mx {
+
+// The tensor-core path's operands: the wrapper's tensors and the fp32
+// workspace's parts (see mx_flash_attention_bwd), shared by the
+// translation units.
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse2, *delta;  // [B * H, Sqp]: lse * log2(e), D_i
+  float *dq_acc;              // [B, H, Sq, D]
+  float *dk_acc, *dv_acc;     // [B, Hkv, Sk, D] each under GQA, else null
+  void *dk, *dv;              // bf16 outputs (written here when H == Hkv)
+  int B, H, Hkv, Sq, Sk;
+  float scale, softcap;
+  int causal, window;
+};
+
+// flash_bwd_wgmma<D> on the stream; defined in flash_attention_bwd_d<D>.cu
+template <int D>
+cudaError_t launch_bwd_wgmma(const BwdArgs& a, cudaStream_t stream);
+
+}  // namespace mx
+
+namespace {
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+}  // namespace
+
+#ifdef MX_BWD_WGMMA
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), TMA, warp-specialised, persistent
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int BW_THREADS = 384;  // warpgroup 0: producer; 1 and 2: consumers
+constexpr int BW_BK = 128;       // keys per tile, 64 per consumer warpgroup
+constexpr int BW_BQ = 64;        // query rows per step
+// named barriers (0 is __syncthreads'): both halves of dS^T written (the
+// two consumer warpgroups); the dQ tile written (consumers arrive, the
+// writer warp waits) and read (the writer arrives, consumers wait)
+constexpr int BAR_DS = 1, BAR_DQ_FULL = 2, BAR_DQ_EMPTY = 3;
+constexpr int BAR_WG = 4;  // + g: one consumer warpgroup's 128 threads
+constexpr int DQ_SYNC = 256 + 32;
+
+template <int D>
+struct BwdTile {
+  static constexpr int DP = (D + 63) / 64 * 64;   // columns in shared memory (96 -> 128)
+  static constexpr int NB = DP / 64;              // 128-byte column boxes per row
+  static constexpr int STAGES = 2;                // depth of the Q/dO ring
+  // dQ = dS K: at D = 64 each consumer warpgroup takes all columns over its
+  // own 64 keys, else 64 columns over all 128 keys
+  static constexpr bool KSPLIT = DP == 64;
+  static constexpr int KV_BOX = BW_BK * 128;      // one box: 128 rows x 64 columns
+  static constexpr int KV_BYTES = BW_BK * DP * 2;
+  static constexpr int Q_BOX = BW_BQ * 128;       // one box: 64 rows x 64 columns
+  static constexpr int Q_BYTES = BW_BQ * DP * 2;
+  static constexpr int ROW_BYTES = BW_BQ * 4;     // 64 fp32 row values (lse or D_i)
+  // dS^T as two bf16 terms, hi then lo: a 128-byte row of 64 queries a key
+  static constexpr int DS_TERM = BW_BK * 128;
+  static constexpr int DS_BYTES = 2 * DS_TERM;
+  // dQ of a step for the writer warp's reduce: each consumer warpgroup's
+  // 64 rows x 64 fp32 columns as two boxes of 32 columns (128-byte swizzle)
+  static constexpr int DQ_BOX = BW_BQ * 128;
+  static constexpr int DQ_BYTES = 2 * 2 * DQ_BOX;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;                   // stage s at + s * Q_BYTES
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int DS_OFF = DO_OFF + STAGES * Q_BYTES;
+  static constexpr int P_OFF = DS_OFF + DS_BYTES;              // P^T, hi then lo, as dS^T
+  static constexpr int DQ_OFF = P_OFF + DS_BYTES;              // warpgroup g at + g * 2 * DQ_BOX
+  static constexpr int LSE_OFF = DQ_OFF + DQ_BYTES;            // stage s at + s * ROW_BYTES
+  static constexpr int DEL_OFF = LSE_OFF + STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = DEL_OFF + STAGES * ROW_BYTES;
+  // kv_full, kv_empty, then q_full and q_empty for each stage; 1024: slack
+  // to put the tiles on a 1024-byte boundary (the swizzle's period)
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "over the 227 KB a block may use");
+};
+
+// The tile at linear index t: key block t / BH of head t % BH, so the
+// heaviest causal key blocks (the first) come first; the q tiles
+// [qlo, qlo + nq) hold every row that sees one of its keys.
+struct BwdCoords {
+  int bh, bkv, k0, qlo, nq;
+};
+
+__device__ __forceinline__ BwdCoords bwd_coords(int t, const mx::BwdArgs& a) {
+  const int BH = a.B * a.H;
+  BwdCoords c;
+  c.bh = t % BH;
+  c.k0 = (t / BH) * BW_BK;
+  c.bkv = (c.bh / a.H) * a.Hkv + (c.bh % a.H) / (a.H / a.Hkv);
+  const int nqt = (a.Sq + BW_BQ - 1) / BW_BQ;
+  int lo = 0, hi = nqt;
+  if (a.causal) {
+    lo = min(c.k0 / BW_BQ, nqt);  // rows before k0 see none of the keys
+    if (a.window > 0) {           // the last row that sees the last key
+      const long long last = (long long)min(c.k0 + BW_BK, a.Sk) - 1 + a.window - 1;
+      hi = (int)min((long long)nqt, last / BW_BQ + 1);
+    }
+  }
+  c.qlo = lo;
+  c.nq = max(hi - lo, 0);
+  return c;
+}
+
+// D[64 x N] += (A_hi + A_lo) B over 64 K: A's hi term at `a` and its lo
+// term DS_TERM bytes on, 64 rows of 64 K-values each (K-major, 128-byte
+// swizzle), B 64 K-rows of N values (MN-major, boxes of 64 rows); 4 k16
+// steps, each twice
+template <int N>
+__device__ __forceinline__ void mma_split(float (&d)[N / 2], uint32_t a, uint32_t b) {
+  constexpr int TERM = BW_BK * 128, BOX = BW_BQ * 128;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = mx::sw128_desc(b + kk * 2048, BOX, 1024);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const uint64_t da = mx::sw128_desc(a + t * TERM + kk * 32, 16, 1024);
+      if constexpr (N == 64) mx::wgmma_ss_n64_tb(d, da, db, 1);
+      else mx::wgmma_ss_n128_tb(d, da, db, 1);
+    }
+  }
+}
+
+// Two bf16 pairs of one 16-byte chunk, (a, b) of one row and (c, d) of the
+// row 8 below, as hi terms at `p` and lo terms (what the hi terms lose) a
+// DS_TERM on: hi + lo holds ~16 significant bits (the forward's
+// split_bf16x2)
+__device__ __forceinline__ void store_split(uint8_t* p, float a, float b, float c, float d) {
+  constexpr int TERM = BW_BK * 128;
+  const __nv_bfloat162 h0 = __floats2bfloat162_rn(a, b), h1 = __floats2bfloat162_rn(c, d);
+  const float2 f0 = __bfloat1622float2(h0), f1 = __bfloat1622float2(h1);
+  *reinterpret_cast<__nv_bfloat162*>(p) = h0;
+  *reinterpret_cast<__nv_bfloat162*>(p + 8 * 128) = h1;
+  *reinterpret_cast<uint32_t*>(p + TERM) = pack_bf16(a - f0.x, b - f0.y);
+  *reinterpret_cast<uint32_t*>(p + TERM + 8 * 128) = pack_bf16(c - f1.x, d - f1.y);
+}
+
+template <int D>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tdq, const mx::BwdArgs a) {
+  using T = BwdTile<D>;
+  constexpr int DP = T::DP;
+  constexpr int S = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (mx::smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - mx::smem_u32(smem_raw));  // the same bytes, generic
+  const uint32_t sK = base + T::K_OFF, sV = base + T::V_OFF;
+  const uint32_t kv_full = base + T::BAR_OFF, kv_empty = kv_full + 8;
+  const uint32_t q_full = kv_full + 16;  // + 8 * stage
+  const uint32_t q_empty = q_full + 8 * S;
+  const int ntotal = a.B * a.H * ((a.Sk + BW_BK - 1) / BW_BK);
+  // this block's tile in round r: the blocks sweep the heaviest-first order
+  // left to right, then right to left, so the causal work evens out
+  auto walk = [&](int r) {
+    return r * (int)gridDim.x + ((r & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mx::mbar_init(kv_full, 1);
+    mx::mbar_init(kv_empty, 2);  // one arrival per consumer warpgroup
+    for (int s = 0; s < S; ++s) {
+      mx::mbar_init(q_full + 8 * s, 1);
+      mx::mbar_init(q_empty + 8 * s, 2);
+    }
+    mx::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // One if/else for the whole kernel, as in the forward: both roles walk the
+  // same tiles and count tiles and q steps the same way, which keeps the
+  // barriers' phases in step.
+  if (tid < 128) {
+    // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      const int Sqp = (a.Sq + BW_BQ - 1) / BW_BQ * BW_BQ;
+      int kv_count = 0, q_count = 0;
+      for (int r = 0; r * (int)gridDim.x < ntotal; ++r) {
+        const int t = walk(r);
+        if (t >= ntotal) continue;
+        const BwdCoords c = bwd_coords(t, a);
+        if (c.nq == 0) continue;
+        // K and V are free once both consumers' last products of the tile before are done
+        if (kv_count > 0) mx::mbar_wait(kv_empty, (kv_count - 1) & 1);
+        mx::mbar_arrive_expect_tx(kv_full, 2 * T::KV_BYTES);
+        for (int b = 0; b < T::NB; ++b) {
+          mx::tma_load_3d(sK + b * T::KV_BOX, &tk, kv_full, 64 * b, c.k0, c.bkv);
+          mx::tma_load_3d(sV + b * T::KV_BOX, &tv, kv_full, 64 * b, c.k0, c.bkv);
+        }
+        for (int it = 0; it < c.nq; ++it) {
+          const int j = q_count + it, s = j % S;
+          const int q0 = (c.qlo + it) * BW_BQ;
+          const uint32_t full = q_full + 8 * s;
+          mx::mbar_wait(q_empty + 8 * s, ((j / S) & 1) ^ 1);  // the first round finds the ring empty
+          mx::mbar_arrive_expect_tx(full, 2 * T::Q_BYTES + 2 * T::ROW_BYTES);
+          for (int b = 0; b < T::NB; ++b) {
+            mx::tma_load_3d(base + T::Q_OFF + s * T::Q_BYTES + b * T::Q_BOX, &tq, full, 64 * b, q0, c.bh);
+            mx::tma_load_3d(base + T::DO_OFF + s * T::Q_BYTES + b * T::Q_BOX, &tdo, full, 64 * b, q0,
+                            c.bh);
+          }
+          const size_t row0 = (size_t)c.bh * Sqp + q0;
+          mx::bulk_load(base + T::LSE_OFF + s * T::ROW_BYTES, a.lse2 + row0, T::ROW_BYTES, full);
+          mx::bulk_load(base + T::DEL_OFF + s * T::ROW_BYTES, a.delta + row0, T::ROW_BYTES, full);
+        }
+        q_count += c.nq;
+        ++kv_count;
+      }
+    } else if (tid >= 32 && tid < 64) {
+      // the dQ writer warp: each step's dQ tiles, staged by the consumers,
+      // reduce-added into the fp32 accumulator by TMA (rows past Sq and
+      // columns past D are skipped); its lane 0 issues
+      const bool issuer = tid == 32;
+      bool first = true;
+      for (int r = 0; r * (int)gridDim.x < ntotal; ++r) {
+        const int t = walk(r);
+        if (t >= ntotal) continue;
+        const BwdCoords c = bwd_coords(t, a);
+        for (int it = 0; it < c.nq; ++it) {
+          if (issuer && !first) mx::bulk_wait<0, true>();  // the last reduce has read the tiles
+          __syncwarp();
+          first = false;
+          mx::named_arrive(BAR_DQ_EMPTY, DQ_SYNC);
+          mx::named_sync(BAR_DQ_FULL, DQ_SYNC);
+          if (issuer) {
+            const int q0 = (c.qlo + it) * BW_BQ;
+            for (int g = 0; g < 2; ++g)
+              for (int b = 0; b < 2; ++b) {
+                const int col = (T::KSPLIT ? 0 : 64 * g) + 32 * b;
+                if (col < D)
+                  mx::tma_reduce_add_3d(&tdq, base + T::DQ_OFF + (2 * g + b) * T::DQ_BOX, col, q0,
+                                        c.bh);
+              }
+            mx::bulk_commit();
+          }
+        }
+      }
+      if (issuer) mx::bulk_wait<0, false>();  // every reduce is done before the block exits
+    }
+  } else {
+    // ---- consumer warpgroups: 64 keys each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int g = tid / 128 - 1;
+    const int warp = (tid / 32) & 3, lane = tid & 31;
+    const int row = 16 * warp + (lane >> 2);  // this thread's first accumulator row (of 64)
+    const int col = 2 * (lane & 3);           // its first column in each 8-column block
+    const int phase = lane >> 2;              // (row % 8) of both its rows: the swizzle phase
+    const bool leader = (tid & 127) == 0;
+    const float scale_log2 = a.scale * LOG2E;
+    const float cap_inv = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
+    const float cap_log2 = a.softcap * LOG2E;
+    const bool gqa = a.H != a.Hkv;
+
+    float dk[DP / 2], dv[DP / 2];  // this warpgroup's 64 keys x DP columns, over the tile
+    float st[32], dpt[32];         // S^T and dP^T of one step, then P^T and dS^T in place
+    float dq[32];                  // this warpgroup's share of the step's dQ
+
+    // P of the step from S^T and the q rows' lse (log2 units), in the
+    // accumulator's layout (rows are keys, columns queries): into shared
+    // memory as bf16 hi + lo for dV (rows 64g + row and + 8 of P^T, laid out
+    // as dS^T), and left in st as the factor dS takes from it (P, times the
+    // softcap's 1 - tanh^2). MASK and CAP are compile-time (one dispatch a
+    // step), so an interior step runs straight-line code.
+    auto probs = [&](int q0, int kw0, const float* sl, auto mask_c, auto cap_c) {
+      constexpr bool MASK = decltype(mask_c)::value, CAP = decltype(cap_c)::value;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * i + col);
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * i + e;
+          const float lv = (e & 1) ? l2.y : l2.x;
+          float th = 0.f;
+          if constexpr (CAP) {
+            th = tanhf(st[x] * cap_inv);
+            p[e] = mx::exp2_ftz(fmaf(th, cap_log2, -lv));
+          } else {
+            p[e] = mx::exp2_ftz(fmaf(st[x], scale_log2, -lv));
+          }
+          if constexpr (MASK) {
+            if (!mx::sees(q0 + 8 * i + col + (e & 1), kw0 + row + 8 * (e >> 1), a.Sq, a.Sk,
+                          a.causal, a.window))
+              p[e] = 0.f;
+          }
+          st[x] = CAP ? p[e] * (1.f - th * th) : p[e];
+        }
+        store_split(smem + T::P_OFF + (64 * g + row) * 128 + 4 * (lane & 3) + ((i ^ phase) << 4),
+                    p[0], p[1], p[2], p[3]);
+      }
+    };
+    // dS = P (dP - D_i) (times the softcap's factor, already in st) in
+    // place of dP^T, from the q rows' D_i
+    auto dscores = [&](const float* sd) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 d2 = *reinterpret_cast<const float2*>(sd + 8 * i + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * i + e;
+          dpt[x] = st[x] * (dpt[x] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+    };
+
+    int kv_count = 0, q_count = 0;
+    for (int r = 0; r * (int)gridDim.x < ntotal; ++r) {
+      const int t = walk(r);
+      if (t >= ntotal) continue;
+      const BwdCoords c = bwd_coords(t, a);
+      const int kw0 = c.k0 + 64 * g;  // this warpgroup's first key
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+      if (c.nq > 0) {
+        mx::mbar_wait(kv_full, kv_count & 1);
+        const uint32_t k_rows = sK + 64 * g * 128, v_rows = sV + 64 * g * 128;
+        for (int it = 0; it < c.nq; ++it) {
+          const int j = q_count + it, s = j % S;
+          const int q0 = (c.qlo + it) * BW_BQ;
+          const uint32_t sq = base + T::Q_OFF + s * T::Q_BYTES;
+          const uint32_t sdo = base + T::DO_OFF + s * T::Q_BYTES;
+          mx::mbar_wait(q_full + 8 * s, (j / S) & 1);
+
+          // S^T = K Q^T, then dP^T = V dO^T, each its own wgmma group: D/16
+          // steps of m64n64k16 (columns past D are zeros and take no step)
+          mx::fence_regs(st);
+          mx::fence_regs(dpt);
+          mx::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = (kk / 4) * T::KV_BOX + (kk % 4) * 32;
+            const uint32_t qoff = (kk / 4) * T::Q_BOX + (kk % 4) * 32;
+            mx::wgmma_ss_n64(st, mx::sw128_desc(k_rows + off, 16, 1024),
+                             mx::sw128_desc(sq + qoff, 16, 1024), kk > 0);
+          }
+          mx::wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = (kk / 4) * T::KV_BOX + (kk % 4) * 32;
+            const uint32_t qoff = (kk / 4) * T::Q_BOX + (kk % 4) * 32;
+            mx::wgmma_ss_n64(dpt, mx::sw128_desc(v_rows + off, 16, 1024),
+                             mx::sw128_desc(sdo + qoff, 16, 1024), kk > 0);
+          }
+          mx::wgmma_commit();
+
+          // P while the tensor cores run dP^T
+          mx::wgmma_wait<1>();
+          mx::fence_regs(st);
+          {
+            using yes = std::true_type;
+            using no = std::false_type;
+            const float* sl = reinterpret_cast<const float*>(smem + T::LSE_OFF + s * T::ROW_BYTES);
+            const bool masked = kw0 + 64 > a.Sk || q0 + BW_BQ > a.Sq ||
+                                (a.causal && (kw0 + 63 > q0 ||
+                                              (a.window > 0 && kw0 <= q0 + BW_BQ - 1 - a.window)));
+            if (a.softcap > 0.f) {
+              if (masked) probs(q0, kw0, sl, yes{}, yes{});
+              else probs(q0, kw0, sl, no{}, yes{});
+            } else {
+              if (masked) probs(q0, kw0, sl, yes{}, no{});
+              else probs(q0, kw0, sl, no{}, no{});
+            }
+          }
+
+          // dV += (P_hi + P_lo)^T dO: 4 steps (64 queries) of m64nDPk16
+          // each, P^T K-major and dO MN-major in shared memory; it runs while
+          // the threads form dS
+          mx::fence_proxy_async();  // the P stores, before the async proxy reads them
+          mx::named_sync(BAR_WG + g, 128);
+          mx::fence_regs(dv);
+          mx::wgmma_fence();
+          mma_split<DP>(dv, base + T::P_OFF + 64 * g * 128, sdo);
+          mx::wgmma_commit();
+          mx::wgmma_wait<1>();  // dP^T is done
+          mx::fence_regs(dpt);
+          dscores(reinterpret_cast<const float*>(smem + T::DEL_OFF + s * T::ROW_BYTES));
+
+          // dS^T into shared memory as hi + lo, rows 64g + row and + 8. The
+          // step's other dQ products are done with it: both warpgroups
+          // passed BAR_DQ_EMPTY after theirs (KSPLIT: its own).
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            store_split(smem + T::DS_OFF + (64 * g + row) * 128 + 4 * (lane & 3) + ((i ^ phase) << 4),
+                        dpt[4 * i], dpt[4 * i + 1], dpt[4 * i + 2], dpt[4 * i + 3]);
+
+          // dK += (dS_hi + dS_lo)^T Q as dV (this warpgroup's rows of dS^T),
+          // then dQ = (dS_hi + dS_lo) K for this warpgroup's share, dS^T and
+          // K both MN-major, each k16 step twice; one group
+          mx::fence_proxy_async();  // the dS^T stores, before the async proxy reads them
+          if constexpr (T::KSPLIT) mx::named_sync(BAR_WG + g, 128);
+          else mx::named_sync(BAR_DS, 256);  // both halves of dS^T are in
+          mx::fence_regs(dk);
+          mx::fence_regs(dq);
+          mx::wgmma_fence();
+          mma_split<DP>(dk, base + T::DS_OFF + 64 * g * 128, sq);
+          if constexpr (T::KSPLIT) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint32_t rows = (64 * g + 16 * kk) * 128;
+              const uint64_t kd = mx::sw128_desc(sK + rows, T::KV_BOX, 1024);
+              mx::wgmma_ss_n64_tt(dq, mx::sw128_desc(base + T::DS_OFF + rows, T::DS_TERM, 1024), kd,
+                                  kk > 0);
+              mx::wgmma_ss_n64_tt(
+                  dq, mx::sw128_desc(base + T::DS_OFF + T::DS_TERM + rows, T::DS_TERM, 1024), kd, 1);
+            }
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < BW_BK / 16; ++kk) {
+              const uint64_t kd = mx::sw128_desc(sK + g * T::KV_BOX + kk * 2048, T::KV_BOX, 1024);
+              mx::wgmma_ss_n64_tt(
+                  dq, mx::sw128_desc(base + T::DS_OFF + kk * 2048, T::DS_TERM, 1024), kd, kk > 0);
+              mx::wgmma_ss_n64_tt(
+                  dq, mx::sw128_desc(base + T::DS_OFF + T::DS_TERM + kk * 2048, T::DS_TERM, 1024),
+                  kd, 1);
+            }
+          }
+          mx::wgmma_commit();
+          mx::wgmma_wait<0>();
+          mx::fence_regs(dq);
+          mx::fence_regs(dv);
+          mx::fence_regs(dk);
+          if (leader) mx::mbar_arrive(q_empty + 8 * s);  // this step's Q, dO, lse, D_i are read
+
+          // dQ into shared memory for the writer warp: this warpgroup's two
+          // boxes of 32 columns, row r's 16-byte chunk j at j ^ (r % 8)
+          mx::named_sync(BAR_DQ_EMPTY, DQ_SYNC);
+          {
+            uint8_t* tile = smem + T::DQ_OFF + g * 2 * T::DQ_BOX + row * 128 + 8 * (lane & 1);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int off = (i / 4) * T::DQ_BOX + (((2 * (i % 4) + ((lane & 3) >> 1)) ^ phase) << 4);
+              *reinterpret_cast<float2*>(tile + off) = make_float2(dq[4 * i], dq[4 * i + 1]);
+              *reinterpret_cast<float2*>(tile + 8 * 128 + off) = make_float2(dq[4 * i + 2], dq[4 * i + 3]);
+            }
+          }
+          mx::fence_proxy_async();
+          mx::named_arrive(BAR_DQ_FULL, DQ_SYNC);
+        }
+        q_count += c.nq;
+        ++kv_count;
+        if (leader) mx::mbar_arrive(kv_empty);  // every product of the tile is done with K and V
+      }
+
+      // dK, dV of keys kw0 + row (+ 8) below Sk: stored when each kv head has
+      // one query head, else added into the accumulators (a tile no query
+      // sees stores zeros or adds nothing)
+      const int key0 = kw0 + row;
+      if (!gqa) {
+        __nv_bfloat16* kp = static_cast<__nv_bfloat16*>(a.dk) + ((size_t)c.bkv * a.Sk + key0) * D + col;
+        __nv_bfloat16* vp = static_cast<__nv_bfloat16*>(a.dv) + ((size_t)c.bkv * a.Sk + key0) * D + col;
+#pragma unroll
+        for (int i = 0; i < DP / 8; ++i) {
+          if (8 * i >= D) continue;
+          if (key0 < a.Sk) {
+            *reinterpret_cast<uint32_t*>(kp + 8 * i) = pack_bf16(dk[4 * i] * a.scale, dk[4 * i + 1] * a.scale);
+            *reinterpret_cast<uint32_t*>(vp + 8 * i) = pack_bf16(dv[4 * i], dv[4 * i + 1]);
+          }
+          if (key0 + 8 < a.Sk) {
+            *reinterpret_cast<uint32_t*>(kp + 8 * D + 8 * i) =
+                pack_bf16(dk[4 * i + 2] * a.scale, dk[4 * i + 3] * a.scale);
+            *reinterpret_cast<uint32_t*>(vp + 8 * D + 8 * i) = pack_bf16(dv[4 * i + 2], dv[4 * i + 3]);
+          }
+        }
+      } else if (c.nq > 0) {
+        float* kp = a.dk_acc + ((size_t)c.bkv * a.Sk + key0) * D + col;
+        float* vp = a.dv_acc + ((size_t)c.bkv * a.Sk + key0) * D + col;
+#pragma unroll
+        for (int i = 0; i < DP / 8; ++i) {
+          if (8 * i >= D) continue;
+          if (key0 < a.Sk) {
+            mx::red_add_f32x2(kp + 8 * i, dk[4 * i], dk[4 * i + 1]);
+            mx::red_add_f32x2(vp + 8 * i, dv[4 * i], dv[4 * i + 1]);
+          }
+          if (key0 + 8 < a.Sk) {
+            mx::red_add_f32x2(kp + 8 * D + 8 * i, dk[4 * i + 2], dk[4 * i + 3]);
+            mx::red_add_f32x2(vp + 8 * D + 8 * i, dv[4 * i + 2], dv[4 * i + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Internal linkage on purpose: the per-device cache below is then this
+// library's own, where several builds of the kernels are loaded side by
+// side (scripts/torch_flash_ab.py) and a shared one would skip another
+// build's shared-memory attribute.
+template <int D>
+cudaError_t launch(const mx::BwdArgs& a, cudaStream_t stream) {
+  using mx::encode_tiled;
+  using mx::EncodeTiledFn;
+  using mx::make_map;
+  using T = BwdTile<D>;
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  const int BH = a.B * a.H, BHkv = a.B * a.Hkv;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!make_map(enc, &tq, a.q, D, a.Sq, BH, BW_BQ) || !make_map(enc, &tdo, a.dout, D, a.Sq, BH, BW_BQ) ||
+      !make_map(enc, &tk, a.k, D, a.Sk, BHkv, BW_BK) || !make_map(enc, &tv, a.v, D, a.Sk, BHkv, BW_BK) ||
+      !make_map(enc, &tdq, a.dq_acc, D, a.Sq, BH, BW_BQ, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4))
+    return cudaErrorInvalidValue;
+  // once per device: allow the shared memory, and read the SM count (the
+  // persistent grid is one block per SM, or fewer when there are fewer tiles)
+  static int sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(flash_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms[dev] = n;
+  }
+  const long long ntotal = (long long)BH * ((a.Sk + BW_BK - 1) / BW_BK);
+  if (ntotal > INT_MAX) return cudaErrorInvalidValue;
+  const int grid = (int)(ntotal < sms[dev] ? ntotal : sms[dev]);
+  flash_bwd_wgmma<D><<<grid, BW_THREADS, T::SMEM, stream>>>(tq, tk, tv, tdo, tdq, a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace mx {
+
+template <int D>
+cudaError_t launch_bwd_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  return launch<D>(a, stream);
+}
+
+template cudaError_t launch_bwd_wgmma<MX_BWD_WGMMA>(const BwdArgs& a, cudaStream_t stream);
+
+}  // namespace mx
+
+#else  // the D_i, fp32 and head_dim 32 kernels, the pre- and post-passes, the C entry
 
 namespace {
 
@@ -55,7 +663,6 @@ constexpr int TB = 64;         // q rows of a q tile, keys of a kv tile
 constexpr int NT = 256;        // threads per block
 constexpr int RG = NT / 8;     // row groups of 8 threads: rows rg and rg + RG
 constexpr int LDS = TB + 4;    // padded row stride of a [64 x 64] score tile
-constexpr float NEG_INF = -1e30f;
 
 // Stage rows [row0, row0 + 64) of a contiguous fp32 [S, D] slab into
 // shared memory (row stride D + 4); rows at or past `valid` are 0.
@@ -377,10 +984,12 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulators)
+// bf16 at head_dim 32: tensor cores (mma.sync m16n8k16, fp32 accumulators)
 // ---------------------------------------------------------------------------
 //
-// The same two kernels with every product on the tensor cores. Tiles are
+// The fp32 kernels' two-kernel form with every product on the tensor cores,
+// instantiated for D = 32 only (its 64-byte rows are half of the wgmma
+// kernel's 128-byte swizzle row; the shape is launch-bound). Tiles are
 // bf16 in shared memory with rows padded to D + 8 elements (a row of 16-byte
 // chunks shifted by one chunk from the row above: ldmatrix reads 8 rows
 // without a bank conflict). 4 warps a block; each warp owns 16 rows of the
@@ -419,11 +1028,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Rows [row0, row0 + 64) of a contiguous bf16 [S, D] slab into a shared
@@ -689,6 +1293,119 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 64, 96, 128: the wgmma kernel's pre- and post-pass
+// ---------------------------------------------------------------------------
+
+// One warp per q row of the padded [B * H, Sqp] layout: D_i = rowsum(dO o O)
+// and lse * log2(e) (both 0 on the padding rows, which no step reads
+// unmasked), and zeros in the row's dQ accumulator; then every thread
+// zeroes a grid-stride share of the GQA dK/dV accumulators (kv4 float4s).
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_prep(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ lse2,
+               float* __restrict__ dq_acc, float4* __restrict__ dkv_acc, int Sq, int Sqp,
+               long long rows, long long kv4) {
+  const long long gtid = (long long)blockIdx.x * NT + threadIdx.x;
+  const long long w = gtid / 32;
+  const int lane = threadIdx.x & 31;
+  if (w < rows) {
+    const long long bh = w / Sqp;
+    const int qi = (int)(w % Sqp);
+    float acc = 0.f, l2 = 0.f;
+    if (qi < Sq) {
+      const long long r = bh * Sq + qi;
+      for (int c = lane * 4; c < D; c += 128) {
+        acc = mx::dot4(mx::load4(o + r * D + c), mx::load4(dout + r * D + c), acc);
+        *reinterpret_cast<float4*>(dq_acc + r * D + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      l2 = lse[r] * LOG2E;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      delta[w] = acc;
+      lse2[w] = l2;
+    }
+  }
+  for (long long i = gtid; i < kv4; i += (long long)gridDim.x * NT)
+    dkv_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// dq = scale * dQ_acc in bf16, then (under GQA) dk = scale * dK_acc and
+// dv = dV_acc: four elements a thread a turn.
+__global__ void __launch_bounds__(NT)
+flash_bwd_finish(const float4* __restrict__ dq_acc, uint2* __restrict__ dq, long long nq4,
+                 const float4* __restrict__ dk_acc, const float4* __restrict__ dv_acc,
+                 uint2* __restrict__ dk, uint2* __restrict__ dv, long long nkv4, float scale) {
+  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < nq4 + nkv4;
+       i += (long long)gridDim.x * NT) {
+    if (i < nq4) {
+      const float4 x = dq_acc[i];
+      dq[i] = make_uint2(pack_bf16(x.x * scale, x.y * scale), pack_bf16(x.z * scale, x.w * scale));
+    } else {
+      const long long j = i - nq4;
+      const float4 x = dk_acc[j], y = dv_acc[j];
+      dk[j] = make_uint2(pack_bf16(x.x * scale, x.y * scale), pack_bf16(x.z * scale, x.w * scale));
+      dv[j] = make_uint2(pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+    }
+  }
+}
+
+// The workspace (fp32): D_i and lse * log2(e), [B * H, Sqp] each (Sqp = Sq
+// rounded up to 64), the dQ accumulator [B, H, Sq, D], and under GQA the
+// dK and dV accumulators [B, Hkv, Sk, D] each: prep, wgmma, finish.
+template <int D>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* ws, void* dq, void* dk,
+                          void* dv, int B, int H, int Hkv, int Sq, int Sk, float scale,
+                          float softcap, int causal, int window, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int Sqp = (Sq + 63) / 64 * 64;
+  const long long rows = (long long)B * H * Sqp;
+  const long long nq = (long long)B * H * Sq * D, nkv = H == Hkv ? 0 : (long long)B * Hkv * Sk * D;
+  mx::BwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  float* delta = ws;
+  float* lse2 = ws + rows;
+  a.delta = delta;
+  a.lse2 = lse2;
+  a.dq_acc = lse2 + rows;
+  a.dk_acc = nkv ? a.dq_acc + nq : nullptr;
+  a.dv_acc = nkv ? a.dq_acc + nq + nkv : nullptr;
+  a.dk = dk;
+  a.dv = dv;
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.scale = scale;
+  a.softcap = softcap;
+  a.causal = causal;
+  a.window = window;
+  const long long prep_blocks = (rows * 32 + NT - 1) / NT;
+  if (prep_blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  flash_bwd_prep<D><<<(unsigned)prep_blocks, NT, 0, stream>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, delta, lse2, a.dq_acc,
+      reinterpret_cast<float4*>(a.dk_acc), Sq, Sqp, rows, 2 * nkv / 4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = mx::launch_bwd_wgmma<D>(a, stream);
+  if (err != cudaSuccess) return err;
+  const long long n4 = (nq + nkv) / 4;
+  const long long finish_blocks = (n4 + NT - 1) / NT < 132 * 16 ? (n4 + NT - 1) / NT : 132 * 16;
+  flash_bwd_finish<<<(unsigned)finish_blocks, NT, 0, stream>>>(
+      reinterpret_cast<const float4*>(a.dq_acc), static_cast<uint2*>(dq), nq / 4,
+      reinterpret_cast<const float4*>(a.dk_acc), reinterpret_cast<const float4*>(a.dv_acc),
+      static_cast<uint2*>(dk), static_cast<uint2*>(dv), nkv / 4, scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, void* dq, void* dk, void* dv,
@@ -715,6 +1432,8 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// fp32 at every head dim and bf16 at D = 32: the D_i kernel into the
+// workspace's first B * H * Sq floats, then the two-kernel form
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -759,28 +1478,36 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 
 template <int D>
 cudaError_t launch_typed(int dtype, const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                         const void* dout, const float* lse, float* ws, void* dq, void* dk,
                          void* dv, int B, int H, int Hkv, int Sq, int Sk, float scale,
                          float softcap, int causal, int window, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_bwd<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv, Sq, Sk,
-                                scale, softcap, causal, window, stream);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv, Sq,
-                                        Sk, scale, softcap, causal, window, stream);
+    return launch_bwd<float, D>(q, k, v, o, dout, lse, ws, dq, dk, dv, B, H, Hkv, Sq, Sk, scale,
+                                softcap, causal, window, stream);
+  if (dtype == 1) {
+    if constexpr (D == 32)
+      return launch_bwd<__nv_bfloat16, 32>(q, k, v, o, dout, lse, ws, dq, dk, dv, B, H, Hkv, Sq,
+                                           Sk, scale, softcap, causal, window, stream);
+    else
+      return launch_bwd_tc<D>(q, k, v, o, dout, lse, ws, dq, dk, dv, B, H, Hkv, Sq, Sk, scale,
+                              softcap, causal, window, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o, do, dq: [B, H, Sq, D]; k, v, dk, dv: [B, Hkv, Sk, D]; lse, delta:
-// fp32 [B, H, Sq] (lse from mx_flash_attention_lse, delta scratch). All
-// contiguous and 16-byte aligned; dtype 0 = float32, 1 = bfloat16 for the
-// tensors that are not lse or delta. D in {32, 64, 96, 128}. Launches three
-// kernels on `stream` without synchronising and returns cudaGetLastError()
-// (0 = ok).
+// q, o, do, dq: [B, H, Sq, D]; k, v, dk, dv: [B, Hkv, Sk, D]; lse: fp32
+// [B, H, Sq] from mx_flash_attention_lse; ws: fp32 scratch the kernels
+// take (ops/attention.py backward_workspace_floats): B * H * Sq floats (D_i)
+// for fp32 and bf16 at D = 32; for bf16 at D = 64, 96, 128, 2 * B * H * Sqp
+// (Sqp = Sq rounded up to 64) + B * H * Sq * D, + 2 * B * Hkv * Sk * D when
+// H != Hkv. All contiguous and 16-byte aligned; dtype 0 = float32, 1 =
+// bfloat16 for the tensors that are not lse or ws. D in {32, 64, 96, 128}.
+// Launches three kernels on `stream` without synchronising and returns
+// cudaGetLastError() (0 = ok).
 extern "C" int mx_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                      const void* dout, const float* lse, float* delta, void* dq,
+                                      const void* dout, const float* lse, float* ws, void* dq,
                                       void* dk, void* dv, int dtype, int B, int H, int Hkv,
                                       int Sq, int Sk, int D, float scale, float softcap,
                                       int causal, int window, void* stream) {
@@ -789,18 +1516,20 @@ extern "C" int mx_flash_attention_bwd(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return (int)launch_typed<32>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv,
-                                   Sq, Sk, scale, softcap, causal, window, s);
+      return (int)launch_typed<32>(dtype, q, k, v, o, dout, lse, ws, dq, dk, dv, B, H, Hkv, Sq,
+                                   Sk, scale, softcap, causal, window, s);
     case 64:
-      return (int)launch_typed<64>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv,
-                                   Sq, Sk, scale, softcap, causal, window, s);
+      return (int)launch_typed<64>(dtype, q, k, v, o, dout, lse, ws, dq, dk, dv, B, H, Hkv, Sq,
+                                   Sk, scale, softcap, causal, window, s);
     case 96:
-      return (int)launch_typed<96>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv,
-                                   Sq, Sk, scale, softcap, causal, window, s);
+      return (int)launch_typed<96>(dtype, q, k, v, o, dout, lse, ws, dq, dk, dv, B, H, Hkv, Sq,
+                                   Sk, scale, softcap, causal, window, s);
     case 128:
-      return (int)launch_typed<128>(dtype, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv,
-                                    Sq, Sk, scale, softcap, causal, window, s);
+      return (int)launch_typed<128>(dtype, q, k, v, o, dout, lse, ws, dq, dk, dv, B, H, Hkv, Sq,
+                                    Sk, scale, softcap, causal, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+#endif  // MX_BWD_WGMMA

@@ -1,7 +1,9 @@
 """Build the flash-attention CUDA sources with nvcc and bind them with ctypes.
 
-Every ``.cu`` under ``csrc/`` (the forward ``flash_attention.cu`` and the
-backward ``flash_attention_bwd.cu``, with the headers beside them) is
+Every ``.cu`` under ``csrc/`` (the forward ``flash_attention.cu``, its
+training instantiations ``flash_attention_lse.cu``, the backward
+``flash_attention_bwd.cu`` and its wgmma kernel's per-head-dim units
+``flash_attention_bwd_d{64,96,128}.cu``, with the headers beside them) is
 compiled on first use, for ``sm_90a``, one nvcc per source, all started
 together, and linked into one shared library with a plain C interface,
 named by a hash of every file under ``csrc/`` and the flags: a changed
@@ -51,7 +53,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P]
 # the training forward: ARGTYPES with the fp32 lse pointer after o
 LSE_ARGTYPES = [_P] * 5 + [_I] * 7 + [_F, _F, _I, _I, _P]
-# the backward: q, k, v, o, do, lse, delta, dq, dk, dv, then as ARGTYPES
+# the backward: q, k, v, o, do, lse, the fp32 workspace (ops/attention.py
+# backward_workspace_floats), dq, dk, dv, then as ARGTYPES
 BWD_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P]
 SYMBOLS = {"mx_flash_attention": ARGTYPES, "mx_flash_attention_lse": LSE_ARGTYPES,
            "mx_flash_attention_bwd": BWD_ARGTYPES}

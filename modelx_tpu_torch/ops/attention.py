@@ -25,6 +25,9 @@ KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
 # head dims of the backward kernel (csrc/flash_attention_bwd.cu): 256
 # (gemma2) is on no training path
 BACKWARD_HEAD_DIMS = (32, 64, 96, 128)
+# the bf16 head dims the backward runs on its wgmma kernel (32 keeps the
+# mma.sync pair, fp32 the CUDA cores)
+BACKWARD_WGMMA_HEAD_DIMS = (64, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -279,9 +282,24 @@ def _flash_cuda(q, k, v, causal, scale, logit_softcap, window, lib=None, with_ls
     return (out, lse) if with_lse else out
 
 
-def _flash_bwd_cuda(q, k, v, o, do, lse, causal, scale, logit_softcap, window):
-    """Check the operands and launch the backward kernel (three launches on
-    the current stream: D_i, dK/dV, dQ)."""
+def backward_workspace_floats(dtype, b: int, h: int, hkv: int, sq: int, sk: int, d: int) -> int:
+    """fp32 elements of the scratch the backward kernel takes (its C entry's
+    ``ws``): D_i, ``b * h * sq``, for fp32 and bf16 at head_dim 32; for the
+    bf16 wgmma kernel, D_i and lse * log2(e) at a row stride padded to 64,
+    the fp32 dQ accumulator [b, h, sq, d] and, when ``hkv != h``, the dK and
+    dV accumulators [b, hkv, sk, d] each."""
+    if dtype != torch.bfloat16 or d not in BACKWARD_WGMMA_HEAD_DIMS:
+        return b * h * sq
+    sqp = -(-sq // 64) * 64
+    n = 2 * b * h * sqp + b * h * sq * d
+    return n + (2 * b * hkv * sk * d if hkv != h else 0)
+
+
+def _flash_bwd_cuda(q, k, v, o, do, lse, causal, scale, logit_softcap, window, lib=None):
+    """Check the operands and launch the backward kernel of ``lib`` (by
+    default the port's own library): three launches on the current stream
+    (bf16 at head_dim 64-128: the pre-pass, the wgmma kernel, the post-pass;
+    else D_i, dK/dV, dQ)."""
     b, h, hkv, sq, sk, d = _check_operands(q, k, v, BACKWARD_HEAD_DIMS,
                                            "flash_attention_backward")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
@@ -293,17 +311,19 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, causal, scale, logit_softcap, window):
                          f"{lse.dtype} {tuple(lse.shape)}")
     if any(x.device != q.device for x in (o, do, lse)):
         raise ValueError("flash_attention_backward: every operand on q's device")
-    from modelx_tpu_torch.kernels.build import load_library
+    if lib is None:
+        from modelx_tpu_torch.kernels.build import load_library
 
-    lib = load_library()
+        lib = load_library()
     q, k, v, o, do, lse = (_aligned(x.contiguous()) for x in (q, k, v, o, do.to(q.dtype), lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    ws = torch.empty(backward_workspace_floats(q.dtype, b, h, hkv, sq, sk, d),
+                     dtype=torch.float32, device=q.device)
     sm_scale = scale if scale is not None else 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
         err = lib.mx_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), ws.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _KERNEL_DTYPES[q.dtype], b, h, hkv, sq, sk, d, float(sm_scale),
             float(logit_softcap), int(bool(causal)), int(window),
             torch.cuda.current_stream(q.device).cuda_stream,

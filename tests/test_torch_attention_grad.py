@@ -158,3 +158,19 @@ def test_flash_function_refuses_head_dim_256_before_its_forward(monkeypatch):
     with pytest.raises(ValueError, match="head_dim 256"):
         tattn.FlashAttentionFunction.apply(q.requires_grad_(True), k, v, True, None, 0.0, 0)
     assert calls == []
+
+
+def test_backward_workspace_fits_each_kernel():
+    """The scratch the backward's C entry takes (fp32 elements): D_i alone
+    for fp32 and bf16 at head_dim 32; for the bf16 wgmma kernel D_i and
+    lse * log2(e) at a row stride padded to 64, the dQ accumulator, and
+    the dK and dV accumulators only under GQA."""
+    f = tattn.backward_workspace_floats
+    assert f(torch.float32, 1, 8, 2, 333, 333, 128) == 8 * 333
+    assert f(torch.bfloat16, 2, 4, 2, 256, 256, 32) == 2 * 4 * 256
+    # the training shape: 2 x 32 x 2048 rows, dQ 33.5 MB, dK + dV 16.8 MB
+    assert f(torch.bfloat16, 1, 32, 8, 2048, 2048, 128) == (
+        2 * 32 * 2048 + 32 * 2048 * 128 + 2 * 8 * 2048 * 128)
+    assert f(torch.bfloat16, 1, 4, 4, 65, 129, 96) == 2 * 4 * 128 + 4 * 65 * 96
+    assert f(torch.bfloat16, 2, 4, 1, 1, 7, 64) == 2 * 2 * 4 * 64 + 2 * 4 * 64 + 2 * 2 * 7 * 64
+

@@ -325,6 +325,90 @@ def test_kernel_label_names_typed_and_training_instantiations():
         "EEvv") == "flash_fwd_bf16<96,lse>"
 
 
+def test_kernel_label_names_the_backwards_kernels():
+    # the wgmma kernel's per-head-dim translation units, the pre-pass, and
+    # the post-pass, which is no template
+    assert chip_smoke.kernel_label(
+        "_ZN64_GLOBAL__N__a3707b9c_27_flash_attention_bwd_d128_cu_c85dfa13_17115flash_bwd_wgmma"
+        "ILi128EEEv14CUtensorMap_stS1_S1_S1_N2mx7BwdArgsE") == "flash_bwd_wgmma<128>"
+    assert chip_smoke.kernel_label(
+        "_ZN63_GLOBAL__N__d5ab1f7c_26_flash_attention_bwd_d96_cu_c85dfa13_17715flash_bwd_wgmma"
+        "ILi96EEEv14CUtensorMap_stS1_S1_S1_N2mx7BwdArgsE") == "flash_bwd_wgmma<96>"
+    assert chip_smoke.kernel_label(
+        "_ZN55_GLOBAL__N__b15ab8b7_22_flash_attention_bwd_cu_4dbe314f14flash_bwd_prepILi64EEEvPK"
+        "13__nv_bfloat16S3_PKfPfS6_S6_P6float4iixx") == "flash_bwd_prep<64>"
+    assert chip_smoke.kernel_label(
+        "_ZN55_GLOBAL__N__b15ab8b7_22_flash_attention_bwd_cu_4dbe314f16flash_bwd_finishEPK6float4P5"
+        "uint2xS2_S2_S4_S4_xf") == "flash_bwd_finish"
+
+
+def _census(**overrides):
+    """A census of every instantiation check_census reads, each with the
+    instructions it should have; ``overrides`` replace entries by label."""
+    from modelx_tpu_torch.ops.attention import BACKWARD_WGMMA_HEAD_DIMS, KERNEL_HEAD_DIMS
+
+    ops = dict.fromkeys(chip_smoke.SASS_OPS, 0)
+    census = {f"flash_fwd_bf16<{d}>": {**ops, "HGMMA": 8, "UTMALDG": 4}
+              for d in KERNEL_HEAD_DIMS if d != 32}
+    census.update({f"flash_bwd_wgmma<{d}>": {**ops, "HGMMA": 40, "UTMALDG": 6}
+                   for d in BACKWARD_WGMMA_HEAD_DIMS})
+    census.update({f"flash_bwd_{p}_mma<32>": {**ops, "HMMA": 64} for p in ("dkdv", "dq")})
+    census.update({"flash_bwd_dkdv<128>": dict(ops), "flash_bwd_prep<128>": dict(ops)})
+    census.update(overrides)
+    return census
+
+
+def test_census_gate_takes_the_tensor_core_kernels():
+    chip_smoke.check_census(_census())
+
+
+@pytest.mark.parametrize("label,counts,match", [
+    ("flash_bwd_wgmma<96>", {"HGMMA": 0, "UTMALDG": 6}, r"flash_bwd_wgmma<96> HGMMA"),
+    ("flash_bwd_wgmma<128>", {"HGMMA": 40, "UTMALDG": 0}, r"flash_bwd_wgmma<128> UTMALDG"),
+    ("flash_bwd_wgmma<64>", {"HGMMA": 40, "UTMALDG": 6, "HMMA": 2}, r"mma.sync .*wgmma<64>"),
+    ("flash_bwd_dkdv_mma<64>", {"HMMA": 64}, r"mma.sync .*dkdv_mma<64>"),
+    ("flash_bwd_dq_mma<32>", {"HMMA": 0}, r"flash_bwd_dq_mma<32> HMMA"),
+    ("flash_fwd_bf16<128>", {"HGMMA": 0}, r"flash_fwd_bf16<128> HGMMA"),
+])
+def test_census_gate_fails_off_the_tensor_cores(label, counts, match):
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.check_census(_census(**{label: {**dict.fromkeys(chip_smoke.SASS_OPS, 0),
+                                                   **counts}}))
+
+
+def test_census_gate_fails_on_a_sass_dump_without_hgmma_in_the_backward():
+    """cuobjdump's listing of a bf16 backward instantiation that runs no
+    warpgroup MMA (a mma.sync build of it) fails the build phase."""
+    sass = """
+\t\tFunction : _ZN64_GLOBAL__N__a3707b9c_27_flash_attention_bwd_d128_cu_c85dfa13_17115flash_bwd_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_N2mx7BwdArgsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0020*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+    dumped = chip_smoke.sass_census(sass)
+    assert dumped["flash_bwd_wgmma<128>"]["HGMMA"] == 0
+    census = _census()
+    census.update(dumped)
+    with pytest.raises(RuntimeError, match=r"flash_bwd_wgmma<128> HGMMA"):
+        chip_smoke.check_census(census)
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = """== flash_attention_bwd_d128.cu
+ptxas info    : Compiling entry function '_ZN64_GLOBAL__N__a3707b9c_27_flash_attention_bwd_d128_cu_c85dfa13_17115flash_bwd_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_N2mx7BwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN64_GLOBAL__N__a3707b9c_27_flash_attention_bwd_d128_cu_c85dfa13_17115flash_bwd_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_N2mx7BwdArgsE
+    56 bytes stack frame, 56 bytes spill stores, 68 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers, 56 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__b15ab8b7_22_flash_attention_bwd_cu_4dbe314f16flash_bwd_finishEPK6float4P5uint2xS2_S2_S4_S4_xf' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 22 registers, used 0 barriers
+"""
+    assert chip_smoke.ptxas_report(log) == {
+        "flash_bwd_wgmma<128>": {"registers": 168, "spill_stores": 56, "spill_loads": 68},
+        "flash_bwd_finish": {"registers": 22, "spill_stores": 0, "spill_loads": 0},
+    }
+
+
 def test_kernel_label_leaves_foreign_names_alone():
     assert chip_smoke.kernel_label("_Z6kernelv") == "_Z6kernelv"
     assert chip_smoke.kernel_label("_ZN12_GLOBAL__N_114flash_fwd_bf16ILi256EEEv") == "flash_fwd_bf16<256>"

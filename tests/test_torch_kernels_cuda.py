@@ -12,7 +12,11 @@ order) and (2e-3, 8e-3) for bf16 (the output's rounding to bf16, two
 half-ulps), as chip_smoke.py states them. The backward kernel's gradients:
 |err| <= atol*max|ref| + rtol*|ref| with (1e-5, 2e-5) for fp32 and
 (2e-3, 8e-3) for bf16, each tensor against its own maximum (chip_smoke.py's
-``BWD_TOL``); the forward's row log-sum-exp within 1e-4 (``LSE_TOL``).
+``BWD_TOL``); the forward's row log-sum-exp within 1e-4 (``LSE_TOL``). The
+bf16 backward at head_dim 64-128 sums dQ (and under GQA dK, dV) with
+atomics in arrival order, so two of its runs agree within ``BWD_TOL`` of
+each other, not bit for bit; its fp32 and head_dim 32 kernels sum in a
+fixed order and agree bit for bit.
 """
 
 import pytest
@@ -205,3 +209,100 @@ def test_backward_is_once_differentiable(cuda_device):
     (dq,) = torch.autograd.grad(out, q, do, create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
         dq.sum().backward()
+
+
+def _backward_case(dtype, b, h, hkv, sq, sk, d, seed):
+    q, k, v = _qkv(torch.device("cuda"), dtype, b, h, hkv, sq, sk, d, seed=seed)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                     device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _check_backward(q, k, v, do, kw):
+    """The backward kernel from the training forward's o and lse against
+    attention_backward_reference under BWD_TOL; returns its (dq, dk, dv)."""
+    out, lse = tattn._flash_cuda(q, k, v, kw.get("causal", True), kw.get("scale"),
+                                 kw.get("logit_softcap", 0.0), kw.get("window", 0),
+                                 with_lse=True)
+    got = tattn.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    want = tattn.attention_backward_reference(q.float(), k.float(), v.float(), out.float(),
+                                              do.float(), lse, **kw)
+    atol, rtol = BWD_TOL[q.dtype]
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == q.dtype and x.shape == ref.shape
+        err = (x.float() - ref).abs()
+        assert bool(torch.isfinite(x).all()), name
+        assert bool((err <= atol * ref.abs().max() + rtol * ref.abs()).all()), \
+            (name, kw, float(err.max()))
+    return got
+
+
+# (dtype, B, H, Hkv, Sq, Sk): the backward at Sq != Sk both ways and at
+# lengths one short of and one past its 64-row q tiles and 128-key tiles.
+# Every case has a query that sees two keys or more: where each query sees
+# one key the true dq and dk are zero, and the reference holds fp32 noise.
+BWD_RAGGED_CASES = [
+    (torch.bfloat16, 1, 4, 2, 63, 127), (torch.bfloat16, 1, 4, 2, 65, 129),
+    (torch.bfloat16, 1, 4, 2, 129, 65), (torch.bfloat16, 1, 4, 4, 127, 255),
+    (torch.bfloat16, 1, 4, 1, 255, 129), (torch.bfloat16, 2, 4, 2, 3, 2),
+    (torch.bfloat16, 1, 4, 4, 200, 7), (torch.bfloat16, 1, 4, 2, 7, 200),
+    (torch.float32, 1, 4, 2, 63, 129), (torch.float32, 1, 4, 2, 129, 63),
+    (torch.float32, 1, 4, 4, 65, 127),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,h,hkv,sq,sk", BWD_RAGGED_CASES)
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_backward_ragged_and_unequal_lengths(cuda_device, dtype, b, h, hkv, sq, sk, d):
+    """Any Sq/Sk through the backward: TMA zero-fills past the lengths and
+    the atomics must skip the rows and keys past them; causal is top-left
+    aligned, and with a window some rows of Sq > Sk see no key at all."""
+    q, k, v, do = _backward_case(dtype, b, h, hkv, sq, sk, d, seed=sq * 1000 + sk + d)
+    for kw in ({}, {"causal": False}, {"window": 50},
+               {"scale": d ** -0.5, "logit_softcap": 30.0, "window": 100}):
+        _check_backward(q, k, v, do, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,hkv", [(torch.bfloat16, 128, 2), (torch.bfloat16, 96, 8),
+                                         (torch.bfloat16, 64, 4), (torch.bfloat16, 32, 2),
+                                         (torch.float32, 128, 2)])
+def test_backward_runs_agree(cuda_device, dtype, d, hkv):
+    """Two backward runs on the same inputs: within BWD_TOL of each other
+    where atomics sum (bf16 at head_dim 64-128), bit for bit where the sums
+    have a fixed order (fp32, bf16 at head_dim 32)."""
+    q, k, v, do = _backward_case(dtype, 2, 8, hkv, 512, 512, d, seed=d + hkv)
+    first = _check_backward(q, k, v, do, {})
+    second = _check_backward(q, k, v, do, {})
+    atol, rtol = BWD_TOL[dtype]
+    for x, y in zip(first, second):
+        if dtype == torch.float32 or d == 32:
+            assert torch.equal(x, y)
+        else:
+            err = (x.float() - y.float()).abs()
+            assert bool((err <= atol * y.float().abs().max() + rtol * y.float().abs()).all())
+
+
+@pytest.mark.cuda
+def test_backward_training_shape_through_autograd(cuda_device):
+    """chip_smoke.py's BWD_CASES training shape (Llama-3-8B's attention: q
+    [1, 32, 2048, 128] bf16, 8 kv heads, causal) through
+    FlashAttentionFunction: one forward and one backward launch, and the
+    gradients within BWD_TOL of attention_backward_reference."""
+    q, k, v, do = _backward_case(torch.bfloat16, 1, 32, 8, 2048, 2048, 128, seed=2000)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (tattn.flash_attention.launches, tattn.flash_attention_backward.launches)
+    out = tattn.flash_attention(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (tattn.flash_attention.launches, tattn.flash_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    _, lse = tattn._flash_cuda(q, k, v, True, None, 0.0, 0, with_lse=True)
+    want = tattn.attention_backward_reference(q.float(), k.float(), v.float(),
+                                              out.detach().float(), do.float(), lse)
+    atol, rtol = BWD_TOL[torch.bfloat16]
+    for leaf, ref in zip(leaves, want):
+        err = (leaf.grad.float() - ref).abs()
+        assert bool((err <= atol * ref.abs().max() + rtol * ref.abs()).all()), float(err.max())
