@@ -5,7 +5,8 @@ PY ?= python
 IMAGE ?= modelx-tpu
 TAG ?= $(shell git describe --tags --always 2>/dev/null || echo dev)
 
-.PHONY: all native test chaos slow lifecycle fleet overload programs kv continuation obs mesh decode tiers outage lint wheel image image-dl compose-up compose-down clean
+PHONY_TORCH = lint-torch chaos-torch
+.PHONY: $(PHONY_TORCH) all native test chaos slow lifecycle fleet overload programs kv continuation obs mesh decode tiers outage lint wheel image image-dl compose-up compose-down clean
 
 all: native lint test wheel
 
@@ -154,6 +155,21 @@ lint:
 		echo "ruff unavailable; falling back to compileall"; \
 		$(PY) -m compileall -q modelx_tpu; \
 	fi
+
+# the PyTorch/CUDA port's gate: the same six-rule lint over
+# modelx_tpu_torch/ and its card scripts, with the port's own baseline
+# (modelx_tpu_torch/analysis/baseline.toml); stdlib-only, no torch import
+lint-torch:
+	$(PY) -m modelx_tpu_torch.analysis
+
+# the port's chaos sweeps (tests/test_torch_*.py, marked chaos + slow)
+# under the port's runtime lockdep; a lock-order cycle fails the run. The
+# port's plugin is loaded here with -p: tests/conftest.py registers the
+# JAX package's, and the port's plugin keeps that one from installing a
+# second graph (modelx_tpu_torch/analysis/pytest_lockdep.py)
+chaos-torch:
+	MODELX_LOCKDEP=1 JAX_PLATFORMS=cpu $(PY) -m pytest -p modelx_tpu_torch.analysis.pytest_lockdep \
+		tests/test_torch_*.py -q -m chaos
 
 wheel:
 	$(PY) -m pip wheel --no-deps -w dist .

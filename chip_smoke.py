@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases kernels,main,deploy,artifacts
     python3 chip_smoke.py --phases kernels,families
     python3 chip_smoke.py --phases kernels,train
+    python3 chip_smoke.py --phases lockdep
 
 Phases, in order, each failing the run (exit code != 0) on any error:
 
@@ -273,6 +274,25 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    phase prints its
    wall, the bytes of the files it made (deleted at its end) and its peak
    device memory.
+13. lockdep: the static analysis and runtime lock-order checking
+   (``modelx_tpu_torch/analysis``), run right after pool on its dest (the
+   later checkpoint, 8 of 32 layers), or alone (``--phases lockdep``) on
+   that checkpoint written here; the kernel counts from 0 again. The lint
+   gate (``python -m modelx_tpu_torch.analysis``) runs over the checkout
+   and fails on a new finding or an unused baseline entry. Then the port's
+   lockdep is installed and, after it (only locks made after the install
+   are instrumented), a ``serve_main --continuous-batch --prefix-cache 4
+   --allow-admin-load`` pod is built in process: a ``/v1/forward`` [1,
+   2048] (the flash kernel once a layer; the argmax the later checkpoint's
+   own serving gave), ``LOCKDEP_CLIENTS`` (8) concurrent clients each
+   sending a streamed and a whole greedy ``/v1/generate`` (stream ==
+   whole) while a second name of the same checkpoint is admin-loaded (its
+   argmax == the first's), and unloaded, then a drain with a stream in
+   flight (``/healthz`` 503, the stream whole). Lockdep is uninstalled and
+   the phase fails on any lock-order cycle. Printed: the lock classes, the
+   order edges, every class with a hold over ``LOCKDEP_HOLD_MS`` (its
+   worst hold's ms and top frames), the longest hold, and the phase's
+   flash launches. Long holds are reported, not failed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -927,14 +947,15 @@ def phase_backward(ptxas: dict | None = None) -> list[dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    known = ("kernels", "main") + LATER_PHASES + ("families", "objectstore", "train")
+    known = ("kernels", "main") + LATER_PHASES + ("lockdep", "families", "objectstore", "train")
     ap.add_argument("--phases", default=",".join(known),
                     help="comma list of phases after device+build: kernels (the forward's "
                          "and the backward's cases), main (phases 4-6), deploy (7), artifacts "
                          "(8), pool (9), continuous (10), families (11; with the objectstore "
                          "path on phi3), objectstore (phi3 of phase 11 alone, with the path), "
-                         "train (12); continuous runs main too, any of deploy..pool main "
-                         "and deploy")
+                         "train (12), lockdep (13: right after pool when deploy runs, else "
+                         "alone on a checkpoint it writes); continuous runs main too, any of "
+                         "deploy..pool main and deploy")
     args = ap.parse_args(argv)
     phases = {p.strip() for p in args.phases.split(",") if p.strip()}
     if not phases <= set(known):
@@ -968,9 +989,15 @@ def main(argv=None) -> int:
     bwd_rows = (timed("backward", lambda: phase_backward(build_info["ptxas"]))
                 if "kernels" in phases else [])
     later = tuple(p for p in LATER_PHASES if p in phases)
+    # the lockdep phase runs inside the deploy phase's hand-off, after pool,
+    # on its dest; without deploy it writes the later checkpoint itself
+    lockdep_in_main = "lockdep" in phases and bool(set(later) - {"continuous"})
     main_stats = (timed("main", lambda: phase_main(
-        later=later, build_s=build_info["build_s"] if build_info["built"] else None))
+        later=later, build_s=build_info["build_s"] if build_info["built"] else None,
+        lockdep=lockdep_in_main))
         if phases & {"main", *LATER_PHASES} else {})
+    if "lockdep" in phases and not lockdep_in_main:
+        main_stats = {**main_stats, **timed("lockdep", lockdep_alone)}
     if "families" in phases:
         fam_stats = timed("families", phase_families)
     elif "objectstore" in phases:
@@ -988,6 +1015,7 @@ def main(argv=None) -> int:
         (main_stats, "artifacts", "flash_launches_artifacts"),
         (main_stats, "router", "flash_launches_router"),
         (main_stats, "pool", "flash_launches_pool"),
+        (main_stats, "lockdep", "flash_launches_lockdep"),
         (main_stats, "continuous", "flash_launches_continuous"),
         (fam_stats, "families", "flash_launches_families"),
         (fam_stats, "objectstore", "flash_launches_objectstore"),
@@ -1015,6 +1043,7 @@ def main(argv=None) -> int:
         "build_s": build_info["build_s"],
         "built_by_nvcc": build_info["built"],
         "phase_walls_s": walls,
+        "lockdep_phase_s": main_stats.get("lockdep_phase_s"),
         "sass": build_info["sass"],
         "cases": kernel_rows,
     }
@@ -1155,12 +1184,13 @@ def later_checkpoint(cfg, device: str, forwards: dict) -> tuple:
 
 
 def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
-               build_s: float | None = None) -> dict:
+               build_s: float | None = None, lockdep: bool = True) -> dict:
     """Drive the serving path (phases 4-6), then those of ``later``: the
     continuous engine on the same checkpoint, then the rest on a shallower
     one (``later_checkpoint``), where deploy runs whenever any of them
     does, since the artifacts phase runs on its registry and the pool phase
-    on its dest. ``build_s`` is phase 2's nvcc seconds (None: the library was
+    on its dest, and the lockdep phase (13) after pool on the same dest when
+    ``lockdep``. ``build_s`` is phase 2's nvcc seconds (None: the library was
     cached). ``device="cpu"`` with a small ``cfg`` is a rehearsal of the
     control flow (the CPU tests run it): there the kernel wrapper runs its
     plain version and launches nothing."""
@@ -1366,17 +1396,24 @@ def phase_main(device: str = "cuda", cfg=None, later=LATER_PHASES,
             return out
 
         def pool(dest, root):
-            t0 = time.monotonic()
-            out = phase_pool(cfg, dest, forwards, device, root)
-            out["pool_phase_s"] = time.monotonic() - t0
-            log(f"pool: flash_attention launches on the pool path: "
-                f"{out['flash_launches_pool']}; the phase took {out['pool_phase_s']:.1f} s")
+            out = {}
+            if "pool" in later:
+                t0 = time.monotonic()
+                out.update(phase_pool(cfg, dest, forwards, device, root))
+                out["pool_phase_s"] = time.monotonic() - t0
+                log(f"pool: flash_attention launches on the pool path: "
+                    f"{out['flash_launches_pool']}; the phase took {out['pool_phase_s']:.1f} s")
+            if lockdep:
+                # phase 13, on the same dest: its own count from 0
+                out.update(phase_lockdep(cfg, dest, device, forwards))
+                log(f"lockdep: flash_attention launches on the lockdep path: "
+                    f"{out['flash_launches_lockdep']}")
             return out
 
         stats.update(phase_deploy(
             cfg, ckpt, forwards, device, per_forward,
             artifacts=artifacts if "artifacts" in later else None,
-            then=pool if "pool" in later else None))
+            then=pool if "pool" in later or lockdep else None))
         log(f"deploy: flash_attention launches on the deploy path: "
             f"{stats['flash_launches_deploy']} ({stats['flash_launches_deploy_serve']} serving "
             f"dest, {per_forward} in each TTFT process)")
@@ -4379,6 +4416,249 @@ def _pool_veto(ckpt: str, device: str, root: str, tokens, want: list, nbytes: in
         httpd.shutdown()
         httpd.server_close()
         _free(*sset.servers.values())
+
+
+# -- phase 13: the static analysis and runtime lockdep on the card -------------------------
+
+LOCKDEP_CLIENTS = 8
+LOCKDEP_PROMPT = 96
+LOCKDEP_NEW_TOKENS = 16
+LOCKDEP_FORWARD = (1, 2048)  # /v1/forward: the flash kernel's prefill shape
+LOCKDEP_DRAIN_TOKENS = 64  # the stream in flight while the pod drains
+LOCKDEP_HOLD_MS = 200.0  # the reference's default hold threshold
+LOCKDEP_TOP_FRAMES = 3
+
+
+def lint_gate() -> dict:
+    """The port's lint over the checkout (``python -m
+    modelx_tpu_torch.analysis``): fails on a new finding or an unused
+    baseline entry."""
+    import subprocess
+
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "modelx_tpu_torch.analysis", "--root", REPO],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    secs = time.monotonic() - t0
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or "unused baseline suppression" in proc.stderr:
+        raise RuntimeError(f"lockdep: the lint gate failed (rc {proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    log(f"lockdep: lint gate clean in {secs:.2f} s: {summary}")
+    return {"lint_s": secs, "lint_summary": summary}
+
+
+def _site(site: str) -> str:
+    """A lock class (allocation site) relative to the checkout."""
+    return site[len(REPO) + 1:] if site.startswith(REPO + os.sep) else site
+
+
+def _frames(stack, n: int = LOCKDEP_TOP_FRAMES) -> str:
+    return " < ".join(f"{_site(fn)}:{ln} {name}" for fn, ln, name in reversed(stack[-n:]))
+
+
+def lockdep_report(graph) -> dict:
+    """Print the graph's lock classes, edges and over-threshold holds (top
+    frames and ms, the longest first); fail on a cycle."""
+    classes = sorted(_site(c) for c in graph.classes)
+    edges = {_site(a): sorted(_site(b) for b in bs) for a, bs in sorted(graph.edges().items())}
+    import linecache
+
+    holds = graph.long_holds
+    counts = graph.hold_counts()
+    log(f"lockdep: {len(classes)} lock classes, {sum(map(len, edges.values()))} order edges, "
+        f"{graph.acquisitions} acquisitions, {len(graph.cycles)} cycles, "
+        f"{len(holds)} classes with holds over {graph.hold_threshold_s * 1e3:.0f} ms")
+    for c in classes:
+        path, _, line = c.rpartition(":")
+        src = linecache.getline(path if os.path.isabs(path) else os.path.join(REPO, path),
+                                int(line) if line.isdigit() else 0).strip()
+        log(f"lockdep:   class {c}  {src}")
+    for a, bs in edges.items():
+        log(f"lockdep:   edge {a} -> {', '.join(bs)}")
+    for h in holds:
+        log(f"lockdep:   hold {_site(h.site)}: {h.duration_s * 1e3:.1f} ms (worst of "
+            f"{counts.get(h.site, 1)}) in {h.thread_name!r}; acquired at {_frames(h.acquire_stack)};"
+            f" released at {_frames(h.release_stack)}")
+    longest = holds[0] if holds else None
+    if longest is not None:
+        log(f"lockdep: longest hold {_site(longest.site)} {longest.duration_s * 1e3:.1f} ms")
+    if graph.cycles:
+        raise RuntimeError("lockdep: lock-order cycle(s) on the card:\n"
+                           + "\n\n".join(c.render() for c in graph.cycles))
+    return {"lockdep_classes": len(classes), "lockdep_edges": sum(map(len, edges.values())),
+            "lockdep_acquisitions": graph.acquisitions, "lockdep_cycles": 0,
+            "lockdep_long_holds": [{"site": _site(h.site), "ms": h.duration_s * 1e3,
+                                    "count": counts.get(h.site, 1), "thread": h.thread_name,
+                                    "acquired_at": _frames(h.acquire_stack)} for h in holds],
+            "lockdep_longest_hold_ms": longest.duration_s * 1e3 if longest else 0.0,
+            "lockdep_longest_hold_site": _site(longest.site) if longest else None}
+
+
+def phase_lockdep(cfg, ckpt: str, device: str, forwards: dict | None = None) -> dict:
+    """Phase 13 (module docstring): the lint gate, then a continuous-batch
+    pod built under the port's lockdep on ``ckpt`` and driven by concurrent
+    clients, an admin load and unload and a drain; no lock-order cycle.
+    ``forwards`` maps a /v1/forward shape to (tokens, argmax) served from
+    the same weights (the later checkpoint's), checked when it holds
+    ``LOCKDEP_FORWARD``. The kernel count is this phase's own, from 0."""
+    import threading
+
+    import torch
+
+    from modelx_tpu_torch.analysis import lockdep
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.ops import attention as attn
+
+    on_card = device == "cuda"
+    t_phase = time.monotonic()
+    stats = lint_gate()
+    # only locks made after the install are instrumented: the pod comes after
+    ours = lockdep._saved is None
+    graph = lockdep.install(lockdep.LockGraph(hold_threshold_ms=LOCKDEP_HOLD_MS))
+    attn.flash_attention.launches = 0
+    port = _free_port()
+    sset = httpd = None
+    try:
+        t0 = time.monotonic()
+        sset, httpd = serve_main.start([
+            "--model", f"a={ckpt}", "--listen", f"127.0.0.1:{port}", "--device", device,
+            "--dtype", "bfloat16", "--max-seq-len", str(max(LOCKDEP_FORWARD[1], 1024)),
+            "--continuous-batch", "--max-slots", str(LOCKDEP_CLIENTS), "--prefix-cache", "4",
+            "--allow-admin-load"])
+        stats["lockdep_boot_s"] = time.monotonic() - t0
+        boot_launches = attn.flash_attention.launches
+        rng = torch.Generator().manual_seed(13)
+
+        # /v1/forward at the prefill shape: the flash kernel, once per layer
+        tokens = (forwards[LOCKDEP_FORWARD][0] if forwards and LOCKDEP_FORWARD in forwards
+                  else torch.randint(0, cfg.vocab_size, LOCKDEP_FORWARD, generator=rng))
+        before = attn.flash_attention.launches
+        t0 = time.monotonic()
+        got = _argmax(port, "a", tokens)
+        stats["lockdep_forward_ms"] = (time.monotonic() - t0) * 1e3
+        fwd_launches = attn.flash_attention.launches - before
+        if on_card and fwd_launches != cfg.num_layers:
+            raise RuntimeError(f"lockdep: /v1/forward launched flash_attention {fwd_launches} "
+                               f"times, want {cfg.num_layers}")
+        if forwards and LOCKDEP_FORWARD in forwards:
+            if got != forwards[LOCKDEP_FORWARD][1].tolist():
+                raise RuntimeError("lockdep: /v1/forward answered another argmax than the "
+                                   "same weights served before the phase")
+        elif got != _argmax(port, "a", tokens):
+            raise RuntimeError("lockdep: a repeated /v1/forward answered differently")
+
+        # 8 concurrent clients: each a streamed and a whole greedy /v1/generate
+        prompts = [torch.randint(0, cfg.vocab_size, (LOCKDEP_PROMPT,), generator=rng).tolist()
+                   for _ in range(LOCKDEP_CLIENTS)]
+        results: dict = {}
+        errors: list = []
+
+        def client(i: int) -> None:
+            try:
+                body = {"tokens": [prompts[i]], "max_new_tokens": LOCKDEP_NEW_TOKENS}
+                streamed, _, _ = _stream(port, body)
+                status, whole = _http(port, "/v1/a/generate", body)
+                if status != 200:
+                    raise RuntimeError(f"whole generate answered {status} {whole}")
+                results[i] = (streamed, whole["tokens"][0][LOCKDEP_PROMPT:])
+            except Exception as e:  # reported below, with the client's index
+                errors.append((i, repr(e)))
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(LOCKDEP_CLIENTS)]
+        for t in threads:
+            t.start()
+
+        # meanwhile: an admin load and unload of a second name
+        st, _, body = _http_full(port, "POST", "/admin/models",
+                                 {"name": "b", "model_dir": ckpt, "wait": True})
+        if st != 200 or body.get("b", {}).get("state") != "READY":
+            raise RuntimeError(f"lockdep: the admin load of b answered {st} {body}")
+        if _argmax(port, "b", tokens) != got:
+            raise RuntimeError("lockdep: b (the same checkpoint) answered another argmax")
+        st, _, body = _http_full(port, "DELETE", "/admin/models/b")
+        if st != 200:
+            raise RuntimeError(f"lockdep: the unload of b answered {st} {body}")
+        stats["lockdep_admin_s"] = time.monotonic() - t0
+        for t in threads:
+            t.join(timeout=600)
+        if errors or len(results) != LOCKDEP_CLIENTS:
+            raise RuntimeError(f"lockdep: clients failed: {errors[:3]}")
+        for i, (streamed, whole) in results.items():
+            if streamed != whole or len(whole) != LOCKDEP_NEW_TOKENS:
+                raise RuntimeError(f"lockdep: client {i}: the stream {streamed} != whole {whole}")
+        stats["lockdep_clients_s"] = time.monotonic() - t0
+
+        # a drain with a stream in flight: /healthz 503, the stream ends whole
+        resp, first = _stream_lines(port, "a", {"tokens": [prompts[0]],
+                                                "max_new_tokens": LOCKDEP_DRAIN_TOKENS})
+        t0 = time.monotonic()
+        drained = threading.Thread(target=serve_main.drain,
+                                   args=(sset, 0.0, 60.0, threading.Event()), daemon=True)
+        drained.start()
+        st, body = _http(port, "/healthz")
+        raw = first + resp.read()
+        resp.close()
+        drained.join(timeout=120)
+        if st != 503 or drained.is_alive() or sset.inflight:
+            raise RuntimeError(f"lockdep: the drain: /healthz {st} {body}, "
+                               f"in flight {sset.inflight}")
+        if len(_stream_tokens(raw)) != LOCKDEP_DRAIN_TOKENS:
+            raise RuntimeError("lockdep: the stream in flight at the drain did not end whole")
+        stats["lockdep_drain_s"] = time.monotonic() - t0
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if sset is not None:
+            sset.close()
+            _free(*sset.servers.values())
+        if ours:
+            lockdep.uninstall()
+    stats["flash_launches_lockdep"] = attn.flash_attention.launches
+    if on_card and stats["flash_launches_lockdep"] < 1:
+        raise RuntimeError("lockdep: the phase launched the flash kernel no time")
+    log(f"lockdep: pod up in {stats['lockdep_boot_s']:.2f} s; /v1/forward "
+        f"{list(LOCKDEP_FORWARD)} {stats['lockdep_forward_ms']:.1f} ms; {LOCKDEP_CLIENTS} "
+        f"clients (stream == whole) in {stats['lockdep_clients_s']:.2f} s, b's admin load and "
+        f"unload meanwhile in {stats['lockdep_admin_s']:.2f} s; drain "
+        f"{stats['lockdep_drain_s']:.2f} s; flash "
+        f"launches {stats['flash_launches_lockdep']} (boot warm-up {boot_launches}, forward "
+        f"{fwd_launches}, b's load warm-up and forward the rest)")
+    stats.update(lockdep_report(graph))
+    stats["lockdep_phase_s"] = time.monotonic() - t_phase
+    log(f"lockdep: the phase took {stats['lockdep_phase_s']:.1f} s")
+    return stats
+
+
+def lockdep_alone(device: str = "cuda", cfg=None) -> dict:
+    """Phase 13 alone (``--phases lockdep``): the later phases' checkpoint
+    (Llama-3-8B's widths at ``LATER_LAYERS``, seed 0) written here, then
+    the phase on it."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.models import llama
+
+    cfg = cfg or llama.LlamaConfig.llama3_8b()
+    cut = dataclasses.replace(cfg, num_layers=min(cfg.num_layers, LATER_LAYERS))
+    nbytes = 2 * sum(math.prod(s) for s in llama.param_shapes(cut).values())
+    ckpt = _checkpoint_dir(nbytes)
+    try:
+        t0 = time.monotonic()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cut, gen, dtype=torch.bfloat16)
+        st.write_safetensors(os.path.join(ckpt, "model.safetensors"), params)
+        del params
+        log(f"lockdep: wrote the later phases' checkpoint ({cut.num_layers} layers, "
+            f"{nbytes / 1e9:.3f} GB) in {time.monotonic() - t0:.1f} s")
+        return phase_lockdep(cut, ckpt, device)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
 
 
 # -- phase 10: the continuous engine ----------------------------------------------------

@@ -34,3 +34,26 @@ def parse_dtype(name: str | torch.dtype) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r} (bfloat16 or float32)") from None
+
+
+def start_host_copy(t: torch.Tensor):
+    """Start ``t``'s device->host copy now; returns a zero-arg callable that
+    waits for that copy alone (its CUDA event) and gives a numpy array.
+
+    Callers that serialize device work under a lock queue the copy under it
+    and call the result after the release: the stream keeps the copy after
+    the work that produced ``t``, and the host's wait holds no lock. A CPU
+    tensor is copied at once."""
+    if not t.is_cuda:
+        arr = t.numpy().copy()
+        return lambda: arr
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+
+    def get():
+        ev.synchronize()
+        return host.numpy()
+
+    return get

@@ -91,6 +91,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from modelx_tpu_torch.device import start_host_copy
 from modelx_tpu_torch.dl.serving_errors import (
     DeadlineExceededError,
     EngineBrokenError,
@@ -513,23 +514,6 @@ class ContinuousBatcher:
         pinned.copy_(src)
         return pinned.to(self.device, non_blocking=True)
 
-    def _fetch(self, t: torch.Tensor):
-        """Start ``t``'s device->host copy now; returns a zero-arg callable
-        that waits for it (on that copy's event only) and yields numpy."""
-        if not self._on_card:
-            arr = t.numpy().copy()
-            return lambda: arr
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-
-        def get():
-            ev.synchronize()
-            return host.numpy()
-
-        return get
-
     # -- flight recorder ------------------------------------------------------
 
     def _rec(self, event: str, slot: int = -1, request_id: str = "", **fields) -> None:
@@ -800,7 +784,7 @@ class ContinuousBatcher:
         with trace.span("continuous.spec_verify", proposed=len(prop)), \
                 self.server._device_lock:
             argm_dev = self._verify(block)[slot]
-            fetch = self._fetch(argm_dev)
+            fetch = start_host_copy(argm_dev)
         # the spec boundary's one blocking readback: acceptance decides the
         # next proposal
         t0 = time.monotonic()
@@ -1033,7 +1017,7 @@ class ContinuousBatcher:
                         if self.page_size > 0 else None)
             self._insert(small, slots, sb, page_ids)
             self._set_tok(slots, firsts)
-            fetch = self._fetch(firsts[: len(preps)])
+            fetch = start_host_copy(firsts[: len(preps)])
         for i, p in enumerate(preps):
             self._finish_admit_host(p, lambda i=i: fetch()[i].reshape(1, 1))
 
@@ -1075,7 +1059,7 @@ class ContinuousBatcher:
                 small, first = self._prefill(prompt, np.asarray([s], np.int64), [samp])
             self._insert(small, [slot], trim, prep["prompt_pages"])
             self._set_tok([slot], first)
-            fetch = self._fetch(first)
+            fetch = start_host_copy(first)
         if self.prefix_cache is not None:
             # the scratch cache IS this prompt's prefill KV (bucketed to the
             # prompt's 16-quantum): the conversation's next turn prefills
@@ -1197,7 +1181,7 @@ class ContinuousBatcher:
                 trace.span("continuous.prefill_flip" if last else "continuous.prefill_piece",
                            tokens=take), self.server._device_lock:
             first = self._piece(fill, piece_len, take, last)
-            fetch = self._fetch(first) if last else None
+            fetch = start_host_copy(first) if last else None
         if not last:
             fill.filled += take
             self._offsets[slot] = fill.filled
@@ -1328,7 +1312,7 @@ class ContinuousBatcher:
         with trace.span("continuous.chunk", active=len(self._rows), depth=depth), \
                 self.server._device_lock:
             block = self._chunk(n_steps)
-            fetch = self._fetch(block)
+            fetch = start_host_copy(block)
         self._tok_host = None
         self.stats["chunks"] += depth
         self.stats["dispatches"] += 1

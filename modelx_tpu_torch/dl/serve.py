@@ -104,7 +104,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from modelx_tpu_torch.device import parse_dtype, resolve_device
+from modelx_tpu_torch.device import parse_dtype, resolve_device, start_host_copy
 from modelx_tpu_torch.dl import families as fam
 from modelx_tpu_torch.dl import manifest_cache
 from modelx_tpu_torch.dl.lifecycle import ModelPool, PoolError, _without_tracebacks
@@ -492,9 +492,13 @@ class ModelServer:
             return self._argmax(tokens)
 
     def _argmax(self, tokens: np.ndarray) -> np.ndarray:
+        # the device work and its copy to the host queue under the lock;
+        # the wait for the copy comes after the release, so the next
+        # request's launches queue while the card still runs this one
         with self._device_lock, torch.inference_mode():
             logits = self.family.forward(self.params, self._tokens(tokens), self.cfg)
-            return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            fetch = start_host_copy(torch.argmax(logits, dim=-1).to(torch.int32))
+        return fetch()
 
     def generate(self, tokens: np.ndarray, max_new_tokens: int = 16,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
@@ -514,8 +518,9 @@ class ModelServer:
             with trace.span("serve.generate_spec", model=self.name,
                             new_tokens=max_new_tokens):
                 dec = self._speculative_decoder()
+                prompt = tokens[0].tolist()
                 with self._device_lock, torch.inference_mode():
-                    new, stats = dec.generate(self.params, tokens[0].tolist(), max_new_tokens,
+                    new, stats = dec.generate(self.params, prompt, max_new_tokens,
                                               temperature=temperature, top_k=top_k,
                                               top_p=top_p, seed=seed)
                 self.stats["tokens_generated"] += len(new)
@@ -550,7 +555,8 @@ class ModelServer:
                 self.params, self._tokens(tokens), np.asarray(row_lens, np.int64), self.cfg,
                 max_new_tokens=max_new_tokens, temperature=temperature, top_k=top_k,
                 top_p=top_p, seeds=seeds)
-            return out.to(torch.int32).cpu().numpy()
+            fetch = start_host_copy(out.to(torch.int32))
+        return fetch()
 
     def score_logprobs_rows(self, rows, top_k: int = 0) -> list:
         """Per-token log-probabilities for completed generations: a
@@ -591,11 +597,13 @@ class ModelServer:
             logits = self.family.forward(self.params, toks, self.cfg)
             lp = torch.log_softmax(logits.float(), dim=-1)
             nxt = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], dim=1)
-            chosen = torch.gather(lp, -1, nxt[..., None])[..., 0].cpu().numpy()
-            if not top_k:
-                return chosen, None, None
-            top_lp, top_id = torch.topk(lp, top_k, dim=-1)
-            return chosen, top_id.to(torch.int32).cpu().numpy(), top_lp.cpu().numpy()
+            fetches = [start_host_copy(torch.gather(lp, -1, nxt[..., None])[..., 0])]
+            if top_k:
+                top_lp, top_id = torch.topk(lp, top_k, dim=-1)
+                fetches += [start_host_copy(top_id.to(torch.int32)), start_host_copy(top_lp)]
+        # the host waits past the lock's release (as _argmax)
+        chosen, *top = (f() for f in fetches)
+        return (chosen, *top) if top_k else (chosen, None, None)
 
     def score_logprobs(self, ids: list[int], new_ids: list[int], top_k: int = 0):
         """Single-row convenience over score_logprobs_rows."""

@@ -316,7 +316,8 @@ class NativeHTTPConnection:
             self._conn = None
 
     def __del__(self) -> None:
+        # a finalizer must not raise; a failed close still leaves a trace
         try:
             self.close()
         except Exception:
-            pass
+            logger.debug("native connection close failed in __del__", exc_info=True)

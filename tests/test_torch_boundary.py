@@ -65,7 +65,10 @@ def test_port_imports_no_jax_or_reference_package():
                 "router/__init__.py", "router/http.py", "router/policy.py",
                 "router/registry.py", "router/admission.py", "router/rebalance.py",
                 "router/server.py", "router/router_main.py", "models/train.py",
-                "models/train_main.py", "dl/checkpoint.py", "ops/moe.py", "ops/attention.py"):
+                "models/train_main.py", "dl/checkpoint.py", "ops/moe.py", "ops/attention.py",
+                "analysis/lint.py", "analysis/lockdep.py", "analysis/pytest_lockdep.py",
+                "analysis/rules/locks.py", "analysis/rules/handlers.py",
+                "analysis/rules/purity.py", "analysis/rules/threads.py"):
         assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:

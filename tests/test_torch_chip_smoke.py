@@ -11,6 +11,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -77,6 +78,7 @@ def test_main_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "PROFILE_FORWARD", (1, 48))
     _tiny_options(monkeypatch)
     _tiny_continuous(monkeypatch)
+    _tiny_lockdep(monkeypatch)
     stats = chip_smoke.phase_main(device="cpu", cfg=cfg)
     assert stats["flash_launches"] == 0  # CPU tensors take the plain version
     assert stats["logit_max_diff"] == 0.0 and stats["argmax_checked"] > 0
@@ -155,6 +157,60 @@ def test_main_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     assert stats["cont_kv_bytes_gather"] < stats["cont_kv_bytes_dense"]
     assert stats["cont_syncs_per_boundary_dense"] <= 1
     assert stats["cont_spec_accept_rate"] >= chip_smoke.CONT_SPEC_MIN_RATE
+    # and the lockdep phase after pool, on the same dest, on its own count:
+    # the lint gate clean, the pod's graph without a cycle, the /v1/forward
+    # argmax the later checkpoint's own serving gave
+    assert stats["flash_launches_lockdep"] == 0 and stats["lockdep_cycles"] == 0
+    assert "0 new finding(s)" in stats["lint_summary"]
+    assert stats["lockdep_classes"] > 10 and stats["lockdep_edges"] >= 1
+    assert {"lockdep_boot_s", "lockdep_forward_ms", "lockdep_clients_s", "lockdep_admin_s",
+            "lockdep_drain_s", "lockdep_longest_hold_ms", "lockdep_phase_s"} <= set(stats)
+
+
+def _tiny_lockdep(monkeypatch):
+    for name, value in (("LOCKDEP_FORWARD", (1, 48)), ("LOCKDEP_PROMPT", 12),
+                        ("LOCKDEP_NEW_TOKENS", 3), ("LOCKDEP_DRAIN_TOKENS", 200)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_lockdep_phase_rehearses_alone_on_cpu(monkeypatch):
+    """``--phases lockdep`` alone: the later checkpoint written by the phase,
+    the lint gate, the pod under the port's lockdep (the server's device
+    lock and the pool's lock among its classes), no cycle, the factories
+    restored after."""
+    import threading
+
+    from modelx_tpu_torch.analysis import lockdep
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=1024), rope_theta=500000.0)
+    monkeypatch.setattr(chip_smoke, "LATER_LAYERS", 1)
+    _tiny_lockdep(monkeypatch)
+    real = threading.Lock
+    stats = chip_smoke.lockdep_alone(device="cpu", cfg=cfg)
+    assert threading.Lock is real and not lockdep.owns_factories()
+    assert stats["lockdep_cycles"] == 0 and stats["flash_launches_lockdep"] == 0
+    assert "0 new finding(s)" in stats["lint_summary"]
+    assert stats["lockdep_acquisitions"] > 100
+
+
+def test_lockdep_report_fails_on_a_cycle_and_names_holds():
+    from modelx_tpu_torch.analysis import lockdep
+
+    graph = lockdep.LockGraph(hold_threshold_ms=1.0)
+    a = lockdep.make_lock(graph, site=os.path.join(chip_smoke.REPO, "x.py") + ":1")
+    b = lockdep.make_lock(graph, site="y.py:2")
+    with a:
+        time.sleep(0.005)
+        with b:
+            pass
+    out = chip_smoke.lockdep_report(graph)
+    assert out["lockdep_cycles"] == 0 and out["lockdep_longest_hold_site"] == "x.py:1"
+    assert out["lockdep_long_holds"][0]["count"] == 1
+    with b:
+        with a:
+            pass
+    with pytest.raises(RuntimeError, match="lock-order cycle"):
+        chip_smoke.lockdep_report(graph)
 
 
 def _tiny_families():

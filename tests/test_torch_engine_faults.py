@@ -335,3 +335,40 @@ def test_kv_allocation_oom_sheds_an_idle_model_and_retries_once(server, monkeypa
     with pytest.raises(EngineBrokenError, match="no idle model") as ei:
         lone.continuous_for(server)
     assert ei.value.http_status == 503
+
+
+# -- the chaos sweep (make chaos-torch: under the port's lockdep) ----------------------
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_seeded_dispatch_fault_sweep_always_terminates(server):
+    """tests/test_engine_faults.py:665 on the port: across seeds, a
+    supervised engine under a random dispatch-fault schedule keeps serving
+    (restarts) or breaks its circuit cleanly; every request ends with its
+    tokens or a typed error, never a hang."""
+    from modelx_tpu_torch.testing import faults
+
+    for seed in range(3):
+        cb = ContinuousBatcher(server, max_slots=2, chunk_size=4, restart_backoff_s=0.01,
+                               max_crashes=4, crash_window_s=30.0)
+        plan = faults.FaultPlan(seed=seed)
+        plan.add("engine.dispatch", error_rate=0.15, horizon=128, error=RuntimeError("chaos"))
+        cb._chunk = faults.wrap_dispatch(cb._chunk, plan)
+        try:
+            outcomes = []
+            for i in range(12):
+                tokens = np.array([[1 + (seed + i) % 9, 2, 3]], np.int32)
+                try:
+                    out = cb.generate(tokens, max_new_tokens=6)
+                    assert out.shape == (1, 9)
+                    outcomes.append("ok")
+                except ServingError:
+                    outcomes.append("err")
+                if cb.engine_state == "broken":
+                    break
+            assert outcomes, "no request terminated"
+            assert cb.engine_state in ("running", "restarting", "broken")
+            assert plan.count("engine.dispatch") > 0
+        finally:
+            cb.close()

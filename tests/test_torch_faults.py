@@ -250,3 +250,51 @@ def test_pod_kill_switch_and_wrappers_match(tmp_path):
     with pytest.raises(OSError, match="short read: 6/16"):
         src.read_range(8, 16, buf)
     assert bytes(buf[:6]) == bytes(range(8, 14))
+
+
+# -- the chaos sweep (make chaos-torch: under the port's lockdep) ----------------------
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_fetch_error_propagates_without_deadlock(tmp_path):
+    """tests/test_loader.py:258 on the port's loader: a mid-load fetch
+    failure that outlives the retry budget raises; it does not wedge the
+    fetch pool on the governor's permits or the staging slots once the
+    retry's backoff is spent."""
+    import threading
+
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl.loader import LocalFileSource, load_safetensors
+
+    path = str(tmp_path / "m.safetensors")
+    st.write_safetensors(path, {f"model.layers.{i}.mlp.gate_proj.weight":
+                                torch.ones((64, 32), dtype=torch.bfloat16) for i in range(40)})
+
+    class FlakySource(LocalFileSource):
+        calls = 0
+        lock = threading.Lock()
+
+        def read_range(self, offset, length, out=None):
+            with FlakySource.lock:
+                FlakySource.calls += 1
+                n = FlakySource.calls
+            if n >= 3:  # persistent: outlives the retry budget
+                raise OSError("injected fetch failure")
+            return super().read_range(offset, length, out)
+
+    done = []
+
+    def load():
+        try:
+            load_safetensors(FlakySource(path), "cpu", concurrency=4)
+        except OSError as e:
+            done.append(e)
+
+    t = threading.Thread(target=load, daemon=True)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive(), "the load deadlocked"
+    assert done and "injected" in str(done[0])

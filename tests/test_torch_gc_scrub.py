@@ -197,3 +197,48 @@ def test_routes_answer_the_jax_registry_bodies(tmp_path, path):
     finally:
         tsrv.shutdown()
         jsrv.shutdown()
+
+
+# -- the chaos sweep (make chaos-torch: under the port's lockdep) ----------------------
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_torn_push_storm_converges(tmp_path):
+    """tests/test_scrub.py:205 on the port's store: many pushes with a
+    seeded scatter of torn writes (same-length bit rot, so only the hash
+    scrub can catch it); after a restart and a full scrub every address
+    serves verified bytes or 404s."""
+    import random
+
+    from modelx_tpu_torch import errors
+    from modelx_tpu_torch.registry.store import blob_digest_path
+    from modelx_tpu_torch.types import Descriptor
+
+    inner = LocalFSProvider(str(tmp_path / "reg"))
+    rng = random.Random(1234)
+    torn = []
+    store = FSRegistryStore(inner, refresh_on_init=False)
+    for i in range(20):
+        data = b"model-shard-%03d" % i
+        digest = str(Digest.from_bytes(data))
+        if rng.random() < 0.3:
+            junk = data[:6] + b"X" * (len(data) - 6)
+            inner.put(blob_digest_path(REPO, digest), io.BytesIO(junk), len(junk), "")
+            torn.append(digest)
+        else:
+            store.put_blob(REPO, digest, BlobContent(io.BytesIO(data), len(data), ""))
+        desc = Descriptor(name=f"s{i}.bin", digest=digest, size=len(data))
+        store.put_manifest(REPO, f"v{i}", "", Manifest(blobs=[desc]))
+    assert torn, "the seed tears no write"
+    restarted = FSRegistryStore(inner)
+    result = tscrub.scrub_repository(restarted, REPO)
+    assert sorted(result.quarantined) == sorted(torn)
+    for i in range(20):
+        data = b"model-shard-%03d" % i
+        digest = str(Digest.from_bytes(data))
+        if digest in torn:
+            with pytest.raises(errors.ErrorInfo):
+                restarted.get_blob(REPO, digest)
+        else:
+            assert restarted.get_blob(REPO, digest).content.read() == data

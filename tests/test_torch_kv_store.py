@@ -602,3 +602,79 @@ def test_publish_pod_kill_reinstall(tmp_path):
         client.remote.close()
     finally:
         srv.shutdown()
+
+
+# -- the chaos sweep (make chaos-torch: under the port's lockdep) ----------------------
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_publish_pod_kill_outage_drain_reinstall(tmp_path):
+    """tests/test_kv_store.py:822 as a sweep on the port: pod 1 (a pool
+    with ``publish_kv``, its outbox and drainer) heats a shared prefix and
+    dies before the publish lands, the registry down (a seeded fault on
+    every publish of the first generation's drainer); the next
+    generation's drainer publishes from the spool once the registry is
+    back, and a replacement pod installs the bundle at its load and serves
+    the hot prompt's tokens without prefilling the prefix."""
+    from modelx_tpu.client.client import Client as JaxClient
+    from modelx_tpu_torch.dl.initializer import pull_model
+    from modelx_tpu_torch.dl.serve import ModelServer
+    from modelx_tpu_torch.testing.faults import FaultPlan
+    from tests.test_torch_serve import _write_tiny_fp32
+
+    d = tmp_path / "m"
+    _write_tiny_fp32(str(d))
+    srv, base = start_port_registry()
+    try:
+        JaxClient(base, quiet=True).push("library/drill", "v1", str(d))
+        ref = f"{base}/library/drill@v1"
+
+        def stream(pod, ids, n=6):
+            pieces = list(pod.generate_stream(np.asarray([ids], np.int32), max_new_tokens=n,
+                                              chunk_size=4))
+            return np.concatenate(pieces, axis=1)[0].tolist()
+
+        pod1 = ModelServer(str(d), dtype="float32", device="cpu", max_seq_len=64,
+                           prefix_cache_size=4, name="pod1")
+        pod1.load()
+        hot = [5, 6, 7, 8, 9]
+        stream(pod1, hot)
+        expect = stream(pod1, hot + [4])
+        stream(pod1, hot + [2])
+        spool = str(tmp_path / "outbox")
+        ob = Outbox(spool)
+        outage = FaultPlan(seed=5).add("kv.publish", error_rate=1.0, horizon=64,
+                                       error=OSError("registry down"))
+
+        def down(kind, r, data):
+            outage.maybe_fail("kv.publish")
+            return kv.publish_bundle(r, data)
+
+        dr1 = Drainer(ob, handler=None)
+        dr1.register_handler(kv.OUTBOX_KIND, down)
+        def sink(r, b):
+            if not ob.enqueue(kv.OUTBOX_KIND, r, b):
+                raise RuntimeError("spool full")
+
+        pub = kv.KVPublisher(lambda: [(ref, pod1)], sink, threshold=2)
+        assert pub.flush() == 1
+        for _ in range(3):
+            assert not dr1.drain_once()  # the publish fails; the entry stays spooled
+        assert outage.count("kv.publish") == 3
+        del pod1, pub, dr1  # the pod dies; the spool survives as files
+        dr2 = Drainer(Outbox(spool), handler=None)
+        dr2.register_handler(kv.OUTBOX_KIND, lambda k, r, data: kv.publish_bundle(r, data))
+        assert dr2.drain_once()
+        client = Client(base, quiet=True)
+        assert len(kv.kv_descriptors(client.get_manifest("library/drill", "v1"))) == 1
+        dest = str(tmp_path / "pulled")
+        assert pull_model(ref, dest)["kv_blobs"] == 1
+        pod2 = ModelServer(dest, dtype="float32", device="cpu", max_seq_len=64,
+                           prefix_cache_size=4, name="pod2")
+        assert pod2.load()["kv"]["installed"] == 1
+        assert stream(pod2, hot + [4]) == expect
+        assert pod2._prefix_cache.hits_installed == 1
+        client.remote.close()
+    finally:
+        srv.shutdown()

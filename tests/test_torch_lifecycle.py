@@ -1049,3 +1049,44 @@ def tserve_manifest(registry, repo):
         return client.get_manifest(repo, "v1").blobs
     finally:
         client.close()
+
+
+# -- the chaos sweep (make chaos-torch: under the port's lockdep) ----------------------
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_crashed_ref_load_leaves_pool_serving_and_slot_retryable(
+        model_dirs, registry, tmp_path, fresh_trackers):
+    """tests/test_lifecycle.py:327 on a port pod: a ref whose pull succeeds
+    and whose load crashes lands FAILED (reason visible, requests 503)
+    while the pool serves; a re-POST of the same name retries the slot."""
+    sset = tserve.ServerSet({"a": port_server(model_dirs["a"], "a")}, allow_admin_load=True,
+                            staging_root=str(tmp_path / "staging"))
+    httpd = tserve.serve(sset, listen=f"127.0.0.1:{free_port()}")
+    port = httpd.server_address[1]
+    try:
+        sset.load_all()
+        st, _, body = _http(port, "POST", "/admin/models",
+                            {"name": "x", "ref": f"{registry}/library/bad@v1", "wait": True},
+                            timeout=300)
+        assert st == 200 and body["x"]["state"] == "FAILED" and body["x"]["error"]
+        assert _http(port, "POST", "/v1/generate",
+                     {"tokens": [[1, 2]], "max_new_tokens": 2})[0] == 200
+        st, _, body = _http(port, "POST", "/v1/x/generate", {"tokens": [[1]], "max_new_tokens": 1})
+        assert st == 503 and "failed to load" in body["error"]
+        st, _, body = _http(port, "GET", "/healthz")
+        assert st == 200 and body["status"] == "degraded" and "x" in body["failed"]
+        models = _http(port, "GET", "/v1/models")[2]
+        assert models["models"]["x"]["lifecycle"]["state"] == "FAILED"
+        assert models["models"]["x"]["error"]
+        st, _, body = _http(port, "POST", "/admin/models",
+                            {"name": "x", "ref": f"{registry}/library/b@v1", "wait": True},
+                            timeout=300)
+        assert st == 200 and body["x"]["state"] == "READY"
+        assert _http(port, "POST", "/v1/x/generate",
+                     {"tokens": [[1]], "max_new_tokens": 1})[0] == 200
+        assert _http(port, "GET", "/healthz")[2]["status"] == "ok"
+    finally:
+        httpd.shutdown()
+        sset.close()

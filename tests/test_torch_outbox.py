@@ -18,6 +18,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import pytest
@@ -334,3 +335,143 @@ def test_outage_drill_spool_survives_and_drains_after_restart(tmp_path):
     finally:
         reg.kill()
         reg.wait()
+
+
+# -- the chaos soak (make chaos-torch: under the port's lockdep) -----------------------
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_fleet_survives_registry_death(tmp_path):
+    """tests/test_outage.py:720 on a port pod: 8 clients generate against
+    the pod while the registry dies mid-traffic; a publish spooled during
+    the outage fails; a concurrent swap-in of b loads offline from the
+    pinned manifest and the blob cache; zero data-path errors; once the
+    registry is back (the same address over the same store) the outbox
+    drains, and the flight recorder holds the story."""
+    from modelx_tpu_torch.dl import manifest_cache
+    from modelx_tpu_torch.dl import serve as tserve
+    from modelx_tpu_torch.dl.blob_cache import BlobCache
+    from modelx_tpu_torch.registry.fs import MemoryFSProvider
+    from modelx_tpu_torch.registry.server import Options, RegistryServer
+    from modelx_tpu_torch.registry.store_fs import FSRegistryStore
+    from modelx_tpu_torch.testing.faults import RegistryKillSwitch
+    from tests.test_torch_lifecycle import write_tiny
+    from tests.test_torch_program_store import stand_in
+
+    manifest_cache.health().reset()
+    manifest_cache.configure_default(str(tmp_path / "manifest-cache"))
+    amodel, bmodel = str(tmp_path / "soak-a"), str(tmp_path / "soak-b")
+    write_tiny(amodel, seed=0)
+    write_tiny(bmodel, seed=1)
+    store = FSRegistryStore(MemoryFSProvider())
+    port = free_port()
+
+    def start_registry():
+        srv = RegistryServer(Options(listen=f"127.0.0.1:{port}"), store=store)
+        return srv, srv.serve_background()
+
+    srv, base = start_registry()
+    JaxClient(base, quiet=True).push("library/a", "v1", amodel)
+    JaxClient(base, quiet=True).push("library/b", "v1", bmodel)
+    sset = tserve.ServerSet(
+        {"a": tserve.ModelServer(amodel, dtype="float32", device="cpu", name="a",
+                                 max_seq_len=64)},
+        allow_admin_load=True, staging_root=str(tmp_path / "staging"))
+    sset.pool.blob_cache = BlobCache(str(tmp_path / "blobs"))
+    sset.pool.attach_outbox(str(tmp_path / "outbox"), backoff_s=0.1)
+    sset.load_all()
+    httpd = tserve.serve(sset, listen=f"127.0.0.1:{free_port()}")
+    pod = httpd.server_address[1]
+    switch = RegistryKillSwitch(srv)
+
+    def http(method, path, body=None, timeout=300):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{pod}{path}", method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    try:
+        # warm the ladder: pull b once through the caches, then drop it
+        st, body = http("POST", "/admin/models",
+                        {"name": "b", "ref": f"{base}/library/b@v1", "wait": True})
+        assert st == 200, body
+        assert http("DELETE", "/admin/models/b")[0] == 200
+        stop = threading.Event()
+        errors_seen: list = []
+        completed = [0] * 8
+
+        def traffic(i: int) -> None:
+            while not stop.is_set():
+                try:
+                    st, out = http("POST", "/v1/a/generate",
+                                   {"tokens": [[1, 2, 3]], "max_new_tokens": 2}, timeout=120)
+                    if st != 200:
+                        errors_seen.append((i, st, out))
+                        return
+                    completed[i] += 1
+                except Exception as e:  # any transport failure counts
+                    errors_seen.append((i, type(e).__name__, str(e)))
+                    return
+
+        threads = [threading.Thread(target=traffic, args=(i,), daemon=True) for i in range(8)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 30.0
+        while sum(completed) < 8 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert sum(completed) >= 8, "traffic never established"
+        switch.kill()
+
+        # a publish lands in the spool during the outage and fails
+        lib = str(tmp_path / "lib")
+        stand_in(lib)
+        assert sset.pool.outbox.enqueue("programs", f"{base}/library/b@v1",
+                                        program_store.build_bundle(lib))
+        sset.pool.outbox_drainer.kick()
+
+        # the concurrent swap-in, offline
+        st, body = http("POST", "/admin/models",
+                        {"name": "b", "ref": f"{base}/library/b@v1", "wait": True})
+        assert st == 200, body
+        assert body["b"]["state"] == "READY" and body["b"]["load_source"] == "cache"
+        assert http("POST", "/v1/b/generate", {"tokens": [[1, 2, 3]], "max_new_tokens": 2})[0] \
+            == 200
+        st, hz = http("GET", "/healthz")
+        assert hz["status"] == "ok" and hz["control_plane"]["state"] == "offline"
+
+        stop.set()
+        for t in threads:
+            t.join(30)
+        assert not errors_seen, errors_seen[:3]
+        assert all(n > 0 for n in completed)
+        assert sset.pool.outbox.depth() == 1
+
+        srv2, _ = start_registry()
+        try:
+            sset.pool.outbox_drainer.kick()
+            deadline = time.monotonic() + 30.0
+            while sset.pool.outbox.depth() and time.monotonic() < deadline:
+                time.sleep(0.05)
+            assert sset.pool.outbox.depth() == 0
+            assert sset.pool.outbox.stats["drained_total"] >= 1
+            m = RegistryClient(base).get_manifest("library/b", "v1")
+            assert any(b.media_type == MediaTypeModelProgram for b in m.blobs)
+        finally:
+            srv2.shutdown()
+        events = {e["event"] for e in sset.pool.flightrec.events()}
+        assert {"ladder.source", "control_plane.transition", "outbox.drained"} <= events
+    finally:
+        switch.kill()
+        sset.pool.stop_outbox()
+        httpd.shutdown()
+        sset.close()
+        manifest_cache.health().reset()
+        with manifest_cache._default_lock:
+            manifest_cache._default = None
+            manifest_cache._default_configured = False

@@ -480,3 +480,62 @@ def test_model_server_installs_before_its_warm_up(tmp_path, bundle, monkeypatch)
     (d / ps.bundle_name()).write_bytes(b"junk")
     stats = serve.ModelServer(str(d), dtype="float32", device="cpu").load()
     assert stats["programs"]["skipped"] == 1 and stats["ready_seconds"] >= 0
+
+
+# -- the chaos sweep (make chaos-torch: under the port's lockdep) ----------------------
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_swap_publishes_then_next_swap_installs(tmp_path, monkeypatch):
+    """tests/test_program_store.py:623 on the port's pool: pod 1 swap-loads
+    a ref with ``publish_programs`` (its build directory holds the library,
+    a stand-in here) and the manifest gains the bundle; pod 2, with an
+    empty compile cache, swap-loads the same ref and installs it."""
+    import time
+
+    from modelx_tpu_torch.dl import serve as serve_mod
+    from tests.test_torch_serve import _write_tiny_fp32
+
+    srv, base = start_port_registry()
+    client = Client(base, quiet=True)
+    try:
+        client.push(REPO_NAME, "v1", write_model_dir(tmp_path / "m"))
+        ref = f"{base}/{REPO_NAME}@v1"
+
+        def swap(tag: str, publish: bool) -> dict:
+            cache = tmp_path / f"cache-{tag}"
+            monkeypatch.setenv("MODELX_COMPILE_CACHE", str(cache))
+            if publish:
+                stand_in(str(cache))
+            a_dir = tmp_path / f"a-{tag}"
+            _write_tiny_fp32(str(a_dir))
+            sset = serve_mod.ServerSet(
+                {"a": serve_mod.ModelServer(str(a_dir), dtype="float32", device="cpu",
+                                            max_seq_len=64, name="a")},
+                allow_admin_load=True, staging_root=str(tmp_path / f"staging-{tag}"))
+            try:
+                sset.load_all()
+                sset.pool.publish_programs = publish
+                snap = sset.pool.request_load("b", ref=ref, wait=True)
+                assert snap["b"]["state"] == "READY"
+                return dict(sset.servers["b"].stats)
+            finally:
+                sset.close()
+
+        swap("pub", publish=True)
+        # the publish runs after READY, off the serving path
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            manifest = client.get_manifest(REPO_NAME, "v1")
+            if ps.program_descriptors(manifest):
+                break
+            time.sleep(0.1)
+        assert len(ps.program_descriptors(manifest)) == 1
+        stats = swap("warm", publish=False)
+        assert stats["programs"]["installed"] >= 1
+        with open(os.path.join(str(tmp_path / "cache-warm"), build.library_name()), "rb") as f:
+            assert f.read() == LIB
+    finally:
+        client.remote.close()
+        srv.shutdown()

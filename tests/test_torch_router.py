@@ -20,6 +20,7 @@ Tolerance: exact equality (masked fields named above).
 
 import dataclasses
 import json
+import os
 import threading
 import time
 import urllib.error
@@ -42,7 +43,8 @@ from modelx_tpu_torch.router import admission as tadm
 from modelx_tpu_torch.router import policy as tpol
 from modelx_tpu_torch.router import registry as treg
 from modelx_tpu_torch.router import server as tsrv
-from modelx_tpu_torch.testing.faults import PodKillSwitch
+from modelx_tpu_torch.dl.serving_errors import REQUEST_ID_HEADER
+from modelx_tpu_torch.testing.faults import FaultPlan, InjectedCrash, PodKillSwitch
 from tests.test_torch_openai import _parse, _wordlevel_json
 
 PKGS = {"jax": (jreg, jpol, jadm, jsrv), "port": (treg, tpol, tadm, tsrv)}
@@ -385,3 +387,293 @@ def test_breaker_backpressure_and_deadline_on_an_injected_clock():
     statuses = [(s, ra) for s, ra, _, _ in seen["port"][0]]
     assert statuses == [(500, None), (500, None), (503, "2"), (503, "2"), (500, None),
                         (200, None), (429, "7"), (200, None), (504, None)]
+
+
+# -- the chaos sweeps (make chaos-torch: under the port's lockdep) -------------------
+# The port's counterparts of tests/test_router.py's and tests/test_admission.py's
+# sweeps, on the port's router in front of port pods.
+
+
+def _arm_plan(pods, plan: FaultPlan):
+    """The fleet's first single-row stream fires ``plan``'s "pod.kill" op
+    once per relayed piece, on whichever pod serves it; the scheduled index
+    kills that pod there. Later streams (the continuation) run untouched."""
+    armed = [True]
+    for pod in pods:
+        real = pod.sset.stream_source
+        hook = pod.switch.fire_kills(plan)
+
+        def wrapped(*a, real=real, hook=hook, **kw):
+            gen = real(*a, **kw)
+            if not armed[0]:
+                return gen
+            armed[0] = False
+
+            def pieces():
+                for piece in gen:
+                    hook()
+                    yield piece
+            return pieces()
+
+        pod.sset.stream_source = wrapped
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+@pytest.mark.parametrize("seed", [1234, 7])
+def test_chaos_midstream_kill_continuation_byte_identical(model, seed):
+    """tests/test_router.py:1433 on the port: a seeded mid-stream pod kill
+    behind the router loses zero tokens; the routed body equals the
+    uninterrupted stream byte for byte, sampled and seeded."""
+    pods = [Pod(model), Pod(model)]
+    r = None
+    try:
+        _, _, whole = call(pods[0].port, "/v1/m/generate", STREAM)
+        assert whole.endswith(b'{"done": true}\n')
+        at = int(np.random.RandomState(seed).randint(2, 10))
+        plan = FaultPlan(seed=seed).add("pod.kill", errors_at=[at], error=InjectedCrash("kill"))
+        _arm_plan(pods, plan)
+        r = Router("port", [p.url for p in pods], poll_s=60.0)
+        status, _, raw = call(r.port, "/v1/generate", STREAM)
+        assert any(p.switch.killed for p in pods), "the kill never fired"
+        assert (status, raw) == (200, whole)
+        m = r.metrics()
+        assert m["streams_continued_total"] == 1 and m["severed_streams_total"] == 0
+    finally:
+        if r is not None:
+            r.close()
+        for p in pods:
+            p.close()
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_streams_survive_kill_and_drain_under_load(model):
+    """tests/test_router.py:1474 on the port: concurrent seeded streams
+    while one pod hard-dies and another drains; every stream ends equal to
+    the uninterrupted one, no client-visible sever."""
+    pods = [Pod(model) for _ in range(3)]
+    r = None
+    body = {"tokens": [[3, 1, 4, 1]], "max_new_tokens": 10, "stream": True,
+            "temperature": 0.9, "top_k": 8, "top_p": 0.95, "seed": 4321}
+    try:
+        _, _, full = call(pods[0].port, "/v1/m/generate", body)
+        assert full.endswith(b'{"done": true}\n')
+        r = Router("port", [p.url for p in pods], poll_s=0.2)
+        failures: list = []
+
+        def client(idx: int):
+            for n in range(4):
+                try:
+                    status, _, data = call(r.port, "/v1/generate", body)
+                    if status != 200 or data != full:
+                        failures.append((idx, n, status, data[-120:]))
+                except OSError as e:
+                    failures.append((idx, n, repr(e)))
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(0.4)
+        pods[0].switch.kill()  # hard death under load
+        time.sleep(0.4)
+        pods[1].switch.drain()  # coordinated drain under load
+        for t in threads:
+            t.join(timeout=120)
+        assert not failures, failures[:5]
+        assert r.metrics()["severed_streams_total"] == 0
+    finally:
+        if r is not None:
+            r.close()
+        for p in pods:
+            p.close()
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_concurrent_soak_with_pod_kill(model):
+    """tests/test_router.py:1526 on the port: 8 clients of repeated-prefix
+    traffic while a pod dies mid-soak; every response a 200 with the
+    expected tokens, the dead pod out of rotation."""
+    pods = [Pod(model) for _ in range(3)]
+    r = Router("port", [p.url for p in pods], poll_s=0.2)
+    rng = np.random.RandomState(3)
+    prompts = [[int(t) for t in rng.randint(1, 60, size=6)] for _ in range(8)]
+    try:
+        expected = {}
+        for p in prompts:
+            status, _, raw = call(r.port, "/v1/generate", {"tokens": [p], "max_new_tokens": 4})
+            assert status == 200
+            expected[tuple(p)] = json.loads(raw)["tokens"]
+        failures: list = []
+
+        def client(idx: int):
+            prompt = prompts[idx]
+            for _ in range(15):
+                try:
+                    status, _, raw = call(r.port, "/v1/generate",
+                                          {"tokens": [prompt], "max_new_tokens": 4})
+                    if status != 200:
+                        failures.append((idx, status, raw[:200]))
+                    elif json.loads(raw)["tokens"] != expected[tuple(prompt)]:
+                        failures.append((idx, "wrong tokens"))
+                except OSError as e:
+                    failures.append((idx, repr(e)))
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        time.sleep(0.4)
+        pods[0].switch.kill()  # die under load
+        for t in threads:
+            t.join(timeout=120)
+        assert not failures, failures[:5]
+        until(lambda: not r.registry.pod(pods[0].url).healthy)
+        assert r.metrics()["requests_total"] >= 8 * 15
+    finally:
+        r.close()
+        for p in pods:
+            p.close()
+
+
+def _read_log(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_one_id_threads_logs_spans_and_timing_across_a_kill(model, tmp_path):
+    """tests/test_router.py:1856 on the port: one request id threads the
+    router's access log, both pods' access logs (the original attempt and
+    the continuation), the span timeline and the in-stream timing block of
+    a streamed request that failed over mid-stream after a seeded kill."""
+    pods = []
+    for i in range(2):
+        pod = Pod.__new__(Pod)
+        pod.sset = tserve.ServerSet({"m": model}, continuous_batch=True, max_slots=4,
+                                    stream_chunk_size=1)
+        pod.httpd = tserve.serve(pod.sset, listen=f"127.0.0.1:{free_port()}",
+                                 access_log=str(tmp_path / f"pod{i}.log"))
+        pod.switch = PodKillSwitch(pod.httpd, pod.sset)
+        pod.port = pod.httpd.server_address[1]
+        pod.url = f"http://127.0.0.1:{pod.port}"
+        pods.append(pod)
+    router_log = tmp_path / "router.log"
+    r = Router("port", [p.url for p in pods], poll_s=60.0, access_log=str(router_log))
+    rid = "e2e-trace-1"
+    try:
+        _arm_plan(pods, FaultPlan(seed=3).add("pod.kill", errors_at=[4],
+                                              error=InjectedCrash("kill")))
+        body = dict(STREAM, include_timing=True)
+        status, headers, raw = call(r.port, "/v1/generate", body,
+                                    headers={REQUEST_ID_HEADER: rid})
+        assert status == 200 and headers[REQUEST_ID_HEADER] == rid
+        lines = [json.loads(ln) for ln in raw.splitlines() if ln]
+        assert any(p.switch.killed for p in pods), "the kill never fired"
+        assert lines[-1] == {"done": True}
+        (timing,) = [ln["timing"] for ln in lines if "timing" in ln]
+        assert timing["total_ms"] > 0 and timing["ttft_ms"] > 0 and timing["tokens"] >= 1
+        until(lambda: [x for x in _read_log(router_log) if x["request_id"] == rid])
+        rrec = [x for x in _read_log(router_log) if x["request_id"] == rid][-1]
+        assert (rrec["route"], rrec["attempt"], rrec["status"]) == ("continuation", 2, 200)
+        attempts = set()
+        for i in range(2):
+            until(lambda i=i: [x for x in _read_log(tmp_path / f"pod{i}.log")
+                               if x["request_id"] == rid])
+            attempts.update(x["attempt"] for x in _read_log(tmp_path / f"pod{i}.log")
+                            if x["request_id"] == rid)
+        assert attempts == {1, 2}
+        paths: set = set()
+        for port in [r.port] + [p.port for p in pods if not p.switch.killed]:
+            status, _, raw = call(port, f"/v1/trace?request_id={rid}")
+            if status == 200:
+                paths.update(json.loads(raw))
+        assert any(p.startswith("serve.request") for p in paths)
+        assert any(p.startswith("router.request") for p in paths)
+    finally:
+        r.close()
+        for p in pods:
+            p.close()
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_fair_storm_with_pod_kill(model):
+    """tests/test_admission.py:805 on the port: 3 clients, one 10x hotter,
+    storm 2 pods through an admission-enabled router while one pod dies
+    mid-storm. Every answer is the expected 200 or a typed shed; the cold
+    clients keep goodput and the hot one cannot monopolize; upstream
+    attempts stay inside the retry budget."""
+    pods = [Pod(model) for _ in range(2)]
+    r = Router("port", [p.url for p in pods], poll_s=0.2, request_timeout_s=30.0,
+               admission=tadm.AdmissionController(fair_share=4, max_backlog=16),
+               retry_budget=tadm.RetryBudget(ratio=0.2, reserve=10.0))
+    rng = np.random.RandomState(9)
+    prompts = {n: [int(t) for t in rng.randint(1, 60, size=6)] for n in ("hot", "cold1", "cold2")}
+    try:
+        expected = {}
+        for name, prompt in prompts.items():
+            status, _, raw = call(r.port, "/v1/forward", {"tokens": [prompt]})
+            assert status == 200
+            expected[name] = json.loads(raw)["logits_argmax"]
+        results = {n: {"ok": 0, "shed": 0} for n in prompts}
+        failures: list = []
+        stop_at = time.monotonic() + 6.0
+        lock = threading.Lock()
+
+        def client(name: str) -> None:
+            while time.monotonic() < stop_at:
+                try:
+                    status, _, raw = call(r.port, "/v1/forward", {"tokens": [prompts[name]]},
+                                          headers={"X-ModelX-Client": name})
+                except OSError as e:
+                    with lock:
+                        failures.append((name, repr(e)))
+                    continue
+                in_window = time.monotonic() <= stop_at
+                with lock:
+                    if status == 200:
+                        if json.loads(raw)["logits_argmax"] != expected[name]:
+                            failures.append((name, "wrong tokens"))
+                        elif in_window:
+                            results[name]["ok"] += 1
+                    elif status in (429, 503, 504):
+                        if "error" not in json.loads(raw):
+                            failures.append((name, "untyped shed"))
+                        if in_window:
+                            results[name]["shed"] += 1
+                    else:
+                        failures.append((name, status, raw[:120]))
+
+        threads = [threading.Thread(target=client, args=("hot",), daemon=True)
+                   for _ in range(10)]
+        threads += [threading.Thread(target=client, args=(n,), daemon=True)
+                    for n in ("cold1", "cold2")]
+        for t in threads:
+            t.start()
+        time.sleep(2.0)
+        pods[0].switch.kill()  # mid-storm
+        for t in threads:
+            t.join(timeout=60)
+        assert not failures, failures[:5]
+        snap = r.router.snapshot()
+        hot, c1, c2 = (results[n]["ok"] for n in ("hot", "cold1", "cold2"))
+        assert c1 > 0 and c2 > 0
+        assert hot < 6 * (c1 + c2), results
+        adm = snap["admission"]
+        shed_hot = adm["clients"].get("hdr:hot", {}).get("shed", 0)
+        shed_cold = sum(adm["clients"].get(f"hdr:{n}", {}).get("shed", 0)
+                        for n in ("cold1", "cold2"))
+        if shed_hot + shed_cold > 0:
+            assert shed_hot >= shed_cold, adm["clients"]
+        assert tadm.jain_index([hot, (c1 + c2) * 5]) is not None
+        m = snap["router"]
+        assert m["upstream_attempts_total"] <= m["requests_total"] * 1.2 + 10 + 1, m
+    finally:
+        r.close()
+        for p in pods:
+            p.close()

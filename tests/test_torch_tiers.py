@@ -629,3 +629,106 @@ def _header_bytes(model_dir):
 
     return read_header_from_file(os.path.join(model_dir, "model.safetensors"))[1]
 
+
+
+# -- the chaos sweep (make chaos-torch: under the port's lockdep) ----------------------
+# tests/test_tiers.py:414's eviction races, on a port pod alone.
+
+
+def tier_sset(model_dirs, tmp_path, names=("a", "b")):
+    from modelx_tpu_torch.testing import faults as tfaults
+
+    sset = tserve.ServerSet(
+        {n: tserve.ModelServer(model_dirs[n], dtype="float32", device="cpu", name=n,
+                               max_seq_len=64) for n in names},
+        allow_admin_load=True, staging_root=str(tmp_path / "staging"),
+        host_state_budget_bytes=1 << 30, disk_state_budget_bytes=1 << 30,
+        state_spool_dir=str(tmp_path / "spool"))
+    sset.load_all()
+    assert isinstance(sset.pool.tiers.fault_plan, (type(None), tfaults.FaultPlan))
+    return sset
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_demote_while_loading(model_dirs, tmp_path):
+    """Unload-b (its demotion copy off the pool lock) racing a load of c:
+    c READY, b fully tiered."""
+    sset = tier_sset(model_dirs, tmp_path)
+    errs: list = []
+    try:
+        def unload_b():
+            try:
+                sset.pool.request_unload("b", wait=True)
+            except Exception as e:  # the race must not raise; report it
+                errs.append(e)
+
+        t = threading.Thread(target=unload_b, daemon=True)
+        t.start()
+        sset.pool.request_load("c", model_dir=model_dirs["c"], wait=True)
+        t.join(timeout=60)
+        assert not errs
+        states = sset.pool.states()
+        assert states["c"]["state"] == "READY"
+        assert states["b"]["state"] == "UNLOADED" and states["b"]["tier"] == "host"
+    finally:
+        sset.close()
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_promote_while_draining(model_dirs, tmp_path):
+    """A re-load of demoted b (tier promotion) racing the drain of a with a
+    request in flight: the drain does not wedge the promotion, both land
+    consistent."""
+    import time
+
+    sset = tier_sset(model_dirs, tmp_path, names=("a", "b", "c"))
+    try:
+        sset.pool.request_unload("b", wait=True)
+        assert sset.pool.states()["b"]["tier"] == "host"
+        sset.pool.enter("a")
+        done = threading.Event()
+
+        def drain_a():
+            sset.pool.request_unload("a", wait=True)
+            done.set()
+
+        t = threading.Thread(target=drain_a, daemon=True)
+        t.start()
+        time.sleep(0.05)  # the drain now waits on a's in-flight request
+        sset.pool.request_load("b", model_dir=model_dirs["b"], wait=True)
+        sset.pool.exit("a")  # release the drain
+        assert done.wait(timeout=60)
+        t.join(timeout=10)
+        states = sset.pool.states()
+        assert states["b"]["state"] == "READY" and sset.servers["b"].stats.get("tier") == "host"
+        assert states["a"]["state"] == "UNLOADED" and states["a"]["tier"] == "host"
+    finally:
+        sset.close()
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_chaos_crash_mid_demotion_leaves_pool_consistent(model_dirs, tmp_path):
+    """A seeded crash inside the demotion: the unload still completes (the
+    old discard), b lands UNLOADED with no tier, and a re-load takes the
+    cold path."""
+    from modelx_tpu_torch.testing.faults import FaultPlan as TFaultPlan
+    from modelx_tpu_torch.testing.faults import InjectedCrash as TInjectedCrash
+
+    sset = tier_sset(model_dirs, tmp_path)
+    try:
+        sset.pool.tiers.fault_plan = TFaultPlan(seed=11).add(
+            tiers.OP_DEMOTE, errors_at=[0], error=TInjectedCrash("died mid-demotion"))
+        sset.pool.request_unload("b", wait=True)
+        states = sset.pool.states()
+        assert states["b"]["state"] == "UNLOADED" and states["b"]["tier"] == "none"
+        snap = sset.pool.request_load("b", model_dir=model_dirs["b"], wait=True)
+        assert snap["b"]["state"] == "READY"
+        assert sset.servers["b"].stats.get("tier") is None
+        expected = _baseline_tokens(model_dirs["b"], n=4)
+        np.testing.assert_array_equal(
+            sset.servers["b"].generate(np.asarray(PROMPT, np.int32), max_new_tokens=4), expected)
+    finally:
+        sset.close()
