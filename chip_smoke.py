@@ -221,7 +221,17 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    1024]) launches the kernel once a layer (gpt2: never) and its argmax
    equals the plain attention's or each differing position is within
    ``OPTIONS_TIE_TOL`` of its maximum, greedy 128 + 32 runs, its NDJSON
-   stream equals it, a seeded sampled request repeats. gemma2 also: a [1,
+   stream equals it, a seeded sampled request repeats. gemma2 and phi3
+   are served with a tokenizer.json the phase writes beside them
+   (``family_text``): a 256,000-piece Unigram file in the T5/XLM-R layout
+   (``Precompiled`` charsmap, ``Metaspace``, a ``<s> $A </s>`` template,
+   a truncation block) and a byte-level BPE file with ``Digits``,
+   ``Punctuation`` and padding to a multiple of 8; each file's load and
+   encode rate are timed, the ids of ``FAMILY_TEXTS`` must hash to
+   ``FAMILY_TEXT_DIGESTS`` (the ``tokenizers`` package's ids, held by a
+   CPU test), text on ``/v1/generate`` equals the token request, and
+   gemma2's ``logprobs`` completion over the truncated prompt launches the
+   kernel once a layer. gemma2 also: a [1,
    6144] forward past the window against the plain attention, a 4,500-token
    prompt + 16 greedy tokens through the windowed dense cache (each token
    within ``OPTIONS_TIE_TOL`` of a cache-free forward's maximum on its own
@@ -3375,8 +3385,10 @@ def phase_artifacts(cfg, reg_dir: str, cache: str, dest: str, root: str, digest:
         if [m["sha256"] for m in members] != [library_sha]:
             raise RuntimeError(f"artifacts: the program bundle's library is not phase 2's: "
                                f"{members}")
-        (drained,) = [e for e in _pool_events(port_a, "outbox.drained")
-                      if e["kind"] == "programs"]
+        # the outbox records its drained event just after the manifest lands
+        events, _ = _wait_for("the outbox's drained event", lambda: [
+            e for e in _pool_events(port_a, "outbox.drained") if e["kind"] == "programs"])
+        (drained,) = events
         stats.update(art_program_bytes=prog.size, art_program_publish_s=drained["seconds"],
                      art_load_a_s=load_a)
         log(f"artifacts: pod A admin-loaded {DEPLOY_REPO}@v1 in {load_a:.2f} s and published "
@@ -5498,6 +5510,12 @@ def phase_families(device: str = "cuda", configs: list | None = None,
             st.write_safetensors(os.path.join(ckpt, "model.safetensors"), written)
             stacked = params[w1] if name == "mixtral" else None
             del params, written
+            if name in FAMILY_TOKENIZERS:
+                t0 = time.monotonic()
+                with open(os.path.join(ckpt, "tokenizer.json"), "w", encoding="utf-8") as f:
+                    f.write(FAMILY_TOKENIZERS[name](cfg.vocab_size))
+                log(f"families: {name}: wrote its tokenizer.json in "
+                    f"{time.monotonic() - t0:.1f} s")
             log(f"families: {name}: wrote a seeded random checkpoint ({cfg}; {nbytes / 1e9:.3f} "
                 f"GB{', HF per-expert layout' if name == 'mixtral' else ''}) in "
                 f"{time.monotonic() - t0:.1f} s")
@@ -5574,6 +5592,13 @@ def phase_families(device: str = "cuda", configs: list | None = None,
                 f"{stats[f'fam_{name}_greedy_tps']:.1f} tokens/s; the stream == the whole "
                 f"answer; a seeded sampled request repeats")
 
+            if name in FAMILY_TOKENIZERS:
+                t0 = time.monotonic()
+                stats.update(family_text(name, port, server, cfg, per_forward))
+                stats[f"fam_{name}_text_s"] = time.monotonic() - t0
+                log(f"families: {name}: the text checks took {stats[f'fam_{name}_text_s']:.1f} s")
+                # the objectstore path moves the weights alone
+                os.remove(os.path.join(ckpt, "tokenizer.json"))
             if name == "phi3" and objectstore:
                 # the path takes the checkpoint (it deletes it before its
                 # pull) with this server freed; phi3's int8 check then reads
@@ -5722,6 +5747,209 @@ def phase_bert(cfg, device: str, seed: int) -> dict:
             httpd.server_close()
         _free(*servers)
         shutil.rmtree(ckpt, ignore_errors=True)
+    return stats
+
+
+# -- the families' tokenizer.json files (inside phase 11) -----------------------------
+
+# gemma2 serves a Unigram file in the T5/XLM-R layout, phi3 a byte-level BPE
+# file with Digits, Punctuation and padding. The ids the card's host
+# encodes for FAMILY_TEXTS are held to these digests, which
+# tests/test_torch_chip_smoke.py holds to the ``tokenizers`` package's ids
+# for the same files (the card's host has no ``tokenizers``); the tiny vocab
+# sizes are the CPU rehearsal's
+FAMILY_TEXT_DIGESTS = {
+    ("gemma2", 256000): "f4b3334531f187e6b0e8cc8b9978122a1484d0f0ac22e950e124b6faa08fea5f",
+    ("gemma2", 256): "615ee35e6f5c49c350fb12148741171da67ea5b96f7a7ccb9d57f220e2ce42fc",
+    ("phi3", 32064): "c45dfd56e434c54db0e692407dc9d0c1a9fc00277f436c4dee7dc855d58c21bb",
+    ("phi3", 1024): "422114da292e30d1ed01e704f5cbd0dbe7f477444f3f3c40eac60acda49542c2",
+}
+UNIGRAM_SPECIALS = ("<s>", "<pad>", "</s>", "<unk>")
+# a cut of a T5-style nmt_nfkc charsmap: compatibility forms, quotes, the
+# spaces and a composed accent
+FAMILY_CHARSMAP = {
+    **{chr(0xFF01 + i): chr(0x21 + i) for i in range(94)},
+    "ﬀ": "ff", "ﬁ": "fi", "ﬂ": "fl", "…": "...", "“": '"', "”": '"', "‘": "'", "’": "'",
+    " ": " ", "　": " ", "\t": " ", "\n": " ", "é": "é", "①": "1", "②": "2",
+}
+# the gemma2 file's truncation: the long prompt is cut to this many ids,
+# <s> and </s> included
+GEMMA_TRUNCATE = 96
+FAMILY_TEXT_PROMPT = " ".join([TEXT_PROMPT, CHAT_MESSAGES[1]["content"]] * 4)
+FAMILY_TEXT_NEW = 16
+FAMILY_TEXTS = (
+    TEXT_PROMPT, FAMILY_TEXT_PROMPT, "ﬁne  “quoted”  café\tand ＡＢＣ… ①②",
+    "ét xé́y á̂̃b", "3.14159, 2024-05-01: call 555-0100 now!",
+    "Emoji 👩‍💻 and flags 🇫🇷🇩🇪 in 안녕하세요 and 日本語のテキスト\r\n",
+    "The Kernel SERVES tokens; don't stop.",
+)
+
+
+def unigram_tokenizer_json(vocab_size: int = 256000) -> str:
+    """A Unigram tokenizer.json in the T5/XLM-R layout with ``vocab_size``
+    pieces: the four specials, ``▁``, printable ASCII, the words of
+    ``ENGLISH`` (bare, capitalized, after ``▁``), then letter strings in a
+    fixed order, each with a score from its length and place (the same
+    file every time); ``Sequence[Precompiled(FAMILY_CHARSMAP),
+    Replace(" {2,}", " ")]``, ``Metaspace`` (prepend "always") on both
+    sides, a ``<s> $A </s>`` template and a ``truncation`` block at
+    ``GEMMA_TRUNCATE``."""
+    import itertools
+
+    from modelx_tpu_torch.testing.charsmap import write_charsmap
+
+    pieces: dict[str, float] = {p: 0.0 for p in UNIGRAM_SPECIALS}
+
+    def add(piece: str, score: float) -> None:
+        if piece not in pieces and len(pieces) < vocab_size:
+            pieces[piece] = round(score, 4)
+
+    add("▁", -2.0)
+    for c in map(chr, range(0x21, 0x7F)):
+        add(c, -8.0 - 0.01 * (ord(c) % 7))
+    for i, w in enumerate(ENGLISH):
+        for j, word in enumerate((w, w.capitalize())):
+            add("▁" + word, -3.0 - 0.25 * j - 0.001 * i)
+            add(word, -5.0 - 0.25 * j - 0.001 * i)
+    letters = "etaoinshrdlcumwfgypbvkjxqz"
+    for n in itertools.count(2):
+        for k, combo in enumerate(itertools.product(letters, repeat=n)):
+            if len(pieces) >= vocab_size:
+                break
+            add("▁" + "".join(combo), -4.0 - 0.5 * n - 0.0001 * (k % 997))
+            add("".join(combo), -6.0 - 0.5 * n - 0.0001 * (k % 991))
+        if len(pieces) >= vocab_size:
+            break
+    seq = {"Sequence": {"id": "A", "type_id": 0}}
+    ids = {p: i for i, p in enumerate(pieces)}
+    meta = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True}
+    spec = {
+        "version": "1.0",
+        "truncation": {"direction": "Right", "max_length": GEMMA_TRUNCATE,
+                       "strategy": "LongestFirst", "stride": 0},
+        "padding": None,
+        "added_tokens": [
+            {"id": ids[c], "content": c, "single_word": False, "lstrip": False, "rstrip": False,
+             "normalized": False, "special": True} for c in UNIGRAM_SPECIALS],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": write_charsmap(FAMILY_CHARSMAP)},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": meta,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}}, seq,
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}}, seq,
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 1}}],
+            "special_tokens": {c: {"id": c, "ids": [ids[c]], "tokens": [c]}
+                               for c in ("<s>", "</s>")}},
+        "decoder": meta,
+        "model": {"type": "Unigram", "unk_id": ids["<unk>"], "byte_fallback": False,
+                  "vocab": [[p, s] for p, s in pieces.items()]},
+    }
+    return json.dumps(spec, ensure_ascii=False)
+
+
+def padded_tokenizer_json(vocab_size: int = 32064) -> str:
+    """``llama3_tokenizer_json`` at ``vocab_size`` ids in all (its 256
+    specials last) with ``Digits`` (one piece a digit) and ``Punctuation``
+    (contiguous) ahead of its Split, and a ``padding`` block: the longest
+    (a single encode: itself) up to a multiple of 8 with
+    ``<|end_of_text|>``."""
+    spec = json.loads(llama3_tokenizer_json(vocab_size - len(LLAMA3_SPECIALS)))
+    spec["pre_tokenizer"]["pretokenizers"][:0] = [
+        {"type": "Digits", "individual_digits": True},
+        {"type": "Punctuation", "behavior": "Contiguous"}]
+    pad = next(t for t in spec["added_tokens"] if t["content"] == "<|end_of_text|>")
+    spec["padding"] = {"strategy": "BatchLongest", "direction": "Right", "pad_to_multiple_of": 8,
+                       "pad_id": pad["id"], "pad_type_id": 0, "pad_token": pad["content"]}
+    return json.dumps(spec, ensure_ascii=False)
+
+
+FAMILY_TOKENIZERS = {"gemma2": unigram_tokenizer_json, "phi3": padded_tokenizer_json}
+
+
+def family_ids_digest(encode) -> str:
+    """sha256 of the ids ``encode`` gives each of ``FAMILY_TEXTS`` (special
+    tokens added), as compact JSON."""
+    import hashlib
+
+    ids = [list(encode(t)) for t in FAMILY_TEXTS]
+    return hashlib.sha256(json.dumps(ids, separators=(",", ":")).encode()).hexdigest()
+
+
+def family_text(name: str, port: int, server, cfg, per_forward: int) -> dict:
+    """The family's tokenizer.json through the port's reader on the card's
+    host: its load and encode rate, the ids of ``FAMILY_TEXTS`` against
+    ``FAMILY_TEXT_DIGESTS``, text on /v1/generate == the token request,
+    and (gemma2) a ``logprobs`` completion over the truncated prompt that
+    launches the flash kernel ``per_forward`` times; (phi3) the padding."""
+    import numpy as np
+
+    from modelx_tpu_torch.ops import attention as attn
+
+    stats: dict = {}
+    t0 = time.monotonic()
+    tok = server.tokenizer()
+    if tok is None:
+        raise RuntimeError(f"families: {name}: the tokenizer.json did not load")
+    stats[f"fam_{name}_tokenizer_load_ms"] = (time.monotonic() - t0) * 1e3
+    rates = []
+    for _ in range(2):  # the first pass fills the per-word caches
+        t0 = time.monotonic()
+        n_corpus = sum(len(tok.encode(t)) for t in FAMILY_TEXTS * 40)
+        rates.append(n_corpus / (time.monotonic() - t0))
+    stats[f"fam_{name}_encode_tokens_per_s_first"], stats[f"fam_{name}_encode_tokens_per_s"] = rates
+    digest = family_ids_digest(tok.encode)
+    want = FAMILY_TEXT_DIGESTS.get((name, cfg.vocab_size))
+    if digest != want:
+        raise RuntimeError(f"families: {name}: the ids of FAMILY_TEXTS hash to {digest}, not the "
+                           f"reference's {want}")
+    log(f"families: {name}: tokenizer.json ({cfg.vocab_size} ids) read by the port in "
+        f"{stats[f'fam_{name}_tokenizer_load_ms']:.1f} ms; encode {rates[0]:.0f} tokens/s "
+        f"first pass, {rates[1]:.0f} warm ({n_corpus} tokens); ids == the tokenizers "
+        f"package's (digest {digest[:12]})")
+
+    ids = tok.encode(FAMILY_TEXT_PROMPT)
+    body = {"max_new_tokens": FAMILY_TEXT_NEW}
+    status, by_text = _http(port, "/v1/generate", {"text": FAMILY_TEXT_PROMPT, **body})
+    _, by_ids = _http(port, "/v1/generate", {"tokens": [ids], **body})
+    if status != 200 or by_text["tokens"] != by_ids["tokens"] or by_text["tokens"][0][
+            :len(ids)] != ids:
+        raise RuntimeError(f"families: {name}: text on /v1/generate differs from the token "
+                           f"request: {str(by_text)[:300]}")
+    if by_text["text"] != tok.decode(by_text["tokens"][0][len(ids):]):
+        raise RuntimeError(f"families: {name}: the text answer is not the decode of its new "
+                           f"tokens")
+    if name == "phi3":
+        pad = tok._tok.token_to_id("<|end_of_text|>")
+        if len(ids) % 8 or ids[-1] != pad:
+            raise RuntimeError(f"families: phi3: the prompt's {len(ids)} ids are not padded "
+                               f"to a multiple of 8 with {pad}")
+        stats["fam_phi3_padded_ids"] = len(ids)
+        log(f"families: phi3: text /v1/generate == tokens; the prompt padded to {len(ids)} ids")
+        return stats
+    if len(ids) != GEMMA_TRUNCATE:
+        raise RuntimeError(f"families: gemma2: the prompt encodes to {len(ids)} ids, not the "
+                           f"truncation's {GEMMA_TRUNCATE}")
+    before = attn.flash_attention.launches
+    scored, secs = _openai(port, "/v1/completions", {
+        "prompt": FAMILY_TEXT_PROMPT, "max_tokens": FAMILY_TEXT_NEW, "temperature": 0,
+        "seed": 0, "ignore_eos": True, "logprobs": 5})
+    rose = attn.flash_attention.launches - before
+    if rose != per_forward:
+        raise RuntimeError(f"families: gemma2: logprobs launched flash_attention {rose} times, "
+                           f"want {per_forward} (one scoring forward)")
+    values = np.asarray(scored["choices"][0]["logprobs"]["token_logprobs"], np.float64)
+    if scored["usage"]["prompt_tokens"] != GEMMA_TRUNCATE or len(values) != FAMILY_TEXT_NEW or (
+            not np.isfinite(values).all()) or (values > 0).any():
+        raise RuntimeError(f"families: gemma2: bad logprobs answer {str(scored)[:300]}")
+    stats["fam_gemma2_logprobs_s"] = secs
+    log(f"families: gemma2: text /v1/generate == tokens; logprobs 5 over the prompt truncated "
+        f"to {GEMMA_TRUNCATE} ids + {FAMILY_TEXT_NEW}: {secs:.3f} s, flash_attention launches "
+        f"+{rose}")
     return stats
 
 

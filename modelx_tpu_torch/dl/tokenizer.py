@@ -3,58 +3,77 @@
 
 The JAX sidecar encodes and decodes text through ``tokenizers.Tokenizer``
 (``modelx_tpu/dl/serve.py:161 _Tokenizer``). The port may not import that
-package, so it reads the same file itself and gives the same ids and the
-same strings for the components of the families it serves or queues:
+package (nor ``regex``), so it reads the same file itself and gives the
+same ids from ``encode(text, add_special_tokens)`` and the same string from
+``decode(ids)`` for every component type ``tokenizers`` 0.22.2 knows:
 
-- Llama-3: ``Split(regex, Isolated)`` + ``ByteLevel(use_regex=false)``,
-  BPE with ``ignore_merges``, a ``TemplateProcessing`` bos, the
-  ``ByteLevel`` decoder, special added tokens;
-- Qwen2: the ``NFC`` normalizer, the same ``Split``, plain BPE, the
-  ``ByteLevel`` post-processor;
-- Llama-2 / Mistral: ``Prepend("▁")`` + ``Replace(" ", "▁")`` normalizers
-  or a ``Metaspace`` pre-tokenizer, BPE with ``byte_fallback`` and
-  ``fuse_unk``, the decoder ``Sequence[Replace, ByteFallback, Fuse, Strip]``;
-- GPT-2: ``ByteLevel(use_regex=true)``;
-- ``WordLevel`` + ``Whitespace`` with no decoder (tokens joined by a
-  space);
-- BERT: the ``BertNormalizer`` (``clean_text``, ``handle_chinese_chars``,
-  ``strip_accents``, ``lowercase``), the ``BertPreTokenizer``, the
-  ``WordPiece`` model and decoder, and ``BertProcessing`` or a
-  ``TemplateProcessing`` for ``[CLS] ... [SEP]``.
+- normalizers: ``NFC``/``NFD``/``NFKC``/``NFKD``, ``Lowercase`` (Rust's
+  per-character ``to_lowercase``), ``Strip``, ``StripAccents``, ``Nmt``,
+  ``Prepend``, ``Replace``, ``ByteLevel``, ``BertNormalizer``,
+  ``Precompiled`` (SentencePiece charsmaps, ``dl/precompiled.py``) and
+  ``Sequence``;
+- pre-tokenizers: ``Split``, ``ByteLevel``, ``Metaspace``, ``Whitespace``,
+  ``WhitespaceSplit``, ``CharDelimiterSplit``, ``Digits`` (Rust's
+  ``is_numeric``), ``Punctuation``, ``UnicodeScripts``, ``FixedLength``,
+  ``BertPreTokenizer`` and ``Sequence``;
+- models: ``BPE`` (with ``byte_fallback``, ``fuse_unk``, ``ignore_merges``,
+  affixes and ``dropout``, drawn from the tokenizer's own generator),
+  ``Unigram`` (``dl/unigram.py``), ``WordPiece`` and ``WordLevel``;
+- post-processors: ``TemplateProcessing`` (any template), ``BertProcessing``,
+  ``RobertaProcessing``, ``ByteLevel`` and ``Sequence``;
+- decoders: ``ByteLevel``, ``Metaspace``, ``WordPiece``, ``BPEDecoder``,
+  ``CTC``, ``Replace``, ``ByteFallback``, ``Fuse``, ``Strip`` and
+  ``Sequence``;
+- the ``truncation`` and ``padding`` blocks, as a single encode applies
+  them (the special tokens counted, a pad up to the longest, a fixed
+  length or a multiple).
 
 Encoding runs the ``tokenizers`` pipeline step for step: added tokens that
 are not ``normalized`` are cut out of the raw text first (leftmost-longest,
 with ``single_word``, ``lstrip`` and ``rstrip``), the rest is normalized
 and cut again on the normalized added tokens, pre-tokenized, and handed
-word by word to the model; the post-processor adds the special tokens.
-Decoding maps ids to tokens (added vocabulary first, ids outside both
-skipped), runs the decoder chain and joins; invalid UTF-8 becomes U+FFFD
-as ``String::from_utf8_lossy`` makes it.
+word by word to the model; then truncation, the post-processor and
+padding. Each piece carries how many of its leading characters align to
+offset 0 of the input (``_Normalizer.prefix``), as the alignments of
+``tokenizers`` give it, which the Metaspace pre-tokenizer's prepend_scheme
+"first" reads. Added tokens take the ids ``tokenizers`` assigns on load,
+not the file's. Decoding maps ids to tokens (added vocabulary first, ids
+outside both skipped), runs the decoder chain and joins; invalid UTF-8
+becomes U+FFFD as ``String::from_utf8_lossy`` makes it.
 
-Regex patterns are translated to Python's ``re``: ``\\p{..}`` classes
-become explicit code-point classes built from ``unicodedata``, and ``\\s``
-is Unicode's White_Space property, as the regex engine of ``tokenizers``
-reads it (Python's ``\\s`` also takes U+001C-U+001F). Python 3.12's
-``unicodedata`` is Unicode 15.0 and the regex tables of ``tokenizers``
-0.22 are Unicode 16.0: the 5,812 code points assigned in between take
-their categories from ``UNICODE_AFTER_15_0`` (the normalizers of
-``tokenizers`` leave all of them unchanged, as ``unicodedata`` does). The
-BERT components read older tables inside ``tokenizers`` (its control,
-punctuation and non-spacing-mark classes predate Unicode 11) and Rust's
-newer lowercase map; the code points where those differ from
-``unicodedata`` are listed in the ``BERT_*`` tables below, each probed over
-every code point against ``tokenizers`` 0.22.2. Any component type not
-listed above raises ``UnsupportedTokenizerError`` at load, naming it:
-nothing is ever encoded with part of the tokenizer ignored.
+Regex patterns (Oniguruma's Ruby syntax) are translated to Python's
+``re``: every class (``\\p{..}`` by category or script, ``\\s``, ``\\d``,
+``\\w``, ``\\h``, bracket classes with nested classes and ``&&``) becomes an
+explicit code-point class, ``\\b``/``\\B`` lookarounds, ``^``/``$`` line
+anchors, and matches iterate as the onig crate iterates them
+(``_matches``). A construct ``re`` cannot express raises
+``UnsupportedTokenizerError`` (the sidecar's typed 501, ``LATER_SLICE``);
+a file ``tokenizers`` itself refuses (a type it does not know, a malformed
+block) raises ``TokenizerLoadError`` with the reference's message.
+
+Unicode versions: Python 3.12's ``unicodedata`` is Unicode 15.0 while the
+crates inside ``tokenizers`` read 16.0 or 17.0 (the regex engine, the
+grapheme and numeric tables) or tables older than 12 (``UnicodeScripts``,
+``StripAccents``, the BERT components). The categories 16.0 assigned come
+from ``UNICODE_AFTER_15_0``, the BERT classes from the ``BERT_*`` tables
+below, the rest from ``unicode_tables``: each probed over every code point
+against ``tokenizers`` 0.22.2. Nothing is ever encoded with part of the
+tokenizer ignored.
 """
 
 from __future__ import annotations
 
 import functools
 import heapq
+import itertools
 import json
+import random
 import re
+import struct
 import unicodedata
+
+from modelx_tpu_torch.dl import precompiled, unicode_tables
+from modelx_tpu_torch.dl.unigram import Unigram
 
 # Unicode's White_Space property: Rust's char::is_whitespace and the \s of
 # the regex engines inside tokenizers (not Python's \s, which adds
@@ -66,10 +85,9 @@ _WS = frozenset(WHITE_SPACE)
 # the pre-tokenizer GPT-2 and ByteLevel(use_regex=true) split with
 GPT2_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
 
-# the open roadmap item that brings what this reader still refuses (the
-# Unigram model, the Precompiled normalizer, the Digits and Punctuation
-# pre-tokenizers among them)
-LATER_SLICE = "tokenizer components"
+# the roadmap item that lists what this reader still refuses: regex
+# constructs Python's re cannot express (ROADMAP.md §C)
+LATER_SLICE = "tokenizer regex constructs"
 
 
 class UnsupportedTokenizerError(NotImplementedError):
@@ -78,6 +96,27 @@ class UnsupportedTokenizerError(NotImplementedError):
     def __init__(self, component: str) -> None:
         super().__init__(f"tokenizer.json component {component} is not supported")
         self.component = component
+
+
+# the untagged enum ``tokenizers`` names when a part's type is none it knows
+_UNTAGGED = {"normalizer": "NormalizerUntagged", "pre_tokenizer": "PreTokenizerUntagged",
+             "post_processor": "PostProcessorWrapper", "decoder": "PyDecoderWrapper",
+             "model": "ModelUntagged"}
+
+
+class TokenizerLoadError(ValueError):
+    """A ``tokenizer.json`` that ``tokenizers`` itself refuses to load (a
+    component type it does not know, a malformed block); ``part`` names
+    the top-level key it lies under, when known."""
+
+    def __init__(self, message: str, part: str | None = None) -> None:
+        super().__init__(message)
+        self.part = part
+
+
+def _unknown(part: str, kind) -> TokenizerLoadError:
+    return TokenizerLoadError(f"data did not match any variant of untagged enum "
+                              f"{_UNTAGGED[part]}", part)
 
 
 # -- Unicode classes ---------------------------------------------------------
@@ -129,17 +168,21 @@ def _category_ranges() -> dict[str, list[tuple[int, int]]]:
     """General category (two letters, and one letter for the major class)
     -> sorted code-point ranges, from one pass over ``unicodedata`` and
     ``UNICODE_AFTER_15_0``."""
-    newer = _newer_categories()
-    out: dict[str, list[list[int]]] = {}
-    for cp in range(0x110000):
-        cat = newer.get(cp) or unicodedata.category(chr(cp))
-        for key in (cat, cat[0]):
-            rngs = out.setdefault(key, [])
-            if rngs and rngs[-1][1] == cp - 1:
-                rngs[-1][1] = cp
-            else:
-                rngs.append([cp, cp])
-    return {k: [(a, b) for a, b in v] for k, v in out.items()}
+    cats = list(map(unicodedata.category, map(chr, range(0x110000))))
+    for cp, cat in _newer_categories().items():
+        cats[cp] = cat
+    out: dict[str, list[tuple[int, int]]] = {}
+    lo = 0
+    for cat, run in itertools.groupby(cats):
+        hi = lo + sum(1 for _ in run) - 1
+        out.setdefault(cat, []).append((lo, hi))
+        major = out.setdefault(cat[0], [])
+        if major and major[-1][1] == lo - 1:
+            major[-1] = (major[-1][0], hi)
+        else:
+            major.append((lo, hi))
+        lo = hi + 1
+    return out
 
 
 def _esc(cp: int) -> str:
@@ -150,18 +193,113 @@ def _class_body(ranges) -> str:
     return "".join(_esc(a) if a == b else f"{_esc(a)}-{_esc(b)}" for a, b in ranges)
 
 
+def _merge(ranges) -> list[tuple[int, int]]:
+    """Sorted, merged (lo, hi) ranges."""
+    out: list[list[int]] = []
+    for lo, hi in sorted(ranges):
+        if out and lo <= out[-1][1] + 1:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return [(lo, hi) for lo, hi in out]
+
+
+def _intersect(a, b) -> list[tuple[int, int]]:
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if lo <= hi:
+            out.append((lo, hi))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def _complement(ranges) -> list[tuple[int, int]]:
+    """Every code point outside ``ranges`` (surrogates excluded: no text
+    holds them)."""
+    out, at = [], 0
+    for lo, hi in _merge([*ranges, (0xD800, 0xDFFF)]):
+        if lo > at:
+            out.append((at, lo - 1))
+        at = hi + 1
+    if at <= 0x10FFFF:
+        out.append((at, 0x10FFFF))
+    return out
+
+
+# long names of the general categories Oniguruma takes in \p{..}
+_CATEGORY_NAMES = {
+    "letter": "L", "casedletter": "LC", "uppercaseletter": "Lu", "lowercaseletter": "Ll",
+    "titlecaseletter": "Lt", "modifierletter": "Lm", "otherletter": "Lo", "mark": "M",
+    "combiningmark": "M", "nonspacingmark": "Mn", "spacingmark": "Mc", "enclosingmark": "Me",
+    "number": "N", "decimalnumber": "Nd", "digit": "Nd", "letternumber": "Nl",
+    "othernumber": "No", "punctuation": "P", "connectorpunctuation": "Pc",
+    "dashpunctuation": "Pd", "openpunctuation": "Ps", "closepunctuation": "Pe",
+    "initialpunctuation": "Pi", "finalpunctuation": "Pf", "otherpunctuation": "Po",
+    "symbol": "S", "mathsymbol": "Sm", "currencysymbol": "Sc", "modifiersymbol": "Sk",
+    "othersymbol": "So", "separator": "Z", "spaceseparator": "Zs", "lineseparator": "Zl",
+    "paragraphseparator": "Zp", "other": "C", "control": "Cc", "format": "Cf",
+    "privateuse": "Co", "surrogate": "Cs",
+}
+
+
 @functools.cache
-def _named_class(name: str) -> str:
-    """Class body (no brackets) for a ``\\p{name}`` general category, or
-    ``s`` (White_Space) / ``d`` (Nd)."""
+def _script_index() -> dict[str, int]:
+    """Oniguruma's script names and four-letter codes, folded (case, spaces,
+    ``_`` and ``-`` ignored) -> index into ``SCRIPT_NAMES``."""
+    names = {_fold(n): i for i, n in enumerate(unicode_tables.SCRIPT_NAMES)}
+    names.update({_fold(code): names[_fold(name)]
+                  for code, name in unicode_tables.SCRIPT_CODES.items()})
+    return names
+
+
+def _fold(name: str) -> str:
+    return re.sub(r"[\s_-]", "", name).lower()
+
+
+@functools.cache
+def _script_ranges(index: int) -> tuple[tuple[int, int], ...]:
+    if index == 0:  # Unknown: what no script takes
+        return tuple(_complement([(lo, hi) for lo, hi, _ in unicode_tables.REGEX_SCRIPTS]))
+    return tuple((lo, hi) for lo, hi, i in unicode_tables.REGEX_SCRIPTS if i == index)
+
+
+@functools.cache
+def _named_ranges(name: str) -> tuple[tuple[int, int], ...]:
+    """Code-point ranges of ``\\p{name}`` as Oniguruma reads it: a general
+    category (its code or long name), a script (its name or four-letter
+    code), ``Any``; or ``s`` (White_Space), ``d`` (Nd), ``w`` (Oniguruma's
+    ``\\w``), ``h`` (hex digits). Anything else raises."""
     if name == "s":
-        return _class_body((ord(c), ord(c)) for c in WHITE_SPACE)
+        return tuple((ord(c), ord(c)) for c in WHITE_SPACE)
+    if name == "w":
+        return unicode_tables.ONIG_WORD
+    if name == "h":
+        return ((0x30, 0x39), (0x41, 0x46), (0x61, 0x66))
     if name == "d":
         name = "Nd"
-    ranges = _category_ranges().get(name)
-    if ranges is None or name == "Cn":
-        raise UnsupportedTokenizerError(f"regex class \\p{{{name}}}")
-    return _class_body(ranges)
+    folded = _fold(name)
+    if folded == "any":
+        return tuple(_complement([]))
+    cat = _CATEGORY_NAMES.get(folded) or next(
+        (c for c in _category_ranges() if c.lower() == folded), None)
+    if cat == "LC":
+        return tuple(_merge([*_category_ranges()["Lu"], *_category_ranges()["Ll"],
+                             *_category_ranges()["Lt"]]))
+    if cat is not None and cat != "Cn":
+        return tuple(_category_ranges()[cat])
+    index = _script_index().get(folded)
+    if index is not None:
+        return _script_ranges(index)
+    raise UnsupportedTokenizerError(f"regex class \\p{{{name}}}")
+
+
+def _named_class(name: str) -> str:
+    """Class body (no brackets) of ``_named_ranges(name)``."""
+    return _class_body(_named_ranges(name))
 
 
 @functools.cache
@@ -175,59 +313,238 @@ def _word_class() -> str:
     return "".join(_named_class(c) for c in ("L", "M", "Nd", "Nl", "Pc")) + _class_body(extra)
 
 
+_SIMPLE_ESCAPES = {"n": 0xA, "t": 0x9, "r": 0xD, "f": 0xC, "v": 0xB, "a": 0x7, "e": 0x1B}
+_CLASS_ESCAPES = "sSdDwWhHpP"
+
+
+def _hex_escape(pattern: str, i: int) -> tuple[int, int]:
+    """The code point of ``\\xHH``, ``\\x{H..}`` or ``\\uHHHH`` at ``i`` (the
+    backslash), and the index past it."""
+    kind = pattern[i + 1]
+    if kind == "x" and pattern.startswith("{", i + 2):
+        j = pattern.index("}", i + 3)
+        return int(pattern[i + 3:j], 16), j + 1
+    m = re.compile(r"[0-9A-Fa-f]{1,2}" if kind == "x" else r"[0-9A-Fa-f]{4}").match(pattern, i + 2)
+    if m is None:
+        raise ValueError(f"invalid \\{kind} escape in {pattern!r}")
+    return int(m.group(), 16), m.end()
+
+
+def _set_escape(pattern: str, i: int, in_class: bool = False) -> tuple[list[tuple[int, int]], int]:
+    """The ranges of a class escape at ``i`` (``\\p{..}``, ``\\P{..}``,
+    ``\\pL``, ``\\s``, ``\\d``, ``\\w``, ``\\h`` and their negations), and the
+    index past it."""
+    kind = pattern[i + 1]
+    if kind in "pP":
+        if pattern.startswith("{", i + 2):
+            j = pattern.index("}", i + 2)
+            name, end = pattern[i + 3:j], j + 1
+        else:
+            name, end = pattern[i + 2:i + 3], i + 3
+        neg = kind == "P"
+        if name.startswith("^"):
+            name, neg = name[1:], not neg
+    else:
+        name, neg, end = kind.lower(), kind.isupper(), i + 2
+    ranges = list(_named_ranges(name))
+    if in_class and name == "w":
+        # inside a bracket Oniguruma's \w lacks the Latin-1 digits and
+        # fractions its \w outside takes (U+00B2, U+00B3, U+00B9, U+00BC-BE)
+        ranges = _intersect(ranges, _complement([(0xB2, 0xB3), (0xB9, 0xB9), (0xBC, 0xBE)]))
+    return (_complement(ranges) if neg else ranges), end
+
+
+def _class_atom(pattern: str, i: int):
+    """One member of a bracket class at ``i``: (code point, None, next
+    index) or (None, ranges, next index) for a class escape."""
+    c = pattern[i]
+    if c != "\\":
+        return ord(c), None, i + 1
+    if i + 1 >= len(pattern):
+        raise ValueError(f"a trailing backslash in {pattern!r}")
+    nxt = pattern[i + 1]
+    if nxt in _CLASS_ESCAPES:
+        ranges, end = _set_escape(pattern, i, in_class=True)
+        return None, ranges, end
+    if nxt in _SIMPLE_ESCAPES:
+        return _SIMPLE_ESCAPES[nxt], None, i + 2
+    if nxt == "b":
+        return 0x8, None, i + 2
+    if nxt in "xu":
+        cp, end = _hex_escape(pattern, i)
+        return cp, None, end
+    if nxt in "01234567":
+        m = re.compile(r"[0-7]{1,3}").match(pattern, i + 1)
+        return int(m.group(), 8), None, m.end()
+    if nxt.isalpha():
+        raise UnsupportedTokenizerError(f"regex escape \\{nxt} in a class in {pattern!r}")
+    return ord(nxt), None, i + 2
+
+
+def _parse_class(pattern: str, i: int) -> tuple[list[tuple[int, int]], int]:
+    """The code points of the bracket class opening at ``i`` as Oniguruma
+    reads it (nested classes are unions, ``&&`` intersects), and the index
+    past its ``]``."""
+    n = len(pattern)
+    i += 1
+    neg = pattern.startswith("^", i)
+    i += neg
+    parts: list[list[tuple[int, int]]] = []  # the operands of &&
+    cur: list[tuple[int, int]] = []
+    first = True
+    while True:
+        if i >= n:
+            raise ValueError(f"premature end of char-class in {pattern!r}")
+        c = pattern[i]
+        if c == "]" and not first:
+            i += 1
+            break
+        first = False
+        if pattern.startswith("&&", i):
+            parts.append(cur)
+            cur, i = [], i + 2
+            continue
+        if c == "[":
+            if pattern.startswith("[:", i):
+                raise UnsupportedTokenizerError(f"POSIX bracket in {pattern!r}")
+            sub, i = _parse_class(pattern, i)
+            cur = _merge([*cur, *sub])
+            continue
+        lo, ranges, i = _class_atom(pattern, i)
+        if ranges is not None:
+            cur = _merge([*cur, *ranges])
+            continue
+        if pattern.startswith("-", i) and i + 1 < n and pattern[i + 1] != "]":
+            hi, ranges, j = _class_atom(pattern, i + 1)
+            if ranges is not None or hi < lo:
+                raise ValueError(f"invalid range in char-class in {pattern!r}")
+            cur, i = _merge([*cur, (lo, hi)]), j
+        else:
+            cur = _merge([*cur, (lo, lo)])
+    for part in parts:
+        cur = _intersect(part, cur)
+    return (_complement(cur) if neg else cur), i
+
+
+def _bracket(ranges) -> str:
+    """``ranges`` as a Python class; an empty one matches nothing."""
+    return f"[{_class_body(ranges)}]" if ranges else "(?!)"
+
+
+# Ruby's option letters as Python's: Ruby's m is Python's s (dot matches a
+# newline)
+_FLAGS = {"i": "i", "m": "s", "x": "x"}
+
+
 def translate_regex(pattern: str) -> str:
-    """A pattern of the regex engine inside ``tokenizers`` as a Python
-    ``re`` pattern: ``\\p{X}``/``\\P{X}``, ``\\s``/``\\S`` and ``\\d``/``\\D``
-    become explicit classes. Constructs whose meaning differs between the
-    engines (``\\w``, ``\\b``, anchors, nested classes) raise."""
+    """A pattern of the regex engine inside ``tokenizers`` (Oniguruma, Ruby
+    syntax) as a Python ``re`` pattern. ``\\p{..}``, ``\\s``, ``\\d``, ``\\w``,
+    ``\\h`` and every bracket class (nested classes, ``&&``) become explicit
+    code-point classes; ``\\b``/``\\B`` become lookarounds on Oniguruma's
+    ``\\w``; ``^``/``$`` are line anchors; ``(?<name>..)`` is a named group;
+    Ruby's ``m`` option is Python's ``s``; an inline option applies to the
+    rest of its group. A construct Python's ``re`` cannot express raises
+    ``UnsupportedTokenizerError`` (the known limits in ROADMAP.md)."""
     out: list[str] = []
-    i, n, in_class = 0, len(pattern), False
+    closers: list[int] = [0]  # per open group: option scopes to close with it
+    i, n = 0, len(pattern)
+    word = _class_body(unicode_tables.ONIG_WORD)
     while i < n:
         c = pattern[i]
-        if c == "\\" and i + 1 < n:
+        if c == "\\":
+            if i + 1 >= n:
+                raise ValueError(f"a trailing backslash in {pattern!r}")
             nxt = pattern[i + 1]
-            if nxt in "pP":
-                if i + 2 < n and pattern[i + 2] == "{":
-                    j = pattern.index("}", i + 2)
-                    name, i = pattern[i + 3:j], j + 1
-                else:
-                    name, i = pattern[i + 2:i + 3], i + 3
-                body, neg = _named_class(name), nxt == "P"
-            elif nxt in "sSdD":
-                body, neg, i = _named_class(nxt.lower()), nxt.isupper(), i + 2
-            elif nxt.isalpha() and nxt not in "rntfvxu":
+            if nxt in _CLASS_ESCAPES:
+                ranges, i = _set_escape(pattern, i)
+                out.append(_bracket(ranges))
+                continue
+            i += 2
+            if nxt == "b":
+                out.append(f"(?:(?<=[{word}])(?![{word}])|(?<![{word}])(?=[{word}]))")
+            elif nxt == "B":
+                out.append(f"(?:(?<=[{word}])(?=[{word}])|(?<![{word}])(?![{word}]))")
+            elif nxt == "A":
+                out.append("\\A")
+            elif nxt == "z":
+                out.append("\\Z")
+            elif nxt == "Z":
+                out.append("(?=\\n?\\Z)")
+            elif nxt == "e":
+                out.append("\\x1b")
+            elif nxt == "R":
+                out.append("(?>\\r\\n|[\\n\\x0b\\x0c\\r\\x85\\u2028\\u2029])")
+            elif nxt == "N":
+                out.append("[^\\n]")
+            elif nxt in "xu":
+                cp, i = _hex_escape(pattern, i - 2)
+                out.append(_esc(cp))
+            elif nxt == "k" and pattern.startswith("<", i):
+                j = pattern.index(">", i)
+                name = pattern[i + 1:j]
+                out.append(f"\\{name}" if name.isdigit() else f"(?P={name})")
+                i = j + 1
+            elif nxt.isalpha() and nxt not in "ntrfva":
                 raise UnsupportedTokenizerError(f"regex escape \\{nxt} in {pattern!r}")
             else:
-                out.append(pattern[i:i + 2])
-                i += 2
-                continue
-            if in_class:
-                if neg:
-                    raise UnsupportedTokenizerError(f"negated class inside a set in {pattern!r}")
-                out.append(body)
-            else:
-                out.append(f"[{'^' if neg else ''}{body}]")
+                out.append("\\" + nxt)
             continue
-        if in_class:
-            if c == "[" or pattern.startswith("&&", i):
-                raise UnsupportedTokenizerError(f"nested character class in {pattern!r}")
-            if c == "]":
-                in_class = False
-        elif c == "[":
-            in_class = True
-            out.append(c)
+        if c == "[":
+            ranges, i = _parse_class(pattern, i)
+            out.append(_bracket(ranges))
+            continue
+        if c in "^$":
+            # Ruby's line anchors; Oniguruma's ^ never matches at the end
+            out.append("(?:\\A|(?m:^)(?!\\Z))" if c == "^" else "(?m:$)")
             i += 1
-            if pattern.startswith("^", i):
-                out.append("^")
-                i += 1
-            if pattern.startswith("]", i):  # a literal ] first in the set
-                out.append("\\]")
-                i += 1
             continue
-        elif c in "^$":
-            raise UnsupportedTokenizerError(f"regex anchor {c} in {pattern!r}")
+        if c == "(":
+            if pattern.startswith("(?", i):
+                rest = pattern[i + 2:i + 3]
+                if pattern.startswith("(?<", i) and pattern[i + 3:i + 4] not in ("=", "!"):
+                    out.append("(?P<")
+                    i += 3
+                elif rest == "'":
+                    j = pattern.index("'", i + 3)
+                    out.append(f"(?P<{pattern[i + 3:j]}>")
+                    i = j + 1
+                elif rest == "~":
+                    raise UnsupportedTokenizerError(f"regex absent operator in {pattern!r}")
+                elif rest == "(":
+                    m = re.compile(r"\(\?\((?:<([^>]+)>|'([^']+)'|(\d+))\)").match(pattern, i)
+                    if m is None:
+                        raise UnsupportedTokenizerError(f"regex condition in {pattern!r}")
+                    out.append(f"(?({m.group(1) or m.group(2) or m.group(3)})")
+                    i = m.end()
+                elif rest and (rest in _FLAGS or rest == "-"):
+                    m = re.compile(r"\(\?([imx]*)(?:-([imx]*))?([:)])").match(pattern, i)
+                    if m is None:
+                        raise UnsupportedTokenizerError(f"regex options in {pattern!r}")
+                    on = "".join(_FLAGS[f] for f in m.group(1))
+                    off = "".join(_FLAGS[f] for f in m.group(2) or "")
+                    out.append(f"(?{on}{'-' + off if off else ''}:")
+                    if m.group(3) == ":":
+                        closers.append(0)
+                    else:  # to the end of the enclosing group
+                        closers[-1] += 1
+                    i = m.end()
+                    continue
+                else:  # (?: (?= (?! (?<= (?<! (?> (?#
+                    out.append(pattern[i:i + 2])
+                    i += 2
+                    if rest == "#":
+                        j = pattern.index(")", i)
+                        out.append(pattern[i:j + 1])
+                        i = j + 1
+                        continue
+                closers.append(0)
+                continue
+            closers.append(0)
+        elif c == ")" and len(closers) > 1:
+            out.append(")" * closers.pop())
         out.append(c)
         i += 1
+    out.append(")" * closers[0])
     return "".join(out)
 
 
@@ -241,7 +558,46 @@ def _compile(pattern: dict):
             return re.compile(translate_regex(pattern["Regex"]))
         except re.error as e:
             raise UnsupportedTokenizerError(f"regex {pattern['Regex']!r} ({e})") from None
-    raise UnsupportedTokenizerError(f"pattern {pattern!r}")
+        except ValueError as e:  # a pattern Oniguruma refuses too
+            raise TokenizerLoadError(f"Oniguruma error: {e}") from None
+    raise TokenizerLoadError(f"pattern {pattern!r}: expected String or Regex")
+
+
+def _matches(rx, text: str) -> list[tuple[int, int]]:
+    """``rx``'s matches in ``text`` as the onig crate iterates them: an
+    empty match right where the last match ended is skipped and the search
+    moves on one character (Python's ``finditer`` keeps it, and then finds
+    a longer match at the same place). An empty text has no match, as
+    ``tokenizers``' patterns give it none."""
+    if not text:
+        return []
+    spans = [m.span() for m in rx.finditer(text)]
+    if all(start != end for start, end in spans):
+        return spans  # no empty match: the two iterations agree
+    out: list[tuple[int, int]] = []
+    pos, last_end, n = 0, None, len(text)
+    while pos <= n:
+        m = rx.search(text, pos)
+        if m is None:
+            break
+        start, end = m.span()
+        if start == end and last_end == end:
+            pos += 1
+            continue
+        out.append((start, end))
+        pos = last_end = end
+    return out
+
+
+def _substitute(rx, content: str, text: str, spans=None) -> str:
+    """Every match of ``rx`` (``_matches``, or ``spans``) replaced by
+    ``content``."""
+    out, last = [], 0
+    for start, end in _matches(rx, text) if spans is None else spans:
+        out += [text[last:start], content]
+        last = end
+    out.append(text[last:])
+    return "".join(out)
 
 
 # -- the BERT components' character classes ---------------------------------
@@ -435,47 +791,148 @@ def _to_byte_chars(s: str) -> str:
 # -- normalizers ----------------------------------------------------------
 
 
+def _lowercase(s: str) -> str:
+    """Rust's ``char::to_lowercase``, one character at a time (a
+    multi-character result stays; no final-sigma context)."""
+    lower = _bert_classes()["lower"]
+    return "".join(lower.get(c) or c.lower() for c in s)
+
+
+@functools.cache
+def _marks() -> frozenset:
+    return _cp_set(unicode_tables.COMBINING_MARKS)
+
+
+class _Normalizer:
+    """A normalizer: ``norm(s)`` is the normalized string, and
+    ``norm.apply(s, k)`` is it with how many of its leading characters
+    align to offset 0 of the original input when the first ``k`` of ``s``
+    do (``k`` < 0: ``s`` does not start the input, so none can).
+    ``tokenizers`` keeps these alignments through every normalizer, and the
+    Metaspace pre-tokenizer's prepend_scheme "first" reads them. By default
+    each character maps on its own: its outputs take its alignment, a
+    deleted character leaves none; ``prefix(s, k)`` says otherwise."""
+
+    def __init__(self, fn, prefix=None) -> None:
+        self.fn = fn
+        self._prefix = prefix
+
+    def __call__(self, s: str) -> str:
+        return self.fn(s)
+
+    def apply(self, s: str, k: int) -> tuple[str, int]:
+        if k < 0:
+            return self.fn(s), k
+        return self.fn(s), (self._prefix(s, k) if self._prefix is not None
+                            else len(self.fn(s[:k])))
+
+
+class _Sequence(_Normalizer):
+    """A ``Sequence`` normalizer: its steps in order."""
+
+    def __init__(self, steps: list) -> None:
+        self.steps = steps
+
+    def fn(self, s: str) -> str:
+        for step in self.steps:
+            s = step(s)
+        return s
+
+    def apply(self, s: str, k: int) -> tuple[str, int]:
+        for step in self.steps:
+            s, k = step.apply(s, k)
+        return s, k
+
+
+class _Replace(_Normalizer):
+    """A ``Replace`` normalizer. Its alignments: text outside the matches
+    keeps its own; the content of a match takes its last character's, and
+    at an empty match the character's before it, or offset 0 itself at
+    the very start."""
+
+    def __init__(self, rx, content: str) -> None:
+        self.rx, self.content = rx, content
+
+    def fn(self, s: str) -> str:
+        return _substitute(self.rx, self.content, s)
+
+    def apply(self, s: str, k: int) -> tuple[str, int]:
+        spans = _matches(self.rx, s)
+        out = _substitute(self.rx, self.content, s, spans)
+        if k < 0:
+            return out, k
+        n, last = 0, 0
+        for start, end in spans:
+            if last < start:  # the text before the match
+                n += max(0, min(k, start) - last)
+                if k < start:
+                    return out, n
+            if (end - 1 if end > start else start - 1) < k:
+                n += len(self.content)
+            elif self.content:
+                return out, n
+            last = end
+        return out, n + max(0, min(k, len(s)) - last)
+
+
 def _normalizer(spec):
-    """``spec`` -> a str -> str function, or None."""
+    """``spec`` -> a ``_Normalizer``, or None."""
     if spec is None:
         return None
     kind = spec.get("type")
     if kind == "Sequence":
-        steps = [_normalizer(s) for s in spec["normalizers"]]
-
-        def seq(s: str) -> str:
-            for step in steps:
-                s = step(s)
-            return s
-        return seq
+        return _Sequence([_normalizer(s) for s in spec["normalizers"]])
     if kind in ("NFC", "NFD", "NFKC", "NFKD"):
-        return functools.partial(unicodedata.normalize, kind)
+        return _Normalizer(functools.partial(unicodedata.normalize, kind))
     if kind == "Prepend":
-        prefix = spec["prepend"]
-        return lambda s: prefix + s if s else s
+        pre = spec["prepend"]
+        # the prepended characters take the first character's alignment
+        return _Normalizer(lambda s: pre + s if s else s,
+                           lambda s, k: k + len(pre) if k > 0 else 0)
     if kind == "Replace":
-        rx, content = _compile(spec["pattern"]), spec["content"]
-        return lambda s: rx.sub(lambda _m: content, s)
+        return _Replace(_compile(spec["pattern"]), spec["content"])
     if kind == "BertNormalizer":
-        return _bert_normalizer(spec)
-    raise UnsupportedTokenizerError(f"normalizer {kind}")
+        return _Normalizer(_bert_normalizer(spec))
+    if kind == "Lowercase":
+        return _Normalizer(_lowercase)
+    if kind == "Strip":
+        left, right = bool(spec["strip_left"]), bool(spec["strip_right"])
+
+        def strip(s: str) -> str:
+            if left:
+                s = s.lstrip(WHITE_SPACE)
+            return s.rstrip(WHITE_SPACE) if right else s
+        return _Normalizer(strip, lambda s, k: min(
+            len(s[:k].lstrip(WHITE_SPACE)) if left else k, len(strip(s))))
+    if kind == "StripAccents":
+        marks = _marks()
+        return _Normalizer(lambda s: "".join(c for c in s if ord(c) not in marks))
+    if kind == "Nmt":
+        return _Normalizer(precompiled.nmt)
+    if kind == "ByteLevel":
+        return _Normalizer(_to_byte_chars)
+    if kind == "Precompiled":
+        charsmap = precompiled.Precompiled(spec["precompiled_charsmap"])
+        return _Normalizer(charsmap, charsmap.prefix)
+    raise _unknown("normalizer", kind)
 
 
 # -- pre-tokenizers --------------------------------------------------------
-# a pre-tokenizer maps [(text, at_start)] -> [(text, at_start)], where
-# at_start says the piece begins at offset 0 of the original input (what
-# Metaspace's prepend_scheme "first" reads); empty pieces are dropped
+# a pre-tokenizer maps [(text, k)] -> [(text, k)], where k counts the
+# piece's leading characters that align to offset 0 of the original input
+# (``_Normalizer``; Metaspace's prepend_scheme "first" reads k > 0); empty
+# pieces are dropped
 
 
 def split_pieces(text: str, rx, behavior: str, invert: bool = False) -> list[tuple[int, int]]:
     """``(start, end)`` pieces of ``text`` cut by ``rx``'s matches as the
     ``tokenizers`` split behaviors cut them; empty pieces dropped."""
     segs, prev = [], 0
-    for m in rx.finditer(text):
-        if m.start() != prev:
-            segs.append([prev, m.start(), invert])
-        segs.append([m.start(), m.end(), not invert])
-        prev = m.end()
+    for start, end in _matches(rx, text):
+        if start != prev:
+            segs.append([prev, start, invert])
+        segs.append([start, end, not invert])
+        prev = end
     if prev != len(text):
         segs.append([prev, len(text), invert])
     if behavior == "Removed":
@@ -502,15 +959,84 @@ def split_pieces(text: str, rx, behavior: str, invert: bool = False) -> list[tup
                 out.append(list(s))
             previous = s[2]
     else:
-        raise UnsupportedTokenizerError(f"split behavior {behavior}")
+        raise ValueError(f"unknown split behavior {behavior!r}")
     return [(a, b) for a, b, _ in out if b > a]
 
 
+_BEHAVIORS = ("Removed", "Isolated", "MergedWithPrevious", "MergedWithNext", "Contiguous")
+
+
 def _splitter(rx, behavior: str, invert: bool = False):
+    if behavior not in _BEHAVIORS:
+        raise TokenizerLoadError(f"unknown variant `{behavior}`, expected one of "
+                                 + ", ".join(f"`{b}`" for b in _BEHAVIORS))
+
     def split(pieces):
-        return [(text[a:b], at_start and a == 0)
-                for text, at_start in pieces
+        return [(text[a:b], min(k, b) - a if a < k else 0)
+                for text, k in pieces
                 for a, b in split_pieces(text, rx, behavior, invert)]
+    return split
+
+
+@functools.cache
+def _char_rx(name: str):
+    """One character of a class the split pre-tokenizers cut on, as a
+    compiled regex: ``numeric`` (Rust's ``is_numeric``), ``punct``
+    (``Punctuation``'s test, the BertPreTokenizer's) or ``space``."""
+    if name == "numeric":
+        ranges = unicode_tables.NUMERIC
+    elif name == "punct":  # bert_is_punct's classes as ranges
+        ranges = _merge([*_category_ranges()["P"], *BERT_EXTRA_PUNCT,
+                         *((ord(c), ord(c)) for c in _ASCII_PUNCT)])
+        ranges = _intersect(ranges, _complement(BERT_NOT_PUNCT))
+    else:
+        ranges = [(ord(c), ord(c)) for c in WHITE_SPACE]
+    return re.compile(f"[{_class_body(ranges)}]")
+
+
+@functools.cache
+def _pre_tokenizer_scripts() -> bytearray:
+    """Per code point, the script index the UnicodeScripts pre-tokenizer
+    reads (0: Any), Hiragana and Katakana folded into Han."""
+    names = unicode_tables.SCRIPT_NAMES
+    han = names.index("Han")
+    kana = {names.index("Hiragana"), names.index("Katakana")}
+    out = bytearray(0x110000)
+    for lo, hi, i in unicode_tables.PRE_TOKENIZER_SCRIPTS:
+        out[lo:hi + 1] = bytes([han if i in kana else i]) * (hi - lo + 1)
+    out[0x30FC] = han
+    out[0x20] = 0
+    return out
+
+
+def _unicode_scripts(pieces):
+    """UnicodeScripts: a cut wherever the script changes. A character of
+    no script (Any: a space, a code point its tables lack) joins the piece
+    it is in and does not count as a change; Any characters before the
+    first scripted one are dropped, as ``tokenizers`` drops them."""
+    table = _pre_tokenizer_scripts()
+    out = []
+    for text, k in pieces:
+        cuts, last = [], None
+        for i, ch in enumerate(text):
+            script = table[ord(ch)]
+            if script and last != script:
+                cuts.append(i)
+            if script:
+                last = script
+        cuts.append(len(text))
+        out.extend((text[a:b], max(0, min(k, b) - a)) for a, b in zip(cuts, cuts[1:]) if b > a)
+    return out
+
+
+def _fixed_length(length: int):
+    def split(pieces):
+        if length == 0:
+            if any(text for text, _ in pieces):
+                raise ValueError("FixedLength: chunk size must be non-zero")
+            return []
+        return [(text[i:i + length], max(0, min(k, i + length) - i))
+                for text, k in pieces for i in range(0, len(text), length)]
     return split
 
 
@@ -535,10 +1061,12 @@ def _pre_tokenizer(spec):
 
         def byte_level(pieces):
             if prefix:
-                pieces = [(t if t.startswith(" ") else " " + t, s) for t, s in pieces]
+                pieces = [(t, k) if t.startswith(" ") else (" " + t, k + 1 if k > 0 else 0)
+                          for t, k in pieces]
             if split is not None:
                 pieces = split(pieces)
-            return [(_to_byte_chars(t), s) for t, s in pieces]
+            return [(_to_byte_chars(t), len(_to_byte_chars(t[:k])) if k else 0)
+                    for t, k in pieces]
         return byte_level
     if kind == "Metaspace":
         rep = spec["replacement"]
@@ -550,12 +1078,12 @@ def _pre_tokenizer(spec):
 
         def metaspace(pieces):
             out = []
-            for text, at_start in pieces:
+            for text, k in pieces:
                 text = text.replace(" ", rep)
                 if not text.startswith(rep) and (
-                        scheme == "always" or (scheme == "first" and at_start)):
-                    text = rep + text
-                out.append((text, at_start))
+                        scheme == "always" or (scheme == "first" and k > 0)):
+                    text, k = rep + text, k + len(rep) if k > 0 else 0
+                out.append((text, k))
             return split(out) if split is not None else out
         return metaspace
     if kind == "Whitespace":
@@ -563,27 +1091,44 @@ def _pre_tokenizer(spec):
         return _splitter(re.compile(f"[{w}]+|[^{w}{_named_class('s')}]+"), "Removed", invert=True)
     if kind == "BertPreTokenizer":
         return _bert_pre_tokenize
-    raise UnsupportedTokenizerError(f"pre_tokenizer {kind}")
+    if kind == "WhitespaceSplit":
+        return _splitter(_char_rx("space"), "Removed")
+    if kind == "CharDelimiterSplit":
+        delimiter = spec["delimiter"]
+        if not isinstance(delimiter, str) or len(delimiter) != 1:
+            raise TokenizerLoadError(f"CharDelimiterSplit: delimiter {delimiter!r} is not one "
+                                     f"character")
+        return _splitter(re.compile(re.escape(delimiter)), "Removed")
+    if kind == "Digits":
+        return _splitter(_char_rx("numeric"),
+                         "Isolated" if spec["individual_digits"] else "Contiguous")
+    if kind == "Punctuation":
+        return _splitter(_char_rx("punct"), spec.get("behavior", "Isolated"))
+    if kind == "FixedLength":
+        return _fixed_length(int(spec.get("length", 5)))
+    if kind == "UnicodeScripts":
+        return _unicode_scripts
+    raise _unknown("pre_tokenizer", kind)
 
 
 def _bert_pre_tokenize(pieces):
     """BertPreTokenizer: split on whitespace (removed), then each
     punctuation character is a piece of its own."""
     out = []
-    for text, at_start in pieces:
+    for text, k in pieces:
         start, word = 0, []
         for i, ch in enumerate(text):
             if ch in _WS or bert_is_punct(ch):
                 if word:
-                    out.append(("".join(word), at_start and start == 0))
+                    out.append(("".join(word), max(0, min(k, i) - start)))
                     word = []
                 if ch not in _WS:
-                    out.append((ch, at_start and i == 0))
+                    out.append((ch, int(i < k)))
                 start = i + 1
             else:
                 word.append(ch)
         if word:
-            out.append(("".join(word), at_start and start == 0))
+            out.append(("".join(word), max(0, min(k, len(text)) - start)))
     return out
 
 
@@ -644,9 +1189,13 @@ class _WordPiece:
 class _BPE:
     CACHE_CAPACITY = 10_000  # words; as in tokenizers, full = no new entries
 
-    def __init__(self, spec: dict) -> None:
-        if spec.get("dropout"):
-            raise UnsupportedTokenizerError("BPE dropout")
+    def __init__(self, spec: dict, rng: random.Random) -> None:
+        dropout = spec.get("dropout")
+        if dropout is not None and not 0.0 <= float(dropout) <= 1.0:
+            raise TokenizerLoadError("Dropout should be between 0 and 1, inclusive")
+        # drawn against an f32, as tokenizers draws; 0 is no dropout
+        self.dropout = struct.unpack("f", struct.pack("f", float(dropout)))[0] if dropout else 0.0
+        self.rng = rng
         self.vocab: dict[str, int] = spec["vocab"]
         self.unk = spec.get("unk_token")
         self.prefix = spec.get("continuing_subword_prefix") or ""
@@ -668,6 +1217,8 @@ class _BPE:
         self._cache: dict[str, list[int]] = {}
 
     def tokenize(self, word: str) -> list[int]:
+        if self.dropout:  # no word cache and no ignore_merges, as in tokenizers
+            return self._merge(self._symbols(word), self.dropout)
         if self.ignore_merges:
             tid = self.vocab.get(word)
             if tid is not None:
@@ -710,9 +1261,12 @@ class _BPE:
             out.append(unk)
         return out
 
-    def _merge(self, ids: list[int]) -> list[int]:
+    def _merge(self, ids: list[int], dropout: float = 0.0) -> list[int]:
         """Apply merges lowest rank first, leftmost first among equal ranks
-        (tokenizers' Word::merge_all)."""
+        (tokenizers' Word::merge_all). With ``dropout``, each entry popped
+        is set aside with that probability (one draw of ``self.rng`` each,
+        expired entries included) and the ones set aside go back into the
+        queue at the next merge."""
         n, merges = len(ids), self.merges
         if n < 2:
             return ids
@@ -726,8 +1280,16 @@ class _BPE:
             if m is not None:
                 heap.append((m[0], i, m[1]))
         heapq.heapify(heap)
+        skipped = []
         while heap:
-            _rank, pos, new_id = heapq.heappop(heap)
+            top = heapq.heappop(heap)
+            if dropout and self.rng.random() < dropout:
+                skipped.append(top)
+                continue
+            for entry in skipped:
+                heapq.heappush(heap, entry)
+            skipped.clear()
+            _rank, pos, new_id = top
             j = nxt[pos]
             if gone[pos] or j == -1:
                 continue
@@ -746,51 +1308,86 @@ class _BPE:
         return [t for t, g in zip(c, gone) if not g]
 
 
-def _model(spec: dict):
+def _model(spec: dict, rng: random.Random):
     kind = spec.get("type")
     if kind is None and "merges" in spec:
         kind = "BPE"  # older files leave the model's type out
     if kind == "BPE":
-        return _BPE(spec)
+        return _BPE(spec, rng)
     if kind == "WordLevel":
         return _WordLevel(spec)
     if kind == "WordPiece":
         return _WordPiece(spec)
-    raise UnsupportedTokenizerError(f"model {kind}")
+    if kind == "Unigram":
+        return Unigram(spec)
+    raise _unknown("model", kind)
 
 
 # -- post-processors -------------------------------------------------------
 
 
-def _post_processor(spec) -> tuple[list[int], list[int]]:
-    """(ids before, ids after) the sequence when special tokens are added."""
+def _special_ids(specials: dict, name: str) -> list[int]:
+    tok = specials.get(name)
+    if tok is None:  # tokenizers loads such a template and panics on use
+        raise ValueError(f"TemplateProcessing: no special token {name!r}")
+    return list(tok["ids"])
+
+
+def _post_processor(spec):
+    """``spec`` -> (process, added): ``process(encodings, add_special)``
+    maps the list of id lists a processor takes to the list it gives (a
+    single encode starts from one; a ``TemplateProcessing`` gives one per
+    piece of its template, so a processor after it in a ``Sequence`` sees
+    them all); ``added`` counts the special ids a single sequence gets,
+    which truncation leaves room for."""
     if spec is None:
-        return [], []
+        return (lambda encs, add: encs), 0
     kind = spec.get("type")
     if kind == "Sequence":
-        before, after = [], []
-        for p in spec["processors"]:
-            b, a = _post_processor(p)
-            before, after = b + before, after + a
-        return before, after
+        steps = [_post_processor(p) for p in spec["processors"]]
+
+        def seq(encs, add):
+            for step, _ in steps:
+                encs = step(encs, add)
+            return encs
+        return seq, sum(n for _, n in steps)
     if kind == "ByteLevel":  # offsets only
-        return [], []
-    if kind == "BertProcessing":  # [CLS] A [SEP]
-        return [int(spec["cls"][1])], [int(spec["sep"][1])]
+        return (lambda encs, add: encs), 0
+    if kind in ("BertProcessing", "RobertaProcessing"):
+        # trim_offsets and add_prefix_space move offsets only
+        cls, sep = [int(spec["cls"][1])], [int(spec["sep"][1])]
+        mid = sep if kind == "RobertaProcessing" else []
+
+        def bert(encs, add):
+            if not add:
+                return encs
+            return [cls + e + sep if i == 0 else mid + e + sep for i, e in enumerate(encs)]
+        return bert, 2
     if kind == "TemplateProcessing":
         specials = spec.get("special_tokens") or {}
-        before, after, seen = [], [], False
-        for piece in spec["single"]:
-            if "Sequence" in piece:
-                if piece["Sequence"]["id"] != "A" or seen:
-                    raise UnsupportedTokenizerError("TemplateProcessing single template "
-                                                    f"{spec['single']!r}")
-                seen = True
-            else:
-                (before if not seen else after).extend(
-                    specials[piece["SpecialToken"]["id"]]["ids"])
-        return before, after
-    raise UnsupportedTokenizerError(f"post_processor {kind}")
+        single, pair = spec["single"], spec["pair"]
+        for piece in (*single, *pair):
+            if "Sequence" in piece and piece["Sequence"]["id"] not in ("A", "B"):
+                raise TokenizerLoadError(f"TemplateProcessing: unknown sequence "
+                                         f"{piece['Sequence']['id']!r}")
+
+        def template(encs, add):
+            if len(encs) > 2:
+                raise ValueError(f"TemplateProcessing: {len(encs)} sequences to process")
+            out = []
+            for piece in single if len(encs) == 1 else pair:
+                if "Sequence" in piece:
+                    i = 0 if piece["Sequence"]["id"] == "A" else 1
+                    if i >= len(encs):
+                        raise ValueError("TemplateProcessing: the single template uses $B")
+                    out.append(list(encs[i]))
+                elif add:
+                    out.append(_special_ids(specials, piece["SpecialToken"]["id"]))
+            return out
+        added = sum(len((specials.get(p["SpecialToken"]["id"]) or {"ids": ()})["ids"])
+                    for p in single if "SpecialToken" in p)
+        return template, added
+    raise _unknown("post_processor", kind)
 
 
 # -- decoders ------------------------------------------------------------------
@@ -831,7 +1428,7 @@ def _decoder(spec):
         return byte_level
     if kind == "Replace":
         rx, content = _compile(spec["pattern"]), spec["content"]
-        return lambda tokens: [rx.sub(lambda _m: content, t) for t in tokens]
+        return lambda tokens: [_substitute(rx, content, t) for t in tokens]
     if kind == "ByteFallback":
         def byte_fallback(tokens):
             out, pending = [], bytearray()
@@ -890,7 +1487,27 @@ def _decoder(spec):
                 out.append(_wordpiece_cleanup(t) if cleanup else t)
             return out
         return wordpiece
-    raise UnsupportedTokenizerError(f"decoder {kind}")
+    if kind == "CTC":
+        pad, delimiter = spec["pad_token"], spec["word_delimiter_token"]
+        cleanup = bool(spec["cleanup"])
+
+        def ctc(tokens):
+            out = []
+            for i, t in enumerate(tokens):
+                if i and t == tokens[i - 1]:
+                    continue  # repeats collapse before anything else
+                t = t.replace(pad, "")
+                if cleanup:
+                    t = _wordpiece_cleanup(t).replace(delimiter, " ")
+                if t:
+                    out.append(t)
+            return out
+        return ctc
+    if kind == "BPEDecoder":
+        suffix = spec.get("suffix", "</w>")
+        return lambda tokens: [t.replace(suffix, "" if i == len(tokens) - 1 else " ")
+                               for i, t in enumerate(tokens)]
+    raise _unknown("decoder", kind)
 
 
 _CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"), (" n't", "n't"),
@@ -948,23 +1565,55 @@ class _AddedTokens:
         return out
 
 
+def _json_ends(text: str) -> dict[str, int]:
+    """Where each top-level value of the JSON object ``text`` ends (a
+    character index; ``""``: the end of the object)."""
+    dec, ends = json.JSONDecoder(), {}
+    ws = re.compile(r"[ \t\n\r]*")
+    i = ws.match(text, 0).end() + 1  # past the {
+    while True:
+        i = ws.match(text, i).end()
+        if text.startswith("}", i):
+            ends[""] = i + 1
+            return ends
+        key, i = dec.raw_decode(text, i)
+        i = ws.match(text, i).end() + 1  # past the :
+        _, i = dec.raw_decode(text, ws.match(text, i).end())
+        ends[key] = i
+        i = ws.match(text, i).end()
+        i += text.startswith(",", i)
+
+
+def _at(text: str, index: int) -> str:
+    """serde_json's " at line L column C" for a character index (the
+    column counts bytes)."""
+    line_start = text.rfind("\n", 0, index) + 1
+    return (f" at line {text.count(chr(10), 0, index) + 1} column "
+            f"{len(text[line_start:index].encode('utf-8'))}")
+
+
 class Tokenizer:
     """``tokenizer.json`` -> encode / decode / token_to_id, as
-    ``tokenizers.Tokenizer`` gives them for the supported components."""
+    ``tokenizers.Tokenizer`` gives them.
 
-    def __init__(self, spec: dict) -> None:
-        for key in ("truncation", "padding"):
-            if spec.get(key) is not None:
-                raise UnsupportedTokenizerError(key)
-        self._normalize = _normalizer(spec.get("normalizer"))
-        self._pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
-        self._model = _model(spec["model"])
-        self._bos, self._eos = _post_processor(spec.get("post_processor"))
-        self._decode = _decoder(spec.get("decoder"))
-        added = spec.get("added_tokens") or []
-        self._added_by_id = {int(t["id"]): t["content"] for t in added}
-        self._added_ids = {t["content"]: int(t["id"]) for t in added}
-        self._special = {t["content"] for t in added if t.get("special")}
+    ``seed`` seeds the generator BPE dropout draws from (the tokenizer's
+    own ``random.Random``; from the OS's entropy when None)."""
+
+    def __init__(self, spec: dict, seed: int | None = None) -> None:
+        self.rng = random.Random(seed)
+        self._normalize = self._part(spec, "normalizer", _normalizer)
+        self._pre_tokenize = self._part(spec, "pre_tokenizer", _pre_tokenizer)
+        self._model = self._part(spec, "model", lambda m: _model(m, self.rng))
+        self._process, self._n_added = self._part(spec, "post_processor", _post_processor)
+        self._decode = self._part(spec, "decoder", _decoder)
+        self._truncation = self._part(spec, "truncation", _truncation)
+        self._padding = self._part(spec, "padding", _padding)
+        added = self._added_tokens(spec.get("added_tokens") or [])
+        self._added_by_id = {tid: content for content, (tid, _) in added.items()}
+        self._added_ids = {content: tid for content, (tid, _) in added.items()}
+        # a content once added as special stays special
+        self._special = {t["content"] for t in spec.get("added_tokens") or [] if t.get("special")}
+        added = [{**t, "id": tid} for tid, t in added.values()]
         self._raw_added = _AddedTokens([(t["content"], t) for t in added
                                         if not t.get("normalized")])
         # normalized added tokens match the normalized text, so their
@@ -972,16 +1621,65 @@ class Tokenizer:
         norm = self._normalize or (lambda s: s)
         self._norm_added = _AddedTokens([(norm(t["content"]), t) for t in added
                                          if t.get("normalized")])
-        self._id_to_token = {i: t for t, i in self._model.vocab.items()}
+        self._id_to_token = getattr(self._model, "id_to_token_map", None) or {
+            i: t for t, i in self._model.vocab.items()}
+
+    def _added_tokens(self, tokens: list) -> dict[str, tuple[int, dict]]:
+        """content -> (id, token) as ``tokenizers`` loads the added tokens:
+        in order, each takes the id of the same content added before it or
+        in the model's vocab, else the next free one (the vocab's size, or
+        one past the largest added id at or above it), whatever id the file
+        gives; a content listed twice keeps its id and takes the later
+        entry's options; an empty one is skipped."""
+        vocab = self._model.vocab
+        size = len(getattr(self._model, "pieces", vocab))
+        out: dict[str, tuple[int, dict]] = {}
+        for t in tokens:
+            content = t["content"]
+            if not content:
+                continue  # tokenizers skips an empty added token
+            tid = out[content][0] if content in out else vocab.get(content)
+            if tid is None:
+                top = max((i for i, _ in out.values()), default=None)
+                tid = size if top is None or (top < size and size) else top + 1
+            out[content] = (tid, t)
+        return out
+
+    @staticmethod
+    def _part(spec: dict, key: str, build):
+        """``build(spec[key])``; a malformed block fails the load naming
+        ``key``, as ``tokenizers`` fails it."""
+        value = spec.get(key)
+        if value is None and key in ("truncation", "padding"):
+            return None
+        try:
+            return build(value)
+        except TokenizerLoadError as e:
+            e.part = e.part or key
+            raise
+        except ValueError as e:  # the block's own checks (a Unigram's unk_id, ...)
+            raise TokenizerLoadError(str(e), key) from None
+        except (KeyError, TypeError, AttributeError) as e:
+            raise TokenizerLoadError(f"{key}: malformed ({type(e).__name__}: {e})", key) from None
 
     @classmethod
-    def from_str(cls, text: str) -> Tokenizer:
-        return cls(json.loads(text))
+    def from_str(cls, text: str, seed: int | None = None) -> Tokenizer:
+        spec = json.loads(text)
+        try:
+            return cls(spec, seed)
+        except TokenizerLoadError as e:
+            if str(e).startswith("data did not match") and e.part in _UNTAGGED:
+                # serde reads the model last, at the end of the object
+                ends = _json_ends(text)
+                where = ends.get("" if e.part == "model" else e.part)
+                if where is not None:
+                    raise TokenizerLoadError(str(e) + _at(text, where), e.part) from None
+            raise
 
     @classmethod
-    def from_file(cls, path: str) -> Tokenizer:
+    def from_file(cls, path: str, seed: int | None = None) -> Tokenizer:
         with open(path, encoding="utf-8") as f:
-            return cls(json.load(f))
+            return cls.from_str(f.read(), seed)
 
     def token_to_id(self, token: str) -> int | None:
         tid = self._added_ids.get(token)
@@ -1009,17 +1707,22 @@ class Tokenizer:
                 ids.append(tid)
                 continue
             piece = text[a:b]
+            # leading characters aligned to the input's offset 0 (-1: none can be)
+            k = min(1, len(piece)) if a == 0 else -1
             if self._normalize is not None:
-                piece = self._normalize(piece)
+                piece, k = self._normalize.apply(piece, k)
             for c, d, ntid in self._norm_added.split(piece):
                 if ntid is not None:
                     flush_words()
                     ids.append(ntid)
                 elif d > c:
-                    words.append((piece[c:d], a == 0 and c == 0))
+                    words.append((piece[c:d], max(0, min(k, d) - c)))
         flush_words()
-        if add_special_tokens:
-            ids = self._bos + ids + self._eos
+        if self._truncation is not None:
+            ids = self._truncation(ids, self._n_added if add_special_tokens else 0)
+        ids = [t for enc in self._process([ids], add_special_tokens) for t in enc]
+        if self._padding is not None:
+            ids = self._padding(ids)
         return ids
 
     def decode(self, ids, skip_special_tokens: bool = False) -> str:
@@ -1032,3 +1735,60 @@ class Tokenizer:
         if self._decode is None:
             return " ".join(tokens)
         return "".join(self._decode(tokens))
+
+
+def _truncation(spec: dict):
+    """The ``truncation`` block -> ``cut(ids, n_added)``. A single sequence
+    keeps ``max_length`` ids less the ``n_added`` special ids the
+    post-processor will add (none are left room for when ``max_length``
+    is below their count), the head (``Right``) or the tail (``Left``).
+    ``stride`` only feeds the overflowing encodings, which the facade
+    drops; as in ``tokenizers``, a cut with a stride not below the room
+    left fails, and so does ``OnlySecond`` with no second sequence."""
+    max_length, stride = int(spec["max_length"]), int(spec["stride"])
+    strategy, direction = spec["strategy"], spec["direction"]
+    if strategy not in ("LongestFirst", "OnlyFirst", "OnlySecond"):
+        raise TokenizerLoadError(f"unknown truncation strategy {strategy!r}")
+    if direction not in ("Left", "Right"):
+        raise TokenizerLoadError(f"unknown truncation direction {direction!r}")
+
+    def cut(ids: list[int], n_added: int) -> list[int]:
+        if n_added > max_length:
+            return ids
+        room = max_length - n_added
+        if room == 0:
+            return []
+        if len(ids) <= room:
+            return ids
+        if strategy == "OnlySecond":
+            raise ValueError("Truncation error: Second sequence not provided")
+        if stride >= room:
+            raise ValueError(f"`stride` must be strictly less than `max_len={room}` (note that "
+                             f"`max_len` may be shorter than the max length of the original "
+                             f"model, as it subtracts the number of special characters")
+        return ids[:room] if direction == "Right" else ids[len(ids) - room:]
+    return cut
+
+
+def _padding(spec: dict):
+    """The ``padding`` block -> ``pad(ids)``: a single encode is its own
+    longest (``BatchLongest``) or padded to ``Fixed``, then up to a
+    multiple of ``pad_to_multiple_of``, in front (``Left``) or behind."""
+    strategy, direction = spec["strategy"], spec["direction"]
+    if strategy != "BatchLongest" and not (isinstance(strategy, dict) and "Fixed" in strategy):
+        raise TokenizerLoadError(f"unknown variant {strategy!r}, expected `BatchLongest` or "
+                                 f"`Fixed`")
+    if direction not in ("Left", "Right"):
+        raise TokenizerLoadError(f"unknown padding direction {direction!r}")
+    fixed = None if strategy == "BatchLongest" else int(strategy["Fixed"])
+    multiple, pad_id = spec.get("pad_to_multiple_of"), int(spec["pad_id"])
+
+    def pad(ids: list[int]) -> list[int]:
+        n = len(ids) if fixed is None else fixed
+        if multiple and n % multiple:
+            n += multiple - n % multiple
+        if len(ids) >= n:
+            return ids
+        fill = [pad_id] * (n - len(ids))
+        return fill + ids if direction == "Left" else ids + fill
+    return pad

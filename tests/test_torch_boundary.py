@@ -1,6 +1,6 @@
 """The port stands alone: no jax, ml_dtypes, tokenizers or modelx_tpu
-imports, none of the packages the card's host lacks (requests, click,
-yaml, rich, cryptography, boto3, google, orbax, optax), and an explicit device
+imports, none of the packages the card's host lacks (regex, requests,
+click, yaml, rich, cryptography, boto3, google, orbax, optax), and an explicit device
 with no silent CPU fallback. The fleet router imports no torch at all: it
 runs on boxes with no accelerator."""
 
@@ -15,7 +15,7 @@ import torch
 from modelx_tpu_torch.device import parse_dtype, resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "tokenizers", "modelx_tpu",
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "tokenizers", "regex", "modelx_tpu",
              "requests", "click", "yaml", "rich", "cryptography", "boto3", "google", "orbax",
              "optax")
 
@@ -68,7 +68,8 @@ def test_port_imports_no_jax_or_reference_package():
                 "models/train_main.py", "dl/checkpoint.py", "ops/moe.py", "ops/attention.py",
                 "analysis/lint.py", "analysis/lockdep.py", "analysis/pytest_lockdep.py",
                 "analysis/rules/locks.py", "analysis/rules/handlers.py",
-                "analysis/rules/purity.py", "analysis/rules/threads.py"):
+                "analysis/rules/purity.py", "analysis/rules/threads.py", "dl/unigram.py",
+                "dl/precompiled.py", "dl/unicode_tables.py", "testing/charsmap.py"):
         assert os.path.join(REPO, "modelx_tpu_torch", *new.split("/")) in files
     bad = []
     for path in files:
@@ -119,13 +120,33 @@ def test_serving_entry_leaves_jax_unimported():
         "modelx_tpu_torch.client.ops, modelx_tpu_torch.client.convert, "
         "modelx_tpu_torch.dl.podspec, modelx_tpu_torch.testing.faults, "
         "modelx_tpu_torch.dl.program_store, modelx_tpu_torch.models.train, "
-        "modelx_tpu_torch.dl.checkpoint, modelx_tpu_torch.ops.moe; "
+        "modelx_tpu_torch.dl.checkpoint, modelx_tpu_torch.ops.moe, "
+        "modelx_tpu_torch.dl.unigram, modelx_tpu_torch.dl.precompiled, "
+        "modelx_tpu_torch.dl.unicode_tables, modelx_tpu_torch.testing.charsmap; "
         "bad = [m for m in sys.modules if m not in ns and m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_unicode_tables_regenerate_to_the_committed_module():
+    """``scripts/torch_unicode_tables.py`` builds the tables from ``regex``
+    and holds each against ``tokenizers`` over every code point; run here,
+    it gives the committed ``dl/unicode_tables.py`` byte for byte."""
+    import importlib.util
+
+    path = os.path.join(REPO, "scripts", "torch_unicode_tables.py")
+    spec = importlib.util.spec_from_file_location("torch_unicode_tables", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    lines: list[str] = []
+    text = gen.build(log=lines.append)
+    with open(os.path.join(REPO, "modelx_tpu_torch", "dl", "unicode_tables.py"),
+              encoding="utf-8") as f:
+        assert text == f.read(), lines
+    assert any(line.startswith("graphemes:") for line in lines)
 
 
 def test_resolve_device_raises_without_cuda():

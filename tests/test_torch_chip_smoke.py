@@ -219,7 +219,8 @@ def _tiny_families():
     from modelx_tpu_torch.models import bert, gemma2, gpt2, mixtral
 
     return [("gemma2", gemma2.Gemma2Config.tiny(vocab_size=256)),
-            ("phi3", dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=256),
+            # 1024 ids: the padded tokenizer.json's 256 specials and its bytes
+            ("phi3", dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=1024),
                                          dtype=torch.bfloat16)),
             ("mixtral", dataclasses.replace(mixtral.MixtralConfig.tiny(vocab_size=256),
                                             rope_theta=1e6)),
@@ -255,6 +256,12 @@ def test_families_phase_rehearses_on_cpu(monkeypatch):
                 f"fam_{name}_greedy_tps"} <= set(stats)
     assert {"fam_gemma2_long_forward_ms", "fam_gemma2_engine_tps", "fam_gemma2_tps_gather",
             "fam_gemma2_tps_in-place", "fam_phi3_int8_forward_ms"} <= set(stats)
+    # the families' tokenizer.json files: Unigram + Precompiled with a
+    # truncation (gemma2), Digits + Punctuation with padding (phi3)
+    assert {"fam_gemma2_tokenizer_load_ms", "fam_gemma2_encode_tokens_per_s",
+            "fam_gemma2_logprobs_s", "fam_gemma2_text_s", "fam_phi3_tokenizer_load_ms",
+            "fam_phi3_text_s"} <= set(stats)
+    assert stats["fam_phi3_padded_ids"] % 8 == 0
     # bert: forwards only, no kernel, the CPU's features against themselves
     assert stats["fam_bert_launches"] == 0 and stats["fam_bert_feature_err"] == 0.0
     assert {"fam_bert_forward_ms_1x48", "fam_bert_forward_ms_3x64", "fam_bert_write_s",
@@ -558,6 +565,30 @@ def test_smoke_tokenizer_writer_has_llama3_layout(tmp_path):
     full = chip_smoke.llama3_tokenizer_json()
     assert len(json.loads(full)["model"]["vocab"]) == 128000
     assert full == chip_smoke.llama3_tokenizer_json()
+
+
+@pytest.mark.parametrize("name,vocab", sorted(chip_smoke.FAMILY_TEXT_DIGESTS))
+def test_family_tokenizer_digests_are_the_tokenizers_packages(name, vocab):
+    """The digests the card's host holds its ids to are the ``tokenizers``
+    package's ids for the same files (and the port's, here)."""
+    from modelx_tpu_torch.dl.tokenizer import Tokenizer
+
+    text = chip_smoke.FAMILY_TOKENIZERS[name](vocab)
+    ref = tokenizers.Tokenizer.from_str(text)
+    want = chip_smoke.FAMILY_TEXT_DIGESTS[(name, vocab)]
+    assert chip_smoke.family_ids_digest(lambda t: ref.encode(t).ids) == want
+    assert chip_smoke.family_ids_digest(Tokenizer.from_str(text).encode) == want
+    spec = json.loads(text)
+    assert ref.get_vocab_size(with_added_tokens=True) == vocab
+    if name == "gemma2":
+        assert spec["model"]["type"] == "Unigram" and len(spec["model"]["vocab"]) == vocab
+        assert [n["type"] for n in spec["normalizer"]["normalizers"]] == ["Precompiled",
+                                                                         "Replace"]
+        assert spec["truncation"]["max_length"] == chip_smoke.GEMMA_TRUNCATE
+        assert len(ref.encode(chip_smoke.FAMILY_TEXT_PROMPT).ids) == chip_smoke.GEMMA_TRUNCATE
+    else:
+        assert spec["padding"]["pad_to_multiple_of"] == 8
+        assert len(ref.encode(chip_smoke.FAMILY_TEXT_PROMPT).ids) % 8 == 0
 
 
 @pytest.fixture(scope="module")

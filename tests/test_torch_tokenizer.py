@@ -411,10 +411,10 @@ def _with(spec: dict, **parts) -> str:
     return json.dumps(out)
 
 
-@pytest.mark.parametrize("part,value,component", [
-    ("model", {"type": "Unigram", "unk_id": 0, "vocab": [["<unk>", 0.0]]}, "model Unigram"),
-    ("normalizer", {"type": "Precompiled", "precompiled_charsmap": ""},
-     "normalizer Precompiled"),
+_ONCE_REFUSED = [
+    ("model", {"type": "Unigram", "unk_id": 0, "vocab": [["<unk>", 0.0], ["a", -1.0]]},
+     "model Unigram"),
+    ("normalizer", {"type": "Precompiled", "precompiled_charsmap": None}, "normalizer Precompiled"),
     ("pre_tokenizer", {"type": "Digits", "individual_digits": True}, "pre_tokenizer Digits"),
     ("pre_tokenizer", {"type": "Punctuation", "behavior": "Isolated"},
      "pre_tokenizer Punctuation"),
@@ -427,17 +427,55 @@ def _with(spec: dict, **parts) -> str:
                        "invert": False}, "regex escape \\w"),
     ("truncation", {"max_length": 8, "strategy": "LongestFirst", "stride": 0,
                     "direction": "Right"}, "truncation"),
+]
+
+
+@pytest.mark.parametrize("part,value,component", _ONCE_REFUSED)
+def test_once_refused_component_loads_and_encodes_equal(part, value, component):
+    """What the reader refused until the tokenizer components were ported
+    now encodes and decodes as ``tokenizers`` does (the Precompiled case's
+    charsmap written by the port's double-array writer)."""
+    from modelx_tpu_torch.testing.charsmap import write_charsmap
+
+    if part == "normalizer":
+        value = {**value, "precompiled_charsmap": write_charsmap({"é": "e", "Ａ": "A"})}
+    vocab = {"<s>": 0, "</s>": 1, "a": 2, "b": 3, "<pad>": 4, "|": 5, "[UNK]": 6}
+    base = json.loads(tokenizers.Tokenizer(models.WordLevel(vocab, unk_token="[UNK]")).to_str())
+    base["pre_tokenizer"] = {"type": "WhitespaceSplit"}
+    text = _with(base, **{part: value})
+    ref, port = tokenizers.Tokenizer.from_str(text), Tokenizer.from_str(text)
+    for t in ("a b", "a, b! 12 a", "é Ａ b a a a a a a a a a", "ab", "", "<pad>|a"):
+        _assert_encode_equal(ref, port, t)
+        _assert_decode_equal(ref, port, ref.encode(t).ids)
+    _assert_decode_equal(ref, port, [4, 4, 5, 2, 2, 5, 3, 4])
+
+
+@pytest.mark.parametrize("pattern,component", [
+    (r"\X+", "regex escape \\X"),
+    (r"a\Kb", "regex escape \\K"),
+    (r"\Ga", "regex escape \\G"),
+    (r"(?~ab)", "regex absent operator"),
+    (r"[[:alpha:]]", "POSIX bracket"),
+    (r"\p{In_Basic_Latin}", "regex class \\p{In_Basic_Latin}"),
+    (r"\p{Alpha}", "regex class \\p{Alpha}"),
+    (r"\p{Cn}", "regex class \\p{Cn}"),
 ])
-def test_unsupported_component_raises_naming_it(part, value, component):
+def test_unsupported_component_raises_naming_it(pattern, component):
+    """A regex construct Python's ``re`` cannot express (ROADMAP.md §C)
+    refuses the load, naming it; ``tokenizers`` takes each one."""
+    tokenizers.Regex(pattern)
     base = json.loads(tokenizers.Tokenizer(models.WordLevel({"a": 0}, unk_token="a")).to_str())
+    split = {"type": "Split", "pattern": {"Regex": pattern}, "behavior": "Isolated",
+             "invert": False}
     with pytest.raises(UnsupportedTokenizerError) as e:
-        Tokenizer.from_str(_with(base, **{part: value}))
+        Tokenizer.from_str(_with(base, pre_tokenizer=split))
     assert component in str(e.value) and component in e.value.component
 
 
 def test_bert_components_load_and_refusals_name_an_open_item():
-    """The BERT components load; what the reader still refuses answers the
-    sidecar's 501 under a label naming an open roadmap item."""
+    """The BERT components load; what the reader still refuses (a regex
+    construct Python's ``re`` cannot express) answers the sidecar's 501
+    under a label naming the known limits of ROADMAP.md §C."""
     from modelx_tpu_torch.dl.tokenizer import LATER_SLICE
 
     spec = _bert(True)
@@ -445,7 +483,7 @@ def test_bert_components_load_and_refusals_name_an_open_item():
             spec["decoder"]["type"]) == ("WordPiece", "BertNormalizer", "BertPreTokenizer",
                                          "WordPiece")
     Tokenizer.from_str(json.dumps(spec))
-    assert LATER_SLICE == "tokenizer components"
+    assert LATER_SLICE == "tokenizer regex constructs"
 
 
 def _bert_normalizers():
