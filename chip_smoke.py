@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases kernels,families
     python3 chip_smoke.py --phases kernels,train
     python3 chip_smoke.py --phases lockdep
+    python3 chip_smoke.py --phases kernels,mesh
 
 Phases, in order, each failing the run (exit code != 0) on any error:
 
@@ -303,6 +304,27 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    order edges, every class with a hold over ``LOCKDEP_HOLD_MS`` (its
    worst hold's ms and top frames), the longest hold, and the phase's
    flash launches. Long holds are reported, not failed.
+14. mesh (alone: ``--phases kernels,mesh``; its launches counted from 0):
+   Llama-3-8B's widths at ``MESH_LAYERS`` (2) of 32 layers (2.97 GB,
+   written and deleted here), served across meshes of processes. (a) One
+   rank over NCCL through ``modelx-serve-torch --mesh``, a child for each
+   of ``MESH_A_RUNS`` (dp=1,tp=1 with the automatic attention; sp=1 with
+   Ulysses; sp=1 with the ring): ``/v1/forward`` [1, 2048] equal bit for
+   bit to the meshless server's (the ring's, whose merge is plain torch,
+   each differing argmax within ``OPTIONS_TIE_TOL`` of the maximum), a
+   32-token greedy ``/v1/generate`` equal, the mesh in the pod's log line
+   and stats, and the flash kernel launched once a layer per cache-free
+   forward (none on the ring). (b) Two ranks on the one card over gloo
+   (NCCL refuses two ranks on one device; the smoke's choice, not the
+   program's): each collective is probed on the card's tensors first, a
+   refusal (only ``MESH_MAY_REFUSE``'s, with gloo's abort) printed on its
+   own line and the ring's check left out; any other probe failure, or
+   tp=2 or Ulysses left out, fails the phase. tp=2, Ulysses at sp=2 and
+   the ring at sp=2 load their slices and run a [1, 512] forward whose
+   logits must be within ``MESH_B_TOL`` of the meshless forward's (Ulysses
+   bit for bit). The phase prints its seconds and bytes. What
+   one card cannot show (NCCL across cards, the collectives' cost, tp=4/8
+   at full depth) stays unverified.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -318,6 +340,7 @@ import math
 import os
 import re
 import statistics
+import signal
 import subprocess
 import sys
 import time
@@ -957,15 +980,16 @@ def phase_backward(ptxas: dict | None = None) -> list[dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    known = ("kernels", "main") + LATER_PHASES + ("lockdep", "families", "objectstore", "train")
+    known = ("kernels", "main") + LATER_PHASES + ("lockdep", "families", "objectstore", "train",
+                                                  "mesh")
     ap.add_argument("--phases", default=",".join(known),
                     help="comma list of phases after device+build: kernels (the forward's "
                          "and the backward's cases), main (phases 4-6), deploy (7), artifacts "
                          "(8), pool (9), continuous (10), families (11; with the objectstore "
                          "path on phi3), objectstore (phi3 of phase 11 alone, with the path), "
                          "train (12), lockdep (13: right after pool when deploy runs, else "
-                         "alone on a checkpoint it writes); continuous runs main too, any of "
-                         "deploy..pool main and deploy")
+                         "alone on a checkpoint it writes), mesh (14); continuous runs main "
+                         "too, any of deploy..pool main and deploy")
     args = ap.parse_args(argv)
     phases = {p.strip() for p in args.phases.split(",") if p.strip()}
     if not phases <= set(known):
@@ -1016,6 +1040,7 @@ def main(argv=None) -> int:
     else:
         fam_stats = {}
     train_stats = timed("train", phase_train) if "train" in phases else {}
+    mesh_stats = timed("mesh", phase_mesh) if "mesh" in phases else {}
 
     # each path's own count: every one starts at 0 just before its run
     by_path = {path: stats[key] for stats, path, key in (
@@ -1029,7 +1054,8 @@ def main(argv=None) -> int:
         (main_stats, "continuous", "flash_launches_continuous"),
         (fam_stats, "families", "flash_launches_families"),
         (fam_stats, "objectstore", "flash_launches_objectstore"),
-        (train_stats, "train", "train_fwd_launches")) if key in stats}
+        (train_stats, "train", "train_fwd_launches"),
+        (mesh_stats, "mesh", "flash_launches_mesh")) if key in stats}
     bwd_by_path = ({"train": train_stats["train_bwd_launches"]}
                    if "train_bwd_launches" in train_stats else {})
     head = next((r for r in kernel_rows if r["case"] == "llama3-8b prefill"), None)
@@ -6944,6 +6970,400 @@ def phase_train(device: str = "cuda", cfg=None, tiny_cfg=None) -> dict:
         f"{stats['train_child_peak_gb']:.3f} GB in the full-width child; launches forward "
         f"{stats['train_fwd_launches']}, backward {stats['train_bwd_launches']}")
     return stats
+
+
+# -- phase 14: the mesh ------------------------------------------------------------------
+
+# the mesh phase's checkpoint: Llama-3-8B's widths at 2 of 32 layers (the
+# train phase's cut, 2.97 GB)
+MESH_LAYERS = 2
+MESH_FORWARD = (1, 2048)
+MESH_PROMPT, MESH_NEW_TOKENS = 128, 32
+# (a): one rank over NCCL, through ``modelx-serve-torch --mesh``: the axes
+# dp, tp and sp at size 1, with the automatic attention (the flash kernel)
+# and the two sequence-parallel ones
+MESH_A_RUNS = (("dp=1,tp=1", "auto"), ("sp=1", "ulysses"), ("sp=1", "ring"))
+# (b): two ranks on the one card over gloo (NCCL refuses two ranks on one
+# device): tensor parallel and Ulysses (and the ring, where gloo takes
+# CUDA tensors for point-to-point), each forward's logits against the
+# meshless forward's; which collectives each needs
+MESH_B_SEQ = 512
+MESH_B_RUNS = (("tp=2", "auto", ("all_reduce", "all_gather", "broadcast")),
+               ("sp=2", "ulysses", ("all_to_all_single", "all_gather", "broadcast")),
+               ("sp=2", "ring", ("batch_isend_irecv", "all_gather", "broadcast")))
+# bf16 logits of each mesh forward against the meshless forward's, by run.
+# tp=2: the row-parallel sums round each rank's partial product to bf16
+# before they add; twice the 0.0625 read on an H100 at 700 W (PERF.md §6).
+# Ulysses: heads are whole on each rank and the flash kernel computes each
+# head alone, so the logits are equal bit for bit (read 0.0 there). The
+# ring merges its hops in plain torch in fp32: held as tp=2 (gloo refuses
+# its point-to-point of CUDA tensors, so it is checked on the CPU only).
+MESH_B_TOL = {"tp=2 auto": 0.125, "sp=2 ulysses": 0.0, "sp=2 ring": 0.125}
+# the collectives gloo may refuse on CUDA tensors, each with the abort that
+# refuses it (gloo's TCP transport does not raise on point-to-point of
+# device memory: one rank's writev fails and the process aborts)
+MESH_MAY_REFUSE = {"batch_isend_irecv": "Bad address"}
+MESH_PAIR_TIMEOUT_S = 300
+
+# one collective on the card's tensors over a gloo pair; gloo's TCP
+# transport aborts the process (it does not raise) on a collective it does
+# not take for CUDA tensors, so each is probed in a pair of its own
+MESH_PROBE_CHILD = r"""
+import sys, torch, torch.distributed as dist
+from modelx_tpu_torch.parallel import distributed
+name, port, rank, device = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+distributed.initialize(f"127.0.0.1:{port}", 2, rank, device=device, backend="gloo",
+                       timeout_s=60)
+dev = distributed.local_device()
+one = lambda dtype=torch.bfloat16: torch.ones(4, device=dev, dtype=dtype)
+if name == "all_reduce":
+    dist.all_reduce(one())
+elif name == "all_gather":
+    dist.all_gather([torch.empty_like(one()) for _ in range(2)], one())
+elif name == "broadcast":
+    dist.broadcast(one(torch.int64), src=0)
+elif name == "all_to_all_single":
+    dist.all_to_all_single(torch.empty_like(one()), one())
+else:
+    recv = torch.empty_like(one())
+    for r in dist.batch_isend_irecv([dist.P2POp(dist.isend, one(), 1 - rank),
+                                     dist.P2POp(dist.irecv, recv, 1 - rank)]):
+        r.wait()
+if dev.type == "cuda":
+    torch.cuda.synchronize(dev)
+print("PROBE_OK", flush=True)
+distributed.shutdown()
+"""
+MESH_PROBES = ("all_reduce", "all_gather", "broadcast", "all_to_all_single",
+               "batch_isend_irecv")
+
+MESH_PAIR_CHILD = r"""
+import gc, json, os, sys, time
+import numpy as np, torch
+from modelx_tpu_torch.dl.serve import ModelServer
+from modelx_tpu_torch.ops import attention as attn
+from modelx_tpu_torch.parallel import distributed
+from modelx_tpu_torch.parallel.mesh import make_mesh
+
+ckpt, port, rank, out_dir, device, runs, refused = sys.argv[1:8]
+port, rank, runs, refused = int(port), int(rank), json.loads(runs), json.loads(refused)
+distributed.initialize(f"127.0.0.1:{port}", 2, rank, device=device, backend="gloo",
+                       timeout_s=float(os.environ.get("MESH_PAIR_TIMEOUT_S", "300")))
+dev = distributed.local_device()
+tokens = torch.as_tensor(np.load(os.path.join(out_dir, "tokens.npy")), device=dev)
+result = {"runs": {}}
+for spec, impl, needs in runs:
+    key = f"{spec} {impl}"
+    missing = sorted(set(needs) & set(refused))
+    if missing:
+        result["runs"][key] = {"skipped": missing}
+        continue
+    mesh = make_mesh(spec, device=dev)
+    attn.flash_attention.launches = 0
+    t0 = time.monotonic()
+    server = ModelServer(ckpt, device=str(dev), mesh=mesh, attention_impl=impl)
+    server.load()
+    load_s = time.monotonic() - t0
+    with torch.inference_mode():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        logits = server.family.forward(server.params, tokens, server.cfg, mesh=mesh,
+                                       attention_impl=impl)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        fwd_ms = (time.monotonic() - t0) * 1e3
+    if rank == 0:
+        torch.save(logits.cpu(), os.path.join(out_dir, key.replace(" ", "-").replace("=", "") + ".pt"))
+    result["runs"][key] = {"launches": attn.flash_attention.launches, "load_s": load_s,
+                           "forward_ms": fwd_ms, "rank_load_bytes": server.stats["rank_load_bytes"],
+                           "device_bytes": server.stats["device_bytes"]}
+    server.params = None
+    del server, logits
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+print("MESH_PAIR", json.dumps(result), flush=True)
+distributed.shutdown()
+"""
+
+
+def _mesh_pod(ckpt: str, device: str, spec: str, impl: str, root: str):
+    """Start a ``serve_main --mesh`` child (``SERVE_CHILD``: its flash
+    launches printed on its SIGTERM exit): (process, port, log path)."""
+    port = _free_port()
+    log_path = os.path.join(root, f"mesh-{re.sub(r'[^A-Za-z0-9]+', '-', spec)}-{impl}.log")
+    log_f = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVE_CHILD, "--model", f"{MODEL}={ckpt}", "--device", device,
+         "--dtype", "bfloat16", "--listen", f"127.0.0.1:{port}", "--mesh", spec,
+         "--sp-attention", impl, "--drain-seconds", "0"],
+        cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT)
+    log_f.close()
+    return proc, port, log_path
+
+
+def _wait_mesh_pod(proc, port: int, log_path: str, what: str) -> None:
+    deadline = time.monotonic() + 300
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"mesh: {what} exited {proc.returncode}: "
+                               f"{open(log_path).read()[-3000:]}")
+        try:
+            if _http_raw(port, "/healthz")[0] == 200:
+                return
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            proc.kill()
+            raise RuntimeError(f"mesh: {what} did not answer /healthz in 300 s")
+        time.sleep(0.2)
+
+
+def _mesh_probes(device: str, out_dir: str) -> dict:
+    """Start a pair of processes for each collective of ``MESH_PROBES``,
+    all at once: (name, rank) -> (process, log path)."""
+    dev = "cuda:0" if device == "cuda" else "cpu"
+    procs = {}
+    for name in MESH_PROBES:
+        port = _free_port()
+        for rank in range(2):
+            log_path = os.path.join(out_dir, f"probe-{name}-{rank}.log")
+            with open(log_path, "w") as log_f:
+                procs[(name, rank)] = (subprocess.Popen(
+                    [sys.executable, "-c", MESH_PROBE_CHILD, name, str(port), str(rank), dev],
+                    cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT),
+                    log_path)
+    return procs
+
+
+def _refused(probes: dict) -> dict:
+    """Which collectives gloo refused on the device's tensors (the probe
+    pairs of ``_mesh_probes``): name -> why. A refusal counts only for a
+    collective of ``MESH_MAY_REFUSE`` and only with its abort (the signal,
+    or the transport's error in a rank's log); any other failure of a
+    probe, its timeout included, fails the phase."""
+    outcome: dict = {}
+    for (name, rank), (proc, log_path) in probes.items():
+        try:
+            rc = proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        outcome.setdefault(name, []).append((rank, rc, open(log_path).read()))
+    refused = {}
+    for name, ranks in outcome.items():
+        if all(rc == 0 and "PROBE_OK" in text for _, rc, text in ranks):
+            continue
+        why = "; ".join(f"rank {rank} exit {rc}: "
+                        + " | ".join([ln for ln in text.splitlines() if ln.strip()][-2:])[:300]
+                        for rank, rc, text in ranks)
+        sign = MESH_MAY_REFUSE.get(name)
+        if sign is None or not any(rc == -signal.SIGABRT or sign in text
+                                   for _, rc, text in ranks):
+            raise RuntimeError(f"mesh (b): the {name} probe failed ({why})")
+        refused[name] = why
+    return refused
+
+
+def _mesh_pair(ckpt: str, device: str, out_dir: str, refused: dict) -> dict:
+    """Part (b): two rank processes on the one card over gloo
+    (``MESH_PAIR_CHILD``) run each of ``MESH_B_RUNS`` whose collectives
+    were not ``refused``; rank 0's summary, with rank 1's as "peer"."""
+    port = _free_port()
+    runs = json.dumps([list(r) for r in MESH_B_RUNS])
+    env = {**_child_env(), "MESH_PAIR_TIMEOUT_S": str(MESH_PAIR_TIMEOUT_S)}
+    dev = "cuda:0" if device == "cuda" else "cpu"
+    procs = []
+    logs = [os.path.join(out_dir, f"pair-{r}.log") for r in range(2)]
+    for rank in range(2):
+        with open(logs[rank], "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MESH_PAIR_CHILD, ckpt, str(port), str(rank), out_dir,
+                 dev, runs, json.dumps(sorted(refused))], cwd=REPO, env=env, stdout=log_f,
+                stderr=subprocess.STDOUT))
+    try:
+        for rank, proc in enumerate(procs):
+            if proc.wait(timeout=MESH_PAIR_TIMEOUT_S + 120) != 0:
+                raise RuntimeError(f"mesh: pair rank {rank} exited {proc.returncode}: "
+                                   f"{open(logs[rank]).read()[-4000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = [json.loads(line.split(" ", 1)[1]) for line in open(logs[0])
+           if line.startswith("MESH_PAIR ")]
+    peer = [json.loads(line.split(" ", 1)[1]) for line in open(logs[1])
+            if line.startswith("MESH_PAIR ")]
+    if not out or not peer:
+        raise RuntimeError(f"mesh: the pair printed no summary: {open(logs[0]).read()[-3000:]}")
+    out[0]["peer"] = peer[0]
+    return out[0]
+
+
+def phase_mesh(device: str = "cuda", cfg=None, parts: str = "ab") -> dict:
+    """The serving mesh (module docstring, phase 14) on Llama-3-8B's widths
+    at ``MESH_LAYERS`` layers; its flash launches counted from 0. The
+    meshless server in process gives the references: ``/v1/forward``'s
+    argmax at ``MESH_FORWARD``, a ``MESH_NEW_TOKENS`` greedy generate and
+    the logits at [1, ``MESH_B_SEQ``]."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+    from modelx_tpu_torch.dl.serve import ModelServer
+    from modelx_tpu_torch.models import llama
+    from modelx_tpu_torch.ops import attention as attn
+
+    on_card = device == "cuda"
+    cfg = cfg or dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=MESH_LAYERS)
+    t_phase = time.monotonic()
+    nbytes = 2 * sum(math.prod(x) for x in llama.param_shapes(cfg).values())
+    root = _checkpoint_dir(nbytes)
+    stats: dict = {"flash_launches_mesh": 0}
+    pods, probes = {}, {}
+    try:
+        ckpt = os.path.join(root, "model")
+        os.makedirs(ckpt)
+        t0 = time.monotonic()
+        params = llama.init_params(cfg, torch.Generator(device=device).manual_seed(18),
+                                   dtype=torch.bfloat16)
+        st.write_safetensors(os.path.join(ckpt, "model.safetensors"), params)
+        del params
+        log(f"mesh: wrote {nbytes / 1e9:.3f} GB ({cfg}) in {time.monotonic() - t0:.1f} s")
+        rng = np.random.RandomState(18)
+        fwd_tokens = rng.randint(0, cfg.vocab_size, MESH_FORWARD)
+        prompt = rng.randint(0, cfg.vocab_size, (1, MESH_PROMPT))
+        b_tokens = rng.randint(0, cfg.vocab_size, (1, MESH_B_SEQ))
+        np.save(os.path.join(root, "tokens.npy"), b_tokens)
+        # the (a) pods and (b)'s collective probes start together, while
+        # the meshless server loads here
+        runs_a = MESH_A_RUNS if "a" in parts else ()
+        pods = {run: _mesh_pod(ckpt, device, *run, root) for run in runs_a}
+        probes = _mesh_probes(device, root) if "b" in parts else {}
+        plain = ModelServer(ckpt, dtype="bfloat16", device=device)
+        plain.load()
+        want_fwd = _uncounted(lambda: plain.forward_argmax(fwd_tokens)).tolist()
+        want_gen = plain.generate(prompt, max_new_tokens=MESH_NEW_TOKENS)[0].tolist()
+        with torch.inference_mode():
+            want_b = _uncounted(lambda: plain.family.forward(
+                plain.params, torch.as_tensor(b_tokens, device=plain.device),
+                plain.cfg)).float().cpu()
+
+        # (a) one rank over NCCL through the entry point
+        per_forward = cfg.num_layers if on_card else 0
+        for (spec, impl), (proc, port, log_path) in pods.items():
+            try:
+                _wait_mesh_pod(proc, port, log_path, f"serve_main --mesh {spec}")
+                start_s = time.monotonic() - t_phase
+                status, body = _http(port, "/v1/forward", {"tokens": fwd_tokens.tolist()})
+                if status != 200:
+                    raise RuntimeError(f"mesh {spec} {impl}: /v1/forward answered {status} {body}")
+                got_fwd = body["logits_argmax"]
+                status, body = _http(port, "/v1/generate", {"tokens": prompt.tolist(),
+                                                            "max_new_tokens": MESH_NEW_TOKENS})
+                if status != 200:
+                    raise RuntimeError(f"mesh {spec} {impl}: /v1/generate answered {status} {body}")
+                got_gen = body["tokens"][0]
+                _, models = _http(port, "/v1/models")
+                mstats = models["models"][MODEL]
+            finally:
+                launches = _stop_serve_child(proc, log_path, f"mesh {spec} {impl}")
+            banner = f"serving mesh {spec} (1 device(s), weight shard factor 1)"
+            if banner not in open(log_path).read():
+                raise RuntimeError(f"mesh {spec} {impl}: no {banner!r} line in the pod's log")
+            if (mstats["mesh"], mstats["mesh_devices"]) != (spec, 1):
+                raise RuntimeError(f"mesh {spec} {impl}: the pod reports {mstats['mesh']}, "
+                                   f"{mstats['mesh_devices']} device(s)")
+            if got_gen != want_gen:
+                raise RuntimeError(f"mesh {spec} {impl}: the greedy generate differs from the "
+                                   f"meshless path's")
+            if impl == "ring":
+                # the ring merges in plain torch: each differing argmax a near tie
+                how = check_forward_ties(plain, fwd_tokens, got_fwd, want_fwd,
+                                         f"mesh {spec} ring /v1/forward")
+                want_launches = 0
+            else:
+                if got_fwd != want_fwd:
+                    raise RuntimeError(f"mesh {spec} {impl}: /v1/forward differs from the "
+                                       f"meshless path's (want bit for bit)")
+                how = "equal bit for bit"
+                want_launches = 2 * per_forward  # the warm-up and the forward
+            if launches != want_launches:
+                raise RuntimeError(f"mesh {spec} {impl}: {launches} flash launches, want "
+                                   f"{want_launches}")
+            key = f"mesh_a_{spec}_{impl}"
+            stats[key] = {"launches": launches, "ready_s": start_s, "forward": how}
+            stats["flash_launches_mesh"] += launches
+            backend = "NCCL" if on_card else "gloo"
+            log(f"mesh (a) --mesh {spec} --sp-attention {impl}, one rank over {backend}: "
+                f"/v1/forward {list(MESH_FORWARD)} {how}; {MESH_NEW_TOKENS}-token greedy "
+                f"generate equal; {launches} flash launches; ready {start_s:.1f} s into "
+                f"the phase")
+        _free(plain)
+        del plain
+        gc.collect()
+
+        # (b) two ranks on the one card over gloo
+        if "b" in parts:
+            t0 = time.monotonic()
+            refused = _refused(probes)
+            for name, why in refused.items():
+                log(f"mesh (b): gloo refused {name} on {'CUDA' if on_card else 'CPU'} "
+                    f"tensors ({why})")
+            stats["mesh_b_refused"] = sorted(refused)
+            stats["mesh_b_probe_s"] = time.monotonic() - t0
+            pair = _mesh_pair(ckpt, device, root, refused)
+            stats["mesh_b_s"] = time.monotonic() - t0
+            for key, run in pair["runs"].items():
+                if "skipped" in run:
+                    if key.endswith("ring"):
+                        log(f"mesh (b): {key} left out: gloo refused "
+                            f"{', '.join(run['skipped'])}")
+                        continue
+                    # tp=2 and Ulysses are the phase's only two-rank checks
+                    raise RuntimeError(f"mesh (b): {key} left out: gloo refused "
+                                       f"{', '.join(run['skipped'])}")
+                got = torch.load(os.path.join(root, key.replace(" ", "-").replace("=", "")
+                                              + ".pt")).float()
+                err = float((got - want_b).abs().max())
+                tol = MESH_B_TOL[key]
+                if not err <= tol:
+                    raise RuntimeError(f"mesh (b) {key}: logits differ from the meshless "
+                                       f"forward's by {err:.4f} (tolerance {tol})")
+                launches = run["launches"] + pair["peer"]["runs"][key]["launches"]
+                if on_card and key.endswith(("auto", "ulysses")) and launches == 0:
+                    raise RuntimeError(f"mesh (b) {key}: the flash kernel was not launched")
+                stats["flash_launches_mesh"] += launches
+                stats[f"mesh_b_{key}"] = {**run, "max_abs_err": err, "tolerance": tol,
+                                           "launches_both": launches}
+                log(f"mesh (b) {key}, two ranks over gloo: logits [1,{MESH_B_SEQ}] within "
+                    f"{err:.4f} of the meshless forward's (tolerance {tol}); forward "
+                    f"{run['forward_ms']:.1f} ms, load {run['load_s']:.1f} s, rank 0 read "
+                    f"{run['rank_load_bytes'] / 1e9:.3f} GB of {nbytes / 1e9:.3f}; "
+                    f"{launches} flash launches on the two ranks")
+    finally:
+        # every child this phase started ends with it
+        for proc, *_ in list(pods.values()) + list(probes.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    stats["mesh_phase_s"] = time.monotonic() - t_phase
+    stats["mesh_bytes_written"] = nbytes
+    log(f"mesh: the phase took {stats['mesh_phase_s']:.1f} s, wrote {nbytes / 1e9:.3f} GB "
+        f"(deleted); {stats['flash_launches_mesh']} flash launches on its paths")
+    return stats
+
 
 if __name__ == "__main__":
     sys.exit(main())

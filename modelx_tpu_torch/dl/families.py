@@ -262,21 +262,23 @@ def _bert_forward(params, tokens, cfg):
 
 def _family(module: str) -> tuple:
     """(forward, generate_ragged, decode_fns, paged_decode_fns) adapters of
-    ``modelx_tpu_torch.models.<module>``, imported on first call."""
+    ``modelx_tpu_torch.models.<module>``, imported on first call. The mesh
+    arguments (``mesh=``, ``attention_impl=``) pass through to the llama
+    module, the one family the mesh forward serves."""
     import importlib
 
     def mod():
         return importlib.import_module(f"modelx_tpu_torch.models.{module}")
 
-    def forward(params, tokens, cfg):
-        return mod().forward(params, tokens, cfg)[0]
+    def forward(params, tokens, cfg, **mesh_kw):
+        return mod().forward(params, tokens, cfg, **mesh_kw)[0]
 
-    def generate_ragged(params, tokens, row_lens, cfg, max_new_tokens=16, **sampling):
+    def generate_ragged(params, tokens, row_lens, cfg, max_new_tokens=16, **kw):
         return mod().ragged_greedy_generate(params, tokens, row_lens, cfg,
-                                            max_new_tokens=max_new_tokens, **sampling)
+                                            max_new_tokens=max_new_tokens, **kw)
 
-    def decode_fns(params, cfg):
-        return mod().decode_fns(params, cfg)
+    def decode_fns(params, cfg, **mesh_kw):
+        return mod().decode_fns(params, cfg, **mesh_kw)
 
     def paged_decode_fns(params, cfg):
         return mod().paged_decode_fns(params, cfg)

@@ -46,7 +46,10 @@ with ``attach_kv_publisher`` a background sweep ships hot prefix-KV entries
 KV. With ``attach_outbox`` both publishes spool to disk and a drainer
 pushes them (``dl/outbox.py``), so a registry outage never blocks a load.
 
-The port serves one device: no mesh, and a weight-shard factor of 1.
+``--hbm-budget-bytes`` is per device: on a weight-sharding mesh (tp, ep,
+pp, fsdp) each device holds 1/factor of a model's bytes, so footprints are
+divided by the mesh's weight-shard factor, rounding up (reference
+``modelx_tpu/dl/lifecycle.py:177-189``). Without a mesh the factor is 1.
 """
 
 from __future__ import annotations
@@ -75,8 +78,8 @@ FAILED = "FAILED"        # load crashed; slot retryable via re-POST
 # count against the budget
 _RESERVING = (PULLING, LOADING, READY, DRAINING)
 
-# what pool_snapshot reports for the serving layout: one device, which the
-# reference spells as a dp=1 mesh
+# what pool_snapshot reports for the serving layout without a mesh: one
+# device, which the reference spells as a dp=1 mesh
 _MESH = "dp=1"
 
 
@@ -194,9 +197,19 @@ class ModelPool:
                  allow_admin_load: bool = False, staging_root: str = "",
                  drain_timeout_s: float = DEFAULT_DRAIN_TIMEOUT_S,
                  blob_cache=None, host_state_budget_bytes: int = 0,
-                 disk_state_budget_bytes: int = 0, state_spool_dir: str = "") -> None:
+                 disk_state_budget_bytes: int = 0, state_spool_dir: str = "",
+                 mesh=None) -> None:
         self.sset = sset
         self.hbm_budget_bytes = int(hbm_budget_bytes)
+        # the serving mesh (ServerSet's): footprints meet the per-device
+        # budget divided by its weight-shard factor; dp/sp replicate
+        # weights, so a dp-only mesh keeps factor 1
+        self.mesh = mesh
+        self.weight_shard_factor = 1
+        if mesh is not None:
+            from modelx_tpu_torch.parallel.mesh import weight_shard_factor
+
+            self.weight_shard_factor = max(1, weight_shard_factor(mesh))
         self.evict_idle = bool(evict_idle)
         self.allow_admin_load = bool(allow_admin_load)
         self.staging_root = staging_root
@@ -369,6 +382,13 @@ class ModelPool:
             if e is not None:
                 e.to(LOADING)
 
+    def _per_device(self, total_bytes: int) -> int:
+        """Per-device footprint of ``total_bytes`` of weights on this
+        pool's mesh (ceiling division: a budget must never round a
+        footprint down to a free lunch)."""
+        f = self.weight_shard_factor
+        return int(total_bytes) if f <= 1 else -(-int(total_bytes) // f)
+
     def mark_ready(self, name: str) -> None:
         with self._lock:
             e = self.entries.get(name)
@@ -378,7 +398,7 @@ class ModelPool:
             e.loads_total += 1
             self.stats["loads_total"] += 1
             if e.server is not None:
-                e.hbm_reserved_bytes = int(
+                e.hbm_reserved_bytes = self._per_device(
                     e.server.stats.get("load_bytes", 0) or 0) or e.hbm_reserved_bytes
             e.last_used = time.monotonic()
 
@@ -449,7 +469,7 @@ class ModelPool:
         if e.state == LOADING and e.server is not None and e.server.ready:
             e.to(READY)
             if not e.hbm_reserved_bytes:
-                e.hbm_reserved_bytes = int(e.server.stats.get("load_bytes", 0) or 0)
+                e.hbm_reserved_bytes = self._per_device(e.server.stats.get("load_bytes", 0) or 0)
         return e.state
 
     # -- in-flight accounting (drain + LRU recency) ---------------------------
@@ -507,9 +527,15 @@ class ModelPool:
         if self.hbm_budget_bytes:
             snap["hbm_budget_bytes"] = self.hbm_budget_bytes
         snap["evict_idle"] = self.evict_idle
-        snap["mesh"] = _MESH
-        snap["mesh_devices"] = 1
-        snap["weight_shard_factor"] = 1
+        if self.mesh is not None:
+            from modelx_tpu_torch.parallel.mesh import mesh_str
+
+            snap["mesh"] = mesh_str(self.mesh)
+            snap["mesh_devices"] = int(self.mesh.size)
+        else:
+            snap["mesh"] = _MESH
+            snap["mesh_devices"] = 1
+        snap["weight_shard_factor"] = self.weight_shard_factor
         # the card's own accounting beside the reservation ledger's
         # file-size estimates: the delta is the estimator's running error
         dm = devmem.sample()
@@ -579,6 +605,9 @@ class ModelPool:
         if est <= 0:
             raise PoolError(400, f"no safetensors found under {ref or model_dir!r}")
         tier_key = self.tiers.key_for(pairs) if self.tiers.enabled else ""
+        # checkpoint file sizes are TOTAL weight bytes; the budget admits
+        # what one device will actually hold on this pool's mesh
+        est = self._per_device(est)
 
         frees: list = []
         try:

@@ -21,13 +21,19 @@ dtype on the device, so BF16 never passes through numpy. ``quantize=
 tensor by tensor as they complete: the link carries the checkpoint's bytes
 and device memory keeps the int8 codes. HF's per-expert MoE tensors
 (``...experts.<i>.w1.weight``) load as one stacked [E, ...] tensor read
-from the members' byte ranges (``fuse_expert_tensors``). One card, no mesh.
+from the members' byte ranges (``fuse_expert_tensors``).
+
+On a mesh each rank reads only the bytes of its own slices (``index``),
+as the reference plans its reads from ``addressable_devices_indices_map``:
+a dim-0 slice of a row-major tensor is one range, a dim-1 slice one range
+per row (``_byte_runs``), and ``LoadStats`` counts this rank's bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import http.client
+import math
 import os
 import queue
 import re
@@ -452,16 +458,65 @@ def fuse_expert_tensors(tensors: dict[str, st.TensorInfo]) -> dict[str, st.Tenso
     return out
 
 
-def _byte_runs(info: st.TensorInfo) -> list[tuple[int, int, int]]:
-    """(offset in the tensor, offset in the data section, length) of each
-    contiguous run of ``info``'s bytes, cut at ``STAGING_CHUNK``."""
-    runs, at = [], 0
-    for part in info.members or [info]:
-        for off in range(0, part.nbytes, STAGING_CHUNK):
-            n = min(STAGING_CHUNK, part.nbytes - off)
-            runs.append((at + off, part.start + off, n))
-        at += part.nbytes
+def _box_ranges(shape, index, itemsize: int) -> list[tuple[int, int]]:
+    """(offset, length) in a row-major tensor's bytes of each contiguous
+    run of the box ``index`` (one slice per dim, step 1), in the box's
+    row-major order, adjacent runs merged."""
+    strides, acc = [], itemsize
+    for n in reversed(shape):
+        strides.insert(0, acc)
+        acc *= n
+    cut = [d for d, (sl, n) in enumerate(zip(index, shape)) if (sl.start, sl.stop) != (0, n)]
+    if not cut:
+        return [(0, acc)]
+    last = cut[-1]
+    inner = (index[last].stop - index[last].start) * strides[last]
+    offs = [index[last].start * strides[last]]
+    for d in range(last - 1, -1, -1):
+        offs = [i * strides[d] + o for i in range(index[d].start, index[d].stop) for o in offs]
+    runs: list[tuple[int, int]] = []
+    for off in offs:
+        if runs and runs[-1][0] + runs[-1][1] == off:
+            runs[-1] = (runs[-1][0], runs[-1][1] + inner)
+        else:
+            runs.append((off, inner))
     return runs
+
+
+def _byte_runs(info: st.TensorInfo, index=None) -> list[tuple[int, int, int]]:
+    """(offset in the tensor, offset in the data section, length) of each
+    contiguous run of ``info``'s bytes (of the box ``index`` of them when
+    given), cut at ``STAGING_CHUNK``."""
+    if index is not None:
+        if info.members:
+            raise ValueError(f"{info.name}: a fused expert tensor cannot load a slice")
+        itemsize = info.nbytes // max(1, math.prod(info.shape))
+        spans = [(info.start + off, n) for off, n in _box_ranges(info.shape, index, itemsize)]
+    else:
+        spans = [(part.start, part.nbytes) for part in info.members or [info]]
+    runs, at = [], 0
+    for start, nbytes in spans:
+        for off in range(0, nbytes, STAGING_CHUNK):
+            n = min(STAGING_CHUNK, nbytes - off)
+            runs.append((at + off, start + off, n))
+        at += nbytes
+    return runs
+
+
+def _fetch_units(runs: list[tuple[int, int, int]]) -> list[tuple[int, int, list]]:
+    """``runs`` grouped into fetch units of at most ``STAGING_CHUNK`` bytes
+    that land contiguously in the tensor: (offset in the tensor, length,
+    [(offset in the data section, length), ...]). A dim-1 slice's row runs
+    share a unit (and one copy to the card) instead of one each."""
+    units: list[tuple[int, int, list]] = []
+    for at, src, n in runs:
+        if units and units[-1][0] + units[-1][1] == at and units[-1][1] + n <= STAGING_CHUNK:
+            u_at, u_n, pieces = units[-1]
+            pieces.append((src, n))
+            units[-1] = (u_at, u_n + n, pieces)
+        else:
+            units.append((at, n, [(src, n)]))
+    return units
 
 
 def read_index(source) -> tuple[dict[str, st.TensorInfo], int]:
@@ -478,6 +533,7 @@ def load_safetensors(
     tensors: dict[str, st.TensorInfo] | None = None,
     data_offset: int | None = None,
     concurrency: int = 0,
+    index=None,
 ) -> tuple[dict, LoadStats]:
     """Load every tensor of one safetensors blob onto ``device``.
 
@@ -488,9 +544,13 @@ def load_safetensors(
     floating tensors on the device after the copy; integer tensors keep
     theirs. ``quantize="int8"`` quantizes each eligible weight (2-D, a name
     ``quant.DEFAULT_ELIGIBLE`` matches) from its stored values, before any
-    cast, and returns it as a ``QTensor``."""
+    cast, and returns it as a ``QTensor``. ``index(name, shape)``, when
+    given, names the slices (one per dim) of each tensor to load: only
+    their bytes are read, and the tensor arrives at the slice's shape."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantize mode {quantize!r}")
+    if quantize and index is not None:
+        raise ValueError("int8 quantization of a sliced load is not supported")
     t0 = time.monotonic()
     device = torch.device(device)
     stats = LoadStats()
@@ -523,33 +583,40 @@ def load_safetensors(
     staging = _Staging(device, governor.max_width + 2) if device.type == "cuda" else None
     lock = threading.Lock()
 
-    def fetch(dst: torch.Tensor, offset: int, n: int) -> None:
-        """One chunk: into a staging buffer and onto the card, or (CPU)
-        straight into ``dst``."""
-        sample = [0, 0.0]
-
-        def timer(nbytes: int, secs: float) -> None:
-            sample[0], sample[1] = nbytes, secs
-
+    def fetch(dst: torch.Tensor, pieces: list[tuple[int, int]]) -> None:
+        """One unit: its pieces ((offset, length) in the data section) read
+        back to back into a staging buffer and copied onto the card at
+        once, or (CPU) straight into ``dst``."""
         i, buf = staging.acquire() if staging is not None else (None, None)
         try:
-            governor.acquire()
-            try:
-                clock.enter("fetch")
+            target = dst.numpy() if buf is None else buf.numpy()
+            at = 0
+            busy = 0.0
+            for offset, n in pieces:
+                sample = [0, 0.0]
+
+                def timer(nbytes: int, secs: float, sample=sample) -> None:
+                    sample[0], sample[1] = nbytes, secs
+
+                governor.acquire()
                 try:
-                    _read_with_retry(source, data_offset + offset, n,
-                                     dst.numpy() if buf is None else buf.numpy(), timer=timer)
+                    clock.enter("fetch")
+                    try:
+                        _read_with_retry(source, data_offset + offset, n, target[at:at + n],
+                                         timer=timer)
+                    finally:
+                        clock.exit("fetch")
                 finally:
-                    clock.exit("fetch")
-            finally:
-                governor.release(sample[0], sample[1])
+                    governor.release(sample[0], sample[1])
+                at += n
+                busy += sample[1]
             with lock:
-                stats.bytes_fetched += n
-                stats.fetch_seconds += sample[1]
+                stats.bytes_fetched += at
+                stats.fetch_seconds += busy
             if staging is not None:
                 clock.enter("put")
                 try:
-                    staging.copy(i, dst, n)
+                    staging.copy(i, dst, at)
                 finally:
                     clock.exit("put")
                 i = None
@@ -561,6 +628,13 @@ def load_safetensors(
     out: dict = {}
     pending: list[tuple[str, st.TensorInfo, torch.Tensor, list]] = []
     in_flight = 0
+    if index is not None:
+        boxes = {name: tuple(index(name, info.shape)) for name, info in tensors.items()}
+        runs = {name: _byte_runs(info, boxes[name]) for name, info in tensors.items()}
+        shapes = {name: tuple(sl.stop - sl.start for sl in boxes[name]) for name in tensors}
+    else:
+        runs = {name: _byte_runs(info) for name, info in tensors.items()}
+        shapes = {name: tuple(info.shape) for name, info in tensors.items()}
 
     def complete(name: str, info: st.TensorInfo, dst: torch.Tensor, futures: list) -> None:
         for f in futures:
@@ -578,21 +652,21 @@ def load_safetensors(
                             thread_name_prefix="modelx-fetch") as pool:
         try:
             for name, info in tensors.items():
-                n = info.nbytes
+                n = sum(size for _, _, size in runs[name])
                 dst = torch.empty(n, dtype=torch.uint8, device=device)
                 if quantize and staging is not None:
                     # dst may reuse the block of a tensor quantized before
                     # it: copy into it only after that quantize has read it
                     staging.stream.wait_stream(torch.cuda.current_stream(device))
-                futures = [pool.submit(fetch, dst[at:at + size], src, size)
-                           for at, src, size in _byte_runs(info)]
+                futures = [pool.submit(fetch, dst[at:at + size], pieces)
+                           for at, size, pieces in _fetch_units(runs[name])]
                 pending.append((name, info, dst, futures))
                 in_flight += n
                 stats.bytes_to_device += n
                 stats.tensors += 1
                 while pending and in_flight > WINDOW_BYTES:
                     head = pending.pop(0)
-                    in_flight -= head[1].nbytes
+                    in_flight -= head[2].numel()
                     complete(*head)
             for head in pending:
                 complete(*head)
@@ -606,7 +680,7 @@ def load_safetensors(
     for name, info in tensors.items():
         if name in out:
             continue
-        t = raw.pop(name).view(info.torch_dtype()).reshape(info.shape)
+        t = raw.pop(name).view(info.torch_dtype()).reshape(shapes[name])
         if dtype is not None and t.is_floating_point() and t.dtype != dtype:
             t = t.to(dtype)
         out[name] = t

@@ -89,6 +89,7 @@ requests take the device one at a time, a stream one chunk at a time,
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import itertools
 import json
@@ -133,6 +134,7 @@ from modelx_tpu_torch.dl.serving_errors import (
 )
 from modelx_tpu_torch.dl.tokenizer import LATER_SLICE, Tokenizer, UnsupportedTokenizerError
 from modelx_tpu_torch.models.decode import ChunkedDecoder, PrefixKVCache, pad_seq_len, stop_cut
+from modelx_tpu_torch.parallel.mesh import mesh_str, weight_shard_factor
 from modelx_tpu_torch.utils import accesslog, devmem, promexp, trace, tswheel
 
 logger = logging.getLogger("modelx.serve")
@@ -147,6 +149,12 @@ MAX_PROFILE_SECONDS = 60
 MAX_PROFILE_CAPTURES = 4
 
 _UNSET = object()  # tokenizer / chat template not probed yet (absent is cached as None)
+
+# the slices that bring what a mesh of more than one rank refuses (501)
+MESH_SLICE = "multi-device serving"
+MESH_FAMILY_SLICE = "multi-device families"
+# the families the mesh forward serves (models/llama.py)
+MESH_FAMILIES = ("llama", "qwen2")
 
 _MODEL_ROUTE = re.compile(r"^/v1/(?P<model>[A-Za-z0-9._-]+)/(?P<verb>forward|generate)$")
 _ADMIN_MODEL_ROUTE = re.compile(r"^/admin/models/(?P<model>[A-Za-z0-9._-]+)(?:\?.*)?$")
@@ -264,7 +272,8 @@ class _Tokenizer:
 
 
 class ModelServer:
-    """One loaded model: params on one device and its entry points."""
+    """One loaded model: params on one device (or this rank's slices of
+    them on a mesh) and its entry points."""
 
     # the shape a lone first request is padded to upstream (seq to a
     # multiple of 16): one cache-free forward at load builds the attention
@@ -274,7 +283,8 @@ class ModelServer:
     def __init__(self, model_dir: str, dtype: str = "bfloat16", device=None,
                  max_seq_len: int = 2048, name: str = "default",
                  quantize: str | None = None, speculative_k: int = 0, lora_dir: str = "",
-                 prefix_cache_size: int = 0, prefix_cache_max_bytes: int = 0) -> None:
+                 prefix_cache_size: int = 0, prefix_cache_max_bytes: int = 0,
+                 mesh=None, attention_impl: str = "auto") -> None:
         self.name = name
         self.model_dir = model_dir
         self.quantize = quantize
@@ -283,7 +293,20 @@ class ModelServer:
         # requests (models/speculative.py)
         self.speculative_k = int(speculative_k)
         self._spec_decoder = None
-        self.device = resolve_device(device)
+        # a live mesh (parallel/mesh.py): this process is one rank of it,
+        # computing on the mesh's device; None serves on ``device`` alone
+        self.mesh = mesh
+        # the sequence-parallel attention of a mesh forward: "auto" (ring
+        # when sp > 1), "ring" or "ulysses"
+        self.attention_impl = attention_impl
+        # rank 0's op log (dl/mesh_serve.py), attached once the models are
+        # loaded: every device call is posted to the followers first;
+        # ``_posted`` is the sequence number of the current call's post
+        self.oplog = None
+        self._posted: int | None = None
+        self._stream_ids = itertools.count()
+        self.device = (mesh.device if mesh is not None and mesh.device is not None
+                       else resolve_device(device))
         self.dtype = parse_dtype(dtype)
         self.max_seq_len = int(max_seq_len)
         self.ready = False
@@ -308,6 +331,62 @@ class ModelServer:
         self._tokenizer_lock = threading.Lock()
         self._tokenizer: object = _UNSET
         self._chat_template: object = _UNSET
+        # what a mesh of more than one rank cannot serve yet: every request
+        # answers this typed 501
+        self._mesh_refusal: NotPortedError | None = None
+        if self.mesh_size > 1:
+            refused = [what for what, on in (
+                ("int8 quantization", quantize), ("LoRA adapters", lora_dir),
+                ("speculative decoding", self.speculative_k > 0),
+                ("the prefix cache", self._prefix_cache is not None)) if on]
+            if refused:
+                self._mesh_refusal = NotPortedError(f"{refused[0]} under a mesh", MESH_SLICE)
+
+    @property
+    def mesh_size(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
+    def _check_refusal(self) -> None:
+        if self._mesh_refusal is not None:
+            raise self._mesh_refusal
+
+    def _mesh_kw(self) -> dict:
+        """The family entry points' mesh arguments: none without a mesh, and
+        none for a family the mesh forward does not serve (a one-rank mesh
+        runs it as one card)."""
+        if self.mesh is None or self.family is None or self.family.name not in MESH_FAMILIES:
+            return {}
+        return {"mesh": self.mesh, "attention_impl": self.attention_impl}
+
+    def _post(self, op: str, tokens=None, **fields) -> None:
+        """Rank 0: post a device call to the followers (under the lock)."""
+        if self.oplog is not None:
+            self._posted = self.oplog.post(op, self.name, tokens, **fields)
+
+    @contextlib.contextmanager
+    def _mesh_guard(self):
+        """Rank 0 of a mesh: a device call that fails after its post may
+        leave the followers out of step (or one of them is gone), so the
+        mesh is marked failed and the request answers 503; unless the error
+        is one the request causes on every rank alike and every follower
+        finished the op (``mesh_serve.OpLog.in_step``): then the request
+        answers that error and the mesh serves on."""
+        if self.oplog is None:
+            yield
+            return
+        from modelx_tpu_torch.dl.mesh_serve import MeshFailedError, request_error
+
+        self._posted = None
+        try:
+            yield
+        except (MeshFailedError, NotPortedError):
+            raise
+        except Exception as e:
+            if self._posted is None or (request_error(e)
+                                        and self.oplog.in_step(self._posted)):
+                raise
+            self.oplog.fail(f"{type(e).__name__}: {e}")
+            raise MeshFailedError(f"serving mesh failed: {e}") from e
 
     def load(self) -> dict:
         """Load every *.safetensors under model_dir onto the device; the
@@ -343,13 +422,35 @@ class ModelServer:
         sidecar = fam.sidecar_config(self.model_dir)
         if sidecar is not None:
             self.cfg = fam.apply_sidecar_config(self.cfg, sidecar, self.family.name)
+        self.stats["mesh"] = mesh_str(self.mesh) if self.mesh is not None else "dp=1"
+        self.stats["mesh_devices"] = self.mesh_size
+        self.stats["weight_shard_factor"] = (weight_shard_factor(self.mesh)
+                                             if self.mesh is not None else 1)
+        if self.mesh_size > 1 and self.family.name not in MESH_FAMILIES:
+            self._mesh_refusal = NotPortedError(
+                f"the {self.family.name} family under a mesh", MESH_FAMILY_SLICE)
+        if self._mesh_refusal is not None:
+            # nothing to place: every request answers the 501
+            self.stats["family"] = self.family.name
+            self.ready = True
+            return dict(self.stats)
+        index = None
+        if self.mesh_size > 1:
+            from modelx_tpu_torch.models import llama
+
+            if not self.mesh.live:
+                raise ValueError(f"mesh {mesh_str(self.mesh)} has no process group: "
+                                 "a mesh of more than one rank serves from a live group")
+
+            # this rank reads only its slices' bytes
+            index = llama.sharding_ctx(self.cfg, self.mesh).param_index
         params: dict = {}
         total = resident = 0
         for path in paths:
             src = LocalFileSource(path)
             try:
                 arrays, lstats = load_safetensors(src, self.device, dtype=self.dtype,
-                                                  quantize=self.quantize)
+                                                  quantize=self.quantize, index=index)
             finally:
                 src.close()
             params.update(arrays)
@@ -378,6 +479,12 @@ class ModelServer:
         self.stats["load_bytes"] = total  # over the link
         self.stats["device_bytes"] = resident  # kept on the device
         self.stats["load_gbps"] = round(total / max(seconds, 1e-9) / 1e9, 3)
+        if index is not None:
+            # the model's bytes, as the reference counts a mesh load (the
+            # pool divides them by the weight-shard factor), beside the
+            # bytes this rank read
+            self.stats["rank_load_bytes"] = total
+            self.stats["load_bytes"] = sum(info.nbytes for info in infos_all.values())
         self._warm_up()
         self.stats["ready_seconds"] = round(time.monotonic() - t0, 3)
         self.ready = True
@@ -407,7 +514,9 @@ class ModelServer:
 
         t0 = time.monotonic()
         try:
-            pstats = program_store.install_from_dir(self.model_dir, build.build_dir())
+            pstats = program_store.install_from_dir(
+                self.model_dir, build.build_dir(),
+                mesh=mesh_str(self.mesh) if self.mesh is not None else None)
         except Exception as e:
             logger.warning("program bundle install failed: %s", e)
             return
@@ -488,6 +597,7 @@ class ModelServer:
 
     def forward_argmax(self, tokens: np.ndarray) -> np.ndarray:
         """Argmax of the cache-free forward's logits, [B, S]."""
+        self._check_refusal()
         with trace.span("serve.forward", model=self.name, batch=int(tokens.shape[0])):
             return self._argmax(tokens)
 
@@ -495,8 +605,10 @@ class ModelServer:
         # the device work and its copy to the host queue under the lock;
         # the wait for the copy comes after the release, so the next
         # request's launches queue while the card still runs this one
-        with self._device_lock, torch.inference_mode():
-            logits = self.family.forward(self.params, self._tokens(tokens), self.cfg)
+        with self._device_lock, torch.inference_mode(), self._mesh_guard():
+            self._post("forward", tokens)
+            logits = self.family.forward(self.params, self._tokens(tokens), self.cfg,
+                                         **self._mesh_kw())
             fetch = start_host_copy(torch.argmax(logits, dim=-1).to(torch.int32))
         return fetch()
 
@@ -510,6 +622,7 @@ class ModelServer:
         ``speculative_k``, a single row speculates at any temperature:
         greedy acceptance is token-exact, sampled acceptance is modified
         rejection."""
+        self._check_refusal()
         if self.family.generate_ragged is None:
             raise ValueError(f"family {self.family.name} is not generative")
         tokens = np.asarray(tokens, np.int32)
@@ -541,6 +654,7 @@ class ModelServer:
         """Ragged-batch decode: right-padded rows [B, S] with per-row real
         lengths and per-row sampling vectors (None = greedy / filter off).
         Returns generated tokens only, [B, max_new_tokens]."""
+        self._check_refusal()
         with trace.span("serve.generate_ragged", model=self.name, rows=int(tokens.shape[0]),
                         new_tokens=max_new_tokens):
             return self._generate_ragged(tokens, row_lens, max_new_tokens, temperature=temperature,
@@ -550,11 +664,18 @@ class ModelServer:
                          temperature=None, top_k=None, top_p=None, seeds=None) -> np.ndarray:
         if self.family.generate_ragged is None:
             raise ValueError(f"family {self.family.name} has no ragged decode")
-        with self._device_lock, torch.inference_mode():
+
+        def listed(x):
+            return None if x is None else np.asarray(x).tolist()
+
+        with self._device_lock, torch.inference_mode(), self._mesh_guard():
+            self._post("generate", tokens, row_lens=listed(row_lens), n=int(max_new_tokens),
+                       temperature=listed(temperature), top_k=listed(top_k),
+                       top_p=listed(top_p), seeds=listed(seeds))
             out = self.family.generate_ragged(
                 self.params, self._tokens(tokens), np.asarray(row_lens, np.int64), self.cfg,
                 max_new_tokens=max_new_tokens, temperature=temperature, top_k=top_k,
-                top_p=top_p, seeds=seeds)
+                top_p=top_p, seeds=seeds, **self._mesh_kw())
             fetch = start_host_copy(out.to(torch.int32))
         return fetch()
 
@@ -567,6 +688,9 @@ class ModelServer:
         to a power-of-two batch. Returns, per row, (token_logprobs [m],
         top_ids [m, top_k], top_logprobs [m, top_k]); the top_* pair is None
         when top_k == 0."""
+        self._check_refusal()
+        if self.mesh_size > 1:
+            raise NotPortedError("logprobs scoring under a mesh", MESH_SLICE)
         empty = (np.zeros((0,), np.float32),) + (
             (np.zeros((0, top_k), np.int32), np.zeros((0, top_k), np.float32))
             if top_k else (None, None))
@@ -707,6 +831,7 @@ class ModelServer:
             return None
 
     def _speculative_decoder(self):
+        self._check_refusal()
         if self._spec_decoder is None:
             with self._decoders_lock:  # double-checked, like the stream decoders
                 if self._spec_decoder is None:
@@ -726,9 +851,10 @@ class ModelServer:
             with self._decoders_lock:
                 dec = self._decoders.get(chunk_size)
                 if dec is None:  # double-checked: concurrent first streams
-                    fwd, init = self.family.decode_fns(self.params, self.cfg)
+                    fwd, init = self.family.decode_fns(self.params, self.cfg, **self._mesh_kw())
                     dec = self._decoders[chunk_size] = ChunkedDecoder(
-                        fwd, init, chunk_size, prefix_cache=self._prefix_cache)
+                        fwd, init, chunk_size, prefix_cache=self._prefix_cache,
+                        agree=None if self.mesh is None else self.mesh.broadcast_from_leader)
         return dec
 
     def generate_stream(self, tokens: np.ndarray, max_new_tokens: int = 16,
@@ -740,6 +866,7 @@ class ModelServer:
         stalls only its own stream. With ``speculative_k`` a single-row
         stream flushes one chunk per device step instead (the accepted run
         and the bonus token, up to speculative_k + 1 tokens)."""
+        self._check_refusal()
         if self.family.decode_fns is None:
             raise ValueError(f"family {self.family.name} does not support streaming")
         tokens = np.asarray(tokens, np.int32)
@@ -749,17 +876,35 @@ class ModelServer:
                 tokens, max_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
                 seed=seed, stop_token_ids=stop_token_ids)
             return
-        dec = self._decoder(chunk_size)
+        opened = None
+        if self.oplog is not None:
+            opened = {"n": int(max_new_tokens), "temperature": float(temperature),
+                      "top_k": int(top_k), "top_p": float(top_p), "seed": int(seed),
+                      "chunk_size": int(chunk_size),
+                      "stop_token_ids": [int(t) for t in stop_token_ids or ()] or None}
         with trace.span("serve.generate_stream", model=self.name, new_tokens=max_new_tokens):
-            pieces = dec.stream(
-                self.params, self._tokens(_pad_prompt(tokens)), np.full((b,), s, np.int32),
-                max_new_tokens, stop_token_ids=stop_token_ids,
-                **_row_controls(b, temperature, top_k, top_p, seed))
-            for piece in self._locked_pieces(pieces):
+            pieces = self._stream_pieces(tokens, max_new_tokens, temperature, top_k, top_p,
+                                         seed, chunk_size, stop_token_ids)
+            for piece in self._locked_pieces(pieces, tokens, opened):
                 # account as chunks leave: a client disconnect must not erase
                 # the decode work the device already did
                 self.stats["tokens_generated"] += int(piece.size)
                 yield piece
+
+    def _stream_pieces(self, tokens: np.ndarray, max_new_tokens: int, temperature: float = 0.0,
+                       top_k: int = 0, top_p: float = 1.0, seed: int = 0, chunk_size: int = 8,
+                       stop_token_ids=None):
+        """The chunked decoder's (lazy) piece generator for one stream."""
+        b, s = tokens.shape
+        return self._decoder(chunk_size).stream(
+            self.params, self._tokens(_pad_prompt(tokens)), np.full((b,), s, np.int32),
+            max_new_tokens, stop_token_ids=stop_token_ids,
+            **_row_controls(b, temperature, top_k, top_p, seed))
+
+    def _follow_piece(self, pieces) -> None:
+        """A follower's pull of one piece of a stream (``dl/mesh_serve``)."""
+        with self._device_lock, torch.inference_mode():
+            next(pieces, None)
 
     def _generate_stream_speculative(self, tokens: np.ndarray, max_new_tokens: int,
                                      temperature: float = 0.0, top_k: int = 0,
@@ -785,17 +930,30 @@ class ModelServer:
             # this mid-loop; the device work done still shows in the stats
             self._record_spec_stats(stats)
 
-    def _locked_pieces(self, pieces):
-        """Pull ``pieces`` one at a time under the device lock."""
+    def _locked_pieces(self, pieces, tokens=None, opened: dict | None = None):
+        """Pull ``pieces`` one at a time under the device lock. On a mesh
+        (``opened``: the stream's arguments) each pull is posted first: the
+        first opens the stream on the followers, the rest advance it, and
+        the close frees it there too."""
+        sid = None
         try:
             while True:
-                with self._device_lock, torch.inference_mode():
+                with self._device_lock, torch.inference_mode(), self._mesh_guard():
+                    if opened is not None:
+                        if sid is None:
+                            sid = next(self._stream_ids)
+                            self._post("stream_open", tokens, sid=sid, **opened)
+                        else:
+                            self._post("stream_next", sid=sid)
                     piece = next(pieces, None)
                 if piece is None:
                     return
                 yield piece
         finally:
             pieces.close()  # frees the stream's KV cache at once
+            if sid is not None and self.oplog is not None and self.oplog.failed is None:
+                with self._device_lock, contextlib.suppress(ServingError):
+                    self.oplog.post("stream_close", self.name, sid=sid)
 
 
 def _pad_prompt(tokens: np.ndarray) -> np.ndarray:
@@ -1029,10 +1187,14 @@ class ServerSet:
                  max_queue_depth: int = 0, request_timeout_s: float = 0.0,
                  boundary_watchdog_s: float = 0.0, flight_recorder: bool = True,
                  flightrec_capacity: int = 0, flight_dump_dir: str = "",
-                 trace_dir: str = "", device_telemetry: bool = True) -> None:
+                 trace_dir: str = "", device_telemetry: bool = True, mesh=None) -> None:
         if not servers:
             raise ValueError("no models")
         self.servers = servers
+        # the serving mesh every tenant shares (None: one device), and on
+        # its rank 0 the op log the other ranks replay (serve_main)
+        self.mesh = mesh
+        self.oplog = None
         # the model set changes at runtime (the pool's loads and unloads):
         # every structural change goes through add_server/remove_server
         # under this lock
@@ -1104,8 +1266,12 @@ class ServerSet:
             allow_admin_load=allow_admin_load, staging_root=staging_root,
             host_state_budget_bytes=host_state_budget_bytes,
             disk_state_budget_bytes=disk_state_budget_bytes,
-            state_spool_dir=state_spool_dir,
+            state_spool_dir=state_spool_dir, mesh=mesh,
         )
+
+    @property
+    def mesh_size(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
 
     def request_began(self) -> None:
         with self._inflight_lock:
@@ -1299,6 +1465,8 @@ class ServerSet:
         if (not self._dynamic_batch or server.family is None
                 or server.family.generate_ragged is None):
             return None
+        if self.mesh_size > 1:
+            raise NotPortedError("the window batcher (--dynamic-batch) under a mesh", MESH_SLICE)
         b = self.batchers.get(server.name)
         if b is None:
             with self._batcher_lock:
@@ -1318,6 +1486,9 @@ class ServerSet:
         if (not self._continuous_batch or server.family is None
                 or server.family.decode_fns is None):
             return None
+        if self.mesh_size > 1:
+            raise NotPortedError("the continuous engine (--continuous-batch) under a mesh",
+                                 MESH_SLICE)
         cb = self.cbatchers.get(server.name)
         if cb is not None:
             return cb
@@ -1633,6 +1804,10 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000", access_log: s
                     first = next(gen, None)
                 except ValueError as e:
                     return self._json(400, {"error": str(e)})
+                except NotPortedError as e:
+                    return self._json(e.http_status, e.payload())
+                except ServingError as e:
+                    return self._json(e.http_status, {"error": str(e)}, headers=e.headers())
 
                 def payloads():
                     emitted = 0
@@ -1750,6 +1925,9 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000", access_log: s
             except ServingError as e:
                 api = oai.api_error_for(e)
                 return self._json(api.status, api.payload, headers=e.headers())
+            except NotPortedError as e:
+                api = oai.APIError(e.http_status, str(e), "not_ported")
+                return self._json(api.status, api.payload)
             except Exception as e:
                 logger.exception("openai api error")
                 return self._json(500, oai.APIError(500, str(e), "server_error").payload)
@@ -1868,6 +2046,9 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000", access_log: s
                 return self._json(404, {"error": "not found"})
             if not self._admin_auth():
                 return
+            if sset.mesh_size > 1:
+                e = NotPortedError("admin unload under a mesh", MESH_SLICE)
+                return self._json(e.http_status, e.payload())
             if not sset.pool.allow_admin_load:
                 return self._json(403, {
                     "error": "admin model unloading is disabled "
@@ -1966,6 +2147,9 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000", access_log: s
                 # dir) and load it while traffic is live
                 if not self._admin_auth():
                     return
+                if sset.mesh_size > 1:
+                    e = NotPortedError("admin load under a mesh", MESH_SLICE)
+                    return self._json(e.http_status, e.payload())
                 wait = bool(req.get("wait", False))
                 try:
                     snap = sset.pool.request_load(

@@ -16,6 +16,9 @@
         --publish-outbox-dir /var/modelx/outbox
     modelx-serve-torch --model m=/mnt/m --trace-dir /var/modelx/trace \
         --access-log /var/modelx/access.jsonl --access-log-max-bytes 100000000
+    modelx-serve-torch --model m=/mnt/m --mesh tp=4     # one process per card
+    torchrun --nproc-per-node 4 -m modelx_tpu_torch.dl.serve_main \
+        --model m=/mnt/m --mesh dp=2,tp=2
 
 The HTTP front answers 503 on /healthz while the checkpoints load, then
 serves them on the card (``--device cpu`` serves on the host instead).
@@ -31,17 +34,38 @@ through a durable outbox (``--publish-outbox-dir``). ``/metrics``,
 ``/v1/trace`` and the profiler captures (``--trace-dir``) read the pod;
 ``--access-log`` writes one JSON line per request.
 
+``--mesh`` serves across a mesh of processes, one per card. Without it the
+pod serves on one device with no group, also on a host with more cards:
+the reference's default (dp over every local card) waits until the
+continuous engine, the serving options and the other families serve
+under a mesh. Started alone, this process is rank 0: it starts the other
+ranks itself (one per local card, ``cuda:r``) and binds HTTP;
+under torchrun's environment (or the ``MODELX_*`` variables of
+``parallel/distributed.py``) each process joins the group instead, and
+ranks other than 0 follow rank 0's device calls (``dl/mesh_serve.py``). A
+mesh that needs more cards than the host has exits non-zero naming both
+counts, and a ``--device`` that names one card (``cuda:N``) is refused on a
+mesh of more than one rank, whose rank r takes ``cuda:r``. A rank that dies
+or stalls past ``--mesh-timeout-s`` fails rank 0's requests with 503, and
+rank 0 exits non-zero; a request that fails the same way on every rank
+(out of memory, a bad argument) answers its error and the mesh serves on.
+
 On SIGTERM the pod drains: ``/healthz`` answers 503 "draining", then it
 waits for its in-flight requests (up to ``--drain-grace`` seconds) or
-sleeps ``--drain-seconds``, closes the batchers and engines and exits 0.
-SIGINT cuts the wait short.
+sleeps ``--drain-seconds``, closes the batchers and engines and exits 0
+(on a mesh, after telling the other ranks to exit). SIGINT cuts the wait
+short.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import math
+import os
 import signal
+import subprocess
+import sys
 import threading
 import time
 
@@ -67,6 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="dtype the floating weights are served in")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, cuda:N or cpu); cuda raises when absent")
+    ap.add_argument("--mesh", default="",
+                    help='mesh spec, e.g. "dp=1,tp=8": one process per card (default: '
+                         "one device, no mesh)")
+    ap.add_argument("--sp-attention", default="auto", choices=["auto", "ring", "ulysses"],
+                    help="sequence-parallel attention on a mesh's sp axis (auto: ring when "
+                         "sp > 1)")
+    ap.add_argument("--mesh-timeout-s", type=float, default=300.0,
+                    help="how long a mesh collective waits on a rank before the request "
+                         "fails (503) and the pod exits")
     ap.add_argument("--max-seq-len", type=int, default=2048,
                     help="sequence length the continuous engine plans for; the plain "
                          "path serves longer requests, as the JAX sidecar's does")
@@ -370,25 +403,115 @@ def start(argv=None):
     return _start(argv)[:2]
 
 
-def _start(argv=None):
+def _parse(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     _parse_numbers(ap, args)
-    configure_registry(args)
     if not args.model_dir and not args.models:
         ap.error("need --model-dir or at least one --model name=dir")
+    if args.mesh:
+        from modelx_tpu_torch.parallel.mesh import parse_mesh_spec
+
+        try:
+            spec = parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            ap.error(f"--mesh: {e}")
+        index = _device_index(args.device)
+        if index is not None and (spec.size != 1):
+            ap.error(f"--device {args.device} names one card, but the mesh {args.mesh} "
+                     "runs one rank per card (rank r on cuda:r): drop the index")
+    return ap, args
+
+
+def _device_index(device: str) -> int | None:
+    import torch
+
+    try:
+        return torch.device(device).index
+    except RuntimeError:
+        return None  # not a device name: ModelServer says so
+
+
+def _build_servers(ap, args, mesh=None) -> dict[str, ModelServer]:
     models = _parse_models(([f"default={args.model_dir}"] if args.model_dir else [])
                            + args.models)
     lora_dirs = _parse_loras(ap, args.loras, models, args.quantize)
-    servers = {
+    return {
         name: ModelServer(path, dtype=args.dtype, device=args.device,
                           max_seq_len=args.max_seq_len, name=name,
                           quantize=args.quantize, speculative_k=args.speculative_k,
                           lora_dir=lora_dirs.get(name, ""),
                           prefix_cache_size=args.prefix_cache,
-                          prefix_cache_max_bytes=args.prefix_cache_max_bytes)
+                          prefix_cache_max_bytes=args.prefix_cache_max_bytes,
+                          mesh=mesh, attention_impl=args.sp_attention)
         for name, path in models.items()
     }
+
+
+def _local_cards(device: str) -> int:
+    import torch
+
+    if not device.startswith("cuda"):
+        return 0
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def join_mesh(args, argv=None):
+    """The serving mesh of this process, or None (no ``--mesh``: one device
+    and no group): ``(mesh, followers)``, where ``followers`` are the rank
+    processes this process started (rank 0 started alone)."""
+    from modelx_tpu_torch.parallel import distributed
+    from modelx_tpu_torch.parallel.mesh import make_mesh, resolve_axes
+
+    spec = args.mesh
+    if not spec:
+        return None, []
+    cards = _local_cards(args.device)
+    env = os.environ
+    children = []
+    if not (env.get("MODELX_PROCESS_ID") or env.get("RANK") not in (None, "")):
+        # started alone: this is rank 0, and it starts the others
+        fixed = cards if args.device.startswith("cuda") else None
+        try:
+            axes = resolve_axes(spec, fixed if fixed is not None else _spec_size(spec))
+        except ValueError as e:
+            raise SystemExit(f"modelx-serve-torch: {e}") from None
+        total = math.prod(axes.values())
+        port = _free_port()
+        argv = list(sys.argv[1:] if argv is None else argv)
+        for rank in range(1, total):
+            child_env = dict(env, MODELX_COORDINATOR=f"127.0.0.1:{port}",
+                             MODELX_NUM_PROCESSES=str(total), MODELX_PROCESS_ID=str(rank),
+                             LOCAL_RANK=str(rank))
+            children.append(subprocess.Popen(
+                [sys.executable, "-m", "modelx_tpu_torch.dl.serve_main", *argv], env=child_env))
+            print(f"modelx-serve-torch: mesh rank {rank} pid {children[-1].pid}", flush=True)
+        distributed.initialize(f"127.0.0.1:{port}", total, 0, device=args.device,
+                               timeout_s=args.mesh_timeout_s)
+    else:
+        distributed.initialize(device=args.device, timeout_s=args.mesh_timeout_s)
+    return make_mesh(spec), children
+
+
+def _spec_size(spec: str) -> int:
+    """A CPU mesh's size: the product of its sizes (-1 counts one)."""
+    from modelx_tpu_torch.parallel.mesh import parse_mesh_spec
+
+    return math.prod(max(v, 1) for v in parse_mesh_spec(spec).axes.values())
+
+
+def _start(argv=None, mesh=None, followers=()):
+    ap, args = _parse(argv)
+    configure_registry(args)
+    servers = _build_servers(ap, args, mesh)
     if args.stream_chunk_size < 1:
         raise SystemExit("--stream-chunk-size must be >= 1")
     log = logging.getLogger("modelx.serve")
@@ -435,18 +558,54 @@ def _start(argv=None):
                      flight_recorder=args.flight_recorder,
                      flightrec_capacity=args.flightrec_capacity,
                      flight_dump_dir=args.flight_dump_dir, trace_dir=args.trace_dir,
-                     device_telemetry=args.device_telemetry)
+                     device_telemetry=args.device_telemetry, mesh=mesh)
     configure_publishes(sset, args)
+    if mesh is not None:
+        from modelx_tpu_torch.parallel.mesh import mesh_str, weight_shard_factor
+
+        log.info("serving mesh %s (%d device(s), weight shard factor %d)",
+                 mesh_str(mesh), mesh.size, weight_shard_factor(mesh))
     httpd = serve(sset, listen=args.listen, access_log=args.access_log,
                   access_log_max_bytes=args.access_log_max_bytes)  # 503 while loading
     try:
-        stats = sset.load_all(concurrent=args.concurrent_load)
+        # every rank loads the models in the same order (their warm-up
+        # forwards meet in collectives): no concurrent loads on a mesh
+        stats = sset.load_all(concurrent=args.concurrent_load and mesh is None)
     except BaseException:
         httpd.shutdown()
         httpd.server_close()
         raise
     log.info("loaded: %s", stats)
+    if mesh is not None and mesh.size > 1:
+        from modelx_tpu_torch.dl.mesh_serve import OpLog
+        from modelx_tpu_torch.parallel import distributed
+
+        sset.oplog = OpLog(distributed.control_store(), followers, world=mesh.size,
+                           timeout_s=args.mesh_timeout_s)
+        # one device lock for every model: the followers replay one log in
+        # order, so rank 0's calls (and their collectives) must be ordered
+        # across models too
+        lock = threading.Lock()
+        for server in servers.values():
+            server.oplog = sset.oplog
+            server._device_lock = lock
     return sset, httpd, args
+
+
+def follow(argv, mesh) -> int:
+    """A follower rank: load the same models, then replay rank 0's device
+    calls until it says ``shutdown`` (or is gone)."""
+    from modelx_tpu_torch.dl.mesh_serve import OpLog
+    from modelx_tpu_torch.dl.mesh_serve import follow as replay
+    from modelx_tpu_torch.parallel import distributed
+
+    ap, args = _parse(argv)
+    configure_registry(args)
+    servers = _build_servers(ap, args, mesh)
+    for server in servers.values():
+        server.load()
+    return replay(servers, OpLog(distributed.control_store(), rank=mesh.rank,
+                                 world=mesh.size, timeout_s=args.mesh_timeout_s))
 
 
 def drain(sset: ServerSet, drain_seconds: float, drain_grace: float,
@@ -476,7 +635,25 @@ def drain(sset: ServerSet, drain_seconds: float, drain_grace: float,
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
-    sset, httpd, args = _start(argv)
+    _, args = _parse(argv)
+    mesh, followers = join_mesh(args, argv)
+    if mesh is not None and not mesh.is_leader:
+        from modelx_tpu_torch.parallel import distributed
+
+        try:
+            if mesh.coord is None:  # past the mesh's prefix of the world
+                logging.getLogger("modelx.serve").info(
+                    "rank %d is outside the mesh %s; exiting", mesh.rank, mesh)
+                return 0
+            return follow(argv, mesh)
+        finally:
+            distributed.shutdown()
+    try:
+        sset, httpd, args = _start(argv, mesh, followers)
+    except BaseException:
+        _stop_followers(followers)
+        raise
+    oplog = sset.oplog
     stop = threading.Event()
     abort = threading.Event()  # SIGINT: skip or cut short the drain window
 
@@ -492,9 +669,15 @@ def main(argv=None) -> int:
     # short timed waits: a signal the kernel hands to another thread runs
     # its handler only when the main thread next executes Python code, and
     # an untimed wait would not return to do so
+    failed = False
     while not stop.wait(timeout=0.2):
-        pass
-    drain(sset, args.drain_seconds, args.drain_grace, abort)
+        if oplog is not None and oplog.failed_event.is_set():
+            failed = True  # a rank is gone: the 503s went out, the pod exits
+            break
+    if failed:
+        drain(sset, 0.0, 2.0, abort)
+    else:
+        drain(sset, args.drain_seconds, args.drain_grace, abort)
     sset.close()
     # pending outbox entries stay on disk; the next generation's drainer
     # publishes them (that persistence is the point)
@@ -502,7 +685,38 @@ def main(argv=None) -> int:
     sset.pool.stop_outbox()
     httpd.shutdown()
     httpd.server_close()
+    if mesh is not None:
+        if oplog is not None and not failed:
+            oplog.post("shutdown")
+        _stop_followers(followers, grace_s=0.0 if failed else 30.0)
+        from modelx_tpu_torch.parallel import distributed
+
+        if not failed:
+            distributed.shutdown()
+    if failed:
+        logging.getLogger("modelx.serve").error("exiting: %s", oplog.failed)
+        logging.shutdown()
+        # the group has a dead or stalled member: tearing it down could
+        # wait on that member, so the process ends here
+        os._exit(1)
     return 0
+
+
+def _stop_followers(followers, grace_s: float = 30.0) -> None:
+    """Wait up to ``grace_s`` for the rank processes this one started to
+    exit, then end them."""
+    deadline = time.monotonic() + grace_s
+    for p in followers:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.terminate()
+    for p in followers:
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ transposes happen here: each numpy array becomes a torch tensor on
 by their dtype's name (this package never imports ml_dtypes) and
 reinterpreted through their raw bits (``uint16`` for bf16). A quantized
 weight arrives as a ``{"q": int8, "scale": fp32}`` pair of arrays and
-becomes the port's ``QTensor``.
+becomes the port's ``QTensor``. ``shard_jax_params`` hands over one
+rank's slices instead, as a mesh rank holds them.
 """
 
 from __future__ import annotations
@@ -36,18 +37,31 @@ def to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def from_jax_params(np_params: dict[str, np.ndarray], device=None,
-                    dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+                    dtype: torch.dtype | None = None, index=None) -> dict[str, torch.Tensor]:
     """The port's params dict from the JAX package's params as numpy arrays
     (a quantized weight as its ``{"q", "scale"}`` pair). ``dtype`` casts
-    floating tensors; ``device`` defaults to the card."""
+    floating tensors; ``device`` defaults to the card. ``index(name,
+    shape)``, when given, names the slices of each array to keep."""
     dev = resolve_device(device)
     out = {}
     for name, arr in np_params.items():
         if isinstance(arr, dict):
             out[name] = QTensor(q=to_tensor(arr["q"]), scale=to_tensor(arr["scale"])).to(dev)
             continue
+        if index is not None:
+            arr = np.asarray(arr)[index(name, arr.shape)]
         t = to_tensor(arr).to(dev)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         out[name] = t
     return out
+
+
+def shard_jax_params(np_params: dict[str, np.ndarray], cfg, mesh, device=None,
+                     dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+    """This mesh rank's slices of a llama/qwen2 model's JAX params: what
+    the mesh loader reads for it (``models/llama.ShardingCtx``)."""
+    from modelx_tpu_torch.models import llama
+
+    ctx = llama.sharding_ctx(cfg, mesh)
+    return from_jax_params(np_params, device=device, dtype=dtype, index=ctx.param_index)

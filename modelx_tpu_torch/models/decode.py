@@ -14,6 +14,10 @@ card.
 
 Sampling is per row (``ops/sampling.sample``); a batch whose rows are all
 greedy takes the argmax, which is what ``sample`` returns for such rows.
+On a mesh of processes every rank runs the same decode on its part of the
+model, and ``agree`` (``Mesh.broadcast_from_leader``) makes each picked
+token rank 0's: the ranks never count on their samplers agreeing bit for
+bit.
 """
 
 from __future__ import annotations
@@ -73,12 +77,17 @@ def _step_offsets(lens: list[int], row_lens: torch.Tensor):
     return lambda t: row_lens + t
 
 
-def _make_picker(b: int, device, temperature=None, top_k=None, top_p=None, seeds=None):
+def _make_picker(b: int, device, temperature=None, top_k=None, top_p=None, seeds=None,
+                 agree=None):
     """``pick(logits [B, V], step) -> [B]`` for one request's per-row
     controls (host arrays): the argmax when no row samples, else
     ``sampling.sample`` on float32 logits with the per-row (seed, step)
     streams of base key ``PRNGKey(0)``. None filters stay None, so the
-    sampler does no filter work for them."""
+    sampler does no filter work for them. ``agree(tokens)`` (a mesh's
+    broadcast from rank 0) is applied to every pick."""
+    if agree is not None:
+        base = _make_picker(b, device, temperature, top_k, top_p, seeds)
+        return lambda logits, step: agree(base(logits, step).contiguous())
     if temperature is None or not bool((torch.as_tensor(temperature) > 0).any()):
         return lambda logits, step: torch.argmax(logits, dim=-1)
 
@@ -134,6 +143,7 @@ def ragged_greedy_generate(
     top_k=None,  # [B] int; 0 = off
     top_p=None,  # [B] float; >=1 = off
     seeds=None,  # [B] int per-row sample stream
+    agree=None,  # on a mesh: every rank takes rank 0's picks
 ) -> torch.Tensor:
     """Decode for a RAGGED batch: rows of different prompt lengths
     right-padded to a common S, each decoding from its own offset. Returns
@@ -150,7 +160,7 @@ def ragged_greedy_generate(
     lens = _host_lens(row_lens, s)
     row_lens = torch.tensor(lens, device=prompt.device)
     offset = _step_offsets(lens, row_lens)
-    pick = _make_picker(b, prompt.device, temperature, top_k, top_p, seeds)
+    pick = _make_picker(b, prompt.device, temperature, top_k, top_p, seeds, agree)
     cache = init_kv_cache(b, s + max_new_tokens)
     logits, _ = forward(params, prompt, kv_cache=_visible(cache, s), cache_offset=0)
     # each row's first decoded token comes from ITS last real position
@@ -340,15 +350,17 @@ class ChunkedDecoder:
     offsets, same (seed, step) sample streams, same shapes at every step.
 
     With a ``prefix_cache``, single-row streams store their prefill KV and
-    later streams sharing a prompt prefix prefill only the suffix.
+    later streams sharing a prompt prefix prefill only the suffix. On a
+    mesh, ``agree`` makes every rank take rank 0's picks.
     """
 
     def __init__(self, forward, init_kv_cache, chunk_size: int = 8,
-                 prefix_cache: PrefixKVCache | None = None) -> None:
+                 prefix_cache: PrefixKVCache | None = None, agree=None) -> None:
         self.forward = forward
         self.init_kv_cache = init_kv_cache
         self.chunk_size = int(chunk_size)
         self.prefix_cache = prefix_cache
+        self.agree = agree
 
     def stream(self, params, prompt, row_lens, max_new_tokens: int,
                temperature=None, top_k=None, top_p=None, seeds=None,
@@ -364,7 +376,7 @@ class ChunkedDecoder:
         lens = _host_lens(row_lens, s)
         row_lens = torch.tensor(lens, device=dev)
         offset = _step_offsets(lens, row_lens)
-        pick = _make_picker(b, dev, temperature, top_k, top_p, seeds)
+        pick = _make_picker(b, dev, temperature, top_k, top_p, seeds, self.agree)
         # cache sized for whole chunks, rounded up to a power of two of
         # them, as the JAX package sizes it
         n_chunks = -(-max_new_tokens // self.chunk_size)

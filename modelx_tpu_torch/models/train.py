@@ -9,9 +9,12 @@ the flash kernel, so the gradient runs through the hand-written backward
 kernel (``ops/attention.FlashAttentionFunction``), as the TPU reference
 trains through its Pallas kernel.
 
-Multi-device training (``param_shardings``, ``shard_params``,
-``batch_sharding``, ``jit_train_step`` and a ``mesh``) comes with the
-multi-device slice.
+The placement half of the reference's multi-device training is here as
+per-rank slices: ``shard_params`` (this rank's slice of each param, by the
+family rules) and ``batch_rows`` (this rank's rows and tokens of a batch,
+the reference's ``batch_sharding``). The sharded step itself
+(``param_shardings``, ``jit_train_step`` and ``make_train_step(mesh=)``)
+comes with the multi-device training slice.
 """
 
 from __future__ import annotations
@@ -25,6 +28,29 @@ import torch.nn.functional as F
 from modelx_tpu_torch.models import llama
 
 MULTI_DEVICE = "meshes (data, FSDP, tensor and pipeline parallel) come with the multi-device slice"
+
+
+def shard_params(params: dict, rules, mesh) -> dict:
+    """This rank's slice of each (whole) param under ``rules`` on ``mesh``
+    (reference ``:68``, which places the whole params on the mesh). It
+    follows the rule table, the reference's placement, and not the serving
+    forward's ``llama.ShardingCtx``, which replicates a weight whose heads
+    do not divide tp."""
+    from modelx_tpu_torch.dl.sharding import sharding_for
+
+    return {name: t[sharding_for(name, rules, mesh).index(t.shape)].contiguous()
+            for name, t in params.items()}
+
+
+def batch_rows(batch: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's part of a [B, S, ...] batch (reference ``batch_sharding
+    :76``): rows over dp and fsdp together, tokens over sp, each where the
+    mesh has the axis and it divides."""
+    from modelx_tpu_torch.dl.sharding import Sharding
+
+    rows = tuple(a for a in ("dp", "fsdp") if a in mesh.axis_names) or None
+    seq = "sp" if "sp" in mesh.axis_names else None
+    return batch[Sharding(mesh, (rows, seq)).index(batch.shape[:2])]
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,15 @@ and runs the plain version for CPU tensors — nothing else. Under autograd
 (training) it runs ``FlashAttentionFunction``: the forward kernel also
 writes each row's log-sum-exp, and the backward is the hand-written kernel
 of ``csrc/flash_attention_bwd.cu`` (``flash_attention_backward``), held to
-``attention_backward_reference``. Ring and Ulysses attention come with the
-multi-device slice.
+``attention_backward_reference``.
+
+Sequence parallelism (``ring_attention``, ``ulysses_attention``) takes
+each rank's [B, H, S/n, D] shards of q, k and v over a mesh axis and
+returns its shard of the output. The ring rotates k/v to the next rank
+with ``batch_isend_irecv`` and merges each block in plain torch, as the
+reference's ring merges in ``jnp``; Ulysses turns sequence shards into
+head shards with ``all_to_all_single`` and runs the flash kernel on each
+rank's [B, H/n, S, D].
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import math
 import torch
 
 NEG_INF = -1e30
+# keys per chunk of the ring's per-hop merge (the reference's RING_BLOCK_K)
+RING_BLOCK_K = 512
 
 # head dims the CUDA kernel is instantiated for (csrc/flash_attention.cu;
 # in bf16, 32 on the CUDA cores, the rest on the tensor cores)
@@ -338,3 +347,121 @@ def _aligned(x):
     """The kernel reads 16-byte vectors: a view at an odd storage offset
     gets its own allocation."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+# -- sequence parallelism -----------------------------------------------------
+
+
+def _axis_group(mesh, axis: str):
+    """(group, size, index) of this rank's line along ``axis``."""
+    return mesh.group(axis), mesh.axis_size(axis), mesh.axis_index(axis)
+
+
+def ring_attention(q, k, v, mesh, axis: str = "sp", causal: bool = True, block_k: int = 0):
+    """Ring attention over a sequence-sharded mesh axis (counterpart of
+    ``modelx_tpu/ops/attention.py:195``).
+
+    q/k/v: this rank's [B, H(kv), S/n, D] shards; rank i of the axis holds
+    tokens [i S/n, (i+1) S/n). The rank merges flash statistics against its
+    resident k/v, then receives the previous rank's block while it sends
+    its own to the next, n-1 hops: numerically full attention with O(S/n)
+    memory and neighbour-only traffic. Causal hops whose whole block lies
+    after this rank's last query are skipped. Returns this rank's output
+    shard [B, H, S/n, D] in q's dtype."""
+    group, n, idx = _axis_group(mesh, axis)
+    bk = block_k or RING_BLOCK_K
+    b, h, s_local, d = q.shape
+    q_start = idx * s_local
+    acc = torch.zeros((b, h, s_local, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, s_local), NEG_INF, dtype=torch.float32, device=q.device)
+    l_sum = torch.zeros((b, h, s_local), dtype=torch.float32, device=q.device)
+    k_cur, v_cur = k.contiguous(), v.contiguous()
+    for i in range(n):
+        reqs = []
+        if i < n - 1:
+            import torch.distributed as dist
+
+            k_nxt, v_nxt = torch.empty_like(k_cur), torch.empty_like(v_cur)
+            nxt = dist.get_global_rank(group, (idx + 1) % n)
+            prv = dist.get_global_rank(group, (idx - 1) % n)
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, k_cur, nxt, group), dist.P2POp(dist.isend, v_cur, nxt, group),
+                dist.P2POp(dist.irecv, k_nxt, prv, group), dist.P2POp(dist.irecv, v_nxt, prv, group),
+            ])
+        k_start = ((idx - i) % n) * s_local  # whose block this rank holds now
+        if not causal or k_start <= q_start + s_local - 1:
+            acc, m, l_sum = _merge_block(q, k_cur, v_cur, acc, m, l_sum, q_offset=q_start,
+                                         k_offset=k_start, causal=causal, block_k=bk)
+        for r in reqs:
+            r.wait()
+        if reqs:
+            k_cur, v_cur = k_nxt, v_nxt
+    return (acc / torch.clamp(l_sum, min=1e-30)[..., None]).to(q.dtype)
+
+
+def _merge_block(q, k, v, acc, m_prev, l_prev, q_offset, k_offset, causal,
+                 block_k: int = RING_BLOCK_K):
+    """Merge one k/v block into running flash statistics (reference
+    ``:300``). All [B, H, S, D]; kv heads repeat to q's. The block is
+    consumed in ``block_k``-key chunks with the online softmax carried
+    across chunks: peak memory O(s_q x block_k), not O(s_q x s_k)."""
+    q32, k32, v32 = (x.float() for x in _repeat_kv_heads(q, k, v))
+    q32 = q32 * (1.0 / math.sqrt(q.shape[-1]))
+    s_k = k32.shape[2]
+    bk = min(block_k, s_k)
+    if s_k % bk:
+        bk = s_k  # odd block sizes: one chunk (correctness over tiling)
+    qpos = q_offset + torch.arange(q.shape[2], device=q.device)[:, None]
+    for i in range(s_k // bk):
+        k_blk = k32[:, :, i * bk:(i + 1) * bk]
+        v_blk = v32[:, :, i * bk:(i + 1) * bk]
+        s = torch.matmul(q32, k_blk.transpose(-1, -2))
+        if causal:
+            kpos = k_offset + i * bk + torch.arange(bk, device=q.device)[None, :]
+            s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m_prev, s.amax(dim=-1))
+        alpha = torch.exp(m_prev - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_prev = l_prev * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, v_blk)
+        m_prev = m_new
+    return acc, m_prev, l_prev
+
+
+def _all_to_all(x, group, n: int, split_dim: int, cat_dim: int):
+    """Tiled all-to-all over ``group``: ``x`` splits into n pieces along
+    ``split_dim``, piece j goes to rank j, and the pieces received
+    concatenate (in source order) along ``cat_dim``."""
+    import torch.distributed as dist
+
+    pieces = torch.stack(torch.chunk(x, n, dim=split_dim)).contiguous()  # [n, ...]
+    out = torch.empty_like(pieces)
+    dist.all_to_all_single(out, pieces, group=group)
+    return torch.cat(out.unbind(0), dim=cat_dim)
+
+
+def ulysses_attention(q, k, v, mesh, axis: str = "sp", causal: bool = True):
+    """Ulysses/DeepSpeed-style sequence parallelism via all-to-all
+    (counterpart of ``modelx_tpu/ops/attention.py:257``).
+
+    q/k/v: this rank's [B, H(kv), S/n, D] shards. Two all-to-alls re-shard
+    from sequence to heads: each rank then holds H/n heads over the FULL
+    sequence and runs ``flash_attention`` (the hand-written kernel on the
+    card) on them, and a final all-to-all restores its sequence shard.
+    Needs H % n == 0; kv heads that do not divide n repeat only up to
+    lcm(Hkv, n)."""
+    group, n, _ = _axis_group(mesh, axis)
+    if q.shape[1] % n:
+        raise ValueError(f"ulysses needs heads % {axis}={n} == 0, got {q.shape[1]}")
+    hkv = k.shape[1]
+    if hkv % n:
+        rep = ((n * hkv) // math.gcd(n, hkv)) // hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    if n == 1:
+        return flash_attention(q, k, v, causal=causal)
+    # [B, H, S/n, D] -> [B, H/n, S, D]: split heads, gather sequence
+    qh, kh, vh = (_all_to_all(x, group, n, split_dim=1, cat_dim=2) for x in (q, k, v))
+    out = flash_attention(qh, kh, vh, causal=causal)
+    # [B, H/n, S, D] -> [B, H, S/n, D]
+    return _all_to_all(out, group, n, split_dim=2, cat_dim=1)

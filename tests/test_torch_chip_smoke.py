@@ -828,3 +828,59 @@ def test_backward_bound_counts_five_products():
     assert ms == pytest.approx(10 * 128 * 2048 * 2049 / 2 * 32 / 989e9)
     assert ms == pytest.approx(2.5 * chip_smoke.attention_bound(
         1, 32, 8, 2048, 128, True, 0, "bfloat16")[0])
+
+
+def test_mesh_phase_rehearses_on_cpu(monkeypatch):
+    """``--phases kernels,mesh`` off the card at a tiny size: (a) a world of
+    1 over gloo through ``serve_main --mesh`` (dp=1,tp=1; Ulysses and the
+    ring at sp=1) against the meshless server, and (b) two ranks over gloo
+    (tp=2, Ulysses and the ring at sp=2) against the meshless logits; no
+    collective is refused on CPU tensors and no kernel is launched."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=1024), rope_theta=500000.0)
+    monkeypatch.setattr(chip_smoke, "MESH_FORWARD", (1, 48))
+    monkeypatch.setattr(chip_smoke, "MESH_PROMPT", 12)
+    monkeypatch.setattr(chip_smoke, "MESH_NEW_TOKENS", 6)
+    monkeypatch.setattr(chip_smoke, "MESH_B_SEQ", 32)
+    stats = chip_smoke.phase_mesh(device="cpu", cfg=cfg)
+    assert stats["flash_launches_mesh"] == 0 and stats["mesh_b_refused"] == []
+    for spec, impl in chip_smoke.MESH_A_RUNS:
+        assert stats[f"mesh_a_{spec}_{impl}"]["launches"] == 0
+    for spec, impl, _ in chip_smoke.MESH_B_RUNS:
+        run = stats[f"mesh_b_{spec} {impl}"]
+        assert run["max_abs_err"] <= chip_smoke.MESH_B_TOL[f"{spec} {impl}"]
+    # tp=2: rank 0 read its slices, about half the checkpoint
+    tp = stats["mesh_b_tp=2 auto"]
+    assert tp["rank_load_bytes"] < 0.6 * stats["mesh_bytes_written"]
+
+
+class _Exited:
+    def __init__(self, rc):
+        self.rc = rc
+
+    def wait(self, timeout=None):
+        return self.rc
+
+
+def _probes(tmp_path, outcomes: dict) -> dict:
+    probes = {}
+    for (name, rank), (rc, text) in outcomes.items():
+        path = tmp_path / f"{name}-{rank}.log"
+        path.write_text(text)
+        probes[(name, rank)] = (_Exited(rc), str(path))
+    return probes
+
+
+def test_mesh_probes_accept_only_gloos_point_to_point_abort(tmp_path):
+    ok = (0, "PROBE_OK\n")
+    closed = (1, "RuntimeError: [gloo/transport/tcp/pair.cc] Connection closed by peer\n")
+    aborted = (-6, "[enforce fail at gloo/transport/tcp/pair.cc] writev: Bad address\n")
+    refused = chip_smoke._refused(_probes(tmp_path, {
+        ("all_reduce", 0): ok, ("all_reduce", 1): ok,
+        ("batch_isend_irecv", 0): closed, ("batch_isend_irecv", 1): aborted}))
+    assert list(refused) == ["batch_isend_irecv"] and "Bad address" in refused["batch_isend_irecv"]
+    # the same failure on another collective, or the ring's probe failing
+    # some other way, fails the phase
+    for outcomes in ({("all_to_all_single", 0): closed, ("all_to_all_single", 1): aborted},
+                     {("batch_isend_irecv", 0): closed, ("batch_isend_irecv", 1): closed}):
+        with pytest.raises(RuntimeError, match="probe failed"):
+            chip_smoke._refused(_probes(tmp_path, outcomes))
