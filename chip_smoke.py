@@ -322,9 +322,26 @@ Phases, in order, each failing the run (exit code != 0) on any error:
    tp=2 or Ulysses left out, fails the phase. tp=2, Ulysses at sp=2 and
    the ring at sp=2 load their slices and run a [1, 512] forward whose
    logits must be within ``MESH_B_TOL`` of the meshless forward's (Ulysses
-   bit for bit). The phase prints its seconds and bytes. What
-   one card cannot show (NCCL across cards, the collectives' cost, tp=4/8
-   at full depth) stays unverified.
+   bit for bit). The serving options: in (a) three more one-rank
+   pods (``MESH_OPTION_PODS``: the continuous engine with the prefix
+   cache, speculation and admin load; the paged engine with int8; the
+   window batcher with a LoRA adapter written here), each against a
+   meshless twin in process started with the same flags: ``MESH_CLIENTS``
+   (8) clients at once, then a prefix-cache hit, a lone greedy row the
+   engine speculates on, a ``logprobs`` completion and an admin load,
+   forward and unload, each of these later answers equal bit for bit; the
+   8 clients' answers equal the twin's, or each differing token lies
+   within ``OPTIONS_TIE_TOL`` of the maximum on its prefix (an engine
+   client's against the plain path in process, a batcher burst's against
+   the twin's lone answers), and the flash launches equal the twin's; in (b) a serving pair on the card
+   over gloo at tp=2, rank 0 serving through the op log while rank 1
+   replays it: the engine's greedy and sampled tokens equal the plain
+   path's on the mesh, ``logprobs`` and an int8 forward's logits within
+   ``MESH_B_TOL``'s tp=2 of the meshless path's, an admin-loaded name
+   answering and unloading, the flash launches counted by rank and
+   option. The phase prints its seconds and bytes. What one card cannot
+   show (NCCL across cards, the collectives' cost, tp=4/8 at full depth)
+   stays unverified.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -7004,6 +7021,28 @@ MESH_B_TOL = {"tp=2 auto": 0.125, "sp=2 ulysses": 0.0, "sp=2 ring": 0.125}
 # device memory: one rank's writev fails and the process aborts)
 MESH_MAY_REFUSE = {"batch_isend_irecv": "Bad address"}
 MESH_PAIR_TIMEOUT_S = 300
+# (a)'s serving options: each pod is a ``serve_main --mesh dp=1,tp=1`` child
+# and a meshless twin in process started with the same flags (the LoRA
+# pod's adapter is written here); the requests sent one by one are held bit
+# for bit to the twin's answers; the clients sent at once are grouped by
+# their arrival times, so each of their answers equals the twin's or lies
+# within ``OPTIONS_TIE_TOL`` of the maximum on its prefix (an engine
+# client's against the plain path, a batcher burst's against the twin's
+# lone answer)
+MESH_OPTION_PODS = {
+    "engine": ("--continuous-batch", "--prefix-cache", "4", "--speculative-k", "4",
+               "--allow-admin-load"),
+    "paged-int8": ("--continuous-batch", "--kv-page-size", "16", "--prefix-cache", "4",
+                   "--quantize", "int8"),
+    "batcher-lora": ("--dynamic-batch", "--batch-window-ms", "50"),
+}
+MESH_CLIENTS, MESH_CLIENT_PROMPT, MESH_CLIENT_NEW = 8, 128, 16
+MESH_LORA_R = 16
+# (b)'s serving pair: the engine's tokens against the plain path on the same
+# tp=2 mesh (the reference's own oracle: equal), and the int8 forward's
+# logits and the logprobs against the meshless ones (MESH_B_TOL's tp=2)
+MESH_B_ENGINE_NEW = 16
+MESH_B_LOGPROB_ROWS = 2
 
 # one collective on the card's tensors over a gloo pair; gloo's TCP
 # transport aborts the process (it does not raise) on a collective it does
@@ -7084,23 +7123,368 @@ for spec, impl, needs in runs:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 print("MESH_PAIR", json.dumps(result), flush=True)
-distributed.shutdown()
+torch.distributed.barrier()
+# no teardown: a gloo or store thread still running at interpreter exit can
+# abort a rank (SIGABRT) after its result is out
+os._exit(0)
+"""
+
+# (b)'s serving pair on the card over gloo: rank 0 serves through the op log
+# (the continuous engine, logprobs, an admin load and unload) while rank 1
+# replays it, then both load int8 and run one forward (each rank's flash
+# launches counted per option)
+MESH_SERVE_PAIR_CHILD = r"""
+import json, os, sys
+import numpy as np, torch
+from modelx_tpu_torch.dl.mesh_serve import Follower, OpLog, follow
+from modelx_tpu_torch.dl.serve import ModelServer, ServerSet
+from modelx_tpu_torch.ops import attention as attn
+from modelx_tpu_torch.parallel import distributed
+from modelx_tpu_torch.parallel.mesh import make_mesh
+
+ckpt, port, rank, out_dir, device, name, n_new = sys.argv[1:8]
+port, rank, n_new = int(port), int(rank), int(n_new)
+timeout = float(os.environ.get("MESH_PAIR_TIMEOUT_S", "300"))
+distributed.initialize(f"127.0.0.1:{port}", 2, rank, device=device, backend="gloo",
+                       timeout_s=timeout)
+dev = distributed.local_device()
+mesh = make_mesh("tp=2", device=dev)
+log = OpLog(distributed.control_store(), rank=rank, world=2, timeout_s=timeout)
+make = lambda n, d, **kw: ModelServer(d, device=str(dev), mesh=mesh, name=n, **kw)
+counts, out = {}, {}
+attn.flash_attention.launches = 0
+server = make(name, ckpt, prefix_cache_size=4)
+server.load()
+counts["load"] = attn.flash_attention.launches
+if rank:
+    follow(Follower({name: server}, make_server=lambda n, d: make(n, d, prefix_cache_size=4)),
+           log)
+    counts["served"] = attn.flash_attention.launches - counts["load"]
+else:
+    sset = ServerSet({name: server}, mesh=mesh, continuous_batch=True, max_slots=4,
+                     allow_admin_load=True)
+    sset.pool.mark_ready(name)
+    sset.oplog = log
+    server.attach_oplog(log, sset.device_lock)
+    prompts = np.load(os.path.join(out_dir, "serve_prompts.npy"))
+    cb = sset.continuous_for(server)
+    engine = []
+    for i, p in enumerate(prompts):
+        samp = {"temperature": 0.8, "seed": 7 + i} if i % 2 else {}
+        got = cb.generate(p[None], max_new_tokens=n_new, **samp)
+        want = server.generate(p[None], max_new_tokens=n_new, **samp)
+        engine.append({"equal": bool((got == want).all()), "sampled": bool(samp)})
+    out["engine"] = engine
+    rows = [(p[:64].tolist(), p[64:72].tolist()) for p in prompts]
+    base = attn.flash_attention.launches
+    scored = server.score_logprobs_rows(rows, top_k=2)
+    counts["logprobs"] = attn.flash_attention.launches - base
+    np.save(os.path.join(out_dir, "serve_logprobs.npy"), np.stack([s[0] for s in scored]))
+    base = attn.flash_attention.launches
+    loaded = sset.pool.request_load("x", model_dir=ckpt, wait=True)
+    counts["admin_load"] = attn.flash_attention.launches - base
+    out["admin_state"] = loaded["x"]["state"]
+    out["admin_forward_equal"] = bool((sset.servers["x"].forward_argmax(prompts[:1])
+                                       == server.forward_argmax(prompts[:1])).all())
+    out["admin_unload"] = sset.pool.request_unload("x")["x"]["state"]
+    out["engine_mesh"] = cb.snapshot()["mesh"]
+    sset.close()
+    log.post("shutdown")
+    counts["served"] = attn.flash_attention.launches - counts["load"]
+server.params = None
+base = attn.flash_attention.launches
+int8 = make(name, ckpt, quantize="int8")
+int8.load()
+tokens = torch.as_tensor(np.load(os.path.join(out_dir, "tokens.npy")), device=dev)
+with torch.inference_mode():
+    logits = int8.family.forward(int8.params, tokens, int8.cfg, mesh=mesh)
+counts["int8"] = attn.flash_attention.launches - base
+counts["total"] = attn.flash_attention.launches
+if rank == 0:
+    torch.save(logits.float().cpu(), os.path.join(out_dir, "serve-int8.pt"))
+print("MESH_SERVE", json.dumps({"launches": counts, **out}), flush=True)
+torch.distributed.barrier()
+os._exit(0)  # no teardown, as MESH_PAIR_CHILD
 """
 
 
-def _mesh_pod(ckpt: str, device: str, spec: str, impl: str, root: str):
-    """Start a ``serve_main --mesh`` child (``SERVE_CHILD``: its flash
-    launches printed on its SIGTERM exit): (process, port, log path)."""
+def _mesh_serve_pair_start(ckpt: str, device: str, out_dir: str) -> list:
+    """Start (b)'s serving pair (``MESH_SERVE_PAIR_CHILD``): [(process, log
+    path)] by rank."""
     port = _free_port()
-    log_path = os.path.join(root, f"mesh-{re.sub(r'[^A-Za-z0-9]+', '-', spec)}-{impl}.log")
+    env = {**_child_env(), "MESH_PAIR_TIMEOUT_S": str(MESH_PAIR_TIMEOUT_S)}
+    dev = "cuda:0" if device == "cuda" else "cpu"
+    procs = []
+    for rank in range(2):
+        log_path = os.path.join(out_dir, f"serve-pair-{rank}.log")
+        with open(log_path, "w") as log_f:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", MESH_SERVE_PAIR_CHILD, ckpt, str(port), str(rank),
+                 out_dir, dev, MODEL, str(MESH_B_ENGINE_NEW)], cwd=REPO, env=env,
+                stdout=log_f, stderr=subprocess.STDOUT), log_path))
+    return procs
+
+
+def _mesh_serve_pair_wait(procs: list) -> list:
+    """Each rank's summary of (b)'s serving pair, by rank."""
+    try:
+        for rank, (proc, log_path) in enumerate(procs):
+            if proc.wait(timeout=MESH_PAIR_TIMEOUT_S + 120) != 0:
+                raise RuntimeError(f"mesh (b) serving pair: rank {rank} exited "
+                                   f"{proc.returncode}: {open(log_path).read()[-4000:]}")
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = []
+    for rank, (_proc, log_path) in enumerate(procs):
+        lines = [ln for ln in open(log_path) if ln.startswith("MESH_SERVE ")]
+        if not lines:
+            raise RuntimeError(f"mesh (b) serving pair: rank {rank} printed no summary")
+        out.append(json.loads(lines[-1].split(" ", 1)[1]))
+    return out
+
+
+def _mesh_pod(ckpt: str, device: str, spec: str, impl: str, root: str, flags=(),
+              tag: str = ""):
+    """Start a ``serve_main --mesh`` child (``SERVE_CHILD``: its flash
+    launches printed on its SIGTERM exit) with ``flags``: (process, port,
+    log path)."""
+    port = _free_port()
+    log_path = os.path.join(
+        root, f"mesh-{re.sub(r'[^A-Za-z0-9]+', '-', spec)}-{impl}{tag and '-' + tag}.log")
     log_f = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-c", SERVE_CHILD, "--model", f"{MODEL}={ckpt}", "--device", device,
          "--dtype", "bfloat16", "--listen", f"127.0.0.1:{port}", "--mesh", spec,
-         "--sp-attention", impl, "--drain-seconds", "0"],
+         "--sp-attention", impl, "--drain-seconds", "0", *flags],
         cwd=REPO, env=_child_env(), stdout=log_f, stderr=subprocess.STDOUT)
     log_f.close()
     return proc, port, log_path
+
+
+def _option_flags(name: str, root: str) -> tuple:
+    flags = MESH_OPTION_PODS[name]
+    if name == "batcher-lora":
+        flags += ("--lora", f"{MODEL}={os.path.join(root, 'adapter')}")
+    return flags
+
+
+def _write_mesh_adapter(root: str, cfg) -> None:
+    """A rank-``MESH_LORA_R`` adapter on layer 0's q_proj (split by rows on
+    a tp mesh) and down_proj (split on its input dim)."""
+    import torch
+
+    from modelx_tpu_torch.dl import safetensors as st
+
+    g = torch.Generator().manual_seed(19)
+    q_out, e, f = cfg.num_heads * cfg.head_dim, cfg.hidden_size, cfg.intermediate_size
+    tensors = {}
+    for target, (a_in, b_out) in {"model.layers.0.self_attn.q_proj": (e, q_out),
+                                  "model.layers.0.mlp.down_proj": (f, e)}.items():
+        stem = f"base_model.model.{target}"
+        tensors[f"{stem}.lora_A.weight"] = torch.randn(MESH_LORA_R, a_in, generator=g) * 0.02
+        tensors[f"{stem}.lora_B.weight"] = torch.randn(b_out, MESH_LORA_R, generator=g) * 0.02
+    os.makedirs(os.path.join(root, "adapter"))
+    st.write_safetensors(os.path.join(root, "adapter", "adapter_model.safetensors"), tensors)
+    with open(os.path.join(root, "adapter", "adapter_config.json"), "w") as f_:
+        json.dump({"r": MESH_LORA_R, "lora_alpha": 2 * MESH_LORA_R}, f_)
+
+
+def _option_requests(name: str, cfg, ckpt: str, rng) -> tuple[list, list]:
+    """(the clients sent all at once, the requests sent after them one by
+    one) of option pod ``name``: (method, path, body) each."""
+    prompts = [rng.randint(0, cfg.vocab_size, MESH_CLIENT_PROMPT).tolist()
+               for _ in range(MESH_CLIENTS)]
+    if name == "batcher-lora":
+        burst = [("POST", "/v1/forward", {"tokens": [p]}) if i % 2 else
+                 ("POST", "/v1/generate", {"tokens": [p], "max_new_tokens": MESH_CLIENT_NEW})
+                 for i, p in enumerate(prompts)]
+        return burst, [("POST", "/v1/forward", {"tokens": [prompts[0]]})]
+    clients = []
+    for i, p in enumerate(prompts):
+        body = {"tokens": [p], "max_new_tokens": MESH_CLIENT_NEW}
+        if i % 2:  # temperature only, as the continuous phase's clients
+            body.update(temperature=0.8, seed=100 + i)
+        if i % 4 >= 2:
+            body["stream"] = True
+        clients.append(("POST", "/v1/generate", body))
+    if name == "paged-int8":
+        return clients, [("POST", "/v1/forward", {"tokens": [prompts[1]]})]
+    period = rng.randint(0, cfg.vocab_size, 8).tolist()
+    return clients, [
+        # a prompt, then a prefix-cache hit on it
+        ("POST", "/v1/generate", {"tokens": [prompts[0][:64]], "max_new_tokens": MESH_CLIENT_NEW}),
+        ("POST", "/v1/generate", {"tokens": [prompts[0][:64] + prompts[1][:16]],
+                                  "max_new_tokens": MESH_CLIENT_NEW}),
+        # one greedy row alone: the engine speculates
+        ("POST", "/v1/generate", {"tokens": [period * 8], "max_new_tokens": MESH_CLIENT_NEW}),
+        # logprobs: the scoring forward through the kernel
+        ("POST", "/v1/completions", {"model": MODEL, "prompt": "the mesh serves every option",
+                                     "max_tokens": 4, "logprobs": 2, "temperature": 0.0}),
+        ("POST", "/admin/models", {"name": "x", "model_dir": ckpt, "wait": True}),
+        ("POST", "/v1/x/forward", {"tokens": [prompts[2]]}),
+        ("DELETE", "/admin/models/x", None),
+    ]
+
+
+def _raw(port: int, method: str, path: str, body=None) -> tuple:
+    """(status, raw body) of one request (an NDJSON stream whole)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _send(port: int, requests: list, together: bool) -> list:
+    import threading
+
+    if not together:
+        return [_raw(port, *r) for r in requests]
+    out = [None] * len(requests)
+
+    def go(i, r):
+        out[i] = _raw(port, *r)
+
+    threads = [threading.Thread(target=go, args=(i, r), daemon=True)
+               for i, r in enumerate(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(o is None for o in out):
+        raise RuntimeError("mesh: a client did not finish in 600 s")
+    return out
+
+
+def _comparable(path: str, raw: bytes):
+    """An answer as compared: OpenAI answers without their id and clock,
+    admin answers by state, the rest as bytes."""
+    if path.startswith("/admin/"):
+        return {k: v.get("state") for k, v in json.loads(raw).items()}
+    if path == "/v1/completions":
+        return json.loads(raw)["choices"]
+    return raw
+
+
+def _check_option_pod(name: str, pod, cfg, ckpt: str, device: str, root: str, rng) -> dict:
+    """Option pod ``name`` (its child ``pod``) against its meshless twin in
+    process, started with the same flags: the clients at once to both, then
+    the rest one by one. Returns the pod's stats."""
+    from modelx_tpu_torch.dl import serve_main
+    from modelx_tpu_torch.ops import attention as attn
+
+    proc, port, log_path = pod
+    clients, after = _option_requests(name, cfg, ckpt, rng)
+    before = attn.flash_attention.launches
+    try:
+        twin, httpd = serve_main.start(
+            ["--model", f"{MODEL}={ckpt}", "--device", device, "--dtype", "bfloat16",
+             "--listen", f"127.0.0.1:{_free_port()}", "--drain-seconds", "0",
+             *_option_flags(name, root)])
+        tport = httpd.server_address[1]
+        try:
+            if name == "batcher-lora":
+                # the twin's lone answers: a burst's group shapes follow timing
+                want_c = _send(tport, clients, together=False)
+            else:
+                want_c = _send(tport, clients, together=True)
+            want_a = _send(tport, after, together=False)
+            twin_launches = attn.flash_attention.launches - before
+            _wait_mesh_pod(proc, port, log_path, f"serve_main --mesh dp=1,tp=1 ({name})")
+            t0 = time.monotonic()
+            got_c = _send(port, clients, together=True)
+            got_a = _send(port, after, together=False)
+            wall = time.monotonic() - t0
+            server = twin.servers[MODEL]
+            how = []
+            for (_m, path, body), got, want in zip(clients, got_c, want_c):
+                if got[0] != 200 or want[0] != 200:
+                    raise RuntimeError(f"mesh ({name}) {path}: answered {got[0]}, the twin "
+                                       f"{want[0]}: {got[1][:300]!r}")
+                if name != "batcher-lora":
+                    how.append("equal" if got[1] == want[1] else _engine_client_ties(
+                        server, body, got[1], f"mesh ({name}) client"))
+                    continue
+                gtok, wtok = json.loads(got[1]), json.loads(want[1])
+                if path.endswith("forward"):
+                    how.append(check_forward_ties(server, body["tokens"], gtok["logits_argmax"],
+                                                  wtok["logits_argmax"], f"mesh ({name}) burst"))
+                else:
+                    n = len(body["tokens"][0])
+                    how.append(check_near_ties(server, body["tokens"][0], gtok["tokens"][0][n:],
+                                               wtok["tokens"][0][n:], f"mesh ({name}) burst"))
+            for (_m, path, body), got, want in zip(after, got_a, want_a):
+                if (got[0], _comparable(path, got[1])) != (want[0], _comparable(path, want[1])):
+                    raise RuntimeError(f"mesh ({name}) {path}: answered {got[0]} "
+                                       f"{got[1][:300]!r}, the meshless twin {want[0]} "
+                                       f"{want[1][:300]!r}")
+            _, metrics = _http(port, "/metrics")
+            mstats = metrics[MODEL]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            twin.close()
+            _free(*twin.servers.values())
+    finally:
+        attn.flash_attention.launches = before
+        launches = _stop_serve_child(proc, log_path, f"mesh ({name})")
+    on_card = device == "cuda"
+    if name == "batcher-lora":
+        if on_card and launches < 2 * cfg.num_layers:
+            raise RuntimeError(f"mesh ({name}): {launches} flash launches")
+    elif launches != twin_launches:
+        raise RuntimeError(f"mesh ({name}): {launches} flash launches, the meshless twin "
+                           f"{twin_launches}")
+    out = {"launches": launches, "wall_s": wall, "mesh": mstats["mesh"]}
+    if name == "engine":
+        engine = mstats.get("continuous", {}) or {}
+        out.update(prefix_hits=mstats.get("prefix_cache", {}).get("hits"),
+                   spec_steps=engine.get("spec_steps"), spec_accepted=engine.get("spec_accepted"))
+        if not out["prefix_hits"]:
+            raise RuntimeError(f"mesh ({name}): no prefix-cache hit ({mstats})")
+        if not out["spec_steps"]:
+            raise RuntimeError(f"mesh ({name}): the engine never speculated")
+    if how:
+        out["burst"] = how
+    log(f"mesh (a) {name} ({' '.join(_option_flags(name, '.'))}), one rank: "
+        f"{len(clients)} clients{' (a burst)' if name == 'batcher-lora' else ' at once'} and "
+        f"{len(after)} requests after them "
+        f"{'equal or within the tie tolerance' if how else 'equal bit for bit'} to the "
+        f"meshless twin's; {launches} flash launches (twin {twin_launches}); "
+        f"{wall:.1f} s{'; ' + str({k: out[k] for k in ('prefix_hits', 'spec_steps', 'spec_accepted')}) if name == 'engine' else ''}")
+    return out
+
+
+def _client_tokens(body: dict, raw: bytes) -> list:
+    """The new tokens of a /v1/generate answer, whole or streamed."""
+    if body.get("stream"):
+        return _stream_tokens(raw)
+    return json.loads(raw)["tokens"][0][len(body["tokens"][0]):]
+
+
+def _engine_client_ties(server, body: dict, raw: bytes, what: str) -> str:
+    """An engine client's answer that differs from the twin's: which rows
+    the engine admits together follows arrival times, and in bf16 the
+    group's row count changes the prefill's rounding, so the answer is
+    held to the plain path in process (``server.generate``) by
+    ``check_near_ties``, its sampling included."""
+    import numpy as np
+
+    prompt = body["tokens"][0]
+    samp = {k: body[k] for k in ("temperature", "seed") if k in body}
+    plain = _uncounted(lambda: server.generate(
+        np.asarray([prompt], np.int32), max_new_tokens=body["max_new_tokens"], **samp))
+    return check_near_ties(server, prompt, _client_tokens(body, raw),
+                           plain[0, len(prompt):].tolist(), what, samp or None)
 
 
 def _wait_mesh_pod(proc, port: int, log_path: str, what: str) -> None:
@@ -7203,6 +7587,58 @@ def _mesh_pair(ckpt: str, device: str, out_dir: str, refused: dict) -> dict:
     return out[0]
 
 
+def _check_serve_pair(serve_pair: list, ckpt: str, device: str, root: str, b_tokens,
+                      want_lp, cfg) -> dict:
+    """(b)'s serving pair against the plain path on its mesh (the engine:
+    equal) and the meshless path (int8 logits, logprobs: within
+    ``MESH_B_TOL``'s tp=2); the flash kernel launched on both ranks for
+    the scoring forward, the admin load and int8."""
+    import numpy as np
+    import torch
+
+    from modelx_tpu_torch.dl.serve import ModelServer
+
+    plain8 = ModelServer(ckpt, dtype="bfloat16", device=device, quantize="int8")
+    _uncounted(plain8.load)
+    with torch.inference_mode():
+        want8 = _uncounted(lambda: plain8.family.forward(
+            plain8.params, torch.as_tensor(b_tokens, device=plain8.device),
+            plain8.cfg)).float().cpu()
+    _free(plain8)
+    ranks = _mesh_serve_pair_wait(serve_pair)
+    lead = ranks[0]
+    tol = MESH_B_TOL["tp=2 auto"]
+    if not all(e["equal"] for e in lead["engine"]):
+        raise RuntimeError(f"mesh (b) serving: the engine's tokens differ from the plain "
+                           f"path's on the same tp=2 mesh: {lead['engine']}")
+    if (lead["admin_state"], lead["admin_unload"], lead["admin_forward_equal"],
+            lead["engine_mesh"]) != ("READY", "UNLOADED", True, "tp=2"):
+        raise RuntimeError(f"mesh (b) serving: admin load/unload or the engine's mesh: {lead}")
+    lp_err = float(np.abs(np.load(os.path.join(root, "serve_logprobs.npy")) - want_lp).max())
+    int8_err = float((torch.load(os.path.join(root, "serve-int8.pt")) - want8).abs().max())
+    for what, err in (("logprobs", lp_err), ("int8 logits", int8_err)):
+        if not err <= tol:
+            raise RuntimeError(f"mesh (b) serving: {what} differ from the meshless path's by "
+                               f"{err:.4f} (tolerance {tol})")
+    if device == "cuda":
+        # rank 0 by option; rank 1 replayed the scoring forward and the
+        # admin load's warm-up ("served")
+        for rank, options in ((0, ("load", "logprobs", "admin_load", "int8")),
+                              (1, ("load", "served", "int8"))):
+            missing = [o for o in options if not ranks[rank]["launches"].get(o)]
+            if missing:
+                raise RuntimeError(f"mesh (b) serving: rank {rank} launched no flash kernel "
+                                   f"for {missing}: {ranks[rank]['launches']}")
+    log(f"mesh (b) serving, two ranks over gloo (tp=2, rank 1 replaying rank 0's op log): "
+        f"{len(lead['engine'])} engine generates (greedy and sampled) equal to the plain path "
+        f"on the mesh; logprobs within {lp_err:.4f} and int8 logits [1,{MESH_B_SEQ}] within "
+        f"{int8_err:.4f} of the meshless path's (tolerance {tol}); an admin-loaded name "
+        f"answered and unloaded; flash launches by rank {[r['launches'] for r in ranks]}")
+    return {"mesh_b_serve": {"ranks": [r["launches"] for r in ranks], "logprobs_err": lp_err,
+                             "int8_err": int8_err, "tolerance": tol,
+                             "engine": lead["engine"]}}
+
+
 def phase_mesh(device: str = "cuda", cfg=None, parts: str = "ab") -> dict:
     """The serving mesh (module docstring, phase 14) on Llama-3-8B's widths
     at ``MESH_LAYERS`` layers; its flash launches counted from 0. The
@@ -7227,7 +7663,7 @@ def phase_mesh(device: str = "cuda", cfg=None, parts: str = "ab") -> dict:
     nbytes = 2 * sum(math.prod(x) for x in llama.param_shapes(cfg).values())
     root = _checkpoint_dir(nbytes)
     stats: dict = {"flash_launches_mesh": 0}
-    pods, probes = {}, {}
+    pods, probes, options, serve_pair = {}, {}, {}, []
     try:
         ckpt = os.path.join(root, "model")
         os.makedirs(ckpt)
@@ -7236,17 +7672,27 @@ def phase_mesh(device: str = "cuda", cfg=None, parts: str = "ab") -> dict:
                                    dtype=torch.bfloat16)
         st.write_safetensors(os.path.join(ckpt, "model.safetensors"), params)
         del params
+        # the tokenizer (``logprobs`` through /v1/completions) and an adapter
+        write_text_files(ckpt, cfg.vocab_size - len(LLAMA3_SPECIALS))
+        _write_mesh_adapter(root, cfg)
         log(f"mesh: wrote {nbytes / 1e9:.3f} GB ({cfg}) in {time.monotonic() - t0:.1f} s")
         rng = np.random.RandomState(18)
         fwd_tokens = rng.randint(0, cfg.vocab_size, MESH_FORWARD)
         prompt = rng.randint(0, cfg.vocab_size, (1, MESH_PROMPT))
         b_tokens = rng.randint(0, cfg.vocab_size, (1, MESH_B_SEQ))
+        serve_prompts = rng.randint(0, cfg.vocab_size, (MESH_B_LOGPROB_ROWS, 72))
         np.save(os.path.join(root, "tokens.npy"), b_tokens)
-        # the (a) pods and (b)'s collective probes start together, while
-        # the meshless server loads here
+        np.save(os.path.join(root, "serve_prompts.npy"), serve_prompts)
+        # the (a) pods, (b)'s collective probes and serving pair start
+        # together, while the meshless server loads here
         runs_a = MESH_A_RUNS if "a" in parts else ()
         pods = {run: _mesh_pod(ckpt, device, *run, root) for run in runs_a}
+        if "a" in parts:
+            options = {name: _mesh_pod(ckpt, device, "dp=1,tp=1", "auto", root,
+                                       _option_flags(name, root), tag=name)
+                       for name in MESH_OPTION_PODS}
         probes = _mesh_probes(device, root) if "b" in parts else {}
+        serve_pair = _mesh_serve_pair_start(ckpt, device, root) if "b" in parts else []
         plain = ModelServer(ckpt, dtype="bfloat16", device=device)
         plain.load()
         want_fwd = _uncounted(lambda: plain.forward_argmax(fwd_tokens)).tolist()
@@ -7255,6 +7701,8 @@ def phase_mesh(device: str = "cuda", cfg=None, parts: str = "ab") -> dict:
             want_b = _uncounted(lambda: plain.family.forward(
                 plain.params, torch.as_tensor(b_tokens, device=plain.device),
                 plain.cfg)).float().cpu()
+        want_lp = np.stack([r[0] for r in _uncounted(lambda: plain.score_logprobs_rows(
+            [(p[:64].tolist(), p[64:72].tolist()) for p in serve_prompts]))])
 
         # (a) one rank over NCCL through the entry point
         per_forward = cfg.num_layers if on_card else 0
@@ -7309,6 +7757,14 @@ def phase_mesh(device: str = "cuda", cfg=None, parts: str = "ab") -> dict:
         _free(plain)
         del plain
         gc.collect()
+        # (a)'s serving options, each against its meshless twin
+        t0 = time.monotonic()
+        for name, pod in options.items():
+            got = _check_option_pod(name, pod, cfg, ckpt, device, root, rng)
+            stats[f"mesh_a_{name}"] = got
+            stats["flash_launches_mesh"] += got["launches"]
+        if options:
+            stats["mesh_a_options_s"] = time.monotonic() - t0
 
         # (b) two ranks on the one card over gloo
         if "b" in parts:
@@ -7348,9 +7804,14 @@ def phase_mesh(device: str = "cuda", cfg=None, parts: str = "ab") -> dict:
                     f"{run['forward_ms']:.1f} ms, load {run['load_s']:.1f} s, rank 0 read "
                     f"{run['rank_load_bytes'] / 1e9:.3f} GB of {nbytes / 1e9:.3f}; "
                     f"{launches} flash launches on the two ranks")
+            stats.update(_check_serve_pair(serve_pair, ckpt, device, root, b_tokens, want_lp,
+                                           cfg))
+            stats["flash_launches_mesh"] += sum(r["total"] for r in stats["mesh_b_serve"]["ranks"])
+            stats["mesh_b_s"] = time.monotonic() - t0
     finally:
         # every child this phase started ends with it
-        for proc, *_ in list(pods.values()) + list(probes.values()):
+        for proc, *_ in (list(pods.values()) + list(probes.values()) + list(options.values())
+                         + serve_pair):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

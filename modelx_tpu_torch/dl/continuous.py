@@ -73,13 +73,25 @@ depths). On the CPU in fp32 that is byte equality; in bf16 on the card a
 step's row count changes the matmul's rounding, so an answer equals the
 plain one or first differs at a near-tie.
 
-Left for later slices: mesh placement of the state, registry-installed
-prefix KV, the ``/metrics`` block and trace spans, and fault injection.
+On a mesh of processes (``dl/mesh_serve.py``) the engine runs on rank 0
+and every rank holds the state its part of the model needs: a dense cache
+keeps its dp rows of the slots (every slot where dp does not divide them)
+and its tp kv heads, the page pool every page of its kv heads (the page
+index is global and never splits), and the token vector whole. Each
+device step posts its inputs (slots, pages, tokens, offsets, sampling
+vectors, the prefix-cache entry it reads or stores) to the op log before
+it runs, and a follower's replica engine (``replica=True``: no thread, no
+queue) runs the same step from them; no follower decides anything.
+Admissions and prefill pieces run every row on every dp rank's owner; a
+piece's first token and a stored prefix reach the other dp ranks by a
+gather over dp. Under dp the chunk step's logits are gathered over dp, so
+every rank samples every row and rank 0 streams them all.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import queue
 import threading
@@ -99,10 +111,11 @@ from modelx_tpu_torch.dl.serving_errors import (
     QueueFullError,
     ServingError,
 )
-from modelx_tpu_torch.models.decode import SEQ_BUCKET, pad_seq_len, stop_cut
+from modelx_tpu_torch.models.decode import SEQ_BUCKET, key_digest, pad_seq_len, stop_cut
 from modelx_tpu_torch.ops import prng
 from modelx_tpu_torch.ops import sampling as sampling_ops
 from modelx_tpu_torch.ops.paged_attention import page_coords, ragged_blocks
+from modelx_tpu_torch.parallel.mesh import mesh_str
 from modelx_tpu_torch.testing import faults as _faults
 from modelx_tpu_torch.utils import devmem, flightrec, promexp, trace, tswheel
 
@@ -304,10 +317,17 @@ class ContinuousBatcher:
                  flight_recorder: bool = True,
                  flightrec_capacity: int = 0,
                  flight_dump_dir: str = "",
-                 device_telemetry: bool = True) -> None:
+                 device_telemetry: bool = True,
+                 replica: bool = False) -> None:
         if server.family.decode_fns is None:
             raise ValueError(f"family {server.family.name} has no cached decode")
         self.server = server
+        # a follower's engine: the device state and steps only (``replay``)
+        self.replica = bool(replica)
+        # rank 0 of a mesh posts each device step to the followers first
+        self._oplog = None if replica else getattr(server, "oplog", None)
+        mesh_kw = server._mesh_kw() if hasattr(server, "_mesh_kw") else {}
+        self.mesh = mesh_kw.get("mesh")
         self.device = server.device
         self._on_card = self.device.type == "cuda"
         # the engine thread works on this card (a bare "cuda" means the
@@ -330,11 +350,19 @@ class ContinuousBatcher:
         # the per-row span must cover whichever engine writes deepest
         self._overrun = max(self.chunk_size, self.speculative_k + 1)
         self.prefix_cache = prefix_cache
-        self._fwd, self._init_cache = server.family.decode_fns(server.params, server.cfg)
+        self._fwd, self._init_cache = server.family.decode_fns(server.params, server.cfg,
+                                                               **mesh_kw)
+        # admissions and prefill pieces: every row on every dp rank
+        self._fwd_all, self._init_all = (
+            server.family.decode_fns(server.params, server.cfg, split_rows=False, **mesh_kw)
+            if self.mesh is not None else (self._fwd, self._init_cache))
+        # the slots whose dense rows this rank holds (every slot off a mesh)
+        self._r0, self._r1 = (self.mesh.local_rows(self.max_slots) if self.mesh is not None
+                              else (0, self.max_slots))
         if paged_attention not in ("gather", "in-place"):
             raise ValueError(f"unknown paged_attention mode {paged_attention!r}")
         self._fwd_paged = (
-            server.family.paged_decode_fns(server.params, server.cfg)
+            server.family.paged_decode_fns(server.params, server.cfg, **mesh_kw)
             if (page_size > 0 and paged_attention == "in-place"
                 and server.family.paged_decode_fns is not None)
             else None
@@ -461,6 +489,9 @@ class ContinuousBatcher:
                 "in-place" if self._fwd_paged is not None else "gather")
         if self.boundary_watchdog_s > 0:
             self.stats["watchdog_stalls"] = 0
+        if self.replica:
+            self._closed = True
+            return
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"continuous-{getattr(server, 'name', '')}")
         self._thread.start()
@@ -559,22 +590,27 @@ class ContinuousBatcher:
         return sampling_ops.sample(logits.float(), self._key, temp, top_k=top_k,
                                    top_p=top_p, seeds=seeds, step=step).long()
 
-    def _samp_vectors(self, samps: list, m: int) -> tuple:
-        """(temp, top_k, top_p, seeds, first_steps) device vectors for
-        ``m`` rows (pad rows greedy): temp None when no row samples, a
-        filter None when no row uses it, so the one-shot pick does no
-        filter work for nothing."""
-        temp = np.zeros(m, np.float32)
-        top_k = np.zeros(m, np.int64)
-        top_p = np.ones(m, np.float32)
-        seeds = np.zeros(m, np.int64)
-        steps = np.zeros(m, np.int64)
+    @staticmethod
+    def _samp_arrays(samps: list, m: int) -> tuple[np.ndarray, np.ndarray]:
+        """The sampling controls of ``m`` rows (pad rows greedy) as host
+        arrays, what a device step carries: floats [m, 2] (temperature,
+        top_p) and ints [m, 3] (top_k, seed, first step)."""
+        floats = np.zeros((m, 2), np.float32)
+        floats[:, 1] = 1.0
+        ints = np.zeros((m, 3), np.int64)
         for i, samp in enumerate(samps):
-            temp[i] = float(samp.get("temperature", 0.0))
-            top_k[i] = int(samp.get("top_k", 0))
-            top_p[i] = float(samp.get("top_p", 1.0))
-            seeds[i] = int(samp.get("seed", 0))
-            steps[i] = int(samp.get("resume_step", 0))
+            floats[i] = (float(samp.get("temperature", 0.0)), float(samp.get("top_p", 1.0)))
+            ints[i] = (int(samp.get("top_k", 0)), int(samp.get("seed", 0)),
+                       int(samp.get("resume_step", 0)))
+        return floats, ints
+
+    def _samp_vectors(self, samp_f: np.ndarray, samp_i: np.ndarray) -> tuple:
+        """(temp, top_k, top_p, seeds, first_steps) device vectors from
+        ``_samp_arrays``: temp None when no row samples, a filter None when
+        no row uses it, so the one-shot pick does no filter work for
+        nothing."""
+        temp, top_p = samp_f[:, 0].copy(), samp_f[:, 1].copy()
+        top_k, seeds, steps = samp_i[:, 0].copy(), samp_i[:, 1].copy(), samp_i[:, 2].copy()
         if not (temp > 0).any():
             return None, None, None, None, None
         sampled = temp > 0
@@ -598,39 +634,68 @@ class ContinuousBatcher:
         if rem:
             leaf[ids[:, full], :rem] = src[:, full * ps: span]
 
-    def _prefill(self, prompts: np.ndarray, row_lens: np.ndarray, samps: list) -> tuple:
-        """Prefill ``prompts`` [m, Sb] into a fresh scratch cache and pick
-        each row's first token at its last real position (step
-        ``resume_step`` of its stream). Returns (scratch cache, firsts [m])."""
-        m, sb = prompts.shape
-        small = self._init_cache(m, sb)
-        logits, _ = self._fwd(self.server.params, self._upload(prompts), kv_cache=small,
-                              cache_offset=0)
-        last = logits[torch.arange(m, device=logits.device), self._upload(row_lens - 1)]
-        temp, top_k, top_p, seeds, steps = self._samp_vectors(samps, m)
-        return small, self._pick(last, temp, top_k, top_p, seeds, steps)
-
     def _insert(self, small: dict, slots: list, span: int, page_ids: np.ndarray | None) -> None:
         """Copy the scratch rows' first ``span`` positions into their
-        slots (dense) or their reserved pages (paged)."""
+        slots (dense: the slots whose rows this rank holds) or their
+        reserved pages (paged)."""
         k = len(slots)
         if self.page_size > 0:
-            ids = self._upload(page_ids.reshape(k, -1))
+            ids = self._upload(np.asarray(page_ids, np.int64).reshape(k, -1))
             for name, leaf in self._cache.items():
                 self._write_pages(leaf, small[name][:k], ids, span)
-        elif k == 1:
+            return
+        mine = [(i, slot - self._r0) for i, slot in enumerate(slots)
+                if self._r0 <= slot < self._r1]
+        if len(mine) == 1:
+            i, row = mine[0]
             for name, c in self._cache.items():
-                c[slots[0], :span] = small[name][0, :span]
-        else:
-            idx = self._upload(np.asarray(slots, np.int64))
+                c[row, :span] = small[name][i, :span]
+        elif mine:
+            src = self._upload(np.asarray([i for i, _ in mine], np.int64))
+            idx = self._upload(np.asarray([row for _, row in mine], np.int64))
             for name, c in self._cache.items():
-                c[idx, :span] = small[name][:k, :span]
+                c[idx, :span] = small[name][src, :span]
 
     def _set_tok(self, slots: list, firsts: torch.Tensor) -> None:
         if len(slots) == 1:
             self._tok[slots[0], 0] = firsts[0]
         else:
             self._tok[self._upload(np.asarray(slots, np.int64)), 0] = firsts[: len(slots)]
+
+    # -- device steps ---------------------------------------------------------
+    #
+    # Each ``_dev_<step>`` runs one device step from host values only
+    # (numpy arrays and plain scalars), so rank 0 of a mesh can post them
+    # and a follower's replica engine runs the same step (``replay``).
+
+    def _step(self, kind: str, hit_entry=None, **inputs):
+        """Run device step ``kind`` (the caller holds the device lock). On
+        rank 0 of a mesh its inputs are posted to the followers first;
+        ``hit_entry`` (the prefix entry rank 0 holds) stays local, the
+        followers read theirs by its digest."""
+        if self._oplog is not None:
+            self.server._post("engine", step=kind, **inputs)
+        if hit_entry is not None:
+            inputs["hit_entry"] = hit_entry
+        return getattr(self, "_dev_" + kind)(**inputs)
+
+    def replay(self, kind: str, inputs: dict) -> None:
+        """A follower's run of a posted device step."""
+        getattr(self, "_dev_" + kind)(**inputs)
+
+    def _local_view(self, table: torch.Tensor, offs: torch.Tensor, width: int):
+        """The gather view of this rank's dp rows of every slot's pages."""
+        r0, r1 = self._r0, self._r1
+        return _GatheredPages(self._cache, table[r0:r1], self.page_size, offs[r0:r1], width)
+
+    def _from_owner(self, t: torch.Tensor, slot: int) -> torch.Tensor:
+        """``t`` as computed by the dp ranks holding ``slot``'s dense row,
+        on every dp rank: a gather over dp where the rows are split, else
+        ``t``."""
+        rows = self._r1 - self._r0
+        if self.page_size > 0 or rows == self.max_slots:
+            return t
+        return self.mesh.all_gather(t[None], "dp", dim=0)[slot // rows]
 
     def _chunk(self, n_steps: int) -> torch.Tensor:
         """``n_steps`` decode steps over ALL slots at [max_slots, 1], from
@@ -644,9 +709,18 @@ class ContinuousBatcher:
         ar = np.arange(n_steps, dtype=np.int64)[:, None]
         ints = np.concatenate([self._offsets[None, :] + ar, self._steps[None, :] + ar,
                                self._seeds[None, :], self._top_k[None, :]])
+        return self._step(
+            "chunk", n_steps=int(n_steps), ints=ints,
+            floats=np.stack([self._temp, self._top_p]) if sampled else None,
+            filtered=bool(filtered), table=self._table.copy() if self.page_size > 0 else None,
+            longest=int(self._offsets.max()) + 1)
+
+    def _dev_chunk(self, n_steps: int, ints: np.ndarray, floats, filtered: bool, table,
+                   longest: int) -> torch.Tensor:
         ints_dev = self._upload(ints)
+        sampled = floats is not None
         if sampled:
-            floats = self._upload(np.stack([self._temp, self._top_p]))
+            floats = self._upload(floats)
             temp, seeds = floats[0], ints_dev[2 * n_steps]
             top_k = ints_dev[2 * n_steps + 1] if filtered else None
             top_p = floats[1] if filtered else None
@@ -654,18 +728,18 @@ class ContinuousBatcher:
             temp = top_k = top_p = seeds = None
         params = self.server.params
         ps = self.page_size
-        table = self._upload(self._table) if ps > 0 else None
+        table = self._upload(table) if ps > 0 else None
         tok = self._tok
         toks = []
-        longest = int(self._offsets.max()) + 1  # the in-place loop's ragged bound
         for t in range(n_steps):
             offs = ints_dev[t]
             if self._fwd_paged is not None:
+                # longest: the in-place loop's ragged bound
                 logits, _ = self._fwd_paged(
                     params, tok, kv_cache=self._cache, cache_offset=offs, table=table,
                     n_blocks=ragged_blocks(longest + t, ps, self._pages_per_slot))
             elif ps > 0:
-                view = _GatheredPages(self._cache, table, ps, offs, 1)
+                view = self._local_view(table, offs, 1)
                 logits, _ = self._fwd(params, tok, kv_cache=view, cache_offset=offs)
                 view.flush()
             else:
@@ -684,27 +758,37 @@ class ContinuousBatcher:
         Returns the argmax at every position [max_slots, k+1]. Rejected
         positions leave garbage KV past the rewound offset, hidden by the
         causal mask until overwritten."""
-        offs = self._upload(self._offsets)
+        return self._step("verify", block=block, offsets=self._offsets.copy(),
+                          table=self._table.copy() if self.page_size > 0 else None)
+
+    def _dev_verify(self, block: np.ndarray, offsets: np.ndarray, table) -> torch.Tensor:
+        offs = self._upload(offsets)
         params = self.server.params
         tokens = self._upload(block)
         if self.page_size > 0:
-            view = _GatheredPages(self._cache, self._upload(self._table), self.page_size,
-                                  offs, block.shape[1])
+            view = self._local_view(self._upload(table), offs, block.shape[1])
             logits, _ = self._fwd(params, tokens, kv_cache=view, cache_offset=offs)
             view.flush()
         else:
             logits, _ = self._fwd(params, tokens, kv_cache=self._cache, cache_offset=offs)
         return torch.argmax(logits, dim=-1)
 
-    def _slot_row(self, slot: int, span: int) -> tuple[dict, dict | None, np.ndarray | None]:
+    def _dev_tok(self, tok: np.ndarray) -> None:
+        self._tok = self._upload(tok)
+
+    def _slot_row(self, slot: int, span: int, pages) -> tuple[dict, dict | None, np.ndarray | None]:
         """The slot's own cache over positions [0, span): views of the dense
         rows (writes land in place), or views of a gathered copy of its
-        pages (the caller writes the touched pages back). Returns (views,
-        the gathered copies or None, their page ids or None)."""
+        pages ``pages`` (its table row; the caller writes the touched pages
+        back). Returns (views, the gathered copies or None, their page ids
+        or None); views None on a rank that does not hold the slot's row."""
         if self.page_size <= 0:
-            return {n: c[slot: slot + 1, :span] for n, c in self._cache.items()}, None, None
+            if not self._r0 <= slot < self._r1:
+                return None, None, None
+            row = slot - self._r0
+            return {n: c[row: row + 1, :span] for n, c in self._cache.items()}, None, None
         n_pg = -(-span // self.page_size)
-        ids = self._table[slot, :n_pg].copy()
+        ids = np.asarray(pages[:n_pg], np.int64).copy()
         idx = self._upload(ids)
         full = {n: p[idx].reshape(1, n_pg * self.page_size, *p.shape[2:])
                 for n, p in self._cache.items()}
@@ -714,26 +798,56 @@ class ContinuousBatcher:
         """Run one prefill piece [1, piece_len] at the fill's offset against
         the slot's own earlier KV; the landed KV equals the same span of a
         monolithic prefill. The last piece also picks the row's first
-        token (step ``resume_step`` of its stream). Returns the first
-        token [1] or None."""
+        token (step ``resume_step`` of its stream), and with a prefix cache
+        stores the prompt's landed KV. Returns the first token [1] or
+        None."""
         slot, filled = fill.slot, fill.filled
         block = np.zeros((1, piece_len), np.int64)
         block[0, :take] = fill.ids[filled: filled + take]
-        row, full, ids = self._slot_row(slot, filled + piece_len)
-        logits, _ = self._fwd(self.server.params, self._upload(block), kv_cache=row,
-                              cache_offset=filled)
-        if full is not None:
-            # write back only the pages the piece touched
-            ps = self.page_size
-            start_pg, end_pg = filled // ps, (filled + piece_len - 1) // ps
-            touched = self._upload(ids[start_pg: end_pg + 1])
-            for name, leaf in self._cache.items():
-                src = full[name][0, start_pg * ps: (end_pg + 1) * ps]
-                leaf[touched] = src.reshape(end_pg + 1 - start_pg, ps, *src.shape[1:])
+        samp_f, samp_i = self._samp_arrays([fill.samp], 1)
+        put = last and self.prefix_cache is not None
+        return self._step(
+            "piece", slot=int(slot), filled=int(filled), block=block, take=int(take),
+            last=bool(last), samp_f=samp_f, samp_i=samp_i,
+            pages=self._table[slot].copy() if self.page_size > 0 else None,
+            put_ids=np.asarray(fill.ids, np.int64) if put else None)
+
+    def _dev_piece(self, slot: int, filled: int, block: np.ndarray, take: int, last: bool,
+                   samp_f: np.ndarray, samp_i: np.ndarray, pages, put_ids):
+        piece_len = block.shape[1]
+        row, full, ids = self._slot_row(slot, filled + piece_len, pages)
+        first = None
+        if row is not None:  # this rank holds the slot's row (its dp owner)
+            logits, _ = self._fwd(self.server.params, self._upload(block), kv_cache=row,
+                                  cache_offset=filled)
+            if full is not None:
+                # write back only the pages the piece touched
+                ps = self.page_size
+                start_pg, end_pg = filled // ps, (filled + piece_len - 1) // ps
+                touched = self._upload(ids[start_pg: end_pg + 1])
+                for name, leaf in self._cache.items():
+                    src = full[name][0, start_pg * ps: (end_pg + 1) * ps]
+                    leaf[touched] = src.reshape(end_pg + 1 - start_pg, ps, *src.shape[1:])
+            if last:
+                first = self._pick(logits[:, take - 1], *self._samp_vectors(samp_f, samp_i))
         if not last:
             return None
-        first = self._pick(logits[:, take - 1], *self._samp_vectors([fill.samp], 1))
+        if first is None:
+            first = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        first = self._from_owner(first, slot)
         self._tok[slot, 0] = first[0]
+        if put_ids is not None:
+            # the freshly landed prompt KV: the next turn prefills only its
+            # new suffix, as after a single-program admission
+            bucket = pad_seq_len(len(put_ids))
+            row, _full, _ids = self._slot_row(slot, bucket, pages)
+            snap = {}
+            for name in self._cache:
+                mine = (row[name].clone() if row is not None else torch.zeros(
+                    (1, bucket) + tuple(self._cache[name].shape[2:]),
+                    dtype=self._cache[name].dtype, device=self.device))
+                snap[name] = self._from_owner(mine, slot)
+            self.prefix_cache.put(put_ids.tolist(), snap)
         return first
 
     # -- speculation ----------------------------------------------------------
@@ -782,7 +896,7 @@ class ContinuousBatcher:
         if prop:
             block[slot, 1:1 + len(prop)] = prop
         with trace.span("continuous.spec_verify", proposed=len(prop)), \
-                self.server._device_lock:
+                self.server._device_lock, self.server._mesh_guard():
             argm_dev = self._verify(block)[slot]
             fetch = start_host_copy(argm_dev)
         # the spec boundary's one blocking readback: acceptance decides the
@@ -809,7 +923,8 @@ class ContinuousBatcher:
         # DELIVERED token, whose chunk-entry re-emission the skip swallows
         tok_np = np.zeros((self.max_slots, 1), np.int64)
         tok_np[slot, 0] = row.seq[-1]
-        self._tok = self._upload(tok_np)
+        with self.server._device_lock, self.server._mesh_guard():
+            self._step("tok", tok=tok_np)
         self._tok_host = tok_np[:, 0].copy()
         self._steady = False
         row.skip = 1
@@ -998,6 +1113,69 @@ class ContinuousBatcher:
                     p["ticket"].out.put(e)
             raise
 
+    def _current_hit(self, ids, hit):
+        """The prefix hit a device step reads (an admission's or a fill's
+        seed), decided under the device lock just before the step: the
+        looked-up entry as now stored, or, when a put evicted it since the
+        lookup, a fresh lookup. A step never names an entry the cache no
+        longer holds, so a follower holds every entry it is told to read."""
+        if hit is None:
+            return None
+        entry = self.prefix_cache.get(ids[: hit[0]])
+        if entry is not None:
+            return hit[0], entry
+        return self.prefix_cache.lookup(ids, max_total=self.max_len)
+
+    def _dev_admit(self, prompts: np.ndarray, row_lens: np.ndarray, samp_f: np.ndarray,
+                   samp_i: np.ndarray, slots: list, trim: int, page_ids, plen: int = 0,
+                   hit: str | None = None, put_ids=None, hit_entry=None) -> torch.Tensor:
+        """Prefill ``prompts`` [m, Sb] (every row on every dp rank) into a
+        scratch cache, pick each row's first token at its last real
+        position (step ``resume_step`` of its stream), copy the scratch
+        rows' first ``trim`` positions into ``slots`` and their tokens into
+        the token vector. With ``hit`` (one row) the scratch cache starts
+        as the stored prefix entry and only the suffix ``prompts`` prefill,
+        at ``plen``. ``put_ids`` stores the prompt's KV in the prefix
+        cache. Returns the firsts [m]."""
+        if hit is not None:
+            sb = prompts.shape[1]
+            stored = hit_entry if hit_entry is not None else self.prefix_cache.by_digest(hit)[1]
+            # the scratch cache starts as the STORED prefix KV extended by
+            # the suffix bucket; only the suffix prefills, at plen
+            small = {n: torch.cat([st, st.new_zeros((1, sb) + tuple(st.shape[2:]))], dim=1)
+                     for n, st in stored.items()}
+            small, firsts = self._prefill(prompts, row_lens, samp_f, samp_i, small, plen)
+            small = {n: c[:, :trim].clone() for n, c in small.items()}
+        else:
+            small, firsts = self._prefill(prompts, row_lens, samp_f, samp_i)
+        self._insert(small, slots, trim, page_ids)
+        self._set_tok(slots, firsts)
+        if put_ids is not None:
+            # the scratch cache IS this prompt's prefill KV (bucketed to the
+            # prompt's 16-quantum): the conversation's next turn prefills
+            # only its new suffix
+            self.prefix_cache.put(put_ids.tolist(), small)
+        return firsts
+
+    def _prefill(self, prompts: np.ndarray, row_lens: np.ndarray, samp_f: np.ndarray,
+                 samp_i: np.ndarray, small: dict | None = None, plen: int = 0) -> tuple:
+        """Prefill ``prompts`` [m, Sb] at ``plen`` into ``small`` (a fresh
+        scratch cache when None) and pick each row's first token at its
+        last real position. Returns (scratch cache, firsts [m])."""
+        m, sb = prompts.shape
+        if small is None:
+            small = self._init_all(m, sb)
+        logits, _ = self._fwd_all(self.server.params, self._upload(prompts), kv_cache=small,
+                                  cache_offset=plen)
+        last = logits[torch.arange(m, device=logits.device), self._upload(row_lens - 1)]
+        return small, self._pick(last, *self._samp_vectors(samp_f, samp_i))
+
+    def _dev_seed(self, slot: int, bucket: int, page_ids, hit: str, hit_entry=None) -> None:
+        """A chunked fill's start from a stored prefix: the entry's KV into
+        the slot (its pages)."""
+        stored = hit_entry if hit_entry is not None else self.prefix_cache.by_digest(hit)[1]
+        self._insert(stored, [slot], bucket, page_ids)
+
     def _admit_group(self, preps: list) -> None:
         """One prefill admits the whole same-bucket group as [m, Sb], m the
         burst size rounded UP to a power of two (clamped to max_slots);
@@ -1011,12 +1189,13 @@ class ContinuousBatcher:
             prompts[i, : p["s"]] = p["ids"]
             row_lens[i] = p["s"]
         slots = [p["slot"] for p in preps]
-        with self.server._device_lock:
-            small, firsts = self._prefill(prompts, row_lens, [p["samp"] for p in preps])
-            page_ids = (np.stack([p["prompt_pages"] for p in preps])
-                        if self.page_size > 0 else None)
-            self._insert(small, slots, sb, page_ids)
-            self._set_tok(slots, firsts)
+        samp_f, samp_i = self._samp_arrays([p["samp"] for p in preps], m)
+        with self.server._device_lock, self.server._mesh_guard():
+            firsts = self._step(
+                "admit", prompts=prompts, row_lens=row_lens, samp_f=samp_f, samp_i=samp_i,
+                slots=slots, trim=int(sb),
+                page_ids=(np.stack([p["prompt_pages"] for p in preps])
+                          if self.page_size > 0 else None))
             fetch = start_host_copy(firsts[: len(preps)])
         for i, p in enumerate(preps):
             self._finish_admit_host(p, lambda i=i: fetch()[i].reshape(1, 1))
@@ -1026,45 +1205,29 @@ class ContinuousBatcher:
         # this dispatch is attributable to ONE request (poison quarantine)
         self._suspect_fp = prep["fp"]
         self._suspect_rid = prep["ticket"].request_id
-        # registry-installed prefix KV (dl/kv_store.py): this admission
-        # decodes from fleet-shared state, the proof that a fresh pod
-        # skipped a shared prefix's prefill
-        installed = (prep["hit"] is not None and self.prefix_cache is not None
-                     and self.prefix_cache.entry_origin(ids[: prep["hit"][0]]) == "installed")
-        if installed:
-            self.stats["prefix_hits_installed"] += 1
-        self._rec("dispatch_admit", slot=slot, request_id=prep["ticket"].request_id,
-                  prompt_len=s, cached=prep["hit"] is not None, installed_kv=installed)
-        hit = prep["hit"]
-        with self.server._device_lock:
-            if hit is not None:
-                plen, stored = hit
-                suffix = ids[plen:]
-                sb = pad_seq_len(len(suffix))
-                block = np.zeros((1, sb), np.int64)
-                block[0, : len(suffix)] = suffix
-                # the scratch cache starts as the STORED prefix KV extended
-                # by the suffix bucket; only the suffix prefills, at plen
-                small = {n: torch.cat([st, st.new_zeros((1, sb) + tuple(st.shape[2:]))], dim=1)
-                         for n, st in stored.items()}
-                logits, _ = self._fwd(self.server.params, self._upload(block),
-                                      kv_cache=small, cache_offset=plen)
-                first = self._pick(logits[:, len(suffix) - 1], *self._samp_vectors([samp], 1))
-                trim = pad_seq_len(s)
-                small = {n: c[:, :trim].clone() for n, c in small.items()}
-            else:
-                trim = pad_seq_len(s)
-                prompt = np.zeros((1, trim), np.int64)
-                prompt[0, :s] = ids
-                small, first = self._prefill(prompt, np.asarray([s], np.int64), [samp])
-            self._insert(small, [slot], trim, prep["prompt_pages"])
-            self._set_tok([slot], first)
+        samp_f, samp_i = self._samp_arrays([samp], 1)
+        with self.server._device_lock, self.server._mesh_guard():
+            hit = self._current_hit(ids, prep["hit"])
+            # registry-installed prefix KV (dl/kv_store.py): this admission
+            # decodes from fleet-shared state, the proof that a fresh pod
+            # skipped a shared prefix's prefill
+            installed = (hit is not None
+                         and self.prefix_cache.entry_origin(ids[: hit[0]]) == "installed")
+            if installed:
+                self.stats["prefix_hits_installed"] += 1
+            self._rec("dispatch_admit", slot=slot, request_id=prep["ticket"].request_id,
+                      prompt_len=s, cached=hit is not None, installed_kv=installed)
+            plen = hit[0] if hit is not None else 0
+            prompt = np.zeros((1, pad_seq_len(s - plen)), np.int64)
+            prompt[0, : s - plen] = ids[plen:]
+            first = self._step(
+                "admit", hit_entry=hit[1] if hit is not None else None,
+                prompts=prompt, row_lens=np.asarray([s - plen], np.int64), samp_f=samp_f,
+                samp_i=samp_i, slots=[int(slot)], trim=int(pad_seq_len(s)),
+                page_ids=prep["prompt_pages"], plen=int(plen),
+                hit=key_digest(ids[:plen]) if hit is not None else None,
+                put_ids=np.asarray(ids, np.int64) if self.prefix_cache is not None else None)
             fetch = start_host_copy(first)
-        if self.prefix_cache is not None:
-            # the scratch cache IS this prompt's prefill KV (bucketed to the
-            # prompt's 16-quantum): the conversation's next turn prefills
-            # only its new suffix
-            self.prefix_cache.put(ids, small)
         self._finish_admit_host(prep, lambda: fetch().reshape(1, 1))
         self._suspect_fp = None
         self._suspect_rid = ""
@@ -1094,24 +1257,8 @@ class ContinuousBatcher:
         slot, ids = prep["slot"], prep["ids"]
         plen = 0
         if prep["hit"] is not None:
-            plen_real, stored = prep["hit"]
-            # the fill frontier starts at the stored prefix ROUNDED DOWN to
-            # the bucket quantum, so every piece lands 16-aligned; the <= 15
-            # tokens between re-prefill with the first suffix piece
-            plen = plen_real // SEQ_BUCKET * SEQ_BUCKET
-            bucket = pad_seq_len(plen_real)
-            if plen == 0:
-                pass  # sub-bucket prefix: seeding buys nothing
-            elif self.page_size > 0 and not self._reserve_upto(slot, bucket):
-                plen = 0  # the seed's pages are not free: fill it all
-            else:
-                with trace.span("continuous.fill_seed", prefix=plen), self.server._device_lock:
-                    if self.page_size > 0:
-                        n_pg = -(-bucket // self.page_size)
-                        self._insert(stored, [slot], bucket,
-                                     np.asarray(self._row_pages[slot][:n_pg], np.int64))
-                    else:
-                        self._insert(stored, [slot], bucket, None)
+            with self.server._device_lock, self.server._mesh_guard():
+                plen = self._seed_fill(slot, ids, self._current_hit(ids, prep["hit"]))
         fill = _Fill(slot, list(ids), prep["n"], dict(prep["samp"]), prep["ticket"],
                      filled=plen, fp=prep.get("fp"))
         # the fill's offset is its KV frontier: decode chunks run over every
@@ -1122,6 +1269,30 @@ class ContinuousBatcher:
         self._fill_order.append(slot)
         prep["finished"] = True
         self._steady = False
+
+    def _seed_fill(self, slot: int, ids, hit) -> int:
+        """Seed a fill's slot from ``hit`` (decided under the device lock,
+        which the caller holds); returns the fill's starting frontier."""
+        if hit is None:
+            return 0
+        plen_real, stored = hit
+        # the fill frontier starts at the stored prefix ROUNDED DOWN to the
+        # bucket quantum, so every piece lands 16-aligned; the <= 15 tokens
+        # between re-prefill with the first suffix piece
+        plen = plen_real // SEQ_BUCKET * SEQ_BUCKET
+        bucket = pad_seq_len(plen_real)
+        if plen == 0:
+            return 0  # sub-bucket prefix: seeding buys nothing
+        if self.page_size > 0 and not self._reserve_upto(slot, bucket):
+            return 0  # the seed's pages are not free: fill it all
+        pages = None
+        if self.page_size > 0:
+            n_pg = -(-bucket // self.page_size)
+            pages = np.asarray(self._row_pages[slot][:n_pg], np.int64)
+        with trace.span("continuous.fill_seed", prefix=plen):
+            self._step("seed", hit_entry=stored, slot=int(slot), bucket=int(bucket),
+                       page_ids=pages, hit=key_digest(ids[:plen_real]))
+        return plen
 
     def _fill_piece(self, rem: int) -> tuple[int, int, bool]:
         """(bucketed piece length, real tokens taken, is-last) for a fill
@@ -1179,7 +1350,7 @@ class ContinuousBatcher:
         # so the piece joins its request's timeline
         with trace.request_context(fill.ticket.request_id), \
                 trace.span("continuous.prefill_flip" if last else "continuous.prefill_piece",
-                           tokens=take), self.server._device_lock:
+                           tokens=take), self.server._device_lock, self.server._mesh_guard():
             first = self._piece(fill, piece_len, take, last)
             fetch = start_host_copy(first) if last else None
         if not last:
@@ -1190,14 +1361,6 @@ class ContinuousBatcher:
             return
         del self._filling[slot]
         self._fill_order.remove(slot)
-        if self.prefix_cache is not None:
-            # store the freshly landed prompt KV: the next turn prefills
-            # only its new suffix, as after a single-program admission
-            bucket = pad_seq_len(len(fill.ids))
-            with self.server._device_lock:
-                row, _full, _ids = self._slot_row(slot, bucket)
-                snap = {n: c.clone() for n, c in row.items()}
-            self.prefix_cache.put(fill.ids, snap)
         prep = {"slot": slot, "s": len(fill.ids), "samp": fill.samp, "n": fill.n,
                 "ticket": fill.ticket, "ids": fill.ids, "finished": False}
         self._finish_admit_host(prep, lambda: fetch().reshape(1, 1))
@@ -1310,7 +1473,7 @@ class ContinuousBatcher:
         n_steps = depth * self.chunk_size
         self._rec("dispatch", depth=depth, n_steps=n_steps, active=len(self._rows), devices=1)
         with trace.span("continuous.chunk", active=len(self._rows), depth=depth), \
-                self.server._device_lock:
+                self.server._device_lock, self.server._mesh_guard():
             block = self._chunk(n_steps)
             fetch = start_host_copy(block)
         self._tok_host = None
@@ -1545,7 +1708,14 @@ class ContinuousBatcher:
                     self._drain_queue(EngineBrokenError("continuous batcher closed"))
                     self._state = "stopped"
                     return
-                self._rebuild()
+                try:
+                    self._rebuild()
+                except ServingError as e:  # the serving mesh failed: no restart
+                    with self._close_lock:
+                        self._broken = e
+                        self._state = "broken"
+                    self._drain_queue(e)
+                    return
                 with self._close_lock:
                     self._restarts += 1
                     self.stats["engine_restarts"] = self._restarts
@@ -1583,13 +1753,21 @@ class ContinuousBatcher:
             for fill in list(self._filling.values()):
                 fill.ticket.out.put(err)
 
+    def _dev_rebuild(self) -> None:
+        self._cache = None
+        self._tok = None
+        self._alloc_device_state(self._max_live_tokens)
+
+    def _dev_release(self) -> None:
+        self._cache = None
+        self._tok = None
+
     def _rebuild(self) -> None:
         """Fresh engine state after a crash: a new KV state, zeroed host
         vectors, every slot free. The prefix cache survives (its entries
         are keyed by token prefix, independent of slot state)."""
-        self._cache = None
-        self._tok = None
-        self._alloc_device_state(self._max_live_tokens)
+        with self.server._device_lock, self.server._mesh_guard():
+            self._step("rebuild")
         if self.page_size > 0:
             self.stats["pages_free"] = len(self._free_pages)
         self._offsets[:] = 0
@@ -1854,8 +2032,8 @@ class ContinuousBatcher:
         if th["count"]:
             snap["ttft_ms_hist"] = th
         snap["engine_state"] = self._state
-        snap["mesh"] = "dp=1"
-        snap["mesh_devices"] = 1
+        snap["mesh"] = mesh_str(self.server.mesh) if self.server.mesh is not None else "dp=1"
+        snap["mesh_devices"] = self.server.mesh.size if self.server.mesh is not None else 1
         snap["quarantined"] = sum(1 for c in self._poison.values() if c >= self.POISON_CRASHES)
         snap["queue_depth"] = self._backlog
         if self.max_queue_depth > 0:
@@ -2072,5 +2250,9 @@ class ContinuousBatcher:
         the memory now, not when the collector notices the dead engine."""
         if not self._closed:
             raise RuntimeError("release_device_state requires close() first")
-        self._cache = None
-        self._tok = None
+        try:
+            if self._oplog is not None and self._oplog.failed is None:
+                with self.server._device_lock, contextlib.suppress(ServingError):
+                    self.server._post("engine", step="release")
+        finally:
+            self._dev_release()

@@ -280,8 +280,8 @@ def _family(module: str) -> tuple:
     def decode_fns(params, cfg, **mesh_kw):
         return mod().decode_fns(params, cfg, **mesh_kw)
 
-    def paged_decode_fns(params, cfg):
-        return mod().paged_decode_fns(params, cfg)
+    def paged_decode_fns(params, cfg, **mesh_kw):
+        return mod().paged_decode_fns(params, cfg, **mesh_kw)
 
     return forward, generate_ragged, decode_fns, paged_decode_fns
 

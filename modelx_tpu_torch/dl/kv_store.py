@@ -131,15 +131,19 @@ def _host_bytes(leaf: torch.Tensor) -> bytes:
 # --- bundle build -------------------------------------------------------------
 
 
-def build_bundle(ids, entry, model_key: str = "", mesh=None) -> bytes | None:
+def build_bundle(ids, entry, model_key: str = "", mesh=None, specs=None) -> bytes | None:
     """Pack one PrefixKVCache entry into a deterministic tar: the same
     tokens and KV bytes give the same content address. None when there is
     nothing to ship or a leaf refuses to reach the host (publishing never
-    breaks serving)."""
+    breaks serving). On a mesh ``entry`` holds the whole cache's leaves
+    (``ModelServer.whole_kv``) and ``specs`` each leaf's layout in the
+    reference's spelling (a mesh-axis name, a list of names, or null per
+    dim; None for a replicated leaf)."""
     ids = [int(t) for t in ids]
     leaves = _leaves(entry)
     if not ids or not leaves:
         return None
+    specs = list(specs) if specs is not None else [None] * len(leaves)
     framework, backend, code, mesh_s = _ps._env(mesh)
     envk = _env_key_of(framework, backend, code, mesh_s)
     members = []
@@ -155,7 +159,7 @@ def build_bundle(ids, entry, model_key: str = "", mesh=None) -> bytes | None:
             "name": name,
             "dtype": _dtype_name(leaf.dtype),
             "shape": [int(d) for d in leaf.shape],
-            "spec": None,  # one card: no sharding to record
+            "spec": specs[i],
             "sha256": hashlib.sha256(data).hexdigest(),
             "size": len(data),
         })
@@ -192,7 +196,8 @@ def _bundle_meta(data: bytes) -> dict:
 # --- bundle install -----------------------------------------------------------
 
 
-def install_bundle(data: bytes, init_kv_cache, cache, mesh=None, model_key: str = "") -> dict:
+def install_bundle(data: bytes, init_kv_cache, cache, mesh=None, model_key: str = "",
+                   shard=None) -> dict:
     """Install one bundle into a live PrefixKVCache.
 
     Never raises: an undecodable tar, a missing or invalid meta, an
@@ -204,7 +209,9 @@ def install_bundle(data: bytes, init_kv_cache, cache, mesh=None, model_key: str 
 
     ``init_kv_cache(1, storedLen)`` is the shape oracle and the
     destination: its tensors (on the server's device) receive the leaves,
-    one copy each, from a pinned host buffer when the device is a card."""
+    one copy each, from a pinned host buffer when the device is a card.
+    On a mesh (its layout equal to the bundle's) ``shard(leaf)`` places
+    each rank's slice of a whole recorded leaf (``ModelServer.kv_shard``)."""
     stats = {"installed": 0, "present": 0, "skipped": 0, "reasons": []}
 
     def _skip(reason: str, n: int = 1) -> dict:
@@ -286,7 +293,10 @@ def install_bundle(data: bytes, init_kv_cache, cache, mesh=None, model_key: str 
                 dtype = _DTYPES[str(art.get("dtype"))]
                 shape = tuple(int(d) for d in art.get("shape") or ())
                 host = buf.view(dtype).reshape(shape)
-            except (KeyError, TypeError, ValueError, RuntimeError) as e:
+                if shard is not None:
+                    host = shard(host)
+                    shape = tuple(host.shape)
+            except (KeyError, TypeError, ValueError, RuntimeError, IndexError) as e:
                 return _skip(f"leaf {name} undecodable: {e!r}")
             if shape != tuple(want_leaf.shape) or dtype != want_leaf.dtype:
                 return _skip(f"leaf {name} shape/dtype {shape}/{_dtype_name(dtype)} does "
@@ -309,7 +319,7 @@ def install_bundle(data: bytes, init_kv_cache, cache, mesh=None, model_key: str 
 
 
 def install_from_dir(model_dir: str, init_kv_cache, cache, mesh=None,
-                     model_key: str = "") -> dict:
+                     model_key: str = "", shard=None) -> dict:
     """Install every pulled kv bundle in a model dir (the load path: the
     pull drops ``.kv-*.tar`` next to the weights). Aggregated stats; never
     raises."""
@@ -324,7 +334,7 @@ def install_from_dir(model_dir: str, init_kv_cache, cache, mesh=None,
             continue
         total["bundles"] += 1
         _ps._merge(total, install_bundle(data, init_kv_cache, cache, mesh=mesh,
-                                         model_key=model_key))
+                                         model_key=model_key, shard=shard))
     return total
 
 
@@ -462,7 +472,7 @@ class KVPublisher:
             for ids, entry in cache.take_publishable(self.threshold):
                 model_key = self._model_key(ref)
                 t0 = time.monotonic()
-                data = build_bundle(ids, entry, model_key=model_key)
+                data = _build_for_server(server, ids, entry, model_key)
                 self.last_build_ms = (time.monotonic() - t0) * 1e3
                 if data is None:
                     with self._lock:
@@ -664,10 +674,36 @@ def _server_init(server):
     if server.family is None or server.family.decode_fns is None or server.params is None:
         return None
     try:
-        return server.family.decode_fns(server.params, server.cfg)[1]
+        mesh_kw = server._mesh_kw() if _server_mesh(server) is not None else {}
+        return server.family.decode_fns(server.params, server.cfg, **mesh_kw)[1]
     except Exception as e:
         logger.warning("kv: decode fns unavailable: %s", e)
         return None
+
+
+def _server_mesh(server) -> str | None:
+    """The bundle mesh stamp of a server: its mesh's spelling, None off a
+    mesh (the one-device default)."""
+    mesh = getattr(server, "mesh", None)
+    if mesh is None:
+        return None
+    from modelx_tpu_torch.parallel.mesh import mesh_str
+
+    return mesh_str(mesh)
+
+
+def _build_for_server(server, ids, entry, model_key: str) -> bytes | None:
+    """``build_bundle`` of a server's entry: on a mesh the whole cache,
+    gathered over tp to rank 0, with each leaf's spec; None when the entry
+    was evicted since it was taken."""
+    if _server_mesh(server) is None:
+        return build_bundle(ids, entry, model_key=model_key)
+    gathered = server.whole_kv(ids, entry)
+    if gathered is None:
+        return None
+    whole, specs = gathered
+    return build_bundle(ids, whole, model_key=model_key, mesh=_server_mesh(server),
+                        specs=specs)
 
 
 def install_for_server(server, model_dir: str, model_key: str = "") -> dict | None:
@@ -679,7 +715,9 @@ def install_for_server(server, model_dir: str, model_key: str = "") -> dict | No
     init = _server_init(server) if cache is not None else None
     if init is None:
         return None
-    return install_from_dir(model_dir, init, cache, model_key=model_key)
+    mesh = _server_mesh(server)
+    return install_from_dir(model_dir, init, cache, mesh=mesh, model_key=model_key,
+                            shard=server.kv_shard if mesh is not None else None)
 
 
 def fetcher_for_server(ref: str, server, blob_cache=None,

@@ -54,6 +54,7 @@ divided by the mesh's weight-shard factor, rounding up (reference
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import glob
 import logging
@@ -62,6 +63,8 @@ import shutil
 import threading
 import time
 
+from modelx_tpu_torch.dl import mesh_serve
+from modelx_tpu_torch.dl.serving_errors import ServingError
 from modelx_tpu_torch.utils import devmem
 
 logger = logging.getLogger("modelx.lifecycle")
@@ -245,11 +248,15 @@ class ModelPool:
         # so a re-load is a tier promotion, not a re-pull. Both budgets 0
         # (the default) keep the store inert
         from modelx_tpu_torch.dl import tiers as tiers_mod
+        from modelx_tpu_torch.parallel.mesh import mesh_str
 
+        # keyed by the mesh: a spool of another layout never promotes; on
+        # a mesh every rank demotes and promotes its own slices
         self.tiers = tiers_mod.TierStore(
             host_budget_bytes=host_state_budget_bytes,
             disk_budget_bytes=disk_state_budget_bytes,
-            spool_root=state_spool_dir, mesh_key="", recorder=self.flightrec,
+            spool_root=state_spool_dir, mesh_key=mesh_str(mesh) if mesh is not None else "",
+            recorder=self.flightrec,
         )
         self._lock = threading.RLock()
         self._idle = threading.Condition(self._lock)  # inflight hit zero
@@ -359,7 +366,8 @@ class ModelPool:
                     program_store.publish_for_server(e.ref, server, build.build_dir())
             except Exception:
                 logger.exception("program publish for %s failed", name)
-        if self.kv_fetch_through and e.ref:
+        if self.kv_fetch_through and e.ref and (self.mesh is None or self.mesh.size <= 1):
+            # not on a mesh: a fetched bundle lands in rank 0's cache alone
             from modelx_tpu_torch.dl import kv_store
 
             try:
@@ -748,6 +756,9 @@ class ModelPool:
 
     def _do_load(self, e: ModelEntry) -> None:
         name = e.name
+        # a dir load's checkpoint, which a mesh's followers read their
+        # slices from (a promotion stages only the sidecars)
+        source_dir = e.model_dir
         try:
             # tier promotion: a host/disk hit puts the demoted tensors back
             # on the card, skipping the registry pull and the safetensors
@@ -789,7 +800,7 @@ class ModelPool:
                     if e.state != PULLING:  # raced an unload/retry
                         stale = True
                     else:
-                        e.model_dir = dest
+                        e.model_dir = source_dir = dest
                         e._staged = True
                         e.load_source = source
                         e.to(LOADING)
@@ -806,15 +817,28 @@ class ModelPool:
             from modelx_tpu_torch.dl.serve import ModelServer
 
             kwargs = dict(self.sset.server_defaults)
+            oplog = self.sset.oplog
 
             def attempt():
                 server = ModelServer(e.model_dir, name=name, **kwargs)
                 with self._lock:
                     e.server = server
-                if promo is not None:
-                    server.load_from_tier(promo)
-                else:
-                    server.load()
+                with contextlib.ExitStack() as held:
+                    if oplog is not None:
+                        # rank 0 of a mesh: every rank loads (its own slices,
+                        # or its own tier's) under the one device lock, and
+                        # the warm-up's collectives meet
+                        server._device_lock = self.sset.device_lock
+                        held.enter_context(server._device_lock)
+                        seq = oplog.post("admin_load", name, tier_key=e.tier_key or "",
+                                         source_dir=source_dir)
+                        held.enter_context(mesh_serve.guarded(oplog, seq))
+                    if promo is not None:
+                        server.load_from_tier(promo)
+                    else:
+                        server.load()
+                if oplog is not None:
+                    server.attach_oplog(oplog, self.sset.device_lock)
                 return server
 
             oom = None
@@ -993,6 +1017,16 @@ class ModelPool:
             cb.close()
             cb.release_device_state()
         if server is not None:
+            oplog = self.sset.oplog
+            if oplog is not None and oplog.failed is None:
+                # the followers demote their slices under the same key, then
+                # free them
+                if self.tiers.enabled and not tier_key and sidecar_src:
+                    from modelx_tpu_torch.dl import tiers as tiers_mod
+
+                    tier_key = self.tiers.key_for(tiers_mod.dir_pairs(sidecar_src))
+                with self.sset.device_lock, contextlib.suppress(ServingError):
+                    oplog.post("admin_unload", name, tier_key=tier_key or "")
             # demotion instead of discard: stage the params into host RAM
             # or disk before _free_server drops them
             self._demote_server(name, server, tier_key, sidecar_src)

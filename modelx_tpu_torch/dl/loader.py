@@ -534,6 +534,7 @@ def load_safetensors(
     data_offset: int | None = None,
     concurrency: int = 0,
     index=None,
+    amax_reduce=None,
 ) -> tuple[dict, LoadStats]:
     """Load every tensor of one safetensors blob onto ``device``.
 
@@ -546,11 +547,17 @@ def load_safetensors(
     ``quant.DEFAULT_ELIGIBLE`` matches) from its stored values, before any
     cast, and returns it as a ``QTensor``. ``index(name, shape)``, when
     given, names the slices (one per dim) of each tensor to load: only
-    their bytes are read, and the tensor arrives at the slice's shape."""
+    their bytes are read, and the tensor arrives at the slice's shape.
+
+    An int8 slice keeps the whole weight's codes and scales (the
+    reference's global scales): a slice of whole rows (a column-parallel
+    weight) quantizes alone, its rows' scales being the global ones; a
+    slice of the input dim (a row-parallel weight: o_proj, down_proj)
+    takes each row's absolute maximum over every rank's columns through
+    ``amax_reduce`` (the tp group's all-reduce of the maximum, which is
+    exact) before its scales and codes."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantize mode {quantize!r}")
-    if quantize and index is not None:
-        raise ValueError("int8 quantization of a sliced load is not supported")
     t0 = time.monotonic()
     device = torch.device(device)
     stats = LoadStats()
@@ -644,7 +651,11 @@ def load_safetensors(
                 # quantize on the compute stream once this tensor's copies
                 # landed; its raw bytes are then freed, one tensor at a time
                 torch.cuda.current_stream(device).wait_stream(staging.stream)
-            out[name] = quant.quantize_tensor(dst.view(info.torch_dtype()).reshape(info.shape))
+            cols = boxes[name][1] if index is not None else None
+            split_in = cols is not None and (cols.start, cols.stop) != (0, info.shape[1])
+            out[name] = quant.quantize_tensor(
+                dst.view(info.torch_dtype()).reshape(shapes[name]),
+                amax_reduce=amax_reduce if split_in else None)
         else:
             raw[name] = dst
 

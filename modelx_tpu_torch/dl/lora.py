@@ -99,10 +99,16 @@ def parse_adapter_dir(adapter_dir: str) -> tuple[float, dict[str, dict[str, np.n
     return scale, pairs
 
 
-def merge_adapter(params: dict, adapter_dir: str) -> dict:
+def merge_adapter(params: dict, adapter_dir: str, index=None) -> dict:
     """Fold the adapter into ``params`` (returns the dict). Quantized
     (QTensor) targets are rejected: the merge must happen before weight-only
-    quantization, not after the precision was dropped."""
+    quantization, not after the precision was dropped.
+
+    On a mesh ``params`` are this rank's slices and ``index(name, shape)``
+    names them (``ShardingCtx.param_index``): a weight split by rows
+    merges ``W_r + s·B_r@A``, one split on the input dim ``W_r +
+    s·B@A_r``, a replicated one the whole delta; each keeps its
+    placement."""
     scale, pairs = parse_adapter_dir(adapter_dir)
     missing = [t for t in pairs if t not in params]
     if missing:
@@ -118,6 +124,9 @@ def merge_adapter(params: dict, adapter_dir: str) -> dict:
                 "(quantized? merge adapters before --quantize)"
             )
         a, b = ab["A"], ab["B"]
+        if index is not None and b.shape[1] == a.shape[0]:
+            rows, cols = index(target, (b.shape[0], a.shape[1]))
+            b, a = b[rows], a[:, cols]
         if b.shape[1] != a.shape[0] or (b.shape[0], a.shape[1]) != tuple(base.shape):
             raise ValueError(
                 f"adapter shapes for {target!r} do not match: "

@@ -73,6 +73,14 @@ speculation for single-row requests, ``models/speculative.py``) and, on
 the ``ServerSet``, ``dynamic_batch``: concurrent requests coalesce in a
 ``Batcher`` window into one padded forward or one ragged decode.
 
+On a mesh of processes (``mesh``; ``dl/mesh_serve.py``) every option
+serves for llama and qwen2: int8 with global scales, LoRA merged into each
+rank's slices, speculation (rank 0's proposals posted with each verify
+step), the prefix cache (rank 0 decides hits and evictions), ``logprobs``
+(the vocab-parallel logits gathered whole for the fp32 log-softmax), the
+window batcher (a group is one posted call), the continuous engine and
+admin load and unload. The other families answer a typed 501.
+
 ``continuous_batch`` puts every generate and single-row stream through the
 model's continuous engine (``dl/continuous.py``): requests join a running
 decode at chunk boundaries, with paged KV, chunked prefill, pipelined
@@ -133,7 +141,8 @@ from modelx_tpu_torch.dl.serving_errors import (
     timing_headers,
 )
 from modelx_tpu_torch.dl.tokenizer import LATER_SLICE, Tokenizer, UnsupportedTokenizerError
-from modelx_tpu_torch.models.decode import ChunkedDecoder, PrefixKVCache, pad_seq_len, stop_cut
+from modelx_tpu_torch.models.decode import (ChunkedDecoder, PrefixKVCache, key_digest,
+                                            pad_seq_len, stop_cut)
 from modelx_tpu_torch.parallel.mesh import mesh_str, weight_shard_factor
 from modelx_tpu_torch.utils import accesslog, devmem, promexp, trace, tswheel
 
@@ -150,8 +159,7 @@ MAX_PROFILE_CAPTURES = 4
 
 _UNSET = object()  # tokenizer / chat template not probed yet (absent is cached as None)
 
-# the slices that bring what a mesh of more than one rank refuses (501)
-MESH_SLICE = "multi-device serving"
+# the slice that brings the families a mesh of more than one rank refuses (501)
 MESH_FAMILY_SLICE = "multi-device families"
 # the families the mesh forward serves (models/llama.py)
 MESH_FAMILIES = ("llama", "qwen2")
@@ -331,16 +339,13 @@ class ModelServer:
         self._tokenizer_lock = threading.Lock()
         self._tokenizer: object = _UNSET
         self._chat_template: object = _UNSET
-        # what a mesh of more than one rank cannot serve yet: every request
-        # answers this typed 501
+        # what a mesh of more than one rank cannot serve yet (a family the
+        # mesh forward does not run): every request answers this typed 501
         self._mesh_refusal: NotPortedError | None = None
-        if self.mesh_size > 1:
-            refused = [what for what, on in (
-                ("int8 quantization", quantize), ("LoRA adapters", lora_dir),
-                ("speculative decoding", self.speculative_k > 0),
-                ("the prefix cache", self._prefix_cache is not None)) if on]
-            if refused:
-                self._mesh_refusal = NotPortedError(f"{refused[0]} under a mesh", MESH_SLICE)
+        # a follower of a mesh: its continuous engine's replica, its
+        # speculative decodes' sessions (by rank 0's id)
+        self._engine_replica = None
+        self._spec_sessions: dict = {}
 
     @property
     def mesh_size(self) -> int:
@@ -362,6 +367,25 @@ class ModelServer:
         """Rank 0: post a device call to the followers (under the lock)."""
         if self.oplog is not None:
             self._posted = self.oplog.post(op, self.name, tokens, **fields)
+
+    def attach_oplog(self, oplog, lock) -> None:
+        """Rank 0 of a mesh, once the model is loaded: every later device
+        call is posted to ``oplog`` under ``lock`` (the one device lock of
+        every model of the pod), and each prefix-cache eviction too, so
+        the followers' replicas drop the same entries."""
+        self._device_lock = lock
+        self.oplog = oplog
+        if self._prefix_cache is not None:
+            def evicted(digests, server=self):
+                server._post("prefix_evict", digests=list(digests))
+
+            self._prefix_cache.on_evict = evicted
+
+    def follow_mesh(self) -> None:
+        """A follower of a mesh: its prefix cache becomes a replica of rank
+        0's (it stores and drops only what rank 0's op log says)."""
+        if self._prefix_cache is not None:
+            self._prefix_cache.replica = True
 
     @contextlib.contextmanager
     def _mesh_guard(self):
@@ -449,8 +473,9 @@ class ModelServer:
         for path in paths:
             src = LocalFileSource(path)
             try:
-                arrays, lstats = load_safetensors(src, self.device, dtype=self.dtype,
-                                                  quantize=self.quantize, index=index)
+                arrays, lstats = load_safetensors(
+                    src, self.device, dtype=self.dtype, quantize=self.quantize, index=index,
+                    amax_reduce=None if index is None else self._tp_amax)
             finally:
                 src.close()
             params.update(arrays)
@@ -466,7 +491,7 @@ class ModelServer:
             # rejected (serve_main refuses the combination up front)
             tm = time.monotonic()
             with trace.span("serve.lora", model=self.name, dir=self.lora_dir):
-                self.params = lora.merge_adapter(self.params, self.lora_dir)
+                self.params = lora.merge_adapter(self.params, self.lora_dir, index=index)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             self.stats["lora_dir"] = self.lora_dir
@@ -490,6 +515,12 @@ class ModelServer:
         self.ready = True
         self._install_kv_bundles()
         return dict(self.stats)
+
+    def _tp_amax(self, amax: torch.Tensor) -> torch.Tensor:
+        """The per-channel absolute maxima of a weight whose input dim is
+        split over tp, over every rank's columns: the global int8 scale's
+        input (``dl/loader.py``)."""
+        return self.mesh.all_reduce(amax, "tp", op="max")
 
     def _warm_up(self) -> None:
         """One cache-free forward per warm-up shape: on the card it binds
@@ -543,6 +574,9 @@ class ModelServer:
         cold."""
         if self._prefix_cache is None:
             return
+        if self._kv_ctx() is not None:
+            # the byte cap counts whole entries, as the reference does
+            self._prefix_cache.kv_heads = self.cfg.num_kv_heads
         from modelx_tpu_torch.dl import kv_store
 
         t0 = time.monotonic()
@@ -555,6 +589,52 @@ class ModelServer:
             self.stats["kv"] = {
                 k: kstats[k] for k in ("bundles", "installed", "present", "skipped")}
             self.stats["kv"]["ms"] = round((time.monotonic() - t0) * 1e3, 3)
+
+    def _kv_ctx(self):
+        """The llama placement whose kv heads a prefix entry's leaves hold
+        on this mesh, or None when every rank holds every head."""
+        if self.mesh_size <= 1 or self.family.name not in MESH_FAMILIES:
+            return None
+        from modelx_tpu_torch.models import llama
+
+        ctx = llama.sharding_ctx(self.cfg, self.mesh)
+        return ctx if ctx.cache_heads() != list(range(self.cfg.num_kv_heads)) else None
+
+    def whole_kv(self, ids, entry: dict) -> tuple[dict, list] | None:
+        """A prefix entry's leaves as the whole cache, and each one's spec
+        in sorted leaf order (``dl/kv_store.build_bundle``): this rank's
+        leaves off a mesh; on one, every tp rank's kv heads gathered (an op
+        every rank meets, leaf by leaf in sorted order) from the entry
+        stored under ``ids`` when the gather is posted. None when a put
+        evicted it since it was taken: the followers dropped it too."""
+        names = sorted(entry)
+        ctx = self._kv_ctx()
+        if ctx is None:
+            return {n: entry[n] for n in names}, [None] * len(names)
+        with self._device_lock, torch.inference_mode(), self._mesh_guard():
+            entry = self._prefix_cache.get(ids)
+            if entry is None:
+                return None
+            names = sorted(entry)
+            self._post("kv_gather", digest=key_digest(ids))
+            whole = {n: self._gather_heads(entry[n], ctx) for n in names}
+        return whole, [ctx.cache_spec()] * len(names)
+
+    def _gather_heads(self, leaf: torch.Tensor, ctx) -> torch.Tensor:
+        """[1, S, Hkv, D] from every tp rank's [1, S, h, D] leaf."""
+        parts = self.mesh.all_gather(leaf.contiguous(), "tp", dim=2)
+        out = leaf.new_zeros(leaf.shape[:2] + (self.cfg.num_kv_heads,) + leaf.shape[3:])
+        at = 0
+        for r in range(self.mesh.axis_size("tp")):
+            heads = ctx.cache_heads(r)
+            out[:, :, heads] = parts[:, :, at:at + len(heads)]
+            at += len(heads)
+        return out
+
+    def kv_shard(self, host: torch.Tensor) -> torch.Tensor:
+        """This rank's kv heads of a whole [1, S, Hkv, D] bundle leaf."""
+        ctx = self._kv_ctx()
+        return host if ctx is None else host[:, :, ctx.cache_heads()]
 
     def load_from_tier(self, promo) -> dict:
         """Materialize a demoted model from a tier promotion
@@ -632,13 +712,20 @@ class ModelServer:
                             new_tokens=max_new_tokens):
                 dec = self._speculative_decoder()
                 prompt = tokens[0].tolist()
-                with self._device_lock, torch.inference_mode():
-                    new, stats = dec.generate(self.params, prompt, max_new_tokens,
-                                              temperature=temperature, top_k=top_k,
-                                              top_p=top_p, seed=seed)
-                self.stats["tokens_generated"] += len(new)
+                stats = {"device_steps": 0, "proposed": 0, "accepted": 0}
+                with self._device_lock, torch.inference_mode(), self._mesh_guard():
+                    sid = next(self._stream_ids)
+                    try:
+                        pieces = list(dec.stream(self.params, prompt, max_new_tokens,
+                                                 stats=stats, temperature=temperature,
+                                                 top_k=top_k, top_p=top_p, seed=seed,
+                                                 on_step=self._spec_poster(sid)))
+                    finally:
+                        self._close_spec(sid)
+                new = np.concatenate(pieces, axis=1)
+                self.stats["tokens_generated"] += int(new.size)
                 self._record_spec_stats(stats)
-                return np.concatenate([tokens, np.asarray([new], np.int32)], axis=1)
+                return np.concatenate([tokens, new], axis=1)
         with trace.span("serve.generate", model=self.name, new_tokens=max_new_tokens):
             # the JAX sidecar's sampled path runs (and spans) its ragged
             # decode, its greedy path the family's plain generate
@@ -689,8 +776,6 @@ class ModelServer:
         top_ids [m, top_k], top_logprobs [m, top_k]); the top_* pair is None
         when top_k == 0."""
         self._check_refusal()
-        if self.mesh_size > 1:
-            raise NotPortedError("logprobs scoring under a mesh", MESH_SLICE)
         empty = (np.zeros((0,), np.float32),) + (
             (np.zeros((0, top_k), np.int32), np.zeros((0, top_k), np.float32))
             if top_k else (None, None))
@@ -715,10 +800,13 @@ class ModelServer:
 
     def _score(self, tokens: np.ndarray, top_k: int):
         """(chosen [B, S], top ids, top logprobs) of one scoring forward;
-        position j scores token j + 1."""
-        with self._device_lock, torch.inference_mode():
+        position j scores token j + 1. On a mesh every rank runs the
+        forward on its heads, and the vocab-parallel head's logits are
+        gathered whole for the fp32 log-softmax and the top-k."""
+        with self._device_lock, torch.inference_mode(), self._mesh_guard():
+            self._post("score", tokens, top_k=int(top_k))
             toks = self._tokens(tokens)
-            logits = self.family.forward(self.params, toks, self.cfg)
+            logits = self.family.forward(self.params, toks, self.cfg, **self._mesh_kw())
             lp = torch.log_softmax(logits.float(), dim=-1)
             nxt = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], dim=1)
             fetches = [start_host_copy(torch.gather(lp, -1, nxt[..., None])[..., 0])]
@@ -837,9 +925,28 @@ class ModelServer:
                 if self._spec_decoder is None:
                     from modelx_tpu_torch.models.speculative import SpeculativeDecoder
 
-                    fwd, init = self.family.decode_fns(self.params, self.cfg)
+                    fwd, init = self.family.decode_fns(self.params, self.cfg,
+                                                       **self._mesh_kw())
                     self._spec_decoder = SpeculativeDecoder(fwd, init, k=self.speculative_k)
         return self._spec_decoder
+
+    def _spec_poster(self, sid: int):
+        """Rank 0 of a mesh: the speculative decoder's ``on_step`` that
+        posts each step (rank 0's proposals and rolled-back offset) for the
+        followers' session ``sid``; None off a mesh."""
+        if self.oplog is None:
+            return None
+
+        def post(kind: str, inputs: dict) -> None:
+            self._post(f"spec_{kind}", sid=sid, **inputs)
+
+        return post
+
+    def _close_spec(self, sid: int) -> None:
+        """Free the followers' session ``sid`` (rank 0 holds the lock)."""
+        if self.oplog is not None and self.oplog.failed is None:
+            with contextlib.suppress(ServingError):
+                self.oplog.post("spec_close", self.name, sid=sid)
 
     def _record_spec_stats(self, stats: dict) -> None:
         for key in ("device_steps", "proposed", "accepted"):
@@ -883,9 +990,11 @@ class ModelServer:
                       "chunk_size": int(chunk_size),
                       "stop_token_ids": [int(t) for t in stop_token_ids or ()] or None}
         with trace.span("serve.generate_stream", model=self.name, new_tokens=max_new_tokens):
-            pieces = self._stream_pieces(tokens, max_new_tokens, temperature, top_k, top_p,
-                                         seed, chunk_size, stop_token_ids)
-            for piece in self._locked_pieces(pieces, tokens, opened):
+            def pieces(hit):
+                return self._stream_pieces(tokens, max_new_tokens, temperature, top_k, top_p,
+                                           seed, chunk_size, stop_token_ids, hit=hit)
+
+            for piece in self._locked_pieces(pieces, tokens, opened, chunk_size=chunk_size):
                 # account as chunks leave: a client disconnect must not erase
                 # the decode work the device already did
                 self.stats["tokens_generated"] += int(piece.size)
@@ -893,31 +1002,36 @@ class ModelServer:
 
     def _stream_pieces(self, tokens: np.ndarray, max_new_tokens: int, temperature: float = 0.0,
                        top_k: int = 0, top_p: float = 1.0, seed: int = 0, chunk_size: int = 8,
-                       stop_token_ids=None):
-        """The chunked decoder's (lazy) piece generator for one stream."""
+                       stop_token_ids=None, hit=None):
+        """The chunked decoder's (lazy) piece generator for one stream,
+        from the prefix-cache hit decided for it (``_decide_hit``)."""
         b, s = tokens.shape
         return self._decoder(chunk_size).stream(
             self.params, self._tokens(_pad_prompt(tokens)), np.full((b,), s, np.int32),
-            max_new_tokens, stop_token_ids=stop_token_ids,
+            max_new_tokens, stop_token_ids=stop_token_ids, hit=hit,
             **_row_controls(b, temperature, top_k, top_p, seed))
 
-    def _follow_piece(self, pieces) -> None:
-        """A follower's pull of one piece of a stream (``dl/mesh_serve``)."""
-        with self._device_lock, torch.inference_mode():
-            next(pieces, None)
+    def _decide_hit(self, tokens: np.ndarray, chunk_size: int):
+        """The prefix-cache hit of a stream's prompt (rank 0's lookup, under
+        the device lock), or None: single-row streams only."""
+        if self._prefix_cache is None or tokens.shape[0] != 1:
+            return None
+        return self._decoder(chunk_size).resolve(np.asarray(tokens)[0])
 
     def _generate_stream_speculative(self, tokens: np.ndarray, max_new_tokens: int,
                                      temperature: float = 0.0, top_k: int = 0,
                                      top_p: float = 1.0, seed: int = 0, stop_token_ids=None):
         stats = {"device_steps": 0, "proposed": 0, "accepted": 0}
         stops = set(stop_token_ids or ())
+        sid = next(self._stream_ids)
         pieces = self._speculative_decoder().stream(
             self.params, tokens[0].tolist(), max_new_tokens, stats=stats,
-            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
+            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+            on_step=self._spec_poster(sid))
         try:
             with trace.span("serve.generate_stream_spec", model=self.name,
                             new_tokens=max_new_tokens):
-                for piece in self._locked_pieces(pieces):
+                for piece in self._locked_pieces(pieces, spec_sid=sid):
                     cut = stop_cut(piece[0].tolist(), stops)
                     if cut is not None:
                         piece = piece[:, :cut]  # emit through the stop, then end
@@ -930,30 +1044,50 @@ class ModelServer:
             # this mid-loop; the device work done still shows in the stats
             self._record_spec_stats(stats)
 
-    def _locked_pieces(self, pieces, tokens=None, opened: dict | None = None):
-        """Pull ``pieces`` one at a time under the device lock. On a mesh
-        (``opened``: the stream's arguments) each pull is posted first: the
-        first opens the stream on the followers, the rest advance it, and
-        the close frees it there too."""
+    def _locked_pieces(self, pieces, tokens=None, opened: dict | None = None,
+                       chunk_size: int = 8, spec_sid: int | None = None):
+        """Pull ``pieces`` one at a time under the device lock. A callable
+        ``pieces`` is made at the first pull from the prefix-cache hit
+        decided then. On a mesh (``opened``: the stream's arguments) each
+        pull is posted first: the first opens the stream on the followers
+        with the hit (its entry's digest and length), the rest advance it,
+        and the close frees it there too (``spec_sid``: a speculative
+        stream's session)."""
         sid = None
+        gen = None if callable(pieces) else pieces
         try:
             while True:
                 with self._device_lock, torch.inference_mode(), self._mesh_guard():
-                    if opened is not None:
-                        if sid is None:
+                    if gen is None:
+                        hit = self._decide_hit(tokens, chunk_size)
+                        gen = pieces(hit)
+                        if opened is not None:
                             sid = next(self._stream_ids)
-                            self._post("stream_open", tokens, sid=sid, **opened)
-                        else:
-                            self._post("stream_next", sid=sid)
-                    piece = next(pieces, None)
+                            plen = hit[0] if hit is not None else 0
+                            self._post("stream_open", tokens, sid=sid, plen=plen,
+                                       hit=key_digest(tokens[0, :plen])
+                                       if hit is not None else None, **opened)
+                    elif sid is not None:
+                        self._post("stream_next", sid=sid)
+                    piece = next(gen, None)
                 if piece is None:
                     return
                 yield piece
         finally:
-            pieces.close()  # frees the stream's KV cache at once
-            if sid is not None and self.oplog is not None and self.oplog.failed is None:
-                with self._device_lock, contextlib.suppress(ServingError):
-                    self.oplog.post("stream_close", self.name, sid=sid)
+            if gen is not None:
+                gen.close()  # frees the stream's KV cache at once
+            if self.oplog is not None and self.oplog.failed is None:
+                if sid is not None:
+                    with self._device_lock, contextlib.suppress(ServingError):
+                        self.oplog.post("stream_close", self.name, sid=sid)
+                if spec_sid is not None:
+                    with self._device_lock:
+                        self._close_spec(spec_sid)
+
+
+# what a follower's replica engine needs to hold rank 0's device state
+REPLICA_ENGINE_KWARGS = ("max_slots", "chunk_size", "max_len", "page_size",
+                         "max_live_tokens", "paged_attention", "speculative_k")
 
 
 def _pad_prompt(tokens: np.ndarray) -> np.ndarray:
@@ -1195,6 +1329,9 @@ class ServerSet:
         # its rank 0 the op log the other ranks replay (serve_main)
         self.mesh = mesh
         self.oplog = None
+        # on a mesh, the one device lock of every model (followers replay
+        # one op log in order, so rank 0's calls are ordered across models)
+        self.device_lock = threading.RLock()
         # the model set changes at runtime (the pool's loads and unloads):
         # every structural change goes through add_server/remove_server
         # under this lock
@@ -1234,6 +1371,8 @@ class ServerSet:
             "quantize": first.quantize,
             "speculative_k": first.speculative_k,
         }
+        if mesh is not None:
+            self.server_defaults.update(mesh=mesh, attention_impl=first.attention_impl)
         if first._prefix_cache is not None:
             self.server_defaults.update(
                 prefix_cache_size=first._prefix_cache.capacity,
@@ -1465,8 +1604,6 @@ class ServerSet:
         if (not self._dynamic_batch or server.family is None
                 or server.family.generate_ragged is None):
             return None
-        if self.mesh_size > 1:
-            raise NotPortedError("the window batcher (--dynamic-batch) under a mesh", MESH_SLICE)
         b = self.batchers.get(server.name)
         if b is None:
             with self._batcher_lock:
@@ -1486,9 +1623,6 @@ class ServerSet:
         if (not self._continuous_batch or server.family is None
                 or server.family.decode_fns is None):
             return None
-        if self.mesh_size > 1:
-            raise NotPortedError("the continuous engine (--continuous-batch) under a mesh",
-                                 MESH_SLICE)
         cb = self.cbatchers.get(server.name)
         if cb is not None:
             return cb
@@ -1521,11 +1655,18 @@ class ServerSet:
                 def build():
                     # --speculative-k composes: the engine speculates
                     # whenever exactly one greedy row is active
-                    return ContinuousBatcher(
-                        server, **{**self.engine_kwargs, "page_size": page_size},
-                        chunk_size=self.stream_chunk_size, max_len=max_len,
-                        prefix_cache=server._prefix_cache, speculative_k=server.speculative_k,
-                        device_telemetry=self.device_telemetry)
+                    kwargs = {**self.engine_kwargs, "page_size": page_size,
+                              "chunk_size": self.stream_chunk_size, "max_len": max_len,
+                              "speculative_k": server.speculative_k}
+                    with contextlib.ExitStack() as held:
+                        if server.oplog is not None:
+                            # the followers build the same device state
+                            held.enter_context(server._device_lock)
+                            server._post("engine_open", **{
+                                k: kwargs[k] for k in REPLICA_ENGINE_KWARGS})
+                        return ContinuousBatcher(
+                            server, **kwargs, prefix_cache=server._prefix_cache,
+                            device_telemetry=self.device_telemetry)
 
                 try:
                     cb = build()
@@ -2046,9 +2187,6 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000", access_log: s
                 return self._json(404, {"error": "not found"})
             if not self._admin_auth():
                 return
-            if sset.mesh_size > 1:
-                e = NotPortedError("admin unload under a mesh", MESH_SLICE)
-                return self._json(e.http_status, e.payload())
             if not sset.pool.allow_admin_load:
                 return self._json(403, {
                     "error": "admin model unloading is disabled "
@@ -2147,9 +2285,6 @@ def serve(servers: ModelServer | ServerSet, listen: str = ":8000", access_log: s
                 # dir) and load it while traffic is live
                 if not self._admin_auth():
                     return
-                if sset.mesh_size > 1:
-                    e = NotPortedError("admin load under a mesh", MESH_SLICE)
-                    return self._json(e.http_status, e.payload())
                 wait = bool(req.get("wait", False))
                 try:
                     snap = sset.pool.request_load(

@@ -17,6 +17,8 @@
     modelx-serve-torch --model m=/mnt/m --trace-dir /var/modelx/trace \
         --access-log /var/modelx/access.jsonl --access-log-max-bytes 100000000
     modelx-serve-torch --model m=/mnt/m --mesh tp=4     # one process per card
+    modelx-serve-torch --model m=/mnt/m --mesh tp=2 --continuous-batch \
+        --prefix-cache 4 --speculative-k 4 --quantize int8 --allow-admin-load
     torchrun --nproc-per-node 4 -m modelx_tpu_torch.dl.serve_main \
         --model m=/mnt/m --mesh dp=2,tp=2
 
@@ -34,15 +36,18 @@ through a durable outbox (``--publish-outbox-dir``). ``/metrics``,
 ``/v1/trace`` and the profiler captures (``--trace-dir``) read the pod;
 ``--access-log`` writes one JSON line per request.
 
-``--mesh`` serves across a mesh of processes, one per card. Without it the
-pod serves on one device with no group, also on a host with more cards:
-the reference's default (dp over every local card) waits until the
-continuous engine, the serving options and the other families serve
+``--mesh`` serves across a mesh of processes, one per card, with every
+option above for llama and qwen2 (the other families answer 501): each
+rank is started with the same flags. Without it the pod serves on one
+device with no group, also on a host with more cards: the reference's
+default (dp over every local card) waits until the other families serve
 under a mesh. Started alone, this process is rank 0: it starts the other
 ranks itself (one per local card, ``cuda:r``) and binds HTTP;
 under torchrun's environment (or the ``MODELX_*`` variables of
 ``parallel/distributed.py``) each process joins the group instead, and
-ranks other than 0 follow rank 0's device calls (``dl/mesh_serve.py``). A
+ranks other than 0 follow rank 0's device calls (``dl/mesh_serve.py``),
+its runtime loads and unloads included (their state tiers under
+``--state-spool-dir``/rank-r). A
 mesh that needs more cards than the host has exits non-zero naming both
 counts, and a ``--device`` that names one card (``cuda:N``) is refused on a
 mesh of more than one rank, whose rank r takes ``cuda:r``. A rank that dies
@@ -584,18 +589,16 @@ def _start(argv=None, mesh=None, followers=()):
                            timeout_s=args.mesh_timeout_s)
         # one device lock for every model: the followers replay one log in
         # order, so rank 0's calls (and their collectives) must be ordered
-        # across models too
-        lock = threading.Lock()
+        # across models too (the pool's runtime loads take it as well)
         for server in servers.values():
-            server.oplog = sset.oplog
-            server._device_lock = lock
+            server.attach_oplog(sset.oplog, sset.device_lock)
     return sset, httpd, args
 
 
 def follow(argv, mesh) -> int:
     """A follower rank: load the same models, then replay rank 0's device
     calls until it says ``shutdown`` (or is gone)."""
-    from modelx_tpu_torch.dl.mesh_serve import OpLog
+    from modelx_tpu_torch.dl.mesh_serve import Follower, OpLog
     from modelx_tpu_torch.dl.mesh_serve import follow as replay
     from modelx_tpu_torch.parallel import distributed
 
@@ -604,8 +607,30 @@ def follow(argv, mesh) -> int:
     servers = _build_servers(ap, args, mesh)
     for server in servers.values():
         server.load()
-    return replay(servers, OpLog(distributed.control_store(), rank=mesh.rank,
-                                 world=mesh.size, timeout_s=args.mesh_timeout_s))
+
+    def make_server(name: str, model_dir: str) -> ModelServer:
+        # a runtime load takes the boot set's options, as rank 0's pool does
+        return ModelServer(model_dir, dtype=args.dtype, device=args.device,
+                           max_seq_len=args.max_seq_len, name=name, quantize=args.quantize,
+                           speculative_k=args.speculative_k,
+                           prefix_cache_size=args.prefix_cache,
+                           prefix_cache_max_bytes=args.prefix_cache_max_bytes,
+                           mesh=mesh, attention_impl=args.sp_attention)
+
+    tiers = None
+    if args.host_state_budget_bytes or args.disk_state_budget_bytes:
+        from modelx_tpu_torch.dl.tiers import TierStore
+        from modelx_tpu_torch.parallel.mesh import mesh_str
+
+        # this rank's slices, under rank 0's keys: a spool of its own
+        spool = os.path.join(args.state_spool_dir, f"rank-{mesh.rank}") \
+            if args.state_spool_dir else ""
+        tiers = TierStore(host_budget_bytes=args.host_state_budget_bytes,
+                          disk_budget_bytes=args.disk_state_budget_bytes,
+                          spool_root=spool, mesh_key=mesh_str(mesh))
+    state = Follower(servers, make_server=make_server, tiers=tiers)
+    return replay(state, OpLog(distributed.control_store(), rank=mesh.rank,
+                               world=mesh.size, timeout_s=args.mesh_timeout_s))
 
 
 def drain(sset: ServerSet, drain_seconds: float, drain_grace: float,

@@ -23,6 +23,7 @@ bit.
 from __future__ import annotations
 
 import collections
+import hashlib
 import logging
 import threading
 
@@ -36,6 +37,8 @@ from modelx_tpu_torch.utils.tswheel import RateSet
 logger = logging.getLogger("modelx.decode")
 
 SEQ_BUCKET = 16
+
+_LOOKUP = object()  # ChunkedDecoder.stream: look the prefix up itself
 
 
 def pad_seq_len(s: int) -> int:
@@ -174,6 +177,12 @@ def ragged_greedy_generate(
     return torch.cat(out, dim=1).to(prompt.dtype)
 
 
+def key_digest(ids) -> str:
+    """A short content name of a prefix key (its token ids): how rank 0's
+    op log names an entry to the followers of a mesh."""
+    return hashlib.sha1(np.asarray(list(ids), np.int64).tobytes()).hexdigest()[:16]
+
+
 class PrefixKVCache:
     """Exact-prefix KV reuse for chat-shaped traffic.
 
@@ -194,11 +203,26 @@ class PrefixKVCache:
     records its origin (``"local"``, or ``"installed"`` from a registry
     bundle, which is never published again and whose hits count apart in
     ``hits_installed``), and an optional ``fetcher`` hears of every miss.
+
+    On a mesh (``dl/mesh_serve.py``) each rank keeps its shard of every
+    entry, and rank 0's cache alone decides: a hit names its entry by
+    ``key_digest``, and ``on_evict(digests)`` hears of every eviction so
+    the followers drop the same entries. A follower's cache is a
+    ``replica``: it never evicts on its own and is never looked up, so its
+    capacity and recency cannot steer it off rank 0's decisions. The byte
+    cap counts the WHOLE entry, as the reference's global arrays count
+    their ``nbytes``: with ``kv_heads`` set (the model's kv heads, where a
+    rank's [1, L, h, D] leaves hold h of them) each leaf counts at
+    ``kv_heads`` heads, not at the shard's h.
     """
 
-    def __init__(self, capacity: int = 4, max_bytes: int = 0) -> None:
+    def __init__(self, capacity: int = 4, max_bytes: int = 0, replica: bool = False) -> None:
         self.capacity = max(1, int(capacity))
         self.max_bytes = max(0, int(max_bytes))
+        self.replica = bool(replica)
+        self.on_evict = None
+        self.kv_heads = 0  # the whole entry's kv heads on a mesh (0: as held)
+        self._by_digest: dict[str, tuple] = {}
         self._od: collections.OrderedDict[tuple, object] = collections.OrderedDict()
         # per-key (nbytes, stored_len), computed once at put
         self._meta: dict[tuple, tuple[int, int | None]] = {}
@@ -256,28 +280,43 @@ class PrefixKVCache:
                 logger.debug("kv fetcher on_miss failed", exc_info=True)
         return None
 
-    @staticmethod
-    def _entry_meta(entry) -> tuple[int, int | None]:
+    def _entry_meta(self, entry) -> tuple[int, int | None]:
         """(nbytes, stored length) of a dict of [1, L, ...] tensors or
-        arrays; anything else counts 0 bytes of unknown length."""
+        arrays (each [1, L, h, D] leaf at ``kv_heads`` heads when set);
+        anything else counts 0 bytes of unknown length."""
         leaves = list(entry.values()) if isinstance(entry, dict) else []
-        nbytes = sum(int(getattr(leaf, "nbytes", 0)) for leaf in leaves)
+        nbytes = sum(self._leaf_bytes(leaf) for leaf in leaves)
         try:
             stored_len = int(leaves[0].shape[1])
         except (AttributeError, IndexError, TypeError):
             stored_len = None
         return nbytes, stored_len
 
-    def _pop_lru(self) -> None:
+    def _leaf_bytes(self, leaf) -> int:
+        nbytes = int(getattr(leaf, "nbytes", 0))
+        shape = getattr(leaf, "shape", ())
+        if self.kv_heads and len(shape) == 4 and shape[2]:
+            return nbytes // int(shape[2]) * self.kv_heads
+        return nbytes
+
+    def _pop_lru(self) -> str:
         key, _ = self._od.popitem(last=False)
+        return self._drop(key)
+
+    def _drop(self, key: tuple) -> str:
+        self._od.pop(key, None)
         self._bytes -= self._meta.pop(key)[0]
         self._hits_by_key.pop(key, None)
         self._origin.pop(key, None)
         self._published.discard(key)
+        digest = key_digest(key)
+        self._by_digest.pop(digest, None)
+        return digest
 
     def put(self, ids, entry, origin: str = "local") -> None:
         key = tuple(int(t) for t in ids)
         meta = self._entry_meta(entry)
+        evicted: list[str] = []
         with self._lock:
             if key in self._od:
                 self._bytes -= self._meta[key][0]
@@ -294,10 +333,39 @@ class PrefixKVCache:
                 self._published.add(key)  # already in the registry
             self._bytes += meta[0]
             self._od.move_to_end(key)
-            while len(self._od) > self.capacity:
-                self._pop_lru()
-            while self.max_bytes and self._bytes > self.max_bytes and len(self._od) > 1:
-                self._pop_lru()
+            self._by_digest[key_digest(key)] = key
+            while not self.replica and len(self._od) > self.capacity:
+                evicted.append(self._pop_lru())
+            while (not self.replica and self.max_bytes and self._bytes > self.max_bytes
+                   and len(self._od) > 1):
+                evicted.append(self._pop_lru())
+            on_evict = self.on_evict
+        if evicted and on_evict is not None:
+            on_evict(evicted)
+
+    def get(self, ids):
+        """The entry stored under exactly ``ids``, or None; no hit or miss
+        is counted and the LRU order stays."""
+        with self._lock:
+            return self._od.get(tuple(int(t) for t in ids))
+
+    def by_digest(self, digest: str) -> tuple[int, object]:
+        """(prefix length, entry) of the entry rank 0 named: a follower's
+        replay of a hit. A missing entry means the replica left rank 0's
+        decisions, which no request may survive."""
+        with self._lock:
+            key = self._by_digest.get(digest)
+            if key is None:
+                raise RuntimeError(f"prefix cache replica has no entry {digest}")
+            return len(key), self._od[key]
+
+    def evict(self, digests) -> None:
+        """Drop the entries rank 0 evicted (a follower's replay)."""
+        with self._lock:
+            for digest in digests:
+                key = self._by_digest.get(digest)
+                if key is not None:
+                    self._drop(key)
 
     def entry_origin(self, ids) -> str | None:
         """"local" or "installed" for a stored key, None when absent."""
@@ -341,6 +409,7 @@ class PrefixKVCache:
             self._hits_by_key.clear()
             self._origin.clear()
             self._published.clear()
+            self._by_digest.clear()
 
 
 class ChunkedDecoder:
@@ -362,13 +431,22 @@ class ChunkedDecoder:
         self.prefix_cache = prefix_cache
         self.agree = agree
 
+    def resolve(self, prompt_ids) -> tuple[int, object] | None:
+        """The prefix-cache hit of a single-row stream's prompt (a lookup),
+        or None: what ``stream(hit=)`` takes when the caller decides it
+        (rank 0 of a mesh, which names it to the followers)."""
+        if self.prefix_cache is None:
+            return None
+        return self.prefix_cache.lookup(list(prompt_ids))
+
     def stream(self, params, prompt, row_lens, max_new_tokens: int,
                temperature=None, top_k=None, top_p=None, seeds=None,
-               stop_token_ids=None):
+               stop_token_ids=None, hit=_LOOKUP):
         """Yields [B, k] int32 numpy arrays of new tokens (k <= chunk_size),
         totalling max_new_tokens per row, or FEWER when ``stop_token_ids``
         (single-row streams only) matches: the stream emits up to and
-        including the stop token, then ends without decoding the rest."""
+        including the stop token, then ends without decoding the rest.
+        ``hit`` (a ``resolve`` result) skips the prefix-cache lookup."""
         b, s = prompt.shape
         if max_new_tokens <= 0:
             return
@@ -382,10 +460,13 @@ class ChunkedDecoder:
         n_chunks = -(-max_new_tokens // self.chunk_size)
         n_chunks = 1 << (n_chunks - 1).bit_length()
         cache_len = s + n_chunks * self.chunk_size + 1
-        ids = hit = None
+        ids = None
         if self.prefix_cache is not None and b == 1:
             ids = prompt[0, : lens[0]].tolist()
-            hit = self.prefix_cache.lookup(ids)
+            if hit is _LOOKUP:
+                hit = self.prefix_cache.lookup(ids)
+        if ids is None:
+            hit = None
         if hit is not None:
             plen, stored = hit
             suffix = ids[plen:]

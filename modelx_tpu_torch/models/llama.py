@@ -289,15 +289,14 @@ class ShardingCtx:
     mlp_split: bool
     vocab_split: bool
 
-    @classmethod
-    def build(cls, cfg: LlamaConfig, mesh) -> "ShardingCtx":
-        tp, r = mesh.axis_size("tp"), mesh.axis_index("tp")
+    @staticmethod
+    def _kv_layout(cfg: LlamaConfig, tp: int, r: int) -> tuple:
+        """(attn split, kv split, q heads, kv_select) of tp rank ``r``."""
         h, hkv = cfg.num_heads, cfg.num_kv_heads
         attn = tp > 1 and h % tp == 0
         kv = attn and hkv % tp == 0
         heads = h // tp if attn else h
         select = None
-        kv_heads = hkv // tp if kv else hkv
         if attn and not kv:
             g = h // hkv
             needed = [(r * heads + j) // g for j in range(heads)]
@@ -307,11 +306,35 @@ class ShardingCtx:
                 select = (needed[0],)
             else:  # groups cut across ranks: one kv head per q head
                 select = tuple(needed)
-            kv_heads = len(select)
+        return attn, kv, heads, select
+
+    @classmethod
+    def build(cls, cfg: LlamaConfig, mesh) -> "ShardingCtx":
+        tp, r = mesh.axis_size("tp"), mesh.axis_index("tp")
+        hkv = cfg.num_kv_heads
+        attn, kv, heads, select = cls._kv_layout(cfg, tp, r)
+        kv_heads = len(select) if select is not None else (hkv // tp if kv else hkv)
         return cls(mesh=mesh, cfg=cfg, heads=heads, kv_heads_w=hkv // tp if kv else hkv,
                    kv_heads=kv_heads, kv_select=select, attn_split=attn, kv_split=kv,
                    mlp_split=tp > 1 and cfg.intermediate_size % tp == 0,
                    vocab_split=tp > 1 and cfg.vocab_size % tp == 0)
+
+    def cache_heads(self, r: int | None = None) -> list[int]:
+        """The kv heads (global indices) tp rank ``r``'s caches hold (this
+        rank's by default): its tp slice, its ``kv_select`` or every head."""
+        tp = self.mesh.axis_size("tp")
+        r = self.mesh.axis_index("tp") if r is None else r
+        _attn, kv, _heads, select = self._kv_layout(self.cfg, tp, r)
+        if select is not None:
+            return list(select)
+        n = self.cfg.num_kv_heads // tp if kv else self.cfg.num_kv_heads
+        return list(range(r * n, r * n + n)) if kv else list(range(n))
+
+    def cache_spec(self):
+        """A prefix-cache leaf's [1, S, Hkv, D] layout in the reference's
+        spelling (``dl/kv_store._spec_of``): kv heads over tp where tp
+        divides them, else None (the reference replicates the leaf)."""
+        return [None, None, "tp"] if self.kv_split else None
 
     def splits(self, name: str) -> bool:
         """Whether the rank holds a tp slice of param ``name`` (else the
@@ -355,14 +378,10 @@ class ShardingCtx:
             return x
         return x[:, :, list(self.kv_select)]
 
-    def local_rows(self, b: int) -> tuple[int, int]:
+    def local_rows(self, b: int, split_rows: bool = True) -> tuple[int, int]:
         """[start, stop) of the batch rows this rank computes: a dp slice
-        when dp divides ``b``, else every row."""
-        dp = self.mesh.axis_size("dp")
-        if dp > 1 and b % dp == 0:
-            n = b // dp
-            return self.mesh.axis_index("dp") * n, (self.mesh.axis_index("dp") + 1) * n
-        return 0, b
+        when dp divides ``b`` (and ``split_rows``), else every row."""
+        return self.mesh.local_rows(b) if split_rows else (0, b)
 
 
 @functools.lru_cache(maxsize=64)
@@ -463,6 +482,7 @@ def forward(
     paged_table: torch.Tensor | None = None,
     mesh=None,
     paged_blocks: int | None = None,
+    split_rows: bool = True,
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (logits [B, S, V], kv_cache written in place, or None).
 
@@ -474,12 +494,14 @@ def forward(
     With ``mesh`` (a live ``parallel.mesh.Mesh``) ``params`` and
     ``kv_cache`` are this rank's (``ShardingCtx.param_index`` of each
     param, ``init_kv_cache(..., mesh=)``) and ``tokens`` and ``cache_offset`` the whole batch's; the
-    returned logits are the whole batch's on every rank."""
+    returned logits are the whole batch's on every rank. A paged pool is
+    then the rank's kv heads of every page, and ``paged_table`` the whole
+    batch's table; ``split_rows=False`` computes every row on every dp
+    rank (a cache allocated with ``init_kv_cache(split_rows=False)``)."""
     if mesh is not None:
-        if paged_table is not None:
-            raise ValueError("paged kv pools under a mesh are not supported")
         return _forward_mesh(params, tokens, cfg, sharding_ctx(cfg, mesh), kv_cache,
-                             cache_offset, attention_impl)
+                             cache_offset, attention_impl, paged_table, paged_blocks,
+                             split_rows)
     positions = positions_for(tokens, kv_cache is not None, cache_offset)
     x = F.embedding(tokens, params["model.embed_tokens.weight"]).to(cfg.dtype)
     return _layers_and_head(params, x, positions, cfg, kv_cache, cache_offset,
@@ -524,20 +546,24 @@ def _sp_impl(ctx: ShardingCtx, s: int, cached: bool, cache_offset, impl: str) ->
 
 
 def _forward_mesh(params, tokens, cfg: LlamaConfig, ctx: ShardingCtx, kv_cache,
-                  cache_offset, attention_impl: str):
+                  cache_offset, attention_impl: str, paged_table=None, paged_blocks=None,
+                  split_rows: bool = True):
     """One rank's part of ``forward``: its dp rows, its sp tokens (when the
     attention is sequence-parallel), its tp slices; then the logits
     gathered over tp (vocab), sp (tokens) and dp (rows)."""
     mesh = ctx.mesh
     b, s = tokens.shape
     cached = kv_cache is not None
-    r0, r1 = ctx.local_rows(b)
+    r0, r1 = ctx.local_rows(b, split_rows)
     rows_split = (r1 - r0) != b
     tokens = tokens[r0:r1]
     if isinstance(cache_offset, torch.Tensor) and cache_offset.ndim:
         cache_offset = cache_offset[r0:r1]
+    if paged_table is not None:
+        paged_table = paged_table[r0:r1]
     positions = positions_for(tokens, cached, cache_offset)
-    sp_impl = _sp_impl(ctx, s, cached, cache_offset, attention_impl)
+    sp_impl = None if paged_table is not None else _sp_impl(ctx, s, cached, cache_offset,
+                                                             attention_impl)
     seq_split = sp_impl is not None and mesh.axis_size("sp") > 1
     if seq_split:
         n = s // mesh.axis_size("sp")
@@ -546,7 +572,8 @@ def _forward_mesh(params, tokens, cfg: LlamaConfig, ctx: ShardingCtx, kv_cache,
     impl = "auto" if attention_impl in ("ring", "ulysses") else attention_impl
     x = ctx.embed(params["model.embed_tokens.weight"], tokens).to(cfg.dtype)
     logits = _layers_and_head(params, x, positions, cfg, kv_cache, cache_offset,
-                              attention_impl=impl, ctx=ctx, sp_impl=sp_impl)
+                              attention_impl=impl, ctx=ctx, sp_impl=sp_impl,
+                              paged_table=paged_table, paged_blocks=paged_blocks)
     if ctx.vocab_split:
         logits = mesh.all_gather(logits, "tp", dim=-1)
     if seq_split:
@@ -580,14 +607,15 @@ def _attend(q, k, v, causal: bool, q_offset, impl: str, **attn_kw):
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
-                  device=None, mesh=None) -> dict:
+                  device=None, mesh=None, split_rows: bool = True) -> dict:
     """Zeroed [batch, max_len, Hkv, D] k/v leaves per layer; with ``mesh``
-    this rank's: its dp rows and the kv heads it attends with."""
+    this rank's: its dp rows (every row without ``split_rows``) and the kv
+    heads it attends with."""
     dtype = dtype or cfg.dtype
     kv_heads = cfg.num_kv_heads
     if mesh is not None:
         ctx = sharding_ctx(cfg, mesh)
-        r0, r1 = ctx.local_rows(batch)
+        r0, r1 = ctx.local_rows(batch, split_rows)
         batch, kv_heads = r1 - r0, ctx.kv_heads
     shape = (batch, max_len, kv_heads, cfg.head_dim)
     cache = {}
@@ -597,26 +625,38 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
     return cache
 
 
-def decode_fns(params, cfg: LlamaConfig, mesh=None, attention_impl: str = "auto"):
+def decode_fns(params, cfg: LlamaConfig, mesh=None, attention_impl: str = "auto",
+               split_rows: bool = True):
     """(forward, init_kv_cache) for ``models/decode.py``: the cached forward
     and a cache allocator on the params' device. With ``mesh``, this rank's
     part of both (``forward(mesh=)``, ``init_kv_cache(mesh=)``);
-    ``attention_impl`` then picks the sp prefill's attention."""
+    ``attention_impl`` then picks the sp prefill's attention, and
+    ``split_rows=False`` keeps every row on every dp rank."""
     device = params["model.embed_tokens.weight"].device
     if mesh is None:
         return decode.family_fns(forward, init_kv_cache, cfg, device)
 
     def fwd(p, t, kv_cache, cache_offset):
         return forward(p, t, cfg, kv_cache=kv_cache, cache_offset=cache_offset, mesh=mesh,
+                       attention_impl=attention_impl, split_rows=split_rows)
+
+    return fwd, (lambda b, max_len: init_kv_cache(cfg, b, max_len, device=device, mesh=mesh,
+                                                  split_rows=split_rows))
+
+
+def paged_decode_fns(params, cfg: LlamaConfig, mesh=None, attention_impl: str = "auto"):
+    """The forward over PAGED kv pools (the continuous engine's in-place
+    chunk step): ``fwd(p, t, kv_cache, cache_offset, table, n_blocks)``;
+    with ``mesh`` this rank's part (its kv heads of every page)."""
+    if mesh is None:
+        return decode.paged_family_fn(forward, cfg)
+
+    def fwd(p, t, kv_cache, cache_offset, table, n_blocks=None):
+        return forward(p, t, cfg, kv_cache=kv_cache, cache_offset=cache_offset,
+                       paged_table=table, paged_blocks=n_blocks, mesh=mesh,
                        attention_impl=attention_impl)
 
-    return fwd, (lambda b, max_len: init_kv_cache(cfg, b, max_len, device=device, mesh=mesh))
-
-
-def paged_decode_fns(params, cfg: LlamaConfig):
-    """The forward over PAGED kv pools (the continuous engine's in-place
-    chunk step): ``fwd(p, t, kv_cache, cache_offset, table, n_blocks)``."""
-    return decode.paged_family_fn(forward, cfg)
+    return fwd
 
 
 def ragged_greedy_generate(

@@ -16,6 +16,13 @@ padded) and the prompt is padded to the 16-bucket, as in the JAX package.
 Rejected positions leave stale KV in the cache; the next step's offset
 rewinds to the accepted end, so those slots are overwritten before the
 causal mask ever exposes them.
+
+On a mesh of processes the decoder runs on rank 0: ``on_step(kind,
+inputs)`` hears each device step before it runs (``"open"``: the padded
+prompt, the cache length and the sampling controls; ``"verify"``: the
+block of rank 0's proposals, the offset its accepted count rolled the
+cache back to and the draw position), and a follower replays them on a
+``SpecSession`` of its own.
 """
 
 from __future__ import annotations
@@ -185,11 +192,13 @@ class SpeculativeDecoder:
         return out, stats
 
     def stream(self, params, prompt_ids, max_new_tokens: int, stats: dict | None = None,
-               temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0, seed: int = 0):
+               temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+               on_step=None):
         """Yields [1, c] int32 arrays of new tokens, one chunk per device
         step (the first token, then each verify step's accepted run and
         bonus token). Concatenated they equal ``generate``'s output.
-        ``stats`` (optional) accumulates device_steps/proposed/accepted."""
+        ``stats`` (optional) accumulates device_steps/proposed/accepted;
+        ``on_step(kind, inputs)`` hears each device step first."""
         prompt_ids = [int(t) for t in prompt_ids]
         if stats is None:
             stats = {"device_steps": 0, "proposed": 0, "accepted": 0}
@@ -200,20 +209,15 @@ class SpeculativeDecoder:
         # + k+1 slack: a verify block near the budget may write past it;
         # the cache length rounds up to a power of two, as in the JAX package
         need = max(pad_s, s + max_new_tokens + self.k) + 1
-        cache = self.init_kv_cache(1, 1 << (need - 1).bit_length())
-        dev = next(iter(cache.values())).device
-        sampled = float(temperature) > 0.0
-        if sampled:
-            temp = torch.tensor([float(temperature)], dtype=torch.float32, device=dev)
-            tk = (torch.tensor([int(top_k)], dtype=torch.int64, device=dev)
-                  if int(top_k) > 0 else None)
-            tp = (torch.tensor([float(top_p)], dtype=torch.float32, device=dev)
-                  if float(top_p) < 1.0 else None)
-        prompt = torch.tensor([prompt_ids + [0] * (pad_s - s)], dtype=torch.int64, device=dev)
-        if sampled:
-            first = self._prefill_sampled(params, prompt, cache, s - 1, temp, tk, tp, int(seed))
-        else:
-            first = self._prefill(params, prompt, cache, s - 1)
+        opened = {"prompt": np.asarray([prompt_ids + [0] * (pad_s - s)], np.int64),
+                  "real_len": s, "cache_len": 1 << (need - 1).bit_length(),
+                  "temperature": float(temperature), "top_k": int(top_k),
+                  "top_p": float(top_p), "seed": int(seed)}
+        if on_step is not None:
+            on_step("open", opened)
+        session = SpecSession(self, params, **opened)
+        first = session.first
+        sampled = session.sampled
         stats["device_steps"] += 1
         out = [first]
         yield np.asarray([[first]], np.int32)
@@ -229,10 +233,11 @@ class SpeculativeDecoder:
             block[0, 0] = seq[-1]
             if prop:
                 block[0, 1:1 + len(prop)] = prop
-            block_t = torch.from_numpy(block).to(dev)
+            if on_step is not None:
+                on_step("verify", {"block": block, "offset": offset, "draws": draws})
+            verdict = session.verify(block, offset, draws)
             if sampled:
-                accept, resample, plain = self._verify_sampled(
-                    params, block_t, cache, offset, temp, tk, tp, int(seed), draws)
+                accept, resample, plain = verdict
                 stats["device_steps"] += 1
                 # accept proposals while their rejection coin passes; the
                 # first rejected position resamples from the residual, a
@@ -244,7 +249,7 @@ class SpeculativeDecoder:
                 new = prop[:a] + [nxt]
                 draws += a + 1
             else:
-                argm = self._verify(params, block_t, cache, offset)
+                argm = verdict
                 stats["device_steps"] += 1
                 # accept while the model agrees with the proposal, then take
                 # the model's own token at the first disagreement
@@ -265,6 +270,42 @@ class SpeculativeDecoder:
             # rewind past any rejected or padded cache entries: only the
             # block tokens that produced accepted output are verified history
             offset += a + 1
+
+
+class SpecSession:
+    """One speculative decode's device state: its cache, allocated and
+    prefilled at construction (``first`` is the first token), and its
+    verify steps. The decoder's own loop drives one; a mesh follower
+    drives one from rank 0's posted steps."""
+
+    def __init__(self, dec: SpeculativeDecoder, params, prompt: np.ndarray, real_len: int,
+                 cache_len: int, temperature: float, top_k: int, top_p: float,
+                 seed: int) -> None:
+        self.dec, self.params, self.seed = dec, params, int(seed)
+        self.cache = dec.init_kv_cache(1, int(cache_len))
+        dev = self.dev = next(iter(self.cache.values())).device
+        self.sampled = float(temperature) > 0.0
+        prompt_t = torch.as_tensor(np.asarray(prompt, np.int64), device=dev)
+        if self.sampled:
+            self.temp = torch.tensor([float(temperature)], dtype=torch.float32, device=dev)
+            self.tk = (torch.tensor([int(top_k)], dtype=torch.int64, device=dev)
+                       if int(top_k) > 0 else None)
+            self.tp = (torch.tensor([float(top_p)], dtype=torch.float32, device=dev)
+                       if float(top_p) < 1.0 else None)
+            self.first = dec._prefill_sampled(params, prompt_t, self.cache, real_len - 1,
+                                              self.temp, self.tk, self.tp, self.seed)
+        else:
+            self.first = dec._prefill(params, prompt_t, self.cache, real_len - 1)
+
+    def verify(self, block: np.ndarray, offset: int, draws: int):
+        """The verify step of ``block`` [1, k+1] at ``offset``: the argmax
+        per position (greedy) or (accept, resample, plain) (sampled)."""
+        block_t = torch.from_numpy(np.asarray(block, np.int64)).to(self.dev)
+        if self.sampled:
+            return self.dec._verify_sampled(self.params, block_t, self.cache, int(offset),
+                                            self.temp, self.tk, self.tp, self.seed,
+                                            int(draws))
+        return self.dec._verify(self.params, block_t, self.cache, int(offset))
 
 
 def speculative_generate(forward, init_kv_cache, params, prompt, max_new_tokens: int = 16,

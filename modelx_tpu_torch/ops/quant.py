@@ -121,14 +121,20 @@ def quantize(w: np.ndarray) -> QTensor:
     return QTensor(q=torch.from_numpy(q), scale=torch.from_numpy(scale))
 
 
-def quantize_tensor(w: torch.Tensor) -> QTensor:
+def quantize_tensor(w: torch.Tensor, amax_reduce=None) -> QTensor:
     """The host rule in torch ops, on ``w``'s device: the same bytes as
     ``quantize`` of the same values. One fp32 copy of ``w`` is the
     transient: the codes are computed in place in it. The divisor is a
     tensor: torch divides a CUDA tensor by a Python scalar as a multiply by
-    the scalar's rounded reciprocal, which is not numpy's division."""
+    the scalar's rounded reciprocal, which is not numpy's division.
+    ``amax_reduce(amax)`` turns a column slice's per-row absolute maxima
+    into the whole rows' (on a mesh: the maximum over the ranks holding
+    the other columns), so the slice's scales and codes are those of the
+    whole weight."""
     w32 = w.to(torch.float32, copy=True)
     amax = torch.amax(torch.abs(w32), dim=1)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     scale = amax / torch.full_like(amax, 127.0) + (amax == 0).to(torch.float32)
     inv = (torch.ones_like(scale) / scale)[:, None]
     q = w32.mul_(inv).round_().clamp_(-127, 127).to(torch.int8)

@@ -157,13 +157,15 @@ class Mesh:
             return None
         return self.device_mesh.get_group(axis)
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum ``x`` over ``axis`` (in place; a one-rank axis is a no-op)."""
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        """Sum (or, ``op="max"``, the maximum of) ``x`` over ``axis`` (in
+        place; a one-rank axis is a no-op)."""
         group = self.group(axis)
         if group is not None:
             import torch.distributed as dist
 
-            dist.all_reduce(x, group=group)
+            reduce_op = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+            dist.all_reduce(x, op=reduce_op, group=group)
         return x
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
@@ -178,6 +180,15 @@ class Mesh:
         parts = [torch.empty_like(x) for _ in range(self.axis_size(axis))]
         dist.all_gather(parts, x, group=group)
         return torch.cat(parts, dim=dim)
+
+    def local_rows(self, b: int) -> tuple[int, int]:
+        """[start, stop) of the rows of a ``b``-row batch this rank holds: a
+        dp slice when dp divides ``b``, else every row (replicated)."""
+        dp = self.axis_size("dp")
+        if dp > 1 and b % dp == 0:
+            n = b // dp
+            return self.axis_index("dp") * n, (self.axis_index("dp") + 1) * n
+        return 0, b
 
     def broadcast_from_leader(self, t: torch.Tensor) -> torch.Tensor:
         """Overwrite ``t`` on every rank with rank 0's ``t`` (in place), so

@@ -692,6 +692,31 @@ def test_near_tie_check_reads_the_requests_own_noise(tiny_server):
                                    {"temperature": 0.8, "seed": 22})
 
 
+@pytest.mark.parametrize("stream", [False, True])
+def test_an_engine_client_is_held_to_the_plain_path_by_its_ties(tiny_server, stream):
+    """A mesh option pod's concurrent engine client whose answer differs
+    from the twin's: its tokens (whole or streamed) against the plain path
+    in process, with the request's own sampling."""
+    prompt = list(range(3, 23))
+    body = {"tokens": [prompt], "max_new_tokens": 5, "temperature": 0.8, "seed": 21,
+            "stream": stream}
+    plain = tiny_server.generate(np.asarray([prompt], np.int32), max_new_tokens=5,
+                                 temperature=0.8, seed=21)[0, 20:].tolist()
+
+    def raw(new):
+        if stream:
+            return b"".join(json.dumps(x).encode() + b"\n"
+                            for x in ({"tokens": [new[:2]]}, {"tokens": [new[2:]]},
+                                      {"done": True}))
+        return json.dumps({"tokens": [prompt + new]}).encode()
+
+    assert chip_smoke._client_tokens(body, raw(plain)) == plain
+    assert chip_smoke._engine_client_ties(tiny_server, body, raw(plain), "x") == "equal"
+    other = plain[:3] + [(plain[3] + 1) % 256, plain[4]]
+    with pytest.raises(RuntimeError, match="below the maximum"):
+        chip_smoke._engine_client_ties(tiny_server, body, raw(other), "x")
+
+
 def test_objectstore_bucket_child_logs_and_lists_parts(tmp_path):
     """The objectstore path's bucket child (tests/fake_s3.py behind a
     logging handler): every request lands in its log, and ListParts gives
@@ -851,6 +876,14 @@ def test_mesh_phase_rehearses_on_cpu(monkeypatch):
     # tp=2: rank 0 read its slices, about half the checkpoint
     tp = stats["mesh_b_tp=2 auto"]
     assert tp["rank_load_bytes"] < 0.6 * stats["mesh_bytes_written"]
+    # the serving options: each pod against its meshless twin, and the
+    # two-rank serving pair
+    for name in chip_smoke.MESH_OPTION_PODS:
+        assert stats[f"mesh_a_{name}"]["mesh"] == "dp=1,tp=1"
+    assert stats["mesh_a_engine"]["prefix_hits"] and stats["mesh_a_engine"]["spec_steps"]
+    serve = stats["mesh_b_serve"]
+    assert all(e["equal"] for e in serve["engine"]) and len(serve["ranks"]) == 2
+    assert max(serve["logprobs_err"], serve["int8_err"]) <= serve["tolerance"]
 
 
 class _Exited:

@@ -6,11 +6,14 @@
   same bytes as the JAX sidecar at ``--mesh dp=1,tp=2`` on the forced host
   devices, fp32. Its stats carry the mesh, and each rank read about half
   the checkpoint.
-- Every route not ported under a mesh answers the typed 501 with its
-  slice: the window batcher, the continuous engine, int8, speculation,
-  LoRA, the prefix cache, ``logprobs``, admin load and unload, and the
-  families other than llama and qwen2. These refuse before any device
-  work, so they run in process on a mesh with no process group.
+- Every serving option answers under a mesh as the JAX sidecar at
+  ``dp=1,tp=2``: the window batcher, the continuous engine (one-shot and
+  streamed), int8, speculation, the prefix cache, LoRA, ``logprobs``,
+  admin load and unload (a 2-process gloo group, ``torch_mesh_util
+  mesh_pod``; ``tests/test_torch_serve_mesh_options.py`` holds each at
+  dp=2,tp=2). The families other than llama and qwen2 answer the typed
+  501 with their slice; they refuse before any device work, so they run
+  in process on a mesh with no process group.
 - A request that fails the same way on every rank (a forward too long
   for the host's memory) answers its error, and the pod serves on.
 - A killed follower: rank 0 answers 503 and exits non-zero within the
@@ -36,12 +39,15 @@ import jax
 import jax.numpy as jnp
 
 import torch_family_util as fu
+import torch_mesh_util as mu
+from modelx_tpu.dl import safetensors as jst
 from modelx_tpu.dl.serve import ModelServer as JaxModelServer
+from modelx_tpu.dl.serve import ServerSet as JaxServerSet
 from modelx_tpu.dl.serve import serve as jax_serve
 from modelx_tpu.models import gpt2 as jgpt2
 from modelx_tpu.models import llama as jl
 from modelx_tpu.registry.server import free_port
-from modelx_tpu_torch.dl.serve import ModelServer, NotPortedError, ServerSet, serve
+from modelx_tpu_torch.dl.serve import ModelServer, ServerSet, serve
 from modelx_tpu_torch.parallel.mesh import make_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -161,6 +167,130 @@ def test_an_oversized_request_answers_its_error_and_the_pod_serves_on(ckpt, pods
     assert status == 200, raw
 
 
+# -- the serving options under a mesh -----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def group():
+    g = mu.GlooGroup(2)
+    yield g
+    g.close()
+
+
+OPTIONS = [  # (server options, set options, route, body): each as the JAX sidecar
+    ({}, {"dynamic_batch": True}, "/v1/m/forward", {"tokens": [[1, 2]]}),
+    ({}, {"continuous_batch": True}, "/v1/m/generate", {"tokens": [[1, 2]], "max_new_tokens": 2}),
+    ({}, {"continuous_batch": True}, "/v1/m/generate",
+     {"tokens": [[1, 2]], "max_new_tokens": 2, "stream": True}),
+    ({"quantize": "int8"}, {}, "/v1/m/forward", {"tokens": [[1, 2]]}),
+    ({"speculative_k": 4}, {}, "/v1/m/generate", {"tokens": [[1, 2]], "max_new_tokens": 2}),
+    ({"prefix_cache_size": 2}, {}, "/v1/m/generate",
+     {"tokens": [[1, 2]], "max_new_tokens": 2, "stream": True}),
+]
+
+
+@pytest.mark.parametrize("server_kw,set_kw,route,body", OPTIONS)
+def test_options_answer_under_a_mesh_as_the_jax_sidecar(ckpt, group, server_kw, set_kw, route,
+                                                        body):
+    model_dir, _ = ckpt
+    jserver = JaxModelServer(model_dir, mesh_spec="dp=1,tp=2", dtype="float32", max_seq_len=96,
+                             name="m", **server_kw)
+    jserver.load()
+    jhttpd = jax_serve(JaxServerSet({"m": jserver}, **set_kw),
+                       listen=f"127.0.0.1:{free_port()}")
+    try:
+        # twice: a prefix-cache hit, a warm engine, a coalesced batch
+        want = [fu.call(jhttpd.server_address[1], route, body) for _ in range(2)]
+    finally:
+        jhttpd.shutdown()
+        jhttpd.server_close()
+    got, _info = group.run(mu.mesh_pod, model_dir, "tp=2", server_kw, set_kw, "drive_http",
+                           ([("POST", route, body)] * 2,))[0]
+    assert [tuple(g) for g in got] == want
+
+
+def test_admin_logprobs_and_lora_answer_under_a_mesh(ckpt, group, tmp_path):
+    model_dir, cfg = ckpt
+    rng = np.random.RandomState(0)
+    q_out, e, f = cfg.num_heads * cfg.head_dim, cfg.hidden_size, cfg.intermediate_size
+    ab = {"model.layers.1.self_attn.q_proj": ((4, e), (q_out, 4)),  # split by rows
+          "model.layers.0.mlp.down_proj": ((4, f), (e, 4))}  # split on the input dim
+    tensors = {f"base_model.model.{t}.lora_{n}.weight": (rng.randn(*shape) * 0.05).astype(
+        np.float32) for t, shapes in ab.items() for n, shape in zip("AB", shapes)}
+    os.makedirs(tmp_path / "ad")
+    jst.write_safetensors(str(tmp_path / "ad" / "adapter_model.safetensors"), tensors)
+    body = {"tokens": [[5, 9, 2, 7, 1]], "max_new_tokens": 6}
+    jlora = JaxModelServer(model_dir, mesh_spec="dp=1,tp=2", dtype="float32", max_seq_len=96,
+                           name="m", lora_dir=str(tmp_path / "ad"))
+    jlora.load()
+    jhttpd = jax_serve(jlora, listen=f"127.0.0.1:{free_port()}")
+    try:
+        want = fu.call(jhttpd.server_address[1], "/v1/m/generate", body)
+    finally:
+        jhttpd.shutdown()
+        jhttpd.server_close()
+    got, _info = group.run(mu.mesh_pod, model_dir, "tp=2", {"lora_dir": str(tmp_path / "ad")},
+                           {}, "drive_http", ([("POST", "/v1/m/generate", body)],))[0]
+    assert tuple(got[0]) == want
+    jplain = JaxModelServer(model_dir, mesh_spec="dp=1,tp=2", dtype="float32", max_seq_len=96)
+    jplain.load()
+    rows = [([5, 9, 2], [7, 1, 4]), ([3], [8])]
+    for (lp, tid, tlp), (jlp, jtid, jtlp) in zip(
+            group.run(mu.mesh_pod, model_dir, "tp=2", {}, {}, "drive_scores", (rows, 2))[0],
+            jplain.score_logprobs_rows(rows, top_k=2)):
+        np.testing.assert_allclose(lp, np.asarray(jlp), atol=1e-5)
+        np.testing.assert_array_equal(tid, np.asarray(jtid))
+        np.testing.assert_allclose(tlp, np.asarray(jtlp), atol=1e-5)
+    admin = [("POST", "/admin/models", {"name": "x", "model_dir": model_dir, "wait": True}),
+             ("DELETE", "/admin/models/x", None)]
+    got, _info = group.run(mu.mesh_pod, model_dir, "tp=2", {}, {"allow_admin_load": True},
+                           "drive_http", (admin,))[0]
+    assert [status for status, _raw in got] == [200, 200]
+
+
+FLAG_PODS = [  # serve_main flags under --mesh, and the JAX sidecar's matching options
+    (("--continuous-batch", "--prefix-cache", "4", "--speculative-k", "4",
+      "--allow-admin-load"),
+     {"prefix_cache_size": 4, "speculative_k": 4}, {"continuous_batch": True}),
+    (("--quantize", "int8", "--dynamic-batch"), {"quantize": "int8"}, {"dynamic_batch": True}),
+]
+
+
+@pytest.mark.parametrize("flags,server_kw,set_kw", FLAG_PODS, ids=["engine", "int8-batcher"])
+def test_a_tp2_pod_started_with_option_flags_answers_as_the_jax_sidecar(ckpt, tmp_path, flags,
+                                                                        server_kw, set_kw):
+    """The flags reach every rank: rank 0 starts its followers with the same
+    options, and the pod answers as the JAX sidecar with those options."""
+    model_dir, cfg = ckpt
+    jserver = JaxModelServer(model_dir, mesh_spec="dp=1,tp=2", dtype="float32",
+                             max_seq_len=fu.MAX_SEQ_LEN, name="m", **server_kw)
+    jserver.load()
+    jhttpd = jax_serve(JaxServerSet({"m": jserver}, **set_kw),
+                       listen=f"127.0.0.1:{free_port()}")
+    pod = MeshPod(model_dir, "tp=2", *flags, log_path=str(tmp_path / "log"))
+    try:
+        prompt = np.random.RandomState(9).randint(0, cfg.vocab_size, (1, 7)).tolist()
+        for path, body in [("/v1/m/generate", {"tokens": prompt, "max_new_tokens": 6}),
+                           ("/v1/m/generate", {"tokens": prompt, "max_new_tokens": 6,
+                                               "stream": True}),
+                           ("/v1/m/generate", {"tokens": prompt, "max_new_tokens": 5,
+                                               **fu.SAMPLED}),
+                           ("/v1/m/forward", {"tokens": prompt})]:
+            assert fu.call(pod.port, path, body) == fu.call(jhttpd.server_address[1], path,
+                                                            body), (path, body)
+        if "--allow-admin-load" in flags:
+            status, raw = fu.call(pod.port, "/admin/models",
+                                  {"name": "x", "model_dir": model_dir, "wait": True})
+            assert status == 200, raw
+            body = {"tokens": prompt, "max_new_tokens": 6}
+            assert fu.call(pod.port, "/v1/x/generate", body) == fu.call(
+                jhttpd.server_address[1], "/v1/m/generate", body)
+    finally:
+        jhttpd.shutdown()
+        jhttpd.server_close()
+        assert pod.close() == 0, pod.tail()
+
+
 # -- the typed 501s ---------------------------------------------------------------------
 
 
@@ -171,17 +301,6 @@ def _gpt2_dir(tmp_path) -> str:
 
 
 REFUSALS = [  # (server options, set options, route, body, slice)
-    ({}, {"dynamic_batch": True}, "/v1/m/forward", {"tokens": [[1, 2]]},
-     "multi-device serving"),
-    ({}, {"continuous_batch": True}, "/v1/m/generate", {"tokens": [[1, 2]], "max_new_tokens": 2},
-     "multi-device serving"),
-    ({}, {"continuous_batch": True}, "/v1/m/generate",
-     {"tokens": [[1, 2]], "max_new_tokens": 2, "stream": True}, "multi-device serving"),
-    ({"quantize": "int8"}, {}, "/v1/m/forward", {"tokens": [[1, 2]]}, "multi-device serving"),
-    ({"speculative_k": 4}, {}, "/v1/m/generate", {"tokens": [[1, 2]], "max_new_tokens": 2},
-     "multi-device serving"),
-    ({"prefix_cache_size": 2}, {}, "/v1/m/generate",
-     {"tokens": [[1, 2]], "max_new_tokens": 2, "stream": True}, "multi-device serving"),
     ({}, {}, "/v1/g/forward", {"tokens": [[1, 2]]}, "multi-device families"),
     ({}, {}, "/v1/g/generate", {"tokens": [[1, 2]], "max_new_tokens": 2},
      "multi-device families"),
@@ -212,33 +331,6 @@ def test_routes_not_ported_under_a_mesh_answer_501(ckpt, tmp_path, server_kw, se
     assert servers["g"].params is None  # nothing was placed
     if server_kw:
         assert servers["m"].params is None
-
-
-def test_admin_logprobs_and_lora_refuse_under_a_mesh(ckpt, tmp_path):
-    model_dir, _ = ckpt
-    mesh = make_mesh("tp=2", devices=2)
-    server = ModelServer(model_dir, dtype="float32", device="cpu", mesh=mesh)
-    with pytest.raises(NotPortedError, match="logprobs scoring under a mesh") as e:
-        server.score_logprobs_rows([([1, 2], [3])])
-    assert e.value.slice_name == "multi-device serving"
-    lora = ModelServer(model_dir, dtype="float32", device="cpu", mesh=mesh,
-                       lora_dir=str(tmp_path))
-    lora.load()
-    with pytest.raises(NotPortedError, match="LoRA adapters under a mesh"):
-        lora.generate(np.array([[1, 2]]), max_new_tokens=2)
-    sset = ServerSet({"m": lora}, mesh=mesh, allow_admin_load=True)
-    httpd = serve(sset, listen=f"127.0.0.1:{free_port()}")
-    try:
-        port = httpd.server_address[1]
-        status, raw = fu.call(port, "/admin/models", {"name": "x", "model_dir": model_dir})
-        assert status == 501 and json.loads(raw)["slice"] == "multi-device serving"
-        req = urllib.request.Request(f"http://127.0.0.1:{port}/admin/models/m", method="DELETE")
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(req, timeout=10)
-        assert err.value.code == 501
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
 
 
 # -- failures ---------------------------------------------------------------------------
@@ -323,3 +415,75 @@ def test_the_op_log_is_in_step_only_when_every_follower_finished_the_op():
     t0 = time.monotonic()
     assert leader.in_step(seq) is False
     assert time.monotonic() - t0 < 5
+
+
+def test_the_op_log_carries_named_arrays():
+    import datetime
+
+    import torch.distributed as dist
+
+    from modelx_tpu_torch.dl.mesh_serve import OpLog
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                          timeout=datetime.timedelta(seconds=10))
+    leader = OpLog(store, world=2, timeout_s=5, namespace="a/")
+    follower = OpLog(store, rank=1, world=2, timeout_s=5, namespace="a/")
+    other = OpLog(store, rank=1, world=2, timeout_s=5, namespace="b/")
+    ints = np.arange(12, dtype=np.int64).reshape(3, 4)
+    floats = np.linspace(0, 1, 5, dtype=np.float32)
+    leader.post("engine", "m", np.array([[7, 8]]), ints=ints, floats=floats, step="chunk",
+                slots=[1, 3], table=None)
+    seq, head, arrays = follower.read()
+    assert (seq, head) == (0, {"op": "engine", "model": "m", "step": "chunk", "slots": [1, 3],
+                               "table": None})
+    assert sorted(arrays) == ["floats", "ints", "tokens"]
+    np.testing.assert_array_equal(arrays["tokens"], [[7, 8]])
+    np.testing.assert_array_equal(arrays["ints"], ints)
+    np.testing.assert_array_equal(arrays["floats"], floats)
+    assert arrays["floats"].dtype == np.float32
+    # another pod's log in the same store is apart
+    leader2 = OpLog(store, world=2, timeout_s=5, namespace="b/")
+    leader2.post("shutdown")
+    assert other.read()[1]["op"] == "shutdown"
+
+
+def test_a_replica_prefix_cache_keeps_what_rank0_keeps():
+    from modelx_tpu_torch.models.decode import PrefixKVCache, key_digest
+
+    entry = {"k0": np.zeros((1, 16, 1, 4), np.float32)}
+    leader, replica = PrefixKVCache(1), PrefixKVCache(1, replica=True)
+    evictions = []
+    leader.on_evict = evictions.extend
+    for ids in ([1, 2, 3], [4, 5, 6]):
+        leader.put(ids, entry)
+        replica.put(ids, entry)
+    # rank 0 evicted the first entry by its capacity; the replica keeps
+    # both until told
+    assert evictions == [key_digest([1, 2, 3])]
+    assert replica.by_digest(key_digest([1, 2, 3]))[0] == 3
+    replica.evict(evictions)
+    with pytest.raises(RuntimeError, match="no entry"):
+        replica.by_digest(key_digest([1, 2, 3]))
+    assert replica.by_digest(key_digest([4, 5, 6]))[0] == 3
+    assert leader.lookup([4, 5, 6, 7])[0] == 3 and replica.stats()["entries"] == 1
+
+
+def test_a_sharded_prefix_entry_counts_its_whole_bytes_as_the_jax_cache():
+    import torch
+
+    from modelx_tpu.models.decode import PrefixKVCache as JaxPrefixKVCache
+    from modelx_tpu_torch.models.decode import PrefixKVCache
+
+    rng = np.random.RandomState(0)
+    whole = rng.randn(1, 16, 4, 8).astype(np.float32)  # [1, L, Hkv, D]
+    cap = whole.nbytes * 2 * 3 // 2  # one whole entry of two leaves, not two
+    jcache = JaxPrefixKVCache(4, max_bytes=cap)
+    shard = PrefixKVCache(4, max_bytes=cap)
+    shard.kv_heads = 4  # this rank holds kv heads 0-1 of 4 (tp=2)
+    for ids in ([1, 2, 3], [4, 5, 6]):
+        jcache.put(ids, {n: jnp.asarray(whole) for n in ("k0", "v0")})
+        shard.put(ids, {n: torch.from_numpy(whole[:, :, :2].copy()) for n in ("k0", "v0")})
+        assert shard._bytes == jcache._bytes
+    # the byte cap evicted the first entry on both, as the whole entries count
+    assert shard.stats()["entries"] == jcache.stats()["entries"] == 1
+    assert shard.lookup([1, 2, 3, 9]) is None and jcache.lookup([1, 2, 3, 9]) is None
